@@ -1,0 +1,164 @@
+"""Inference runtime: device-resident weights and the V1 entry points.
+
+The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1 on one
+device. The weights move to the device once, at construction. PyTorch runs
+eagerly, so an "entry" is a plain function; each call runs the kernels on
+the current CUDA stream. `benchmark()` times with CUDA events on a
+device-resident batch and refuses to run without a card.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoints import fold_bn, init_params, to_device
+from ..checkpoints.convert import prepare_kernel_layouts
+from ..config import ModelConfig
+from ..models import mobilenet_v1
+from ..ops.preprocess import preprocess
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device must exist (no silent move
+    to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but torch.cuda."
+                           "is_available() is False")
+    return dev
+
+
+class InferencePipeline:
+    """Owns device-resident weights and the entry points for one V1 variant."""
+
+    def __init__(self, config: ModelConfig, params: Optional[Dict[str, Any]] = None,
+                 *, device, seed: int = 0, dw_backend: Any = "auto",
+                 dtype: Optional[torch.dtype] = None):
+        """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
+        None draws the seeded weight set. `device` is required ("cuda",
+        "cuda:0", "cpu"). `dw_backend`: "auto" (kernels), "plain", "fused",
+        or a per-block tuple (models.mobilenet_v1._routing)."""
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
+        self.dw_backend = dw_backend
+        host = params if params is not None else fold_bn(
+            init_params(config, seed=seed), eps=config.bn_eps)
+        self.params = prepare_kernel_layouts(
+            to_device(host, self.device, self.dtype), config.block_strides)
+
+    # -- entries ------------------------------------------------------------
+
+    def _entry(self, kind: str):
+        cfg = self.config
+        if kind == "probs_u8":
+            def fn(images_u8):
+                x = preprocess(images_u8, cfg.resolution, self.dtype)
+                return mobilenet_v1.predict_probs(self.params, x, cfg,
+                                                  dw_backend=self.dw_backend)
+        elif kind == "probs_f":
+            def fn(x):
+                return mobilenet_v1.predict_probs(self.params, x.to(self.dtype), cfg,
+                                                  dw_backend=self.dw_backend)
+        elif kind == "collect":
+            def fn(x):
+                return mobilenet_v1.forward(self.params, x.to(self.dtype), cfg,
+                                            dw_backend=self.dw_backend, collect=True)
+        else:
+            raise KeyError(kind)
+        return fn
+
+    def _to_device(self, arr) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- user-facing paths --------------------------------------------------
+
+    @torch.inference_mode()
+    def classify(self, image_u8: np.ndarray, top_k: int = 5):
+        """One (H, W, 3) uint8 image -> top-k [(class, prob)]."""
+        probs = self._entry("probs_u8")(self._to_device(image_u8[None]))[0]
+        probs = probs.cpu().numpy()
+        idx = np.argsort(-probs)[:top_k]
+        return [(int(i), float(probs[i])) for i in idx]
+
+    @torch.inference_mode()
+    def run_batch(self, images_u8) -> np.ndarray:
+        """(N, H, W, 3) uint8 -> (N, classes) float32 probabilities (host)."""
+        return self._entry("probs_u8")(self._to_device(images_u8)).cpu().numpy()
+
+    @torch.inference_mode()
+    def run_preprocessed(self, x) -> torch.Tensor:
+        """Preprocessed NHWC -> device probabilities."""
+        return self._entry("probs_f")(torch.as_tensor(x).to(self.device))
+
+    @torch.inference_mode()
+    def activations(self, x):
+        """Per-layer taps for the verify gate: (logits, {name: array})."""
+        logits, acts = self._entry("collect")(torch.as_tensor(x).to(self.device))
+        return (logits.float().cpu().numpy(),
+                {k: v.float().cpu().numpy() for k, v in acts.items()})
+
+    # -- throughput mode ----------------------------------------------------
+
+    @torch.inference_mode()
+    def benchmark(self, batch_size: int = 256, steps: int = 40, warmup: int = 5,
+                  latency_iters: int = 30) -> Dict[str, Any]:
+        """uint8-in throughput and batch-1 latency on the card.
+
+        images_per_sec: CUDA-event time of `steps` back-to-back calls on one
+        device-resident uint8 batch. e2e_images_per_sec: the same with each
+        batch copied host->device from pinned memory inside the window.
+        p50/p99_latency_ms: host clock around a batch-1 call from host
+        uint8 to host probabilities, synchronized."""
+        if self.device.type != "cuda":
+            raise RuntimeError("benchmark() measures the card; the pipeline's "
+                               f"device is {self.device}")
+        res = self.config.resolution
+        entry = self._entry("probs_u8")
+        rng = np.random.default_rng(0)
+        host = torch.from_numpy(
+            rng.integers(0, 256, (batch_size, res, res, 3), dtype=np.uint8)).pin_memory()
+        dev_batch = host.to(self.device)
+        for _ in range(warmup):
+            entry(dev_batch)
+        torch.cuda.synchronize(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            entry(dev_batch)
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3
+
+        e2e_steps = max(4, steps // 4)
+        start.record()
+        for _ in range(e2e_steps):
+            entry(host.to(self.device, non_blocking=True))
+        end.record()
+        end.synchronize()
+        e2e_dt = start.elapsed_time(end) / 1e3
+
+        one = host[:1].numpy()
+        self.run_batch(one)
+        lats = []
+        for _ in range(latency_iters):
+            t = time.perf_counter()
+            self.run_batch(one)
+            lats.append(time.perf_counter() - t)
+        return {
+            "device": torch.cuda.get_device_name(self.device),
+            "images_per_sec": steps * batch_size / dt,
+            "e2e_images_per_sec": e2e_steps * batch_size / e2e_dt,
+            "batch_size": batch_size,
+            "steps": steps,
+            "wall_s": dt,
+            "p50_latency_ms": float(np.percentile(lats, 50) * 1e3),
+            "p99_latency_ms": float(np.percentile(lats, 99) * 1e3),
+        }

@@ -1,0 +1,307 @@
+"""Multi-stream serving: concurrent image streams -> micro-batcher -> device.
+
+The port of the JAX package's `runtime/serving.py` for one V1 float variant
+on one device:
+  - each stream is an asyncio producer; requests land in one queue;
+  - the micro-batcher drains up to `max_batch` requests (or waits at most
+    `max_delay_ms`), pads to the smallest precomputed bucket that fits, and
+    runs the batch on one executor thread (one device stream);
+  - a bad request fails its own future, never the server; device errors
+    that may pass (out of memory) are retried with backoff.
+Also: a newline-delimited-JSON TCP front end (`serve_tcp`) and an in-process
+load test (`selftest`) that reports img/s and p50/p99.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import dataclasses
+import json
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+
+
+def _is_retryable_device_error(e: BaseException) -> bool:
+    """Only device/runtime failures are worth retrying; deterministic errors
+    (shape/value errors raised by the pipeline) fail fast. PyTorch raises
+    torch.cuda.OutOfMemoryError for a failed allocation and a RuntimeError
+    naming the CUDA error for a failed launch or device fault."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    return isinstance(e, RuntimeError) and "CUDA error" in str(e)
+
+
+@dataclasses.dataclass
+class ServerStats:
+    requests: int = 0
+    batches: int = 0
+    errors: int = 0
+    retries: int = 0
+    batch_fill: float = 0.0
+    # batch-bucket size -> number of dispatches routed to it
+    bucket_counts: Dict[int, int] = dataclasses.field(default_factory=dict)
+
+
+def default_buckets(max_batch: int) -> List[int]:
+    """The serving batch tiers of a `max_batch`-stream server:
+    {1, max_batch//8, max_batch}."""
+    return sorted({1, max(1, max_batch // 8), max_batch})
+
+
+class MicroBatchServer:
+    """Micro-batching inference server over an InferencePipeline."""
+
+    def __init__(self, pipeline, max_batch: int = 64, max_delay_ms: float = 3.0,
+                 request_timeout_s: float = 30.0, device_retries: int = 1,
+                 retry_backoff_s: float = 0.5,
+                 batch_buckets: Optional[List[int]] = None):
+        """`device_retries`: how many times a failed device dispatch is
+        retried (only `_is_retryable_device_error` types), with backoff
+        retry_backoff_s * 2**attempt. `batch_buckets`: fixed batch sizes;
+        each dispatch pads to the smallest that fits. Default
+        default_buckets(max_batch); the largest must equal max_batch. Every
+        bucket runs once at construction, so first requests find the kernels
+        built and the allocator warm."""
+        self.pipeline = pipeline
+        self.max_batch = max_batch
+        self.max_delay_ms = max_delay_ms
+        self.request_timeout_s = request_timeout_s
+        self.device_retries = device_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.queue: asyncio.Queue = asyncio.Queue()
+        self.stats = ServerStats()
+        self._executor = ThreadPoolExecutor(max_workers=1)  # one device stream
+        self._task: Optional[asyncio.Task] = None
+        self._closed = False
+        res = pipeline.config.resolution
+        if batch_buckets is None:
+            batch_buckets = default_buckets(max_batch)
+        buckets = sorted(set(int(b) for b in batch_buckets))
+        if not buckets or buckets[-1] != max_batch or buckets[0] < 1:
+            raise ValueError(
+                f"batch_buckets {buckets} must be >=1 and end at "
+                f"max_batch={max_batch} (a full drain must fit a bucket)")
+        self.batch_buckets = buckets
+        self._pad_templates = {
+            b: np.zeros((b, res, res, 3), np.uint8) for b in buckets
+        }
+        for b in buckets:
+            self.pipeline.run_batch(self._pad_templates[b])
+
+    def stats_dict(self) -> Dict[str, Any]:
+        """Live counters for the TCP `{"cmd": "stats"}` probe."""
+        s = self.stats
+        return {
+            "requests": s.requests,
+            "batches": s.batches,
+            "errors": s.errors,
+            "retries": s.retries,
+            "mean_batch_fill": s.batch_fill / max(s.batches, 1),
+            "bucket_counts": {str(k): v for k, v in sorted(s.bucket_counts.items())},
+            "buckets": list(self.batch_buckets),
+        }
+
+    async def start(self):
+        self._task = asyncio.create_task(self._batcher_loop())
+
+    async def close(self):
+        self._closed = True
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        self._executor.shutdown(wait=True)
+
+    async def submit(self, image_u8: np.ndarray, top_k: int = 5):
+        """One request from one stream. Returns top-k [(class, prob)]."""
+        if image_u8.ndim != 3 or image_u8.shape[-1] != 3:
+            raise ValueError(f"expected HWC RGB image, got {image_u8.shape}")
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        await self.queue.put((image_u8, top_k, fut))
+        return await asyncio.wait_for(fut, timeout=self.request_timeout_s)
+
+    async def _batcher_loop(self):
+        loop = asyncio.get_running_loop()
+        while not self._closed:
+            first = await self.queue.get()
+            batch = [first]
+            deadline = loop.time() + self.max_delay_ms / 1e3
+            while len(batch) < self.max_batch:
+                timeout = deadline - loop.time()
+                if timeout <= 0:
+                    break
+                try:
+                    batch.append(await asyncio.wait_for(self.queue.get(), timeout))
+                except asyncio.TimeoutError:
+                    break
+            await self._run_batch(loop, batch)
+
+    async def _run_batch(self, loop, batch: List[Any]):
+        res = self.pipeline.config.resolution
+        bucket = next(b for b in self.batch_buckets if b >= len(batch))
+        images = self._pad_templates[bucket].copy()
+        valid: List[int] = []
+        for i, (img, _, fut) in enumerate(batch):
+            if img.shape[:2] != (res, res):  # per-stream error isolation
+                self.stats.errors += 1
+                if not fut.done():
+                    fut.set_exception(ValueError(
+                        f"image must be pre-sized to {res}x{res} (host decode path)"))
+                continue
+            images[i] = img
+            valid.append(i)
+
+        def run():
+            return self.pipeline.run_batch(images)
+
+        try:
+            for attempt in range(self.device_retries + 1):
+                try:
+                    probs = await loop.run_in_executor(self._executor, run)
+                    break
+                except Exception as e:
+                    if (attempt == self.device_retries
+                            or not _is_retryable_device_error(e)):
+                        raise
+                    self.stats.retries += 1
+                    await asyncio.sleep(self.retry_backoff_s * 2 ** attempt)
+        except Exception as e:  # the batch fails; the server keeps serving
+            for i in valid:
+                fut = batch[i][2]
+                if not fut.done():
+                    fut.set_exception(e)
+            self.stats.errors += len(valid)
+            return
+        self.stats.batches += 1
+        self.stats.requests += len(valid)
+        self.stats.batch_fill += len(batch) / self.max_batch
+        self.stats.bucket_counts[bucket] = self.stats.bucket_counts.get(bucket, 0) + 1
+        for i in valid:
+            _, top_k, fut = batch[i]
+            p = probs[i]
+            idx = np.argsort(-p)[:top_k]
+            if not fut.done():
+                fut.set_result([(int(j), float(p[j])) for j in idx])
+
+
+# ---------------------------------------------------------------------------
+# TCP front end: newline-delimited JSON requests
+#   {"id": any, "shape": [H,W,3], "image_b64": <raw uint8 bytes>}
+# response: {"id": any, "top": [[class, prob], ...]} or {"id":..., "error":...}
+# ---------------------------------------------------------------------------
+
+
+async def make_tcp_server(server: MicroBatchServer, host: str, port: int):
+    """Bind the NDJSON front end; port=0 binds an ephemeral port.
+    Returns the asyncio.Server (caller drives serve_forever / close)."""
+
+    async def handle(reader, writer):
+        while True:
+            line = await reader.readline()
+            if not line:
+                break
+            req = None
+            try:
+                req = json.loads(line)
+                if req.get("cmd") == "stats":
+                    writer.write((json.dumps(
+                        {"id": req.get("id"), "stats": server.stats_dict()}
+                    ) + "\n").encode())
+                    await writer.drain()
+                    continue
+                img = np.frombuffer(
+                    base64.b64decode(req["image_b64"]), np.uint8
+                ).reshape(req["shape"])
+                top = await server.submit(img)
+                resp = {"id": req.get("id"), "top": top}
+            except Exception as e:  # echo the failure to this client only
+                rid = req.get("id") if isinstance(req, dict) else None
+                resp = {"id": rid, "error": str(e)}
+            writer.write((json.dumps(resp) + "\n").encode())
+            await writer.drain()
+        writer.close()
+
+    # One 224x224 uint8 frame in base64 + JSON is ~200 KB: above asyncio's
+    # default 64 KiB line limit.
+    return await asyncio.start_server(handle, host, port, limit=32 * 1024 * 1024)
+
+
+async def serve_tcp(server: MicroBatchServer, host: str, port: int):
+    srv = await make_tcp_server(server, host, port)
+    async with srv:
+        await srv.serve_forever()
+
+
+# ---------------------------------------------------------------------------
+# In-process multi-stream load test
+# ---------------------------------------------------------------------------
+
+
+async def selftest(server: MicroBatchServer, streams: int = 64,
+                   requests_per_stream: int = 8) -> Dict[str, Any]:
+    res = server.pipeline.config.resolution
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (8, res, res, 3), dtype=np.uint8)
+    latencies: List[float] = []
+
+    async def one_stream(sid: int):
+        for k in range(requests_per_stream):
+            t0 = time.perf_counter()
+            await server.submit(frames[(sid + k) % len(frames)])
+            latencies.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one_stream(s) for s in range(streams)))
+    wall = time.perf_counter() - t0
+    n = streams * requests_per_stream
+    return {
+        "streams": streams,
+        "requests": n,
+        "images_per_sec": n / wall,
+        "p50_latency_ms": float(np.percentile(latencies, 50) * 1e3),
+        "p99_latency_ms": float(np.percentile(latencies, 99) * 1e3),
+        "mean_batch_fill": server.stats.batch_fill / max(server.stats.batches, 1),
+        "bucket_counts": {str(k): v for k, v
+                          in sorted(server.stats.bucket_counts.items())},
+        "errors": server.stats.errors,
+    }
+
+
+def build_server(cfg: ModelConfig, streams: int, *, device, seed: int = 0,
+                 params=None) -> MicroBatchServer:
+    """One V1 float variant on one device, `streams`-wide micro-batches."""
+    from .pipeline import InferencePipeline  # noqa: PLC0415
+
+    return MicroBatchServer(
+        InferencePipeline(cfg, params, device=device, seed=seed), max_batch=streams)
+
+
+def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
+               device, seed: int = 0, selftest_only: bool = True, params=None):
+    """Build the server, run the selftest (one JSON line of stats), then, if
+    not selftest_only, serve NDJSON over TCP on `port` until killed."""
+    cfg = ModelConfig(alpha=float(alpha), resolution=int(res), compute_dtype=dtype)
+
+    async def run():
+        server = build_server(cfg, streams, device=device, seed=seed, params=params)
+        await server.start()
+        try:
+            stats = await selftest(server, streams=streams)
+            print(json.dumps(stats), flush=True)
+            if not selftest_only:
+                print(f"serving on tcp://0.0.0.0:{port} ({cfg.variant_name()})",
+                      flush=True)
+                await serve_tcp(server, "0.0.0.0", port)
+        finally:
+            await server.close()
+
+    asyncio.run(run())
