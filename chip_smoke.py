@@ -6,20 +6,37 @@
 Needs one CUDA card, nvcc and the repo's `mobilenet_tpu_torch/` beside this
 file; imports nothing of JAX. Phases, one JSON line each:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
-     the nvcc build of the three kernels from `mobilenet_tpu_torch/csrc/`;
-  2. each kernel against its plain PyTorch version at the main-path shapes
-     of MobileNet-V1 1.0-224: float32 at a tight tolerance (TF32 off), then
-     bfloat16 at the working tolerance; max-abs error and CUDA-event times;
+     the nvcc build of the five kernels from `mobilenet_tpu_torch/csrc/`;
+  2. each float kernel against its plain PyTorch version at the main-path
+     shapes of MobileNet-V1 1.0-224: float32 at a tight tolerance (TF32
+     off), then bfloat16 at the working tolerance; max-abs error,
+     CUDA-event times and the bound (below);
   3. the bf16 1.0-224 pipeline, kernel route against the plain route, at
      batch 256 and batch 1 (logits tolerance, top-1), and a float32
      full-network check at batch 2;
   4. benchmark(): batch-256 img/s and batch-1 latency, both routes;
-  5. the main path: launch counters set to 0, a 64-stream MicroBatchServer
-     built (it warm-runs buckets 1, 8 and 64), a selftest of every stream,
-     one lone request (bucket 1); counters read; 0 errors and every kernel
-     launched are required.
+  5. the float main path: launch counters set to 0, a 64-stream
+     MicroBatchServer built (it warm-runs buckets 1, 8 and 64), a selftest
+     of every stream, one lone request (bucket 1); counters read; 0 errors
+     and every float kernel launched are required;
+  6. the int8 kernels against their plain versions at every 1.0-224 int8
+     block and depthwise shape at batch 256, exactly (torch.equal), and the
+     input quantization over all 256 uint8 values against the host twin;
+  7. the int8 pipeline: kernel route against plain route, logits equal bit
+     for bit at batch 256 and batch 1; the per-layer gate verify_int8 at
+     batch 2 through the depthwise kernel (counters set to 0 before, read
+     after: the depthwise kernel's path), exact on every layer;
+  8. the int8 benchmark(): batch-256 img/s and batch-1 latency;
+  9. the int8 main path: counters set to 0, a 64-stream int8 server and one
+     lone request; 0 errors and the int8 block kernel launched.
 Then one JSON line of per-kernel results and, last, the result line.
 Any failure raises and the script exits non-zero without the result line.
+
+bound_ms is the least time the card could take for a kernel's work: the
+larger of the bytes it must move (each input read once, each output written
+once) over 3.35 TB/s, and its operations (multiply-adds count 2) over the
+peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32 outside the
+tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet.
 """
 
 from __future__ import annotations
@@ -46,6 +63,40 @@ F32_ATOL, F32_RTOL = 1e-4, 3e-4
 ROUTE_ATOL, ROUTE_REL = 6e-2, 4.5e-2
 
 ALPHA, RES = 1.0, 224
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+# bytes per element of (activations, weights, biases, multipliers)
+ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
+# No single PyTorch call computes any of the five kernels' functions
+# (fused dw+pw with requant, pool+fc, K chained blocks, int8 dw+requant).
+LIBRARY_MS = None
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by, bytes_ms, ops_ms) of one call."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), t_b, t_o
+
+
+def block_work(n, h, cin, cout, stride, kind, k=1):
+    """(bytes, ops) of k depthwise-separable blocks on (n, h, h, cin): the
+    input and output once, the weights once."""
+    act, w, b, m = ELEM_BYTES[kind]
+    ho = -(-h // stride)
+    pix_out = n * ho * ho
+    weights = k * (9 * cin * w + cin * (b + m) + cin * cout * w + cout * (b + m))
+    nbytes = n * h * h * cin * act + weights + pix_out * cout * act
+    ops = k * (2 * 9 * pix_out * cin + 2 * pix_out * cin * cout)
+    return nbytes, ops
+
+
+def dw_work(n, h, c, stride, kind="int8"):
+    act, w, b, m = ELEM_BYTES[kind]
+    ho = -(-h // stride)
+    return (n * h * h * c * act + c * (9 * w + b + m) + n * ho * ho * c * act,
+            2 * 9 * n * ho * ho * c)
 
 
 def emit(phase: str, **kw):
@@ -109,6 +160,182 @@ def rand_block(gen, n, h, cin, cout, dtype, k=None):
             r(k, cin, cin, scale=1.0 / cin ** 0.5), r(k, cin, scale=0.2))
 
 
+def serve_main_path(pipe, kernels, required, phase, smi):
+    """Counters of every kernel set to 0, a 64-stream MicroBatchServer over
+    `pipe` (its construction warm-runs buckets 1, 8 and 64), a selftest of
+    every stream and one lone request (bucket 1), counters read. Raises
+    unless 0 errors and every kernel in `required` launched. Returns the
+    counts of the `required` kernels."""
+    from mobilenet_tpu_torch.runtime.serving import MicroBatchServer, selftest
+
+    for k in kernels.values():
+        k.launches = 0
+
+    async def serve():
+        server = MicroBatchServer(pipe, max_batch=64)
+        await server.start()
+        try:
+            stats = await selftest(server, streams=64, requests_per_stream=4)
+            frame = np.random.default_rng(1).integers(0, 256, (RES, RES, 3), np.uint8)
+            before = server.stats.bucket_counts.get(1, 0)
+            top = await server.submit(frame)
+            stats["lone_request_bucket1"] = server.stats.bucket_counts.get(1, 0) - before
+            stats["lone_request_top1"] = top[0][0]
+            stats["errors_final"] = server.stats.errors
+            return stats
+        finally:
+            await server.close()
+
+    stats = asyncio.run(serve())
+    torch.cuda.synchronize()
+    launches = {k: kernels[k].launches for k in required}
+    emit(phase, nvidia_smi=smi, launches=launches, **stats)
+    if stats["errors_final"] != 0:
+        raise AssertionError(f"{phase}: {stats['errors_final']} errors")
+    if stats["lone_request_bucket1"] != 1:
+        raise AssertionError(f"{phase}: the lone request did not run in bucket 1")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{phase}: kernel {k} was not launched on the main path")
+    return launches
+
+
+def int8_block_args(rng, n, h, cin, cout):
+    """Random int8 block operands on the card: x in [0, 127] (a ReLU6
+    activation), int8 weights, int32 biases, float32 multipliers that spread
+    the requantized values over (0, 127]."""
+    def t(a):
+        return torch.from_numpy(a).cuda()
+
+    def layer(c, scale):
+        return (t(rng.integers(-5000, 5000, (c,)).astype(np.int32)),
+                t((rng.uniform(0.2, 1.5, (c,)) * scale).astype(np.float32)))
+
+    return (t(rng.integers(0, 128, (n, h, h, cin)).astype(np.int8)),
+            t(rng.integers(-127, 128, (3, 3, 1, cin)).astype(np.int8)), *layer(cin, 4e-3),
+            t(rng.integers(-127, 128, (cin, cout)).astype(np.int8)),
+            *layer(cout, 2 / 60 / cin ** 0.5))
+
+
+def int8_phases(smi, kernels, launches):
+    """Phases 6-9. Fills launches["separable_block_i8"] (the int8 server)
+    and launches["depthwise_i8"] (the verify gate); returns the two kernels'
+    summaries."""
+    from mobilenet_tpu_torch import Int8Pipeline, ModelConfig
+    from mobilenet_tpu_torch.checkpoints import fold_bn, init_params
+    from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8_plain
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.separable_block_i8 import separable_block_i8_plain
+    from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.model import forward_i8
+    from mobilenet_tpu_torch.quant.verify import verify_int8
+
+    cfg = ModelConfig(ALPHA, RES)
+    block_i8, dw_i8 = kernels["separable_block_i8"], kernels["depthwise_i8"]
+    summary = {
+        "separable_block_i8": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block_i8.cu",
+            "replaces": "mobilenet_tpu/quant/pallas_block_i8.py:201",
+            "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:222"]},
+        "depthwise_i8": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/depthwise_i8.cu",
+            "replaces": "mobilenet_tpu/quant/pallas_dw_i8.py:74"},
+    }
+    for s in summary.values():
+        s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                 ops_ms=0.0, library_ms=LIBRARY_MS)
+
+    def check(kname, shape_name, count, kfn, pfn, args, work):
+        got, ref = kfn(*args), pfn(*args)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int8 or got.shape != ref.shape:
+            raise AssertionError(f"{kname} {shape_name}: {got.dtype} {tuple(got.shape)} "
+                                 f"vs {tuple(ref.shape)}")
+        err = float((got.int() - ref.int()).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{kname} {shape_name}: "
+                                 f"{int((got != ref).sum())} elements differ (max {err})")
+        kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
+        b_ms, b_by, t_b, t_o = bound(*work, "int8")
+        emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
+             max_abs_err=err, tolerance=0, ms=kms, plain_ms=pms, bound_ms=b_ms,
+             bound_by=b_by, library_ms=LIBRARY_MS, nvidia_smi=smi)
+        s = summary[kname]
+        s["ms"] += count * kms
+        s["plain_ms"] += count * pms
+        s["bound_ms"] += count * b_ms
+        s["bytes_ms"] += count * t_b
+        s["ops_ms"] += count * t_o
+
+    # -- 6. int8 kernels vs plain, exact ----------------------------------------
+    rng = np.random.default_rng(0)
+    dw_shapes = {}
+    for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
+        args = int8_block_args(rng, n, h, cin, cout)
+        check("separable_block_i8", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}", cnt,
+              block_i8, separable_block_i8_plain,
+              args + (stride, 127.0, 127.0, True), block_work(n, h, cin, cout, stride, "int8"))
+        key = (n, h, cin, stride)
+        dw_shapes[key] = (nm, args[:4], dw_shapes.get(key, (nm, None, 0))[2] + cnt)
+        del args
+        torch.cuda.empty_cache()
+    for (n, h, c, stride), (nm, args, cnt) in dw_shapes.items():
+        check("depthwise_i8", f"{nm}_dw ({n},{h},{h},{c}) s{stride}", cnt, dw_i8,
+              depthwise_i8_plain, args + (127.0, stride, True), dw_work(n, h, c, stride))
+    del dw_shapes
+    torch.cuda.empty_cache()
+    imgs = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1).repeat(3, axis=-1)
+    x = preprocess(torch.from_numpy(imgs).cuda(), 16)
+    if not np.array_equal(qops.quantize_input_dev(x, ACT_IN_SCALE).cpu().numpy(),
+                          quantize_input(x.cpu().numpy())):
+        raise AssertionError("quantize_input_dev differs from the host twin")
+    emit("int8_input", uint8_values=256, equal_to_host_twin=True)
+
+    # -- 7. int8 pipeline: kernel route vs plain route; verify ----------------------
+    pipe = Int8Pipeline(cfg, device="cuda")
+    with torch.inference_mode():
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            x_q = qops.quantize_input_dev(preprocess(imgs, RES), ACT_IN_SCALE)
+            got = forward_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+            ref = forward_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"int8 pipeline batch {batch}: kernel route logits "
+                                     "differ from the plain route")
+            if not torch.isfinite(got).all() or got.shape != (batch, cfg.num_classes):
+                raise AssertionError(f"int8 pipeline batch {batch}: bad logits")
+            emit("pipeline", dtype="int8", batch=batch, max_abs_err=0.0, tolerance=0,
+                 top1_agree=batch, rows=batch, logits_absmax=float(ref.abs().max()))
+    for k in kernels.values():
+        k.launches = 0
+    folded = fold_bn(init_params(cfg, seed=1), eps=cfg.bn_eps)
+    x = rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
+    ok = verify_int8(cfg, folded, x, device="cuda", use_dw_kernel=True)
+    torch.cuda.synchronize()
+    launches["depthwise_i8"] = dw_i8.launches
+    emit("verify_int8", batch=2, exact=ok, launches={"depthwise_i8": dw_i8.launches})
+    if not ok or dw_i8.launches <= 0:
+        raise AssertionError("verify_int8 at 1.0-224: a layer differs from the oracle "
+                             "or the depthwise kernel did not launch")
+
+    # -- 8. int8 benchmark --------------------------------------------------------
+    emit("benchmark", route="int8 auto", nvidia_smi=smi,
+         **pipe.benchmark(batch_size=256, steps=40))
+    plain = Int8Pipeline(cfg, device="cuda", dw_backend="plain")
+    emit("benchmark", route="int8 plain", nvidia_smi=smi,
+         **plain.benchmark(batch_size=256, steps=10))
+    del plain
+    torch.cuda.empty_cache()
+
+    # -- 9. the int8 main path: 64-stream server ------------------------------------
+    launches.update(serve_main_path(pipe, kernels, ("separable_block_i8",), "serving_int8",
+                                    smi))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -118,12 +345,13 @@ def main() -> int:
     from mobilenet_tpu_torch.models import mobilenet_v1
     from mobilenet_tpu_torch.ops import _build
     from mobilenet_tpu_torch.ops.chain import chain, chain_plain
+    from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
     from mobilenet_tpu_torch.ops.preprocess import preprocess
     from mobilenet_tpu_torch.ops.separable_block import (
         separable_block, separable_block_plain,
     )
-    from mobilenet_tpu_torch.runtime.serving import MicroBatchServer, selftest
+    from mobilenet_tpu_torch.ops.separable_block_i8 import separable_block_i8
 
     # -- 1. card, versions, build ---------------------------------------------
     smi = subprocess.run(
@@ -157,9 +385,10 @@ def main() -> int:
                   "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120"},
     }
     for s in summary.values():
-        s.update(max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0)
+        s.update(max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0,
+                 bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, library_ms=LIBRARY_MS)
 
-    def check(kname, shape_name, count, kfn, pfn, args_f32, args_bf16):
+    def check(kname, shape_name, count, kfn, pfn, args_f32, args_bf16, work):
         row = {}
         for tag, args, atol, rtol in (("f32", args_f32, F32_ATOL, F32_RTOL),
                                       ("bf16", args_bf16, BF16_ATOL, BF16_RTOL)):
@@ -170,19 +399,26 @@ def main() -> int:
             kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
             row[tag] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
                         "atol": atol, "rtol": rtol}
+            b_ms, b_by, t_b, t_o = bound(*work(tag), tag)
+            row[tag].update(bound_ms=b_ms, bound_by=b_by)
             s = summary[kname]
             if tag == "bf16":
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 s["ms"] += count * kms
                 s["plain_ms"] += count * pms
+                s["bound_ms"] += count * b_ms
+                s["bytes_ms"] += count * t_b
+                s["ops_ms"] += count * t_o
             else:
                 s["max_abs_err_f32"] = max(s["max_abs_err_f32"], err)
-        emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count, **row)
+        emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
+             library_ms=LIBRARY_MS, **row)
 
     for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
         mk = lambda dt: rand_block(gen, n, h, cin, cout, dt) + (stride, True)  # noqa: E731
         check("separable_block", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}", cnt,
-              separable_block, separable_block_plain, mk(torch.float32), mk(torch.bfloat16))
+              separable_block, separable_block_plain, mk(torch.float32), mk(torch.bfloat16),
+              lambda kind: block_work(n, h, cin, cout, stride, kind))
         torch.cuda.empty_cache()
     hw, c = cfg.final_spatial, cfg.feature_channels
     for n in (256, 1):
@@ -192,13 +428,18 @@ def main() -> int:
                  / c ** 0.5).to(dt)
             b = (torch.randn(cfg.num_classes, generator=gen, device="cuda") * 0.1).to(dt)
             return x, w, b
+        def head_work(kind, n=n, k=cfg.num_classes):
+            e = ELEM_BYTES[kind][0]
+            return ((n * hw * hw * c + c * k + k + n * k) * e,
+                    n * hw * hw * c + 2 * n * c * k)
         check("fused_head", f"({n},{hw},{hw},{c})->{cfg.num_classes}", int(n == 256),
               lambda x, w, b: fused_head(x, None, [(w, b, "linear")]),
-              fused_head_plain, mk_head(torch.float32), mk_head(torch.bfloat16))
+              fused_head_plain, mk_head(torch.float32), mk_head(torch.bfloat16), head_work)
     hc, cc = RES // 16, cfg.block_channels[6]
     mkc = lambda dt: rand_block(gen, 1, hc, cc, cc, dt, k=5) + (True,)  # noqa: E731
     check("chain", f"(1,{hc},{hc},{cc}) x5", 1, chain, chain_plain,
-          mkc(torch.float32), mkc(torch.bfloat16))
+          mkc(torch.float32), mkc(torch.bfloat16),
+          lambda kind: block_work(1, hc, cc, cc, 1, kind, k=5))
 
     # -- 3. pipeline: kernel route vs plain route ---------------------------------
     pipe = InferencePipeline(cfg, device="cuda")
@@ -247,38 +488,19 @@ def main() -> int:
     del plain
     torch.cuda.empty_cache()
 
-    # -- 5. the main path: 64-stream server -------------------------------------
+    # -- 5. the float main path: 64-stream server -------------------------------
     kernels = {"separable_block": separable_block, "fused_head": fused_head,
-               "chain": chain}
-    for k in kernels.values():
-        k.launches = 0
+               "chain": chain, "separable_block_i8": separable_block_i8,
+               "depthwise_i8": depthwise_i8}
+    launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
+                               "serving", smi)
+    del pipe
+    torch.cuda.empty_cache()
 
-    async def serve():
-        server = MicroBatchServer(pipe, max_batch=64)
-        await server.start()
-        try:
-            stats = await selftest(server, streams=64, requests_per_stream=4)
-            frame = np.random.default_rng(1).integers(0, 256, (RES, RES, 3), np.uint8)
-            before = server.stats.bucket_counts.get(1, 0)
-            top = await server.submit(frame)
-            stats["lone_request_bucket1"] = server.stats.bucket_counts.get(1, 0) - before
-            stats["lone_request_top1"] = top[0][0]
-            stats["errors_final"] = server.stats.errors
-            return stats
-        finally:
-            await server.close()
-
-    stats = asyncio.run(serve())
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    emit("serving", nvidia_smi=smi, launches=launches, **stats)
-    if stats["errors_final"] != 0:
-        raise AssertionError(f"serving: {stats['errors_final']} errors")
-    if stats["lone_request_bucket1"] != 1:
-        raise AssertionError("serving: the lone request did not run in bucket 1")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"serving: kernel {k} was not launched on the main path")
+    # -- 6-9. the int8 path -------------------------------------------------------
+    summary.update(int8_phases(smi, kernels, launches))
+    for k, s in summary.items():
+        s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 
     print(json.dumps({"kernels": [
         {"name": k, **summary[k], "launches": launches[k]} for k in kernels]}), flush=True)

@@ -1,11 +1,12 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m mobilenet_tpu_torch.cli serve --streams 64 --alpha 1.0 \\
-        --res 224 --dtype bfloat16 [--device cuda] [--tcp --port 8000]
+        --res 224 [--dtype bfloat16 | --int8] [--device cuda] [--tcp --port 8000]
 
-`serve` builds the micro-batching server, runs a selftest of `--streams`
-concurrent streams (one JSON line of stats), and with --tcp then serves
-NDJSON requests on --port until killed.
+`serve` builds the micro-batching server (the float path in --dtype, or the
+exact int8 path with --int8), runs a selftest of `--streams` concurrent
+streams (one JSON line of stats), and with --tcp then serves NDJSON requests
+on --port until killed.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ def cmd_serve(args):
         params = load_npz(args.ckpt)
     serve_main(alpha=args.alpha, res=args.res, dtype=args.dtype,
                streams=args.streams, port=args.port, device=args.device,
-               seed=args.seed, selftest_only=not args.tcp, params=params)
+               seed=args.seed, selftest_only=not args.tcp, params=params,
+               int8=args.int8)
 
 
 def main(argv=None):
@@ -39,6 +41,9 @@ def main(argv=None):
     sp.add_argument("--alpha", type=float, default=1.0)
     sp.add_argument("--res", type=int, default=224)
     sp.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    sp.add_argument("--int8", action="store_true",
+                    help="serve the int8 path (per-layer requantization, exact "
+                         "against the int8 oracle); --dtype is then unused")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--ckpt", default=None, help="folded .npz checkpoint path")
     sp.add_argument("--device", default="cuda",

@@ -1,13 +1,14 @@
 """Build and load the package's CUDA kernels.
 
-At first use, every `csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
-into one shared library with a plain C interface, under `build/kernels/`
-at the root of the checkout. The file name carries a hash of the sources
-and the flags, so an edited source builds anew and a stale library is never
-loaded. The library is loaded with `ctypes`; every pointer and the stream
-are passed as `c_void_p`, every size as `c_int`, and every entry point
-returns the `cudaError_t` of its launch, which `check` turns into an
-exception.
+At first use, each `csrc/*.cu` is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all at once, and the objects are linked into one shared library
+with a plain C interface under `build/kernels/` at the root of the checkout.
+The file name carries a hash of the sources and the flags, so an edited
+source builds anew and a stale library is never loaded. The library is
+loaded with `ctypes`; every entry point has its argument types declared in
+`_SIGNATURES` (pointers and the stream as `c_void_p`, sizes as `c_int`,
+float32 scalars as `c_float`) and returns the `cudaError_t` of its launch,
+which `check` turns into an exception.
 
 Nothing here runs at import: the CPU-only test environment has no `nvcc`.
 """
@@ -26,23 +27,29 @@ from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# No --use_fast_math: the int8 kernels' requant must round as numpy does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 build_log: str = ""
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: (pointer args, int args); each also takes the stream last.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_BLOCK = [_P] * 6 + [_I] * 7  # x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6
+_HEAD = [_P] * 4 + [_I] * 4   # x, fc_w, fc_b, out | N, HW, C, classes
+_CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
+# C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
-    # x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6
-    "separable_block": (6, 7),
-    # x, fc_w, fc_b, out | N, HW, C, classes
-    "fused_head": (4, 4),
-    # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
-    "chain": (8, 6),
+    "separable_block_bf16": _BLOCK, "separable_block_f32": _BLOCK,
+    "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
+    "chain_bf16": _CHAIN, "chain_f32": _CHAIN,
+    # x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, out | N, H, W, Cin, Cout, stride,
+    # relu6 | dw_six_q, pw_six_q
+    "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2,
+    # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
+    "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
 }
 
 
@@ -60,10 +67,42 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
 
 
+def _compile(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    global build_seconds, build_log
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
+    t0 = time.perf_counter()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(cu, objs))]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{logs[-1]}")
+    if not failed:
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{' '.join(link)}\n{logs[-1]}")
+    build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    os.replace(tmp, out)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call. Raises on a failed
     build or load."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
@@ -73,26 +112,16 @@ def library() -> ctypes.CDLL:
             h.update(p.name.encode())
             h.update(p.read_bytes())
         out = BUILD_DIR / f"libmobilenet_kernels_{h.hexdigest()[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-            os.replace(tmp, out)
-        else:
+        if out.exists():
             build_seconds = 0.0
+        else:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _compile(out)
         lib = ctypes.CDLL(str(out))
-        for dt in ("bf16", "f32"):
-            for name, (n_ptr, n_int) in _SIGNATURES.items():
-                fn = getattr(lib, f"{name}_{dt}")
-                fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
-                fn.restype = ctypes.c_int
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [*argtypes, _P]
+            fn.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,76 @@
+"""Where the device time of one pipeline forward goes, by kernel name.
+
+    python -m mobilenet_tpu_torch.profile [--int8] [--batch 256 1] [--steps 10]
+
+Builds the MobileNet-V1 1.0-224 pipeline (bf16, or int8 with --int8) on the
+card, warms it on one device-resident uint8 batch, then records `--steps`
+forwards under torch.profiler (CPU + CUDA).
+Prints one JSON line: the window's wall time (CUDA events), the device
+busy time (the sum of the device activities' durations: one stream, so they
+do not overlap), the idle share, and the device time per kernel name, most
+first. Refuses to run without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+
+import numpy as np
+import torch
+
+
+def profile(pipe, batch: int, steps: int, top: int = 12):
+    res = pipe.config.resolution
+    entry = pipe._entry("probs_u8")
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (batch, res, res, 3), dtype=np.uint8)).to(pipe.device)
+    with torch.inference_mode():
+        for _ in range(3):
+            entry(images)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            start.record()
+            for _ in range(steps):
+                entry(images)
+            end.record()
+            end.synchronize()
+    wall_ms = start.elapsed_time(end)
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    return {
+        "device": torch.cuda.get_device_name(pipe.device), "batch": batch, "steps": steps,
+        "wall_ms_per_forward": wall_ms / steps, "busy_ms_per_forward": busy_ms / steps,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "kernels_ms_per_forward": {k[:80]: v / steps for k, v in by_name.most_common(top)},
+    }
+
+
+def main(argv=None):
+    from . import InferencePipeline, Int8Pipeline, ModelConfig  # noqa: PLC0415
+
+    p = argparse.ArgumentParser(prog="mobilenet_tpu_torch.profile")
+    p.add_argument("--int8", action="store_true")
+    p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
+    p.add_argument("--steps", type=int, default=10)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("mobilenet_tpu_torch.profile measures the card; "
+                         "torch.cuda.is_available() is False")
+    cfg = ModelConfig(1.0, 224, compute_dtype="bfloat16")
+    pipe = (Int8Pipeline(cfg, device="cuda") if args.int8
+            else InferencePipeline(cfg, device="cuda"))
+    for batch in args.batch:
+        print(json.dumps({"path": "int8" if args.int8 else "bfloat16",
+                          **profile(pipe, batch, args.steps)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

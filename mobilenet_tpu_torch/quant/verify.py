@@ -1,0 +1,39 @@
+"""INT8 verification: the device route against the port's NumPy oracle, with
+an exact equality gate on every layer (the port of the JAX package's
+`quant/verify.py`, numpy oracle only)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from . import model as qmodel
+from . import oracle as qoracle
+from .quantize import quantize, quantize_input
+
+
+@torch.inference_mode()
+def verify_int8(config: ModelConfig, folded_params: Dict[str, Any], x_f32: np.ndarray,
+                *, device="cuda", use_dw_kernel: bool = False) -> bool:
+    """Run the per-layer int8 route on `device` and the NumPy oracle on the
+    same quantized weights and input; print one line per tap and return
+    True when every tap matches exactly."""
+    q = quantize(folded_params, config)
+    x_i8 = quantize_input(x_f32)
+    dev = qmodel.to_device_i8(q, device)
+    _, acts_d = qmodel.forward_i8(dev, torch.from_numpy(x_i8).to(device), config,
+                                  use_dw_kernel=use_dw_kernel, collect=True)
+    _, acts_o = qoracle.forward_all(q, x_i8, config)
+    ok = True
+    for name, ref in acts_o.items():
+        got = acts_d[name].cpu().numpy()
+        match = np.array_equal(got, ref)
+        n_bad = 0 if match or got.shape != ref.shape else int((got != ref).sum())
+        print(f"[{'OK ' if match else 'FAIL'}] {name:14s} exact "
+              f"{'' if match else f'({n_bad} mismatches)'}")
+        ok &= match
+    print("INT8 VERIFY", "OK" if ok else "FAILED", "(numpy oracle)")
+    return ok

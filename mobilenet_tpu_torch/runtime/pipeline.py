@@ -1,7 +1,9 @@
 """Inference runtime: device-resident weights and the V1 entry points.
 
 The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1 on one
-device. The weights move to the device once, at construction. PyTorch runs
+device. `PipelineBase` holds the uint8-in paths (classify, run_batch,
+benchmark) that the float `InferencePipeline` and the int8
+`quant.model.Int8Pipeline` share. The weights move to the device once, at construction. PyTorch runs
 eagerly, so an "entry" is a plain function; each call runs the kernels on
 the current CUDA stream. `benchmark()` times with CUDA events on a
 device-resident batch and refuses to run without a card.
@@ -34,45 +36,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class InferencePipeline:
-    """Owns device-resident weights and the entry points for one V1 variant."""
+class PipelineBase:
+    """The uint8-in paths shared by the float and int8 pipelines: a subclass
+    sets `config` and `device` and builds the `_entry("probs_u8")` function
+    (uint8 NHWC on the device -> float32 probabilities on the device)."""
 
-    def __init__(self, config: ModelConfig, params: Optional[Dict[str, Any]] = None,
-                 *, device, seed: int = 0, dw_backend: Any = "auto",
-                 dtype: Optional[torch.dtype] = None):
-        """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
-        None draws the seeded weight set. `device` is required ("cuda",
-        "cuda:0", "cpu"). `dw_backend`: "auto" (kernels), "plain", "fused",
-        or a per-block tuple (models.mobilenet_v1._routing)."""
-        self.config = config
-        self.device = resolve_device(device)
-        self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
-        self.dw_backend = dw_backend
-        host = params if params is not None else fold_bn(
-            init_params(config, seed=seed), eps=config.bn_eps)
-        self.params = prepare_kernel_layouts(
-            to_device(host, self.device, self.dtype), config.block_strides)
-
-    # -- entries ------------------------------------------------------------
+    config: ModelConfig
+    device: torch.device
 
     def _entry(self, kind: str):
-        cfg = self.config
-        if kind == "probs_u8":
-            def fn(images_u8):
-                x = preprocess(images_u8, cfg.resolution, self.dtype)
-                return mobilenet_v1.predict_probs(self.params, x, cfg,
-                                                  dw_backend=self.dw_backend)
-        elif kind == "probs_f":
-            def fn(x):
-                return mobilenet_v1.predict_probs(self.params, x.to(self.dtype), cfg,
-                                                  dw_backend=self.dw_backend)
-        elif kind == "collect":
-            def fn(x):
-                return mobilenet_v1.forward(self.params, x.to(self.dtype), cfg,
-                                            dw_backend=self.dw_backend, collect=True)
-        else:
-            raise KeyError(kind)
-        return fn
+        raise NotImplementedError
 
     def _to_device(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
@@ -91,18 +64,6 @@ class InferencePipeline:
     def run_batch(self, images_u8) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (N, classes) float32 probabilities (host)."""
         return self._entry("probs_u8")(self._to_device(images_u8)).cpu().numpy()
-
-    @torch.inference_mode()
-    def run_preprocessed(self, x) -> torch.Tensor:
-        """Preprocessed NHWC -> device probabilities."""
-        return self._entry("probs_f")(torch.as_tensor(x).to(self.device))
-
-    @torch.inference_mode()
-    def activations(self, x):
-        """Per-layer taps for the verify gate: (logits, {name: array})."""
-        logits, acts = self._entry("collect")(torch.as_tensor(x).to(self.device))
-        return (logits.float().cpu().numpy(),
-                {k: v.float().cpu().numpy() for k, v in acts.items()})
 
     # -- throughput mode ----------------------------------------------------
 
@@ -162,3 +123,58 @@ class InferencePipeline:
             "p50_latency_ms": float(np.percentile(lats, 50) * 1e3),
             "p99_latency_ms": float(np.percentile(lats, 99) * 1e3),
         }
+
+
+class InferencePipeline(PipelineBase):
+    """Owns device-resident weights and the entry points for one V1 variant."""
+
+    def __init__(self, config: ModelConfig, params: Optional[Dict[str, Any]] = None,
+                 *, device="cuda", seed: int = 0, dw_backend: Any = "auto",
+                 dtype: Optional[torch.dtype] = None):
+        """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
+        None draws the seeded weight set. `device`: "cuda" (default),
+        "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
+        or a per-block tuple (models.mobilenet_v1._routing)."""
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
+        self.dw_backend = dw_backend
+        host = params if params is not None else fold_bn(
+            init_params(config, seed=seed), eps=config.bn_eps)
+        self.params = prepare_kernel_layouts(
+            to_device(host, self.device, self.dtype), config.block_strides)
+
+    # -- entries ------------------------------------------------------------
+
+    def _entry(self, kind: str):
+        cfg = self.config
+        if kind == "probs_u8":
+            def fn(images_u8):
+                x = preprocess(images_u8, cfg.resolution, self.dtype)
+                return mobilenet_v1.predict_probs(self.params, x, cfg,
+                                                  dw_backend=self.dw_backend)
+        elif kind == "probs_f":
+            def fn(x):
+                return mobilenet_v1.predict_probs(self.params, x.to(self.dtype), cfg,
+                                                  dw_backend=self.dw_backend)
+        elif kind == "collect":
+            def fn(x):
+                return mobilenet_v1.forward(self.params, x.to(self.dtype), cfg,
+                                            dw_backend=self.dw_backend, collect=True)
+        else:
+            raise KeyError(kind)
+        return fn
+
+    # -- per-layer and preprocessed paths ---------------------------------
+
+    @torch.inference_mode()
+    def run_preprocessed(self, x) -> torch.Tensor:
+        """Preprocessed NHWC -> device probabilities."""
+        return self._entry("probs_f")(torch.as_tensor(x).to(self.device))
+
+    @torch.inference_mode()
+    def activations(self, x):
+        """Per-layer taps for the verify gate: (logits, {name: array})."""
+        logits, acts = self._entry("collect")(torch.as_tensor(x).to(self.device))
+        return (logits.float().cpu().numpy(),
+                {k: v.float().cpu().numpy() for k, v in acts.items()})

@@ -1,7 +1,7 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
-The port of the JAX package's `runtime/serving.py` for one V1 float variant
-on one device:
+The port of the JAX package's `runtime/serving.py` for one V1 variant, float
+or int8, on one device:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
     `max_delay_ms`), pads to the smallest precomputed bucket that fits, and
@@ -56,7 +56,8 @@ def default_buckets(max_batch: int) -> List[int]:
 
 
 class MicroBatchServer:
-    """Micro-batching inference server over an InferencePipeline."""
+    """Micro-batching inference server over an InferencePipeline or an
+    Int8Pipeline."""
 
     def __init__(self, pipeline, max_batch: int = 64, max_delay_ms: float = 3.0,
                  request_timeout_s: float = 30.0, device_retries: int = 1,
@@ -276,30 +277,39 @@ async def selftest(server: MicroBatchServer, streams: int = 64,
     }
 
 
-def build_server(cfg: ModelConfig, streams: int, *, device, seed: int = 0,
-                 params=None) -> MicroBatchServer:
-    """One V1 float variant on one device, `streams`-wide micro-batches."""
-    from .pipeline import InferencePipeline  # noqa: PLC0415
+def build_server(cfg: ModelConfig, streams: int, *, device="cuda", seed: int = 0,
+                 params=None, int8: bool = False) -> MicroBatchServer:
+    """One V1 variant on one device, `streams`-wide micro-batches: the float
+    InferencePipeline, or with int8=True the quantized Int8Pipeline."""
+    if int8:
+        from ..quant.model import Int8Pipeline  # noqa: PLC0415
 
-    return MicroBatchServer(
-        InferencePipeline(cfg, params, device=device, seed=seed), max_batch=streams)
+        pipeline = Int8Pipeline(cfg, params, device=device, seed=seed)
+    else:
+        from .pipeline import InferencePipeline  # noqa: PLC0415
+
+        pipeline = InferencePipeline(cfg, params, device=device, seed=seed)
+    return MicroBatchServer(pipeline, max_batch=streams)
 
 
 def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
-               device, seed: int = 0, selftest_only: bool = True, params=None):
+               device="cuda", seed: int = 0, selftest_only: bool = True, params=None,
+               int8: bool = False):
     """Build the server, run the selftest (one JSON line of stats), then, if
-    not selftest_only, serve NDJSON over TCP on `port` until killed."""
+    not selftest_only, serve NDJSON over TCP on `port` until killed. `dtype`
+    is the float path's compute dtype; int8=True serves the int8 path."""
     cfg = ModelConfig(alpha=float(alpha), resolution=int(res), compute_dtype=dtype)
 
     async def run():
-        server = build_server(cfg, streams, device=device, seed=seed, params=params)
+        server = build_server(cfg, streams, device=device, seed=seed, params=params,
+                              int8=int8)
         await server.start()
         try:
             stats = await selftest(server, streams=streams)
             print(json.dumps(stats), flush=True)
             if not selftest_only:
-                print(f"serving on tcp://0.0.0.0:{port} ({cfg.variant_name()})",
-                      flush=True)
+                print(f"serving on tcp://0.0.0.0:{port} ({cfg.variant_name()}"
+                      f"{' int8' if int8 else ''})", flush=True)
                 await serve_tcp(server, "0.0.0.0", port)
         finally:
             await server.close()

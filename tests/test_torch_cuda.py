@@ -10,13 +10,23 @@ import numpy as np
 import pytest
 import torch
 
-from mobilenet_tpu_torch import InferencePipeline, ModelConfig
+from mobilenet_tpu_torch import InferencePipeline, Int8Pipeline, ModelConfig
+from mobilenet_tpu_torch.checkpoints import fold_bn, init_params
 from mobilenet_tpu_torch.models import mobilenet_v1
+from mobilenet_tpu_torch.ops import preprocess as prep
 from mobilenet_tpu_torch.ops.chain import chain, chain_plain
+from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8, depthwise_i8_plain
 from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
 from mobilenet_tpu_torch.ops.separable_block import (
     separable_block, separable_block_plain,
 )
+from mobilenet_tpu_torch.ops.separable_block_i8 import (
+    separable_block_i8, separable_block_i8_plain,
+)
+from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
+from mobilenet_tpu_torch.quant import ops as qops
+from mobilenet_tpu_torch.quant.model import forward_i8
+from mobilenet_tpu_torch.quant.verify import verify_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +127,87 @@ def test_cpu_tensor_never_launches(dev):
     before = separable_block.launches
     separable_block(x, *w, 1, True)
     assert separable_block.launches == before
+
+
+# -- int8: every comparison is exact (torch.equal) ---------------------------
+
+
+def _i8_layer(rng, c, dev, scale):
+    """int8 weights in [-127, 127], int32 biases, float32 multipliers that
+    put most requantized values inside (0, 127)."""
+    return (torch.from_numpy(rng.integers(-5000, 5000, (c,)).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.uniform(0.2, 1.5, (c,)).astype(np.float32) * scale).to(dev))
+
+
+def _i8_block(rng, dev, n, h, cin, cout):
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, h, cin)).astype(np.int8)).to(dev)
+    dw_w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 1, cin)).astype(np.int8)).to(dev)
+    pw_w = torch.from_numpy(rng.integers(-127, 128, (cin, cout)).astype(np.int8)).to(dev)
+    return (x, dw_w, *_i8_layer(rng, cin, dev, 4e-3), pw_w,
+            *_i8_layer(rng, cout, dev, 0.5 / cin ** 0.5 / 60))
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride", [
+    (2, 64, 8, 16, 1),      # alpha 0.25 block 0: one partial K chunk
+    (3, 10, 24, 48, 2),     # alpha 0.75 widths, ragged pixel tile
+    (1, 7, 1024, 1024, 1),  # 49 pixels: one partial pixel tile
+    (2, 14, 96, 192, 2),    # partial channel tiles at both ends
+    (1, 9, 40, 136, 1),     # odd spatial size, Cout just over one tile
+    (2, 9, 64, 128, 2),     # odd spatial size at stride 2 (TF-SAME lo=1)
+])
+@pytest.mark.parametrize("relu6", [True, False])
+def test_separable_block_i8(dev, n, h, cin, cout, stride, relu6):
+    rng = np.random.default_rng(cin + cout + stride)
+    x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m = _i8_block(rng, dev, n, h, cin, cout)
+    # six_q below 127 so that the in-domain ReLU6 clip is reached
+    args = (x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, stride, 100.0, 50.0, relu6)
+    before = separable_block_i8.launches
+    got = separable_block_i8(*args)
+    assert separable_block_i8.launches == before + 1
+    ref = separable_block_i8_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    assert 0 < int((ref > 0).sum()) < ref.numel() - int((ref == 127).sum())
+
+
+@pytest.mark.parametrize("n,h,c,stride", [(2, 64, 8, 1), (3, 10, 24, 2), (1, 7, 1024, 1),
+                                          (2, 9, 40, 2), (1, 56, 128, 2)])
+def test_depthwise_i8(dev, n, h, c, stride):
+    rng = np.random.default_rng(c + h)
+    x, w, b, m, *_ = _i8_block(rng, dev, n, h, c, 8)
+    before = depthwise_i8.launches
+    got = depthwise_i8(x, w, b, m, 127.0, stride, True)
+    assert depthwise_i8.launches == before + 1
+    ref = depthwise_i8_plain(x, w, b, m, 127.0, stride, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_quantize_input_all_uint8(dev):
+    """preprocess + quantize_input_dev on the card over all 256 uint8 values
+    equals the host twin (a division, not a multiply by the reciprocal)."""
+    imgs = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1).repeat(3, axis=-1)
+    x = prep.preprocess(torch.from_numpy(imgs).to(dev), 16)
+    got = qops.quantize_input_dev(x, ACT_IN_SCALE).cpu().numpy()
+    np.testing.assert_array_equal(got, quantize_input(x.cpu().numpy()))
+
+
+@pytest.mark.parametrize("alpha,res", [(0.25, 128), (0.75, 160)])
+def test_int8_routes_and_verify(dev, alpha, res):
+    """int8 kernel route == plain route bit for bit at batch 1 and 4, and
+    the per-layer route with the depthwise kernel passes the exact gate."""
+    cfg = ModelConfig(alpha, res)
+    pipe = Int8Pipeline(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    for batch in (1, 4):
+        imgs = torch.from_numpy(rng.integers(0, 256, (batch, res, res, 3), dtype=np.uint8))
+        x_q = qops.quantize_input_dev(prep.preprocess(imgs.to(dev), res), ACT_IN_SCALE)
+        got = forward_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+        ref = forward_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+        assert torch.equal(got, ref)
+    folded = fold_bn(init_params(cfg, seed=1), eps=cfg.bn_eps)
+    x = rng.uniform(-1, 1, (2, res, res, 3)).astype(np.float32)
+    before = depthwise_i8.launches
+    assert verify_int8(cfg, folded, x, device="cuda", use_dw_kernel=True)
+    assert depthwise_i8.launches == before + 13

@@ -109,7 +109,8 @@ def test_buckets_and_retry_policy(pipe):
 def test_pipeline_refuses_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    with pytest.raises(RuntimeError):
-        InferencePipeline(ModelConfig(0.25, RES), device="cuda")
+    for kw in ({}, {"device": "cuda"}):  # the default device is the card
+        with pytest.raises(RuntimeError):
+            InferencePipeline(ModelConfig(0.25, RES), **kw)
     with pytest.raises(RuntimeError):
         InferencePipeline(ModelConfig(0.25, RES), device="cpu").benchmark(batch_size=1)
