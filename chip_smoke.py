@@ -28,7 +28,20 @@ file; imports nothing of JAX. Phases, one JSON line each:
      after: the depthwise kernel's path), exact on every layer;
   8. the int8 benchmark(): batch-256 img/s and batch-1 latency;
   9. the int8 main path: counters set to 0, a 64-stream int8 server and one
-     lone request; 0 errors and the int8 block kernel launched.
+     lone request; 0 errors and the int8 block kernel launched;
+ 10. each MobileNet-V2 kernel against its plain version at the 12 distinct
+     block shapes of V2 1.0-224 at batch 256 (the inverted-residual kernel,
+     the block-0 linear-projection mode of the separable block) and the
+     conv_last head at batch 256 and 1, plus a V3-Large-shaped head (two
+     hswish stages) at batch 256: float32 then bfloat16, no TF32 flag set;
+ 11. the V2 bf16 pipeline, kernel route against plain route, at batch 256
+     and 1 (the routing gate with the JAX package's V2 extreme-value term
+     and float32 anchor, below), and a float32 full-network check at batch 2;
+ 12. V2 benchmark(): "auto" and "plain" at batch 256, and the batch-1
+     latency of "mixed" against "auto" (alternating, in one process);
+ 13. the V2 float main path: counters set to 0, a 64-stream V2 server and
+     one lone request; 0 errors, and the inverted-residual kernel, the
+     conv_last head and the block-0 kernel launched.
 Then one JSON line of per-kernel results and, last, the result line.
 Any failure raises and the script exits non-zero without the result line.
 
@@ -36,7 +49,9 @@ bound_ms is the least time the card could take for a kernel's work: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s, and its operations (multiply-adds count 2) over the
 peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32 outside the
-tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet.
+tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet. No TF32
+flag is set anywhere: float32 products run in IEEE float32 by default, and
+the float32 stem turns cuDNN's TF32 off around its own call.
 """
 
 from __future__ import annotations
@@ -61,6 +76,18 @@ F32_ATOL, F32_RTOL = 1e-4, 3e-4
 # Whole-network bf16 kernel route vs plain route (logits): the JAX package's
 # routing gate, max(6e-2, 4.5e-2 x logits absmax).
 ROUTE_ATOL, ROUTE_REL = 6e-2, 4.5e-2
+# V2 float32 network, kernel route vs plain route (logits): the JAX
+# package's V2 gate (golden.V2_TOL): the linear bottlenecks carry f32
+# reassociation noise unclipped through 17 blocks.
+V2_F32_ATOL, V2_F32_RTOL = 1e-3, 1e-3
+# V2 bf16 routes: the JAX package's V2 routing verify (golden.
+# routing_bf16_atol and cli._verify_routing). The linear bottlenecks carry
+# the bf16 rounding noise of two valid routes unclipped, so the max-abs
+# limit also takes ROUTE_EV_FACTOR x rms(kernel - plain) x sqrt(2 ln n),
+# the extreme value of that noise over n logits; and the kernel route must
+# stay within ROUTE_ANCHOR x the plain route's RMS distance (+ ROUTE_ATOL)
+# of the float32 plain route on the same weights.
+ROUTE_EV_FACTOR, ROUTE_ANCHOR = 1.5, 1.5
 
 ALPHA, RES = 1.0, 224
 
@@ -90,6 +117,38 @@ def block_work(n, h, cin, cout, stride, kind, k=1):
     nbytes = n * h * h * cin * act + weights + pix_out * cout * act
     ops = k * (2 * 9 * pix_out * cin + 2 * pix_out * cin * cout)
     return nbytes, ops
+
+
+def ir_work(n, h, cin, e, cout, stride, kind):
+    """(bytes, ops) of one inverted-residual block on (n, h, h, cin): the
+    input and output once, the weights once; the expansion of every input
+    pixel (the stride-2 depthwise reads all of them), the 9 taps and the
+    projection of every output pixel, and the residual add where there is
+    one. Halo recompute inside the kernel is not counted."""
+    act, w, b, _ = ELEM_BYTES[kind]
+    ho = -(-h // stride)
+    pix_in, pix_out = n * h * h, n * ho * ho
+    weights = cin * e * w + 9 * e * w + e * cout * w + (2 * e + cout) * b
+    nbytes = pix_in * cin * act + weights + pix_out * cout * act
+    ops = (2 * pix_in * cin * e + 2 * 9 * pix_out * e + 2 * pix_out * e * cout
+           + (pix_out * cout if stride == 1 and cin == cout else 0))
+    return nbytes, ops
+
+
+def head_work(n, hw, c, e, widths, kind):
+    """(bytes, ops) of a fused head: [conv_last c -> e] over n x hw pixels,
+    the pool, and post matmuls of `widths`; e == c and no conv_last when e
+    is None."""
+    act = ELEM_BYTES[kind][0]
+    pix = n * hw * hw
+    k = c if e is None else e
+    nbytes = pix * c + (0 if e is None else c * e + e)
+    ops = (0 if e is None else 2 * pix * c * e) + pix * k
+    for m in widths:
+        nbytes += k * m + m
+        ops += 2 * n * k * m
+        k = m
+    return (nbytes + n * k) * act, ops
 
 
 def dw_work(n, h, c, stride, kind="int8"):
@@ -336,6 +395,276 @@ def int8_phases(smi, kernels, launches):
     return summary
 
 
+FLOAT_ROW = dict(max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 bytes_ms=0.0, ops_ms=0.0, library_ms=LIBRARY_MS)
+
+
+def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16, work):
+    """One float kernel at one shape: float32 then bfloat16 against its
+    plain version (tolerances above), CUDA-event times of both, the bound.
+    The bf16 numbers, times `count` (the shape's blocks per forward), add to
+    the kernel's row in `summary`."""
+    row = {}
+    for tag, args, atol, rtol in (("f32", args_f32, F32_ATOL, F32_RTOL),
+                                  ("bf16", args_bf16, BF16_ATOL, BF16_RTOL)):
+        got = kfn(*args)
+        ref = pfn(*args)
+        torch.cuda.synchronize()
+        err = compare(f"{kname} {shape_name} {tag}", got, ref, atol, rtol)
+        kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
+        row[tag] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
+                    "atol": atol, "rtol": rtol}
+        b_ms, b_by, t_b, t_o = bound(*work(tag), tag)
+        row[tag].update(bound_ms=b_ms, bound_by=b_by)
+        s = summary[kname]
+        if tag == "bf16":
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["ms"] += count * kms
+            s["plain_ms"] += count * pms
+            s["bound_ms"] += count * b_ms
+            s["bytes_ms"] += count * t_b
+            s["ops_ms"] += count * t_o
+        else:
+            s["max_abs_err_f32"] = max(s["max_abs_err_f32"], err)
+    emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
+         library_ms=LIBRARY_MS, **row)
+
+
+def rand_head(gen, n, hw, c, conv, posts, dtype):
+    """(x, conv, post) head operands on the card: x in [0, 6) (a ReLU6
+    activation); conv = (e, act) or None; posts = [(width, act), ...]."""
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def layer(k, m, act):
+        return (r(k, m, scale=k ** -0.5), r(m, scale=0.1), act)
+
+    x = (torch.rand(n, hw, hw, c, generator=gen, device="cuda") * 6).to(dtype)
+    k, post = c, []
+    conv_layer = None
+    if conv is not None:
+        conv_layer = layer(c, conv[0], conv[1])
+        k = conv[0]
+    for m, act in posts:
+        post.append(layer(k, m, act))
+        k = m
+    return x, conv_layer, post
+
+
+def rms(t) -> float:
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False):
+    """The bf16 pipeline's kernel route against its plain route at batch 256
+    and 1 (the routing gate, with anchored=True the V2 form above; a top-1
+    flip only between near-tied classes), then a float32 pipeline of
+    `cfg32` (the same seeded weights) at batch 2 within f32_atol/rtol."""
+    from mobilenet_tpu_torch import InferencePipeline
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+
+    cfg = pipe.config
+    pipe32 = InferencePipeline(cfg32, device="cuda")
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            x = preprocess(imgs, RES, torch.bfloat16)
+            got = forward(pipe.params, x, cfg, dw_backend="auto").float()
+            ref = forward(pipe.params, x, cfg, dw_backend="plain").float()
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            atol = max(ROUTE_ATOL, ROUTE_REL * scale)
+            anchor = {}
+            if anchored:
+                ev = ROUTE_EV_FACTOR * rms(got - ref) * float(np.sqrt(2 * np.log(got.numel())))
+                atol = max(atol, ev)
+                ora = forward(pipe32.params, preprocess(imgs, RES, torch.float32), cfg32,
+                              dw_backend="plain")
+                anchor = {"rms_kernel_vs_f32": rms(got - ora), "rms_plain_vs_f32": rms(ref - ora)}
+                limit = ROUTE_ANCHOR * anchor["rms_plain_vs_f32"] + ROUTE_ATOL
+                if anchor["rms_kernel_vs_f32"] > limit:
+                    raise AssertionError(f"{cfg.variant_name()} bf16 batch {batch}: kernel "
+                                         f"route {anchor['rms_kernel_vs_f32']:.4f} RMS from the "
+                                         f"float32 route, above {limit:.4f}")
+            err = compare(f"{cfg.variant_name()} bf16 batch {batch}", got, ref, atol, 0.0)
+            top_k, top_p = got.argmax(-1), ref.argmax(-1)
+            flips = (top_k != top_p).nonzero().flatten().tolist()
+            for i in flips:  # a flip is allowed only between near-tied classes
+                gap = float(ref[i, top_p[i]] - ref[i, top_k[i]])
+                if gap > atol:
+                    raise AssertionError(f"batch {batch} row {i}: top-1 {int(top_k[i])} "
+                                         f"vs plain {int(top_p[i])}, gap {gap:.3e}")
+            emit("pipeline", model=cfg.variant_name(), dtype="bfloat16", batch=batch,
+                 max_abs_err=err, atol=atol, logits_absmax=scale,
+                 top1_agree=batch - len(flips), rows=batch, **anchor)
+        x32 = torch.from_numpy(
+            rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)).cuda()
+        got = forward(pipe32.params, x32, cfg32, dw_backend="auto")
+        ref = forward(pipe32.params, x32, cfg32, dw_backend="plain")
+        err = compare(f"{cfg32.variant_name()} f32 batch 2", got, ref, f32_atol, f32_rtol)
+        if not torch.equal(got.argmax(-1), ref.argmax(-1)):
+            raise AssertionError("pipeline f32: top-1 differs from the plain route")
+        emit("pipeline", model=cfg32.variant_name(), dtype="float32", batch=2,
+             max_abs_err=err, atol=f32_atol, rtol=f32_rtol, top1_agree=2, rows=2)
+        del pipe32
+    torch.cuda.empty_cache()
+
+
+def v2_block_shapes(cfg, batch):
+    """(name, N, H, t, Cin, Cout, stride, count) of each distinct V2 block
+    shape, `count` = how many blocks of one forward have it."""
+    shapes, hw = {}, cfg.resolution // 2
+    for i, (t, cin, cout, stride) in enumerate(cfg.block_defs):
+        key = (hw, t, cin, cout, stride)
+        if key in shapes:
+            shapes[key][1] += 1
+        else:
+            shapes[key] = [f"b{i:02d}", 1]
+        hw //= stride
+    return [(nm, batch, h, t, ci, co, s, cnt)
+            for (h, t, ci, co, s), (nm, cnt) in shapes.items()]
+
+
+def rand_ir(gen, n, h, cin, e, cout, dtype):
+    """Inverted-residual operands on the card: x in [-1, 1) (a block input
+    after a linear projection), weights scaled so that part of each ReLU6
+    clips."""
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype).contiguous()
+
+    x = (torch.rand(n, h, h, cin, generator=gen, device="cuda") * 2 - 1).to(dtype).contiguous()
+    return (x, r(cin, e, scale=2.0 / cin ** 0.5), r(e, scale=0.5), r(3, 3, 1, e, scale=0.5),
+            r(e, scale=0.3), r(e, cout, scale=1.0 / e ** 0.5), r(cout, scale=0.2))
+
+
+def batch1_latency(pipes, rounds=4, iters=15):
+    """Batch-1 latency of each (name, pipeline), alternating in rounds
+    (a, b, b, a, ...): host clock around run_batch of one uint8 image, host
+    to host, and CUDA-event ms of the device-resident forward."""
+    frame = np.random.default_rng(2).integers(0, 256, (1, RES, RES, 3), np.uint8)
+    dev = torch.from_numpy(frame).cuda()
+    host, device = {n: [] for n, _ in pipes}, {n: [] for n, _ in pipes}
+    for _, p in pipes:
+        p.run_batch(frame)
+    for rnd in range(rounds):
+        for name, p in (pipes if rnd % 2 == 0 else pipes[::-1]):
+            for _ in range(iters):
+                t = time.perf_counter()
+                p.run_batch(frame)
+                host[name].append(time.perf_counter() - t)
+            entry = p._entry("probs_u8")
+            with torch.inference_mode():
+                device[name].append(cuda_ms(lambda: entry(dev), reps=iters))
+    return {name: {"p50_ms": float(np.percentile(host[name], 50) * 1e3),
+                   "p99_ms": float(np.percentile(host[name], 99) * 1e3),
+                   "device_ms": float(np.median(device[name]))} for name, _ in pipes}
+
+
+def v2_phases(smi, gen, kernels, launches):
+    """Phases 10-13. Fills launches["inverted_residual"],
+    launches["separable_block[linear]"] and launches["fused_head[conv_last]"]
+    from the V2 server; returns the three rows' summaries."""
+    from mobilenet_tpu_torch import InferencePipeline, V2Config
+    from mobilenet_tpu_torch.models import mobilenet_v2
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
+    from mobilenet_tpu_torch.ops.inverted_residual import (
+        inverted_residual, inverted_residual_plain, ir_plan, ir_smem_bytes,
+    )
+    from mobilenet_tpu_torch.ops.separable_block import separable_block, separable_block_plain
+
+    cfg = V2Config(ALPHA, RES, compute_dtype="bfloat16")
+    summary = {
+        "inverted_residual": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/inverted_residual.cu",
+            "replaces": "mobilenet_tpu/ops/pallas_ir_block.py:364",
+            "also_replaces": ["mobilenet_tpu/ops/pallas_expand_s2.py:238"]},
+        "separable_block[linear]": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block.cu",
+            "replaces": "mobilenet_tpu/ops/pallas_block_packed.py:132"},
+        "fused_head[conv_last]": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
+            "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
+    }
+    for s in summary.values():
+        s.update(FLOAT_ROW)
+
+    # -- 10. V2 kernels vs plain ------------------------------------------------
+    lib = _build.library()
+    plans = {}
+    for nm, n, h, t, cin, cout, stride, cnt in v2_block_shapes(cfg, 256):
+        name = f"{nm} ({n},{h},{h},{cin})->{cout} t{t} s{stride}"
+        if t == 1:
+            mk = lambda dt: rand_block(gen, n, h, cin, cout, dt) + (stride, True)  # noqa: E731
+            check_float(summary, "separable_block[linear]", name, cnt,
+                        lambda *a: separable_block(*a, pw_act=False),
+                        lambda *a: separable_block_plain(*a, pw_act=False),
+                        mk(torch.float32), mk(torch.bfloat16),
+                        lambda kind: block_work(n, h, cin, cout, stride, kind))
+        else:
+            e, res = t * cin, stride == 1 and cin == cout
+            for b, item in ((256, 2), (1, 2), (256, 4)):
+                th, tw = plans[f"{nm} batch {b} itemsize {item}"] = ir_plan(
+                    b, h, h, cin, cout, stride, item)
+                c_bytes = lib.inverted_residual_smem_bytes(cin, cout, stride, th, tw, item)
+                if c_bytes != ir_smem_bytes(th, tw, cin, cout, stride, item):
+                    raise AssertionError(f"{name}: the kernel plans {c_bytes} B of shared "
+                                         "memory, ir_smem_bytes another")
+            mk = lambda dt: rand_ir(gen, n, h, cin, e, cout, dt) + (stride, res)  # noqa: E731
+            check_float(summary, "inverted_residual", name, cnt, inverted_residual,
+                        inverted_residual_plain, mk(torch.float32), mk(torch.bfloat16),
+                        lambda kind: ir_work(n, h, cin, e, cout, stride, kind))
+        torch.cuda.empty_cache()
+    emit("ir_plans", plans=plans)
+    hw, c, cl = cfg.final_spatial, cfg.block_defs[-1][2], cfg.last_channels
+    for n in (256, 1):
+        mk = lambda dt: rand_head(gen, n, hw, c, (cl, "relu6"), [(cfg.num_classes, "linear")],  # noqa: E731
+                                  dt)
+        check_float(summary, "fused_head[conv_last]",
+                    f"({n},{hw},{hw},{c}) conv_last {cl} relu6 -> {cfg.num_classes}",
+                    int(n == 256), fused_head, fused_head_plain, mk(torch.float32),
+                    mk(torch.bfloat16),
+                    lambda kind: head_work(n, hw, c, cl, [cfg.num_classes], kind))
+    # V3-Large's form (conv_last 160 -> 960 hswish, head 960 -> 1280 hswish,
+    # fc): no model of the port runs it yet, so it adds nothing per forward
+    mk = lambda dt: rand_head(gen, 256, hw, 160, (960, "hswish"),  # noqa: E731
+                              [(1280, "hswish"), (1000, "linear")], dt)
+    check_float(summary, "fused_head[conv_last]",
+                "(256,7,7,160) conv_last 960 hswish -> 1280 hswish -> 1000", 0,
+                fused_head, fused_head_plain, mk(torch.float32), mk(torch.bfloat16),
+                lambda kind: head_work(256, hw, 160, 960, [1280, 1000], kind))
+
+    # -- 11. V2 pipeline: kernel route vs plain route -----------------------------
+    pipe = InferencePipeline(cfg, device="cuda")
+    check_routes(pipe, mobilenet_v2.forward_v2, V2Config(ALPHA, RES, compute_dtype="float32"),
+                 V2_F32_ATOL, V2_F32_RTOL, anchored=True)
+
+    # -- 12. V2 benchmark; batch-1 "mixed" vs "auto" ------------------------------
+    emit("benchmark", model=cfg.variant_name(), route="auto", nvidia_smi=smi,
+         **pipe.benchmark(batch_size=256, steps=40))
+    plain = InferencePipeline(cfg, device="cuda", dw_backend="plain")
+    emit("benchmark", model=cfg.variant_name(), route="plain", nvidia_smi=smi,
+         **plain.benchmark(batch_size=256, steps=5, latency_iters=10))
+    del plain
+    torch.cuda.empty_cache()
+    mixed = InferencePipeline(cfg, device="cuda", dw_backend="mixed")
+    emit("latency_b1", model=cfg.variant_name(), nvidia_smi=smi,
+         **batch1_latency([("auto", pipe), ("mixed", mixed)]))
+    del mixed
+
+    # -- 13. the V2 float main path: 64-stream server -------------------------------
+    got = serve_main_path(pipe, kernels, ("inverted_residual", "fused_head", "separable_block"),
+                          "serving_v2", smi)
+    launches["inverted_residual"] = got["inverted_residual"]
+    launches["fused_head[conv_last]"] = got["fused_head"]
+    launches["separable_block[linear]"] = got["separable_block"]
+    del pipe
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -347,7 +676,7 @@ def main() -> int:
     from mobilenet_tpu_torch.ops.chain import chain, chain_plain
     from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
-    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual
     from mobilenet_tpu_torch.ops.separable_block import (
         separable_block, separable_block_plain,
     )
@@ -368,8 +697,6 @@ def main() -> int:
          build_s=build_s, nvcc_seconds=_build.build_seconds, ptxas=ptxas)
 
     # -- 2. kernels vs plain at main-path shapes --------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {
@@ -385,99 +712,31 @@ def main() -> int:
                   "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120"},
     }
     for s in summary.values():
-        s.update(max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0,
-                 bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, library_ms=LIBRARY_MS)
-
-    def check(kname, shape_name, count, kfn, pfn, args_f32, args_bf16, work):
-        row = {}
-        for tag, args, atol, rtol in (("f32", args_f32, F32_ATOL, F32_RTOL),
-                                      ("bf16", args_bf16, BF16_ATOL, BF16_RTOL)):
-            got = kfn(*args)
-            ref = pfn(*args)
-            torch.cuda.synchronize()
-            err = compare(f"{kname} {shape_name} {tag}", got, ref, atol, rtol)
-            kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
-            row[tag] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
-                        "atol": atol, "rtol": rtol}
-            b_ms, b_by, t_b, t_o = bound(*work(tag), tag)
-            row[tag].update(bound_ms=b_ms, bound_by=b_by)
-            s = summary[kname]
-            if tag == "bf16":
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                s["ms"] += count * kms
-                s["plain_ms"] += count * pms
-                s["bound_ms"] += count * b_ms
-                s["bytes_ms"] += count * t_b
-                s["ops_ms"] += count * t_o
-            else:
-                s["max_abs_err_f32"] = max(s["max_abs_err_f32"], err)
-        emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
-             library_ms=LIBRARY_MS, **row)
+        s.update(FLOAT_ROW)
 
     for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
         mk = lambda dt: rand_block(gen, n, h, cin, cout, dt) + (stride, True)  # noqa: E731
-        check("separable_block", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}", cnt,
-              separable_block, separable_block_plain, mk(torch.float32), mk(torch.bfloat16),
-              lambda kind: block_work(n, h, cin, cout, stride, kind))
+        check_float(summary, "separable_block", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}",
+                    cnt, separable_block, separable_block_plain, mk(torch.float32),
+                    mk(torch.bfloat16), lambda kind: block_work(n, h, cin, cout, stride, kind))
         torch.cuda.empty_cache()
     hw, c = cfg.final_spatial, cfg.feature_channels
     for n in (256, 1):
-        def mk_head(dt):
-            x = (torch.rand(n, hw, hw, c, generator=gen, device="cuda") * 6).to(dt)
-            w = (torch.randn(c, cfg.num_classes, generator=gen, device="cuda")
-                 / c ** 0.5).to(dt)
-            b = (torch.randn(cfg.num_classes, generator=gen, device="cuda") * 0.1).to(dt)
-            return x, w, b
-        def head_work(kind, n=n, k=cfg.num_classes):
-            e = ELEM_BYTES[kind][0]
-            return ((n * hw * hw * c + c * k + k + n * k) * e,
-                    n * hw * hw * c + 2 * n * c * k)
-        check("fused_head", f"({n},{hw},{hw},{c})->{cfg.num_classes}", int(n == 256),
-              lambda x, w, b: fused_head(x, None, [(w, b, "linear")]),
-              fused_head_plain, mk_head(torch.float32), mk_head(torch.bfloat16), head_work)
+        mk = lambda dt: rand_head(gen, n, hw, c, None, [(cfg.num_classes, "linear")], dt)  # noqa: E731
+        check_float(summary, "fused_head", f"({n},{hw},{hw},{c})->{cfg.num_classes}",
+                    int(n == 256), fused_head, fused_head_plain, mk(torch.float32),
+                    mk(torch.bfloat16),
+                    lambda kind: head_work(n, hw, c, None, [cfg.num_classes], kind))
     hc, cc = RES // 16, cfg.block_channels[6]
     mkc = lambda dt: rand_block(gen, 1, hc, cc, cc, dt, k=5) + (True,)  # noqa: E731
-    check("chain", f"(1,{hc},{hc},{cc}) x5", 1, chain, chain_plain,
-          mkc(torch.float32), mkc(torch.bfloat16),
-          lambda kind: block_work(1, hc, cc, cc, 1, kind, k=5))
+    check_float(summary, "chain", f"(1,{hc},{hc},{cc}) x5", 1, chain, chain_plain,
+                mkc(torch.float32), mkc(torch.bfloat16),
+                lambda kind: block_work(1, hc, cc, cc, 1, kind, k=5))
 
     # -- 3. pipeline: kernel route vs plain route ---------------------------------
     pipe = InferencePipeline(cfg, device="cuda")
-    rng = np.random.default_rng(0)
-    with torch.inference_mode():
-        for batch in (256, 1):
-            imgs = torch.from_numpy(
-                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
-            x = preprocess(imgs, RES, torch.bfloat16)
-            got = mobilenet_v1.forward(pipe.params, x, cfg, dw_backend="auto").float()
-            ref = mobilenet_v1.forward(pipe.params, x, cfg, dw_backend="plain").float()
-            torch.cuda.synchronize()
-            scale = float(ref.abs().max())
-            atol = max(ROUTE_ATOL, ROUTE_REL * scale)
-            err = compare(f"pipeline bf16 batch {batch}", got, ref, atol, 0.0)
-            top_k, top_p = got.argmax(-1), ref.argmax(-1)
-            flips = (top_k != top_p).nonzero().flatten().tolist()
-            for i in flips:  # a flip is allowed only between near-tied classes
-                gap = float(ref[i, top_p[i]] - ref[i, top_k[i]])
-                if gap > atol:
-                    raise AssertionError(f"batch {batch} row {i}: top-1 {int(top_k[i])} "
-                                         f"vs plain {int(top_p[i])}, gap {gap:.3e}")
-            emit("pipeline", dtype="bfloat16", batch=batch, max_abs_err=err,
-                 atol=atol, logits_absmax=scale, top1_agree=batch - len(flips),
-                 rows=batch)
-        cfg32 = ModelConfig(ALPHA, RES, compute_dtype="float32")
-        pipe32 = InferencePipeline(cfg32, device="cuda")
-        x32 = torch.from_numpy(
-            rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)).cuda()
-        got = mobilenet_v1.forward(pipe32.params, x32, cfg32, dw_backend="auto")
-        ref = mobilenet_v1.forward(pipe32.params, x32, cfg32, dw_backend="plain")
-        err = compare("pipeline f32 batch 2", got, ref, F32_ATOL, F32_RTOL)
-        if not torch.equal(got.argmax(-1), ref.argmax(-1)):
-            raise AssertionError("pipeline f32: top-1 differs from the plain route")
-        emit("pipeline", dtype="float32", batch=2, max_abs_err=err,
-             atol=F32_ATOL, rtol=F32_RTOL, top1_agree=2, rows=2)
-        del pipe32
-    torch.cuda.empty_cache()
+    check_routes(pipe, mobilenet_v1.forward, ModelConfig(ALPHA, RES, compute_dtype="float32"),
+                 F32_ATOL, F32_RTOL)
 
     # -- 4. benchmark ----------------------------------------------------------
     bench = pipe.benchmark(batch_size=256, steps=40)
@@ -491,7 +750,7 @@ def main() -> int:
     # -- 5. the float main path: 64-stream server -------------------------------
     kernels = {"separable_block": separable_block, "fused_head": fused_head,
                "chain": chain, "separable_block_i8": separable_block_i8,
-               "depthwise_i8": depthwise_i8}
+               "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual}
     launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
                                "serving", smi)
     del pipe
@@ -499,11 +758,14 @@ def main() -> int:
 
     # -- 6-9. the int8 path -------------------------------------------------------
     summary.update(int8_phases(smi, kernels, launches))
+
+    # -- 10-13. the V2 float path ---------------------------------------------------
+    summary.update(v2_phases(smi, gen, kernels, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 
     print(json.dumps({"kernels": [
-        {"name": k, **summary[k], "launches": launches[k]} for k in kernels]}), flush=True)
+        {"name": k, **summary[k], "launches": launches[k]} for k in summary]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

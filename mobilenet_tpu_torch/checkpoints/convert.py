@@ -1,9 +1,10 @@
 """Weights from the JAX package, and the layouts the kernels want at load.
 
-`from_jax_params` takes the JAX package's folded tree as numpy arrays (the
-same nested dict/list scheme and NHWC/HWIO layouts this package uses) and
-returns device tensors ready for `models.mobilenet_v1.forward`. The tests use
-it so that both packages compute on the same weights.
+`from_jax_params` (V1) and `from_jax_params_v2` take the JAX package's
+folded tree as numpy arrays (the same nested dict/list scheme and NHWC/HWIO
+layouts this package uses) and return device tensors ready for
+`models.mobilenet_v1.forward` / `models.mobilenet_v2.forward_v2`. The tests
+use them so that both packages compute on the same weights.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ def from_jax_params(tree: Params, device, dtype: torch.dtype, strides) -> Params
     for key in ("conv1", "blocks", "fc"):
         if key not in tree:
             raise ValueError(f"not a folded V1 tree: missing {key!r}")
+    if "conv_last" in tree:
+        raise ValueError("a V2 tree (it has conv_last): use from_jax_params_v2")
     if len(tree["blocks"]) != len(strides):
         raise ValueError(f"tree has {len(tree['blocks'])} blocks, "
                          f"config has {len(strides)}")
@@ -53,3 +56,20 @@ def from_jax_params(tree: Params, device, dtype: torch.dtype, strides) -> Params
         "fc": {k: np.asarray(v) for k, v in tree["fc"].items()},
     }
     return prepare_kernel_layouts(to_device(host, device, dtype), strides)
+
+
+def from_jax_params_v2(tree: Params, device, dtype: torch.dtype, config) -> Params:
+    """JAX folded V2 tree (numpy leaves) -> this package's device tensors.
+    Raises on a tree that is not a folded V2 tree of `config` (a V2Config):
+    the block count, each block's expansion and the projection widths must
+    match `config.block_defs`."""
+    for key in ("conv1", "blocks", "conv_last", "fc"):
+        if key not in tree:
+            raise ValueError(f"not a folded V2 tree: missing {key!r}")
+    defs = config.block_defs
+    if len(tree["blocks"]) != len(defs):
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config has {len(defs)}")
+    for i, ((t, cin, cout, _s), blk) in enumerate(zip(defs, tree["blocks"])):
+        if ("exp" in blk) != (t > 1) or tuple(np.shape(blk["prj"]["w"])) != (t * cin, cout):
+            raise ValueError(f"block {i} does not match (t={t}, {cin}->{cout})")
+    return to_device(tree, device, dtype)

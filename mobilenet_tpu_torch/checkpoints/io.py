@@ -73,30 +73,31 @@ def init_params(config: ModelConfig, seed: int = 0) -> Params:
     return params
 
 
-def fold_bn(params: Params, eps: float = 1e-3) -> Params:
-    """Fold BatchNorm into conv weights + per-channel bias (float32, on host).
+def fold_weight(w: np.ndarray, bnp: Dict[str, np.ndarray], out_axis: int,
+                eps: float):
+    """One conv's BatchNorm folded into (weight, bias), float32 on host.
 
     s = gamma / sqrt(var + eps), b = beta - mean * s; the weight's
     output-channel axis absorbs s. Done in float64 then cast, as the JAX
     package does, so both packages hold the same folded bits.
     """
+    s64 = bnp["gamma"].astype(np.float64) / np.sqrt(bnp["var"].astype(np.float64) + eps)
+    b64 = bnp["beta"].astype(np.float64) - bnp["mean"].astype(np.float64) * s64
+    shape = [1] * w.ndim
+    shape[out_axis] = -1
+    w_f = (w.astype(np.float64) * s64.reshape(shape)).astype(np.float32)
+    return w_f, b64.astype(np.float32)
 
-    def fold(w: np.ndarray, bnp: Dict[str, np.ndarray], out_axis: int):
-        s64 = bnp["gamma"].astype(np.float64) / np.sqrt(
-            bnp["var"].astype(np.float64) + eps
-        )
-        b64 = bnp["beta"].astype(np.float64) - bnp["mean"].astype(np.float64) * s64
-        shape = [1] * w.ndim
-        shape[out_axis] = -1
-        w_f = (w.astype(np.float64) * s64.reshape(shape)).astype(np.float32)
-        return w_f, b64.astype(np.float32)
 
+def fold_bn(params: Params, eps: float = 1e-3) -> Params:
+    """Fold BatchNorm into conv weights + per-channel bias (float32, on
+    host; `fold_weight` per conv)."""
     out: Params = {"blocks": []}
-    w, b = fold(params["conv1"]["w"], params["conv1"]["bn"], out_axis=3)
+    w, b = fold_weight(params["conv1"]["w"], params["conv1"]["bn"], 3, eps)
     out["conv1"] = {"w": w, "b": b}
     for blk in params["blocks"]:
-        dw_w, dw_b = fold(blk["dw"]["w"], blk["dw"]["bn"], out_axis=3)
-        pw_w, pw_b = fold(blk["pw"]["w"], blk["pw"]["bn"], out_axis=1)
+        dw_w, dw_b = fold_weight(blk["dw"]["w"], blk["dw"]["bn"], 3, eps)
+        pw_w, pw_b = fold_weight(blk["pw"]["w"], blk["pw"]["bn"], 1, eps)
         out["blocks"].append({"dw": {"w": dw_w, "b": dw_b}, "pw": {"w": pw_w, "b": pw_b}})
     out["fc"] = {"w": np.asarray(params["fc"]["w"]), "b": np.asarray(params["fc"]["b"])}
     return out

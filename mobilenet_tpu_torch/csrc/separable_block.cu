@@ -5,7 +5,9 @@
 // ops/pallas_block_packed.py separable_block_packed (:132) and
 // separable_block_packed_s2 (:371): the packing existed only for the TPU's
 // (8,128) vector tiles, so narrow blocks (C = 32/64) run this same dense
-// NHWC kernel.
+// NHWC kernel. pw_act = 0 is the packed kernels' pw_epilogue=False mode:
+// the depthwise keeps its activation, the projection is bias only (the
+// linear bottleneck of MobileNet-V2's t == 1 block 0).
 //
 // What bounds it on an H100: at batch 256 the block is a bf16 GEMM of
 // M = N*Ho*Wo pixels by K = Cin by Cout (13 to 26 GFLOP per block, ~290 for
@@ -23,25 +25,27 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool kPwAct>
 __global__ void __launch_bounds__(mnk::THREADS)
     separable_block_kernel(const T* __restrict__ x, const T* __restrict__ dw_w,
                            const T* __restrict__ dw_b, const T* __restrict__ pw_w,
                            const T* __restrict__ pw_b, T* __restrict__ out,
                            mnk::BlockShape s) {
   __shared__ __align__(128) unsigned char smem[mnk::TILE_SMEM_BYTES];
-  mnk::separable_tile<T, false>(x, dw_w, dw_b, pw_w, pw_b, out, s, blockIdx.x, smem);
+  mnk::separable_tile<T, false, kPwAct>(x, dw_w, dw_b, pw_w, pw_b, out, s, blockIdx.x, smem);
 }
 
 template <typename T>
 int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
            const void* pw_b, void* out, int N, int H, int W, int Cin, int Cout,
-           int stride, int relu6, void* stream) {
+           int stride, int relu6, int pw_act, void* stream) {
   mnk::BlockShape s = mnk::make_shape(N, H, W, Cin, Cout, stride, relu6);
   long long tiles = mnk::num_tiles(s);
   if (tiles <= 0) return (int)cudaSuccess;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  separable_block_kernel<T><<<(unsigned)tiles, mnk::THREADS, 0, (cudaStream_t)stream>>>(
+  // pw_act picks the instantiation: the activated epilogue has no runtime branch
+  auto kernel = pw_act ? separable_block_kernel<T, true> : separable_block_kernel<T, false>;
+  kernel<<<(unsigned)tiles, mnk::THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)dw_w, (const T*)dw_b, (const T*)pw_w, (const T*)pw_b,
       (T*)out, s);
   return (int)cudaGetLastError();
@@ -53,18 +57,18 @@ extern "C" {
 
 int separable_block_bf16(const void* x, const void* dw_w, const void* dw_b,
                          const void* pw_w, const void* pw_b, void* out, int N, int H,
-                         int W, int Cin, int Cout, int stride, int relu6,
+                         int W, int Cin, int Cout, int stride, int relu6, int pw_act,
                          void* stream) {
   return launch<__nv_bfloat16>(x, dw_w, dw_b, pw_w, pw_b, out, N, H, W, Cin, Cout,
-                               stride, relu6, stream);
+                               stride, relu6, pw_act, stream);
 }
 
 int separable_block_f32(const void* x, const void* dw_w, const void* dw_b,
                         const void* pw_w, const void* pw_b, void* out, int N, int H,
-                        int W, int Cin, int Cout, int stride, int relu6,
+                        int W, int Cin, int Cout, int stride, int relu6, int pw_act,
                         void* stream) {
   return launch<float>(x, dw_w, dw_b, pw_w, pw_b, out, N, H, W, Cin, Cout, stride,
-                       relu6, stream);
+                       relu6, pw_act, stream);
 }
 
 const char* cuda_error_string(int code) {

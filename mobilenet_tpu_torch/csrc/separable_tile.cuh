@@ -12,8 +12,9 @@
 //   3. accumulates the product in f32: bf16 on the tensor cores through WMMA
 //      (mma.sync) 16x16x16 fragments, float32 on the CUDA cores by FMA, so
 //      the float32 instantiation stays exact float32.
-// The epilogue adds the pointwise bias in f32, applies the activation and
-// casts to the activation dtype. TF-SAME padding: stride 1 pads one pixel on
+// The epilogue adds the pointwise bias in f32, applies the activation (none
+// in the linear-projection instantiation kPwAct = false, MobileNet-V2's
+// t == 1 block 0) and casts to the activation dtype. TF-SAME padding: stride 1 pads one pixel on
 // each side; stride 2 (even input) pads only at the high end.
 #pragma once
 
@@ -89,7 +90,7 @@ __device__ __forceinline__ T load_x(const T* p) {
 // output-channel tiles of one pixel tile are neighbours in launch order, so
 // they find the pixel tile's input in L2; the pointwise weight (at most
 // 1024 x 1024) stays in L2 throughout.
-template <typename T, bool kCoherent>
+template <typename T, bool kCoherent, bool kPwAct = true>
 __device__ void separable_tile(const T* __restrict__ x, const T* __restrict__ dw_w,
                                const T* __restrict__ dw_b, const T* __restrict__ pw_w,
                                const T* __restrict__ pw_b, T* __restrict__ out,
@@ -242,7 +243,8 @@ __device__ void separable_tile(const T* __restrict__ x, const T* __restrict__ dw
     const long long p = m0 + r;
     const int co = n0 + cc;
     if (p < s.M && co < s.Cout) {
-      const float v = act(Cs[r * LDC + cc] + to_f(pw_b[co]), s.relu6);
+      float v = Cs[r * LDC + cc] + to_f(pw_b[co]);
+      if constexpr (kPwAct) v = act(v, s.relu6);
       out[p * s.Cout + co] = from_f<T>(v);
     }
   }

@@ -19,7 +19,7 @@ from ..checkpoints.convert import stack_run
 from ..config import ModelConfig
 from ..ops import conv as ops
 from ..ops.chain import chain, chain_fits, stride1_runs
-from ..ops.head import fused_head, head_fits
+from ..ops.head import fused_head
 from ..ops.preprocess import preprocess
 from ..ops.separable_block import separable_block
 
@@ -73,8 +73,7 @@ def forward(params: Dict[str, Any], x: torch.Tensor, config: ModelConfig, *,
         acts["conv1"] = y
     y = _run_blocks(params, y, config, routing, relu6, acts if collect else None)
 
-    if (not collect and routing[-1] == "fused"
-            and head_fits(int(y.shape[-1]), int(params["fc"]["w"].shape[-1]))):
+    if not collect and routing[-1] == "fused":
         return fused_head(y, None, [(params["fc"]["w"], params["fc"]["b"], "linear")])
     pooled = ops.global_avg_pool(y)
     if collect:

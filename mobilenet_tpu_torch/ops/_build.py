@@ -37,19 +37,32 @@ build_seconds: Optional[float] = None
 build_log: str = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_BLOCK = [_P] * 6 + [_I] * 7  # x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6
-_HEAD = [_P] * 4 + [_I] * 4   # x, fc_w, fc_b, out | N, HW, C, classes
+# x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6, pw_act
+_BLOCK = [_P] * 6 + [_I] * 8
+# x, conv_w, conv_b, w0, b0, w1, b1, pooled, out | N, HW, C, E, conv_act,
+# n_post, n0, act0, n1, act1 (acts: -1 none, 0 linear, 1 relu, 2 relu6, 3 hswish)
+_HEAD = [_P] * 9 + [_I] * 10
+# x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, out | N, H, W, Cin, E, Cout,
+# stride, residual, TH, TW
+_IR = [_P] * 8 + [_I] * 10
 _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
 # C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
     "separable_block_bf16": _BLOCK, "separable_block_f32": _BLOCK,
-    "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
     "chain_bf16": _CHAIN, "chain_f32": _CHAIN,
     # x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, out | N, H, W, Cin, Cout, stride,
     # relu6 | dw_six_q, pw_six_q
     "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2,
     # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
     "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
+    "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
+    "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
+}
+# C functions that launch nothing: (argument types, no stream; result type).
+_HOST_SIGNATURES = {
+    # Cin, Cout, stride, TH, TW, itemsize -> bytes of dynamic shared memory
+    "inverted_residual_smem_bytes": ([_I] * 6, ctypes.c_int),
+    "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 
@@ -122,8 +135,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [*argtypes, _P]
             fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [_I]
-        lib.cuda_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _lib = lib
         return lib
 

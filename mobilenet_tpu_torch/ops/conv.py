@@ -5,8 +5,8 @@ These are the port's own reference: the "plain" routing runs them, the
 per-layer taps (`forward(collect=True)`) use them, and the kernels' plain
 versions share their stencil. Cast points follow the JAX ops:
 - float32 runs in true float32 (the 9-tap stencil and the matmuls are
-  computed from float32 operands; a caller on the card sets
-  `torch.backends.cudnn.allow_tf32 = False` for the stem convolution);
+  computed from float32 operands, and the stem convolution turns cuDNN's
+  TF32 off around its call, whatever the global flag says);
 - the depthwise and stem convolutions produce the compute dtype and add
   their bias in it (XLA's bf16 convolution has a bf16 result);
 - the pointwise and fc products accumulate in float32 and add the bias there
@@ -16,6 +16,7 @@ TF-SAME padding is asymmetric at stride 2: (lo=0, hi=1) for even inputs.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -63,6 +64,22 @@ def dw_taps_f32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return acc
 
 
+@contextlib.contextmanager
+def _no_tf32(x: torch.Tensor):
+    """cuDNN convolutions in IEEE float32 for a float32 input on the card
+    (cuDNN's TF32 default keeps ~10 mantissa bits). A bf16 input needs no
+    guard: its values and their products are exact in TF32."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int,
                 bias: Optional[torch.Tensor] = None,
                 relu6: Optional[bool] = None) -> torch.Tensor:
@@ -72,7 +89,8 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int,
     k = int(w.shape[0])
     (ph0, ph1), (pw0, pw1) = same_pads(h, stride, k), same_pads(wd, stride, k)
     xc = F.pad(x.float().permute(0, 3, 1, 2), (pw0, pw1, ph0, ph1))
-    y = F.conv2d(xc, w.float().permute(3, 2, 0, 1), stride=stride)
+    with _no_tf32(x):
+        y = F.conv2d(xc, w.float().permute(3, 2, 0, 1), stride=stride)
     y = y.permute(0, 2, 3, 1).to(x.dtype)
     return bias_act(y, bias, relu6).to(x.dtype)
 

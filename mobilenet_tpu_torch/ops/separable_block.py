@@ -4,7 +4,9 @@ and its plain PyTorch version.
 Replaces the TPU kernels `mobilenet_tpu/ops/pallas_block.py`
 `separable_block_pallas` and the lane-packed `ops/pallas_block_packed.py`
 `separable_block_packed` / `separable_block_packed_s2`; every block, narrow
-or wide, runs this one dense NHWC kernel. What bounds it on the card and what
+or wide, runs this one dense NHWC kernel. `pw_act=False` is the packed
+kernels' `pw_epilogue=False` mode (a linear projection: MobileNet-V2's
+block 0). What bounds it on the card and what
 the design does about it is in the CUDA source's header.
 """
 
@@ -34,6 +36,14 @@ def check_kernel_args(name: str, *tensors: torch.Tensor) -> str:
     return KERNEL_DTYPES[x.dtype]
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Kernels that move rows as 16-byte vectors need 16-byte-aligned data
+    (a fresh allocation always is; a view into one may not be)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data is not 16-byte aligned")
+
+
 def check_channels(name: str, *channels: int) -> None:
     for c in channels:
         if c <= 0 or c % 8:
@@ -42,20 +52,22 @@ def check_channels(name: str, *channels: int) -> None:
 
 
 def separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride: int,
-                          relu6: bool = True) -> torch.Tensor:
+                          relu6: bool = True, pw_act: bool = True) -> torch.Tensor:
     """The kernel's arithmetic in plain ops: f32 taps, + dw bias in f32,
     activation, cast to the weight dtype, f32 product, + pw bias in f32,
-    activation, cast to x's dtype."""
+    activation (none if not pw_act), cast to x's dtype."""
     y = apply_activation(dw_taps_f32(x, dw_w, stride) + dw_b.float(), relu6)
     n, ho, wo, cin = y.shape
-    y = y.to(pw_w.dtype).float().reshape(n * ho * wo, cin) @ pw_w.float()
-    y = apply_activation(y + pw_b.float(), relu6)
+    y = y.to(pw_w.dtype).float().reshape(n * ho * wo, cin) @ pw_w.float() + pw_b.float()
+    if pw_act:
+        y = apply_activation(y, relu6)
     return y.reshape(n, ho, wo, -1).to(x.dtype)
 
 
 def separable_block(x, dw_w, dw_b, pw_w, pw_b, stride: int,
-                    relu6: bool = True) -> torch.Tensor:
-    """dw 3x3 (TF-SAME, stride 1 or 2) + bias + act -> pw 1x1 + bias + act.
+                    relu6: bool = True, pw_act: bool = True) -> torch.Tensor:
+    """dw 3x3 (TF-SAME, stride 1 or 2) + bias + act -> pw 1x1 + bias + act
+    (pw_act=False: pw 1x1 + bias, linear).
 
     x (N,H,W,Cin), dw_w (3,3,1,Cin), dw_b (Cin,), pw_w (Cin,Cout),
     pw_b (Cout,) -> (N,Ho,Wo,Cout). On CPU tensors this is the plain
@@ -77,7 +89,7 @@ def separable_block(x, dw_w, dw_b, pw_w, pw_b, stride: int,
         raise ValueError(f"{name}: stride 2 needs an even input, got {h}x{w}")
     check_channels(name, cin, cout)
     if x.device.type == "cpu":
-        return separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride, relu6)
+        return separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride, relu6, pw_act)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.library()
@@ -86,7 +98,7 @@ def separable_block(x, dw_w, dw_b, pw_w, pw_b, stride: int,
     fn = getattr(lib, f"separable_block_{sfx}")
     code = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
               pw_b.data_ptr(), out.data_ptr(), n, h, w, cin, cout, stride,
-              int(relu6), torch.cuda.current_stream(x.device).cuda_stream)
+              int(relu6), int(pw_act), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
     separable_block.launches += 1
     return out

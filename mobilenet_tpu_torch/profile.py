@@ -1,10 +1,12 @@
 """Where the device time of one pipeline forward goes, by kernel name.
 
-    python -m mobilenet_tpu_torch.profile [--int8] [--batch 256 1] [--steps 10]
+    python -m mobilenet_tpu_torch.profile [--model v1|v2] [--int8] \\
+        [--batch 256 1] [--steps 10]
 
-Builds the MobileNet-V1 1.0-224 pipeline (bf16, or int8 with --int8) on the
-card, warms it on one device-resident uint8 batch, then records `--steps`
-forwards under torch.profiler (CPU + CUDA).
+Builds the 1.0-224 pipeline of MobileNet-V1 (bf16, or int8 with --int8) or
+of MobileNet-V2 (--model v2, bf16) on the card, warms it on one
+device-resident uint8 batch, then records `--steps` forwards under
+torch.profiler (CPU + CUDA).
 Prints one JSON line: the window's wall time (CUDA events), the device
 busy time (the sum of the device activities' durations: one stream, so they
 do not overlap), the idle share, and the device time per kernel name, most
@@ -54,21 +56,25 @@ def profile(pipe, batch: int, steps: int, top: int = 12):
 
 
 def main(argv=None):
-    from . import InferencePipeline, Int8Pipeline, ModelConfig  # noqa: PLC0415
+    from . import InferencePipeline, Int8Pipeline  # noqa: PLC0415
+    from .runtime.serving import make_config  # noqa: PLC0415
 
     p = argparse.ArgumentParser(prog="mobilenet_tpu_torch.profile")
-    p.add_argument("--int8", action="store_true")
+    p.add_argument("--model", default="v1", choices=["v1", "v2"])
+    p.add_argument("--int8", action="store_true", help="the V1 int8 path")
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--steps", type=int, default=10)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.profile measures the card; "
                          "torch.cuda.is_available() is False")
-    cfg = ModelConfig(1.0, 224, compute_dtype="bfloat16")
+    if args.int8 and args.model != "v1":
+        raise SystemExit("--int8 profiles the V1 int8 path only")
+    cfg = make_config(args.model, 1.0, 224, "bfloat16")
     pipe = (Int8Pipeline(cfg, device="cuda") if args.int8
             else InferencePipeline(cfg, device="cuda"))
     for batch in args.batch:
-        print(json.dumps({"path": "int8" if args.int8 else "bfloat16",
+        print(json.dumps({"model": args.model, "path": "int8" if args.int8 else "bfloat16",
                           **profile(pipe, batch, args.steps)}), flush=True)
 
 

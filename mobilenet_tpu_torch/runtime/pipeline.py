@@ -1,9 +1,9 @@
-"""Inference runtime: device-resident weights and the V1 entry points.
+"""Inference runtime: device-resident weights and the entry points.
 
-The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1 on one
-device. `PipelineBase` holds the uint8-in paths (classify, run_batch,
-benchmark) that the float `InferencePipeline` and the int8
-`quant.model.Int8Pipeline` share. The weights move to the device once, at construction. PyTorch runs
+The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1 and
+MobileNet-V2 on one device. `PipelineBase` holds the uint8-in paths
+(classify, run_batch, benchmark) that the float `InferencePipeline` and the
+int8 `quant.model.Int8Pipeline` share. The weights move to the device once, at construction. PyTorch runs
 eagerly, so an "entry" is a plain function; each call runs the kernels on
 the current CUDA stream. `benchmark()` times with CUDA events on a
 device-resident batch and refuses to run without a card.
@@ -17,10 +17,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..checkpoints import fold_bn, init_params, to_device
+from ..checkpoints import fold_bn, fold_bn_v2, init_params, init_params_v2, to_device
 from ..checkpoints.convert import prepare_kernel_layouts
 from ..config import ModelConfig
-from ..models import mobilenet_v1
+from ..models import mobilenet_v1, mobilenet_v2
+from ..models.mobilenet_v2 import V2Config
 from ..ops.preprocess import preprocess
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -126,23 +127,34 @@ class PipelineBase:
 
 
 class InferencePipeline(PipelineBase):
-    """Owns device-resident weights and the entry points for one V1 variant."""
+    """Owns device-resident weights and the entry points for one V1 variant
+    (a ModelConfig) or one V2 variant (a V2Config)."""
 
-    def __init__(self, config: ModelConfig, params: Optional[Dict[str, Any]] = None,
+    def __init__(self, config, params: Optional[Dict[str, Any]] = None,
                  *, device="cuda", seed: int = 0, dw_backend: Any = "auto",
                  dtype: Optional[torch.dtype] = None):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
-        or a per-block tuple (models.mobilenet_v1._routing)."""
+        a per-block tuple (models.mobilenet_v1._routing), or for V2 also
+        "mixed" (models.mobilenet_v2._routing_v2)."""
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
         self.dw_backend = dw_backend
+        if isinstance(config, V2Config):
+            host = params if params is not None else fold_bn_v2(
+                init_params_v2(config, seed=seed), eps=config.bn_eps)
+            self.params = to_device(host, self.device, self.dtype)
+            self._forward, self._predict = mobilenet_v2.forward_v2, mobilenet_v2.predict_probs_v2
+            return
+        if not isinstance(config, ModelConfig):
+            raise TypeError(f"config must be a ModelConfig or a V2Config, got {config!r}")
         host = params if params is not None else fold_bn(
             init_params(config, seed=seed), eps=config.bn_eps)
         self.params = prepare_kernel_layouts(
             to_device(host, self.device, self.dtype), config.block_strides)
+        self._forward, self._predict = mobilenet_v1.forward, mobilenet_v1.predict_probs
 
     # -- entries ------------------------------------------------------------
 
@@ -151,16 +163,15 @@ class InferencePipeline(PipelineBase):
         if kind == "probs_u8":
             def fn(images_u8):
                 x = preprocess(images_u8, cfg.resolution, self.dtype)
-                return mobilenet_v1.predict_probs(self.params, x, cfg,
-                                                  dw_backend=self.dw_backend)
+                return self._predict(self.params, x, cfg, dw_backend=self.dw_backend)
         elif kind == "probs_f":
             def fn(x):
-                return mobilenet_v1.predict_probs(self.params, x.to(self.dtype), cfg,
-                                                  dw_backend=self.dw_backend)
+                return self._predict(self.params, x.to(self.dtype), cfg,
+                                     dw_backend=self.dw_backend)
         elif kind == "collect":
             def fn(x):
-                return mobilenet_v1.forward(self.params, x.to(self.dtype), cfg,
-                                            dw_backend=self.dw_backend, collect=True)
+                return self._forward(self.params, x.to(self.dtype), cfg,
+                                     dw_backend=self.dw_backend, collect=True)
         else:
             raise KeyError(kind)
         return fn

@@ -1,7 +1,7 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
-The port of the JAX package's `runtime/serving.py` for one V1 variant, float
-or int8, on one device:
+The port of the JAX package's `runtime/serving.py` for one variant on one
+device: MobileNet-V1 float or int8, or MobileNet-V2 float:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
     `max_delay_ms`), pads to the smallest precomputed bucket that fits, and
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..models.mobilenet_v2 import V2Config
 
 
 def _is_retryable_device_error(e: BaseException) -> bool:
@@ -277,10 +278,40 @@ async def selftest(server: MicroBatchServer, streams: int = 64,
     }
 
 
-def build_server(cfg: ModelConfig, streams: int, *, device="cuda", seed: int = 0,
+MODELS = ("v1", "v2")
+
+
+def make_config(model: str, alpha: float, res: int, dtype: str = "bfloat16"):
+    """ModelConfig (model "v1") or V2Config ("v2") of one variant."""
+    if model == "v2":
+        return V2Config(alpha=float(alpha), resolution=int(res), compute_dtype=dtype)
+    if model == "v1":
+        return ModelConfig(alpha=float(alpha), resolution=int(res), compute_dtype=dtype)
+    raise ValueError(f"model {model!r} not in {MODELS}")
+
+
+def config_from_variant(spec: str, dtype: str = "bfloat16"):
+    """The JAX package's variant string: "alpha:res" (V1) or
+    "model:alpha:res", e.g. "v2:1.0:224"."""
+    parts = spec.split(":")
+    if len(parts) == 2:
+        parts = ["v1", *parts]
+    if len(parts) != 3:
+        raise ValueError(f"variant {spec!r} is not 'alpha:res' or 'model:alpha:res'")
+    return make_config(parts[0], float(parts[1]), int(parts[2]), dtype)
+
+
+def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
                  params=None, int8: bool = False) -> MicroBatchServer:
-    """One V1 variant on one device, `streams`-wide micro-batches: the float
-    InferencePipeline, or with int8=True the quantized Int8Pipeline."""
+    """One variant on one device, `streams`-wide micro-batches: the float
+    InferencePipeline of a ModelConfig or a V2Config (or of a variant
+    string, `config_from_variant`, in bfloat16), or with int8=True the
+    quantized V1 Int8Pipeline."""
+    if isinstance(cfg, str):
+        cfg = config_from_variant(cfg)
+    if int8 and isinstance(cfg, V2Config):
+        raise NotImplementedError("int8 MobileNet-V2 serving is not ported yet: it is "
+                                  "the next slice of the port (V2 int8, quant/v2.py)")
     if int8:
         from ..quant.model import Int8Pipeline  # noqa: PLC0415
 
@@ -294,11 +325,12 @@ def build_server(cfg: ModelConfig, streams: int, *, device="cuda", seed: int = 0
 
 def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
                device="cuda", seed: int = 0, selftest_only: bool = True, params=None,
-               int8: bool = False):
+               int8: bool = False, model: str = "v1"):
     """Build the server, run the selftest (one JSON line of stats), then, if
-    not selftest_only, serve NDJSON over TCP on `port` until killed. `dtype`
-    is the float path's compute dtype; int8=True serves the int8 path."""
-    cfg = ModelConfig(alpha=float(alpha), resolution=int(res), compute_dtype=dtype)
+    not selftest_only, serve NDJSON over TCP on `port` until killed. `model`
+    is "v1" or "v2"; `dtype` is the float path's compute dtype; int8=True
+    serves the V1 int8 path."""
+    cfg = make_config(model, alpha, res, dtype)
 
     async def run():
         server = build_server(cfg, streams, device=device, seed=seed, params=params,

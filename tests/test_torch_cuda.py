@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 ragged and narrow shapes of the whole alpha grid (partial pixel and channel
-tiles, C = 8 .. 1024). Marked `cuda`: skipped without a card. Imports no
-JAX, so it runs where JAX is not installed:
+tiles, C = 8 .. 1024), the V1 and V2 kernel routes against the plain
+routes, and the float32 stem against float64 without any TF32 flag set.
+Marked `cuda`: skipped without a card. Imports no JAX, so it runs where JAX
+is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
@@ -10,13 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from mobilenet_tpu_torch import InferencePipeline, Int8Pipeline, ModelConfig
+from mobilenet_tpu_torch import InferencePipeline, Int8Pipeline, ModelConfig, V2Config
 from mobilenet_tpu_torch.checkpoints import fold_bn, init_params
-from mobilenet_tpu_torch.models import mobilenet_v1
+from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2
+from mobilenet_tpu_torch.ops import _build
 from mobilenet_tpu_torch.ops import preprocess as prep
 from mobilenet_tpu_torch.ops.chain import chain, chain_plain
 from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8, depthwise_i8_plain
 from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
+from mobilenet_tpu_torch.ops.inverted_residual import (
+    inverted_residual, inverted_residual_plain, ir_plan, ir_smem_bytes,
+)
 from mobilenet_tpu_torch.ops.separable_block import (
     separable_block, separable_block_plain,
 )
@@ -83,7 +89,8 @@ def test_fused_head(dev, dtype, n, hw, c, classes):
     rng = np.random.default_rng(n)
     x = _t(rng, (n, hw, hw, c), dtype, dev, lo=0)
     w, b = _t(rng, (c, classes), dtype, dev, c ** -0.5), _t(rng, (classes,), dtype, dev, 0.1)
-    _close(fused_head(x, None, [(w, b, "linear")]), fused_head_plain(x, w, b), dtype)
+    post = [(w, b, "linear")]
+    _close(fused_head(x, None, post), fused_head_plain(x, None, post), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -119,6 +126,122 @@ def test_pipeline_routes_agree(dev, alpha, res):
             ref = mobilenet_v1.forward(pipe.params, x, cfg, dw_backend="plain").float()
         atol = max(6e-2, 4.5e-2 * float(ref.abs().max()))
         torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+
+
+# -- V2 ----------------------------------------------------------------------
+
+
+def test_stem_is_true_float32_without_flags():
+    """The float32 pipeline's stem (conv1 tap) against a float64 convolution
+    on the card within golden.MM_TOL, with cuDNN's TF32 left at its default
+    (on): the stem turns it off around its own call. The size matters: at
+    1.0-224 batch 8 cuDNN picks a TF32 tensor-core kernel when allowed, at
+    0.25-128 batch 2 it does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = True  # the default
+    pipe = InferencePipeline(ModelConfig(1.0, 224), device="cuda", seed=3)
+    x = np.random.default_rng(3).uniform(-1, 1, (8, 224, 224, 3)).astype(np.float32)
+    _, acts = pipe.activations(x)
+    w, b = pipe.params["conv1"]["w"].double(), pipe.params["conv1"]["b"].double()
+    xc = torch.nn.functional.pad(torch.from_numpy(x).cuda().double().permute(0, 3, 1, 2),
+                                 (0, 1, 0, 1))  # TF-SAME at stride 2: (0, 1)
+    ref = torch.nn.functional.conv2d(xc, w.permute(3, 2, 0, 1), stride=2)
+    ref = (ref.permute(0, 2, 3, 1) + b).clamp(0, 6).cpu().numpy()
+    assert torch.backends.cudnn.allow_tf32
+    np.testing.assert_allclose(acts["conv1"], ref, atol=1e-4, rtol=3e-4)
+
+
+def _ir_args(rng, dev, dtype, n, h, cin, e, cout):
+    return (_t(rng, (n, h, h, cin), dtype, dev, 0.5), _t(rng, (cin, e), dtype, dev, cin ** -0.5),
+            _t(rng, (e,), dtype, dev, 0.3), _t(rng, (3, 3, 1, e), dtype, dev, 0.3),
+            _t(rng, (e,), dtype, dev, 0.2), _t(rng, (e, cout), dtype, dev, e ** -0.5),
+            _t(rng, (cout,), dtype, dev, 0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual", [
+    (2, 12, 24, 144, 24, 1, True),    # residual, Cin not a multiple of 32
+    (3, 10, 16, 96, 24, 2, False),    # V2 b01's widths at stride 2, ragged tiles
+    (1, 7, 160, 960, 320, 1, False),  # V2 b16's widths: TM x Cout at the limit
+    (2, 9, 8, 48, 8, 1, True),        # alpha 0.35's narrowest, odd side
+])
+def test_inverted_residual(dev, dtype, n, h, cin, e, cout, stride, residual):
+    rng = np.random.default_rng(cin + e)
+    args = _ir_args(rng, dev, dtype, n, h, cin, e, cout) + (stride, residual)
+    before = inverted_residual.launches
+    got = inverted_residual(*args)
+    assert inverted_residual.launches == before + 1
+    _close(got, inverted_residual_plain(*args), dtype)
+
+
+def test_ir_smem_plan_matches_kernel(dev):
+    """The Python mirror of the kernel's shared-memory plan equals the
+    kernel's own, for every V2 block's tile at batch 1 and 256 and both
+    itemsizes."""
+    lib = _build.library()
+    for alpha in (0.35, 1.0, 1.4):
+        h = 112
+        for t, cin, cout, stride in V2Config(alpha, 224).block_defs:
+            for n, item in ((1, 2), (256, 2), (1, 4), (256, 4)):
+                th, tw = ir_plan(n, h, h, cin, cout, stride, item)
+                assert lib.inverted_residual_smem_bytes(cin, cout, stride, th, tw, item) == \
+                    ir_smem_bytes(th, tw, cin, cout, stride, item)
+            h //= stride
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 16, 32, 16, 1), (3, 10, 8, 24, 2)])
+def test_separable_block_linear(dev, dtype, n, h, cin, cout, stride):
+    rng = np.random.default_rng(cin + cout + 1)
+    args = (_t(rng, (n, h, h, cin), dtype, dev, lo=-1), _t(rng, (3, 3, 1, cin), dtype, dev, 0.5),
+            _t(rng, (cin,), dtype, dev, 0.2), _t(rng, (cin, cout), dtype, dev, cin ** -0.5),
+            _t(rng, (cout,), dtype, dev, 0.2), stride, True)
+    got = separable_block(*args, pw_act=False)
+    _close(got, separable_block_plain(*args, pw_act=False), dtype)
+    assert (got < 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hw,c,e,posts,conv_act", [
+    (3, 7, 320, 1280, [(1000, "linear")], "relu6"),                    # V2
+    (5, 7, 160, 960, [(1280, "hswish"), (1000, "linear")], "hswish"),  # V3-Large
+    (1, 3, 24, 200, [], "relu"),                                        # no post
+])
+def test_fused_head_conv_last(dev, dtype, n, hw, c, e, posts, conv_act):
+    rng = np.random.default_rng(n + c)
+    x = _t(rng, (n, hw, hw, c), dtype, dev, lo=0)
+    conv = (_t(rng, (c, e), dtype, dev, c ** -0.5), _t(rng, (e,), dtype, dev, 0.1), conv_act)
+    post, k = [], e
+    for m, act in posts:
+        post.append((_t(rng, (k, m), dtype, dev, k ** -0.5), _t(rng, (m,), dtype, dev, 0.1), act))
+        k = m
+    _close(fused_head(x, conv, post), fused_head_plain(x, conv, post), dtype)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_v2_pipeline_routes_agree(dev, batch):
+    """V2 0.35-96: the float32 kernel route against the float32 plain route
+    at golden.V2_TOL; the bf16 kernel route against the bf16 plain route at
+    the JAX package's V2 routing gate (chip_smoke.py: the extreme-value term
+    over the logits, and no farther from the float32 route in RMS than 1.5x
+    the plain route's distance + 6e-2)."""
+    x = np.random.default_rng(batch).uniform(-1, 1, (batch, 96, 96, 3)).astype(np.float32)
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = V2Config(0.35, 96, compute_dtype=dtype)
+        pipe = InferencePipeline(cfg, device="cuda")
+        xd = torch.from_numpy(x).to(dev, pipe.dtype)
+        with torch.inference_mode():
+            logits[dtype] = [mobilenet_v2.forward_v2(pipe.params, xd, cfg, dw_backend=r).float()
+                             for r in ("auto", "plain")]
+    (got32, ref32), (got, ref) = logits["float32"], logits["bfloat16"]
+    torch.testing.assert_close(got32, ref32, atol=1e-3, rtol=1e-3)
+    rms = lambda t: float(t.pow(2).mean().sqrt())  # noqa: E731
+    atol = max(6e-2, 4.5e-2 * float(ref.abs().max()),
+               1.5 * rms(got - ref) * float(np.sqrt(2 * np.log(got.numel()))))
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+    assert rms(got - ref32) <= 1.5 * rms(ref - ref32) + 6e-2
 
 
 def test_cpu_tensor_never_launches(dev):

@@ -27,6 +27,15 @@ def test_no_jax_import(path):
 
 def test_import_builds_nothing():
     import mobilenet_tpu_torch.models.mobilenet_v1  # noqa: F401
+    import mobilenet_tpu_torch.models.mobilenet_v2  # noqa: F401
+    import mobilenet_tpu_torch.ops.inverted_residual  # noqa: F401
     from mobilenet_tpu_torch.ops import _build
 
     assert _build._lib is None
+
+
+def test_v2_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/models/mobilenet_v2.py",
+            "mobilenet_tpu_torch/checkpoints/v2.py",
+            "mobilenet_tpu_torch/ops/inverted_residual.py"} <= names
