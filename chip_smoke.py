@@ -6,7 +6,7 @@
 Needs one CUDA card, nvcc and the repo's `mobilenet_tpu_torch/` beside this
 file; imports nothing of JAX. Phases, one JSON line each:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
-     the nvcc build of the five kernels from `mobilenet_tpu_torch/csrc/`;
+     the nvcc build of the kernels from `mobilenet_tpu_torch/csrc/`;
   2. each float kernel against its plain PyTorch version at the main-path
      shapes of MobileNet-V1 1.0-224: float32 at a tight tolerance (TF32
      off), then bfloat16 at the working tolerance; max-abs error,
@@ -41,7 +41,17 @@ file; imports nothing of JAX. Phases, one JSON line each:
      latency of "mixed" against "auto" (alternating, in one process);
  13. the V2 float main path: counters set to 0, a 64-stream V2 server and
      one lone request; 0 errors, and the inverted-residual kernel, the
-     conv_last head and the block-0 kernel launched.
+     conv_last head and the block-0 kernel launched;
+ 14. the V2 int8 kernels against their plain versions at batch 256, exactly:
+     the int8 inverted-residual kernel at the 11 distinct expanded block
+     shapes of V2 1.0-224 and a saturation case, the int8 separable block's
+     linear mode at block 0's shape;
+ 15. the V2 int8 pipeline on one calibrated tree (calibration seconds
+     printed): kernel route against plain route, logits equal bit for bit at
+     batch 256 and 1; the per-layer gate verify_int8_v2 at batch 2, exact;
+ 16. the V2 int8 benchmark(): batch-256 img/s and batch-1 latency;
+ 17. the V2 int8 main path: counters set to 0, a 64-stream V2 int8 server
+     and one lone request; 0 errors and both V2 int8 kernels launched.
 Then one JSON line of per-kernel results and, last, the result line.
 Any failure raises and the script exits non-zero without the result line.
 
@@ -95,8 +105,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # bytes per element of (activations, weights, biases, multipliers)
 ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
-# No single PyTorch call computes any of the five kernels' functions
-# (fused dw+pw with requant, pool+fc, K chained blocks, int8 dw+requant).
+# No single PyTorch call computes any of the kernels' functions (fused dw+pw
+# with requant, pool+fc, K chained blocks, int8 dw+requant, fused expand +
+# dw + projection with or without requants).
 LIBRARY_MS = None
 
 
@@ -276,6 +287,36 @@ def int8_block_args(rng, n, h, cin, cout):
             *layer(cout, 2 / 60 / cin ** 0.5))
 
 
+def check_i8(summary, kname, shape_name, count, kfn, pfn, args, work, smi):
+    """One int8 kernel at one shape against its plain version, exactly
+    (torch.equal); CUDA-event times of both and the bound; the numbers,
+    times `count` (the shape's blocks per forward), add to the kernel's row
+    in `summary`. Returns the plain version's output."""
+    got, ref = kfn(*args), pfn(*args)
+    torch.cuda.synchronize()
+    if got.dtype != torch.int8 or got.shape != ref.shape:
+        raise AssertionError(f"{kname} {shape_name}: {got.dtype} {tuple(got.shape)} "
+                             f"vs {tuple(ref.shape)}")
+    err = float((got.int() - ref.int()).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{kname} {shape_name}: "
+                             f"{int((got != ref).sum())} elements differ (max {err})")
+    kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
+    b_ms, b_by, t_b, t_o = bound(*work, "int8")
+    emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
+         max_abs_err=err, tolerance=0, ms=kms, plain_ms=pms, bound_ms=b_ms,
+         bound_by=b_by, library_ms=LIBRARY_MS, zero_share=float((ref == 0).float().mean()),
+         saturated_share=float(((ref == 127) | (ref == -128)).float().mean()),
+         nvidia_smi=smi)
+    s = summary[kname]
+    s["ms"] += count * kms
+    s["plain_ms"] += count * pms
+    s["bound_ms"] += count * b_ms
+    s["bytes_ms"] += count * t_b
+    s["ops_ms"] += count * t_o
+    return ref
+
+
 def int8_phases(smi, kernels, launches):
     """Phases 6-9. Fills launches["separable_block_i8"] (the int8 server)
     and launches["depthwise_i8"] (the verify gate); returns the two kernels'
@@ -305,43 +346,21 @@ def int8_phases(smi, kernels, launches):
         s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                  ops_ms=0.0, library_ms=LIBRARY_MS)
 
-    def check(kname, shape_name, count, kfn, pfn, args, work):
-        got, ref = kfn(*args), pfn(*args)
-        torch.cuda.synchronize()
-        if got.dtype != torch.int8 or got.shape != ref.shape:
-            raise AssertionError(f"{kname} {shape_name}: {got.dtype} {tuple(got.shape)} "
-                                 f"vs {tuple(ref.shape)}")
-        err = float((got.int() - ref.int()).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"{kname} {shape_name}: "
-                                 f"{int((got != ref).sum())} elements differ (max {err})")
-        kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
-        b_ms, b_by, t_b, t_o = bound(*work, "int8")
-        emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
-             max_abs_err=err, tolerance=0, ms=kms, plain_ms=pms, bound_ms=b_ms,
-             bound_by=b_by, library_ms=LIBRARY_MS, nvidia_smi=smi)
-        s = summary[kname]
-        s["ms"] += count * kms
-        s["plain_ms"] += count * pms
-        s["bound_ms"] += count * b_ms
-        s["bytes_ms"] += count * t_b
-        s["ops_ms"] += count * t_o
-
     # -- 6. int8 kernels vs plain, exact ----------------------------------------
     rng = np.random.default_rng(0)
     dw_shapes = {}
     for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
         args = int8_block_args(rng, n, h, cin, cout)
-        check("separable_block_i8", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}", cnt,
-              block_i8, separable_block_i8_plain,
-              args + (stride, 127.0, 127.0, True), block_work(n, h, cin, cout, stride, "int8"))
+        check_i8(summary, "separable_block_i8", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}",
+                 cnt, block_i8, separable_block_i8_plain, args + (stride, 127.0, 127.0, True),
+                 block_work(n, h, cin, cout, stride, "int8"), smi)
         key = (n, h, cin, stride)
         dw_shapes[key] = (nm, args[:4], dw_shapes.get(key, (nm, None, 0))[2] + cnt)
         del args
         torch.cuda.empty_cache()
     for (n, h, c, stride), (nm, args, cnt) in dw_shapes.items():
-        check("depthwise_i8", f"{nm}_dw ({n},{h},{h},{c}) s{stride}", cnt, dw_i8,
-              depthwise_i8_plain, args + (127.0, stride, True), dw_work(n, h, c, stride))
+        check_i8(summary, "depthwise_i8", f"{nm}_dw ({n},{h},{h},{c}) s{stride}", cnt, dw_i8,
+                 depthwise_i8_plain, args + (127.0, stride, True), dw_work(n, h, c, stride), smi)
     del dw_shapes
     torch.cuda.empty_cache()
     imgs = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1).repeat(3, axis=-1)
@@ -665,6 +684,154 @@ def v2_phases(smi, gen, kernels, launches):
     return summary
 
 
+def int8_ir_args(rng, n, h, cin, e, cout, prj_gain=1.0):
+    """Random int8 inverted-residual operands on the card: x over the whole
+    int8 range (a bottleneck activation), int8 weights, int32 biases,
+    float32 multipliers that spread each requant over its range (prj_gain >
+    1 drives the projection into saturation); six_q 127 (the fixed 6/127
+    hidden scale)."""
+    def t(a):
+        return torch.from_numpy(a).cuda()
+
+    def layer(shape, c, m_scale):
+        return (t(rng.integers(-127, 128, shape).astype(np.int8)),
+                t(rng.integers(-5000, 5000, (c,)).astype(np.int32)),
+                t((rng.uniform(0.2, 1.5, (c,)) * m_scale).astype(np.float32)))
+
+    x = t(rng.integers(-128, 128, (n, h, h, cin)).astype(np.int8))
+    return (x, *layer((cin, e), e, 0.0113 / cin ** 0.5), 127.0,
+            *layer((3, 3, 1, e), e, 0.0055), 127.0,
+            *layer((e, cout), cout, prj_gain * 0.0137 / e ** 0.5))
+
+
+def v2_int8_phases(smi, kernels, launches):
+    """Phases 14-17. Fills launches["inverted_residual_i8"] and
+    launches["separable_block_i8[linear]"] from the V2 int8 server; returns
+    the two rows' summaries."""
+    from mobilenet_tpu_torch import Int8PipelineV2, V2Config
+    from mobilenet_tpu_torch.checkpoints import fold_bn_v2, init_params_v2
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
+        inverted_residual_i8, inverted_residual_i8_plain, ir_i8_plan, ir_i8_smem_bytes,
+    )
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.separable_block_i8 import (
+        separable_block_i8, separable_block_i8_plain,
+    )
+    from mobilenet_tpu_torch.quant import ACT_IN_SCALE
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.v2 import forward_v2_i8, quantize_v2
+    from mobilenet_tpu_torch.quant.verify import verify_int8_v2
+
+    cfg = V2Config(ALPHA, RES)
+    summary = {
+        "inverted_residual_i8": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/inverted_residual_i8.cu",
+            "replaces": "mobilenet_tpu/quant/pallas_ir_i8.py:237",
+            "also_replaces": ["mobilenet_tpu/quant/pallas_expand_s2_i8.py:163",
+                              "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290 (V2 bridge form)"]},
+        "separable_block_i8[linear]": {
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block_i8.cu",
+            "replaces": "mobilenet_tpu/quant/pallas_block_packed_i8.py:222 (pw_linear=True)"},
+    }
+    for s in summary.values():
+        s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                 ops_ms=0.0, library_ms=LIBRARY_MS)
+    linear = (lambda *a: separable_block_i8(*a, pw_linear=True),
+              lambda *a: separable_block_i8_plain(*a, pw_linear=True))
+
+    # -- 14. V2 int8 kernels vs plain, exact, at batch 256 ------------------------
+    lib = _build.library()
+    rng = np.random.default_rng(4)
+    plans = {}
+    for nm, n, h, t, cin, cout, stride, cnt in v2_block_shapes(cfg, 256):
+        name = f"{nm} ({n},{h},{h},{cin})->{cout} t{t} s{stride}"
+        if t == 1:
+            args = int8_block_args(rng, n, h, cin, cout) + (stride, 127.0, 0.0, True)
+            ref = check_i8(summary, "separable_block_i8[linear]", name, cnt, *linear, args,
+                           block_work(n, h, cin, cout, stride, "int8"), smi)
+            if not (ref < 0).any():
+                raise AssertionError(f"{name}: the linear mode gave no negative output")
+        else:
+            e, res = t * cin, stride == 1 and cin == cout
+            for b in (256, 1):
+                th, tw = plans[f"{nm} batch {b}"] = ir_i8_plan(b, h, h, cin, cout, stride)
+                c_bytes = lib.inverted_residual_i8_smem_bytes(cin, cout, stride, th, tw)
+                if c_bytes != ir_i8_smem_bytes(th, tw, cin, cout, stride):
+                    raise AssertionError(f"{name}: the int8 kernel plans {c_bytes} B of "
+                                         "shared memory, ir_i8_smem_bytes another")
+            args = int8_ir_args(rng, n, h, cin, e, cout) + (stride, res)
+            check_i8(summary, "inverted_residual_i8", name, cnt, inverted_residual_i8,
+                     inverted_residual_i8_plain, args,
+                     ir_work(n, h, cin, e, cout, stride, "int8"), smi)
+        del args
+        torch.cuda.empty_cache()
+    emit("ir_i8_plans", plans=plans)
+    # saturation: inputs at the rails, the projection driven past the int8 range
+    args = list(int8_ir_args(rng, 256, 56, 24, 144, 24, prj_gain=8.0)) + [1, True]
+    args[0] = torch.where(torch.rand(args[0].shape, device=args[0].device) < 0.5, 120,
+                          -120).to(torch.int8)
+    ref = check_i8(summary, "inverted_residual_i8", "saturation (256,56,56,24)->24 t6 s1 res",
+                   0, inverted_residual_i8, inverted_residual_i8_plain, args,
+                   ir_work(256, 56, 24, 144, 24, 1, "int8"), smi)
+    if not ((ref == 127).any() and (ref == -128).any()):
+        raise AssertionError("saturation case: the output did not reach both int8 rails")
+    del args, ref
+    torch.cuda.empty_cache()
+
+    # -- 15. V2 int8 routes on one calibrated tree; the per-layer gate -------------
+    folded = fold_bn_v2(init_params_v2(cfg, seed=0), eps=cfg.bn_eps)
+    t0 = time.perf_counter()
+    q = quantize_v2(folded, cfg)
+    emit("calibration", model=cfg.variant_name(), n_images=32,
+         seconds=time.perf_counter() - t0)
+    pipe = Int8PipelineV2(cfg, device="cuda", quantized=q)
+    with torch.inference_mode():
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            x_q = qops.quantize_input_dev(preprocess(imgs, RES), ACT_IN_SCALE)
+            got = forward_v2_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+            ref = forward_v2_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"V2 int8 pipeline batch {batch}: kernel route logits "
+                                     "differ from the plain route")
+            if not torch.isfinite(got).all() or got.shape != (batch, cfg.num_classes):
+                raise AssertionError(f"V2 int8 pipeline batch {batch}: bad logits")
+            emit("pipeline", model=cfg.variant_name(), dtype="int8", batch=batch,
+                 max_abs_err=0.0, tolerance=0, top1_agree=batch, rows=batch,
+                 logits_absmax=float(ref.abs().max()))
+    del imgs, x_q, got, ref
+    x = rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
+    ok = verify_int8_v2(cfg, fold_bn_v2(init_params_v2(cfg, seed=1), eps=cfg.bn_eps), x,
+                        n_calib=8, device="cuda")
+    emit("verify_int8_v2", model=cfg.variant_name(), batch=2, n_calib=8, exact=ok)
+    if not ok:
+        raise AssertionError("verify_int8_v2 at 1.0-224: a layer differs from the oracle")
+    torch.cuda.empty_cache()
+
+    # -- 16. V2 int8 benchmark ----------------------------------------------------
+    emit("benchmark", model=cfg.variant_name(), route="int8 auto", nvidia_smi=smi,
+         **pipe.benchmark(batch_size=256, steps=40))
+    plain = Int8PipelineV2(cfg, device="cuda", quantized=q, dw_backend="plain")
+    emit("benchmark", model=cfg.variant_name(), route="int8 plain", nvidia_smi=smi,
+         **plain.benchmark(batch_size=256, steps=5, latency_iters=10))
+    del plain
+    torch.cuda.empty_cache()
+
+    # -- 17. the V2 int8 main path: 64-stream server --------------------------------
+    # (the MicroBatchServer that build_server(V2Config, int8=True) builds, over
+    # the pipeline of the tree calibrated above)
+    got = serve_main_path(pipe, kernels, ("inverted_residual_i8", "separable_block_i8"),
+                          "serving_v2_int8", smi)
+    launches["inverted_residual_i8"] = got["inverted_residual_i8"]
+    launches["separable_block_i8[linear]"] = got["separable_block_i8"]
+    del pipe
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -677,6 +844,7 @@ def main() -> int:
     from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
     from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual
+    from mobilenet_tpu_torch.ops.inverted_residual_i8 import inverted_residual_i8
     from mobilenet_tpu_torch.ops.separable_block import (
         separable_block, separable_block_plain,
     )
@@ -750,7 +918,8 @@ def main() -> int:
     # -- 5. the float main path: 64-stream server -------------------------------
     kernels = {"separable_block": separable_block, "fused_head": fused_head,
                "chain": chain, "separable_block_i8": separable_block_i8,
-               "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual}
+               "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual,
+               "inverted_residual_i8": inverted_residual_i8}
     launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
                                "serving", smi)
     del pipe
@@ -761,6 +930,9 @@ def main() -> int:
 
     # -- 10-13. the V2 float path ---------------------------------------------------
     summary.update(v2_phases(smi, gen, kernels, launches))
+
+    # -- 14-17. the V2 int8 path ----------------------------------------------------
+    summary.update(v2_int8_phases(smi, kernels, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

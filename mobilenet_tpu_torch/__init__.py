@@ -1,8 +1,8 @@
 """mobilenet_tpu_torch: the PyTorch/CUDA port of mobilenet_tpu.
 
-MobileNet-V1 serving on an NVIDIA H100, float (`InferencePipeline`) and
-exact int8 (`Int8Pipeline`), and MobileNet-V2 float serving
-(`InferencePipeline(V2Config(...))`): plain PyTorch ops around hand-written
+MobileNet-V1 and MobileNet-V2 serving on an NVIDIA H100, float
+(`InferencePipeline`, with a ModelConfig or a V2Config) and exact int8
+(`Int8Pipeline`, `Int8PipelineV2`): plain PyTorch ops around hand-written
 CUDA kernels for Hopper (`csrc/`), built with nvcc at first use. The JAX package
 `mobilenet_tpu` is the reference it is tested against; this package never
 imports JAX.
@@ -12,3 +12,4 @@ from .config import ModelConfig  # noqa: F401
 from .models.mobilenet_v2 import V2Config  # noqa: F401
 from .runtime.pipeline import InferencePipeline  # noqa: F401
 from .quant.model import Int8Pipeline  # noqa: F401
+from .quant.v2 import Int8PipelineV2  # noqa: F401

@@ -5,7 +5,7 @@
         [--tcp --port 8000]
 
 `serve` builds the micro-batching server (MobileNet-V1 or -V2, the float
-path in --dtype, or V1's exact int8 path with --int8), runs a selftest of
+path in --dtype, or the model's exact int8 path with --int8), runs a selftest of
 `--streams` concurrent streams (one JSON line of stats), and with --tcp then
 serves NDJSON requests on --port until killed.
 """
@@ -46,8 +46,10 @@ def main(argv=None):
     sp.add_argument("--res", type=int, default=224)
     sp.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     sp.add_argument("--int8", action="store_true",
-                    help="serve the V1 int8 path (per-layer requantization, exact "
-                         "against the int8 oracle); --dtype is then unused")
+                    help="serve the exact int8 path of --model (per-layer "
+                         "requantization, exact against the int8 oracle; V2 "
+                         "calibrates its bottleneck scales at start); --dtype is "
+                         "then unused")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--ckpt", default=None, help="folded .npz checkpoint path")
     sp.add_argument("--device", default="cuda",

@@ -71,6 +71,13 @@ __device__ __forceinline__ int requant_i8(int acc, float m, float six_q, bool re
   return int(fminf(fmaxf(v, -128.0f), 127.0f));
 }
 
+// The linear requant of MobileNet-V2's projections (quant/v2.py): the same
+// multiply and rounding with no ReLU: clamp(rint(float32(acc) * m)).
+__device__ __forceinline__ int requant_linear_i8(int acc, float m) {
+  const float v = rintf(__fmul_rn(__int2float_rn(acc), m));
+  return int(fminf(fmaxf(v, -128.0f), 127.0f));
+}
+
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
   return (uint32_t(a) & 0xffu) | ((uint32_t(b) & 0xffu) << 8) |
          ((uint32_t(c) & 0xffu) << 16) | ((uint32_t(d) & 0xffu) << 24);

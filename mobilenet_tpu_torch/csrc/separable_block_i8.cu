@@ -29,6 +29,13 @@
 // 128-channel output tile. This is the simple first version: no load
 // pipelining, one barrier pair per 32-channel chunk; cp.async/TMA, wgmma
 // and a persistent schedule are later work.
+//
+// The linear mode (entry point separable_block_i8_linear) is the packed
+// kernel's pw_linear=True: the pointwise requant is the V2 linear-bottleneck
+// one, clamp(rint(float32(acc + bias) * m)), with no ReLU and no six_q
+// (MobileNet-V2's t == 1 block 0). It is a second instantiation of the
+// kernel template, not a runtime flag: the ReLU6 epilogue of the V1 blocks
+// keeps no branch.
 #include "int8_tile.cuh"
 
 namespace {
@@ -52,6 +59,7 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+template <bool kLinear>
 __global__ void __launch_bounds__(THREADS)
     separable_block_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ dw_w,
                               const int* __restrict__ dw_b, const float* __restrict__ dw_m,
@@ -135,8 +143,9 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
   }
 
-  // epilogue: + int32 bias, requant, int8 pairs. Cout is a multiple of 8, so
-  // an 8-channel fragment column is all in range or all out.
+  // epilogue: + int32 bias, requant (linear in the linear mode), int8 pairs.
+  // Cout is a multiple of 8, so an 8-channel fragment column is all in range
+  // or all out.
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int co = n0 + wn * 32 + j * 8 + tig * 2;
@@ -149,12 +158,34 @@ __global__ void __launch_bounds__(THREADS)
       for (int h = 0; h < 2; ++h) {
         const long long p = m0 + wm * 32 + i * 16 + g + 8 * h;
         if (p >= s.M) continue;
-        const int v0 = mnk::requant_i8(acc[i][j][2 * h] + b0, mm0, pw_six_q, s.relu6);
-        const int v1 = mnk::requant_i8(acc[i][j][2 * h + 1] + b1, mm1, pw_six_q, s.relu6);
+        int v0, v1;
+        if constexpr (kLinear) {
+          v0 = mnk::requant_linear_i8(acc[i][j][2 * h] + b0, mm0);
+          v1 = mnk::requant_linear_i8(acc[i][j][2 * h + 1] + b1, mm1);
+        } else {
+          v0 = mnk::requant_i8(acc[i][j][2 * h] + b0, mm0, pw_six_q, s.relu6);
+          v1 = mnk::requant_i8(acc[i][j][2 * h + 1] + b1, mm1, pw_six_q, s.relu6);
+        }
         *reinterpret_cast<char2*>(out + p * s.Cout + co) = make_char2(char(v0), char(v1));
       }
     }
   }
+}
+
+template <bool kLinear>
+int launch(const void* x, const void* dw_w, const void* dw_b, const void* dw_m,
+           const void* pw_w, const void* pw_b, const void* pw_m, void* out, int N, int H,
+           int W, int Cin, int Cout, int stride, int relu6, float dw_six_q, float pw_six_q,
+           void* stream) {
+  const mnk::I8Shape s = mnk::make_i8_shape(N, H, W, Cin, Cout, stride, relu6);
+  const long long tiles = ((s.M + TM - 1) / TM) * ((Cout + TN - 1) / TN);
+  if (tiles <= 0) return (int)cudaSuccess;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  separable_block_i8_kernel<kLinear><<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const int8_t*)dw_w, (const int*)dw_b, (const float*)dw_m,
+      (const int8_t*)pw_w, (const int*)pw_b, (const float*)pw_m, (int8_t*)out, s,
+      dw_six_q, pw_six_q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -165,15 +196,18 @@ int separable_block_i8(const void* x, const void* dw_w, const void* dw_b, const 
                        const void* pw_w, const void* pw_b, const void* pw_m, void* out,
                        int N, int H, int W, int Cin, int Cout, int stride, int relu6,
                        float dw_six_q, float pw_six_q, void* stream) {
-  const mnk::I8Shape s = mnk::make_i8_shape(N, H, W, Cin, Cout, stride, relu6);
-  const long long tiles = ((s.M + TM - 1) / TM) * ((Cout + TN - 1) / TN);
-  if (tiles <= 0) return (int)cudaSuccess;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  separable_block_i8_kernel<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)dw_w, (const int*)dw_b, (const float*)dw_m,
-      (const int8_t*)pw_w, (const int*)pw_b, (const float*)pw_m, (int8_t*)out, s,
-      dw_six_q, pw_six_q);
-  return (int)cudaGetLastError();
+  return launch<false>(x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, out, N, H, W, Cin, Cout,
+                       stride, relu6, dw_six_q, pw_six_q, stream);
+}
+
+// The linear mode: pw_six_q is not read.
+int separable_block_i8_linear(const void* x, const void* dw_w, const void* dw_b,
+                              const void* dw_m, const void* pw_w, const void* pw_b,
+                              const void* pw_m, void* out, int N, int H, int W, int Cin,
+                              int Cout, int stride, int relu6, float dw_six_q, float pw_six_q,
+                              void* stream) {
+  return launch<true>(x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, out, N, H, W, Cin, Cout,
+                      stride, relu6, dw_six_q, pw_six_q, stream);
 }
 
 }  // extern "C"

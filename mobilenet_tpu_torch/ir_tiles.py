@@ -1,13 +1,15 @@
-"""Per-block times of the inverted-residual kernel at candidate tiles.
+"""Per-block times of the inverted-residual kernels at candidate tiles.
 
-    python -m mobilenet_tpu_torch.ir_tiles [--batch 1 256] [--alpha 1.0] [--res 224]
+    python -m mobilenet_tpu_torch.ir_tiles [--batch 1 256] [--alpha 1.0] [--res 224] [--int8]
 
 For each expanded block of MobileNet-V2 at the given width and size, and
-each batch, times the bf16 kernel (CUDA events, random operands) at the
-tile that `ops.inverted_residual.ir_plan` picks and at a few others, and
+each batch, times the bf16 kernel (or with --int8 the int8 kernel; CUDA
+events, random operands) at the tile that `ops.inverted_residual.ir_plan`
+(`ops.inverted_residual_i8.ir_i8_plan`) picks and at a few others, and
 prints one JSON line per block and batch: the shape, the plan, and the ms
-of each tile. These are the timings behind ir_plan's time model
-(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM). Refuses to run without a card.
+of each tile. These are the timings behind the plans' time model
+(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, and the int8 plan's output cap).
+Refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -18,14 +20,15 @@ import json
 import torch
 
 
-def tile_ms(lib, args, tile, reps: int) -> float:
-    """CUDA-event ms of one launch at `tile` (after warm-up)."""
+def tile_ms(fn, args, tile, reps: int, tail=()) -> float:
+    """CUDA-event ms of one launch of the C entry `fn` at `tile` (after
+    warm-up); `tail` are the arguments after the tile."""
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        code = lib.inverted_residual_bf16(*args, *tile, stream)
+        code = fn(*args, *tile, *tail, stream)
         if code:
-            raise RuntimeError(f"inverted_residual_bf16: CUDA error {code}")
+            raise RuntimeError(f"{fn.__name__}: CUDA error {code}")
 
     for _ in range(3):
         launch()
@@ -44,11 +47,15 @@ def main(argv=None):
     from .ops.inverted_residual import (  # noqa: PLC0415
         MAX_FRAGS, SMEM_MAX, ir_plan, ir_smem_bytes,
     )
+    from .ops.inverted_residual_i8 import (  # noqa: PLC0415
+        MAX_OUTPUTS_I8, ir_i8_plan, ir_i8_smem_bytes,
+    )
 
     p = argparse.ArgumentParser(prog="mobilenet_tpu_torch.ir_tiles")
     p.add_argument("--batch", type=int, nargs="+", default=[1, 256])
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--res", type=int, default=224)
+    p.add_argument("--int8", action="store_true", help="time the int8 kernel")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.ir_tiles measures the card; "
@@ -57,28 +64,47 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(*shape, scale=1.0):
+        if args.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                 dtype=torch.int8)
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
 
+    def layer(w_shape, c):  # (w, b[, m]) of one layer
+        if args.int8:
+            return (rand(*w_shape), torch.zeros(c, dtype=torch.int32, device="cuda"),
+                    torch.full((c,), 1e-3, device="cuda"))
+        return (rand(*w_shape, scale=w_shape[0] ** -0.5), rand(c, scale=0.1))
+
+    max_out = MAX_OUTPUTS_I8 if args.int8 else 64
     h = args.res // 2
     for i, (t, cin, cout, stride) in enumerate(V2Config(args.alpha, args.res).block_defs):
         e, ho = t * cin, -(-h // stride)
         for n in args.batch if t > 1 else ():
             x = rand(n, h, h, cin)
-            weights = (rand(cin, e, scale=cin ** -0.5), rand(e, scale=0.1), rand(3, 3, 1, e),
-                       rand(e, scale=0.1), rand(e, cout, scale=e ** -0.5), rand(cout, scale=0.1))
-            out = torch.empty(n, ho, ho, cout, dtype=torch.bfloat16, device="cuda")
+            weights = (*layer((cin, e), e), *layer((3, 3, 1, e), e), *layer((e, cout), cout))
+            out = torch.empty(n, ho, ho, cout, dtype=x.dtype, device="cuda")
             call = (x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(), n, h, h,
                     cin, e, cout, stride, int(stride == 1 and cin == cout))
-            plan = ir_plan(n, h, h, cin, cout, stride, 2)
+            if args.int8:
+                fn, tail = lib.inverted_residual_i8, (127.0, 127.0)
+                plan = ir_i8_plan(n, h, h, cin, cout, stride)
+                smem = lambda th, tw: ir_i8_smem_bytes(th, tw, cin, cout, stride)  # noqa: E731
+            else:
+                fn, tail = lib.inverted_residual_bf16, ()
+                plan = ir_plan(n, h, h, cin, cout, stride, 2)
+                smem = lambda th, tw: ir_smem_bytes(th, tw, cin, cout, stride, 2)  # noqa: E731
             tiles = {plan, (1, 1), (1, min(ho, 7)), (2, min(ho, 14)), (4, min(ho, 14)),
-                     (min(ho, 7), min(ho, 7)), (min(ho, 8), min(ho, 8))}
-            ms = {f"{th}x{tw}": tile_ms(lib, call, (th, tw), 20 if n == 1 else 5)
+                     (min(ho, 7), min(ho, 7)), (min(ho, 8), min(ho, 8)),
+                     (min(ho, 8), min(ho, 16)), (min(ho, 16), min(ho, 16)),
+                     (min(ho, 14), min(ho, 14)), (min(ho, 7), min(ho, 28))}
+            ms = {f"{th}x{tw}": tile_ms(fn, call, (th, tw), 20 if n == 1 else 5, tail)
                   for th, tw in sorted(tiles)
-                  if (th * tw <= 64 and -(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
-                      and ir_smem_bytes(th, tw, cin, cout, stride, 2) <= SMEM_MAX)}
+                  if (th * tw <= max_out and -(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
+                      and smem(th, tw) <= SMEM_MAX)}
             print(json.dumps({"device": torch.cuda.get_device_name(0), "block": i,
                               "batch": n, "h": h, "cin": cin, "e": e, "cout": cout,
-                              "stride": stride, "plan": plan, "ms": ms}), flush=True)
+                              "stride": stride, "int8": args.int8, "plan": plan, "ms": ms}),
+                  flush=True)
         h = ho
 
 

@@ -53,6 +53,10 @@ _SIGNATURES = {
     # x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, out | N, H, W, Cin, Cout, stride,
     # relu6 | dw_six_q, pw_six_q
     "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2,
+    "separable_block_i8_linear": [_P] * 8 + [_I] * 7 + [_F] * 2,
+    # x, exp_w, exp_b, exp_m, dw_w, dw_b, dw_m, prj_w, prj_b, prj_m, out | N, H,
+    # W, Cin, E, Cout, stride, residual, TH, TW | exp_six_q, dw_six_q
+    "inverted_residual_i8": [_P] * 11 + [_I] * 10 + [_F] * 2,
     # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
     "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
     "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
@@ -62,6 +66,8 @@ _SIGNATURES = {
 _HOST_SIGNATURES = {
     # Cin, Cout, stride, TH, TW, itemsize -> bytes of dynamic shared memory
     "inverted_residual_smem_bytes": ([_I] * 6, ctypes.c_int),
+    # Cin, Cout, stride, TH, TW -> bytes of dynamic shared memory
+    "inverted_residual_i8_smem_bytes": ([_I] * 5, ctypes.c_int),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

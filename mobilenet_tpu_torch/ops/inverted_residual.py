@@ -63,6 +63,15 @@ def ir_plan(n: int, h: int, w: int, cin: int, cout: int, stride: int,
     projection accumulators and shared memory fit, the one the time model
     above rates fastest: few large tiles when the batch fills the card
     (less halo recompute), many small ones when it does not (batch 1)."""
+    return plan_tile(n, h, w, cin, cout, stride,
+                     lambda th, tw: ir_smem_bytes(th, tw, cin, cout, stride, itemsize))
+
+
+def plan_tile(n: int, h: int, w: int, cin: int, cout: int, stride: int, smem_bytes,
+              max_outputs: int = 64) -> Optional[Tuple[int, int]]:
+    """`ir_plan`'s search, for any inverted-residual kernel with this
+    one's tile loop: `smem_bytes(th, tw)` is the kernel's shared memory,
+    `max_outputs` the largest tile it takes (TH, TW <= 16 either way)."""
     if stride == 2 and (h % 2 or w % 2):
         return None
     ho, wo = -(-h // stride), -(-w // stride)
@@ -71,9 +80,9 @@ def ir_plan(n: int, h: int, w: int, cin: int, cout: int, stride: int,
     for th in range(1, min(ho, 16) + 1):
         for tw in range(1, min(wo, 16) + 1):
             tmp = _rup(th * tw, 16)
-            if th * tw > 64 or (tmp // 16) * (coutp // 16) > MAX_FRAGS:
+            if th * tw > max_outputs or (tmp // 16) * (coutp // 16) > MAX_FRAGS:
                 continue
-            smem = ir_smem_bytes(th, tw, cin, cout, stride, itemsize)
+            smem = smem_bytes(th, tw)
             if smem > SMEM_MAX:
                 continue
             pp = _rup(((th - 1) * stride + 3) * ((tw - 1) * stride + 3), 16)

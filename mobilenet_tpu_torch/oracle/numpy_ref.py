@@ -1,0 +1,122 @@
+"""Pure-NumPy float32 golden reference of MobileNet-V2's layers: the port's
+copy of what the V2 int8 calibration needs from the JAX package's
+`oracle/numpy_ref.py`, verbatim.
+
+The calibration takes absmax over these taps; a reordered float32 sum could
+move an absmax in its last bit and with it every requant multiplier of a
+scale group, so the port calibrates on the same NumPy code as the JAX
+package and not on its own torch ops.
+
+Padding matches TF/XLA 'SAME': pad_total = max((ceil(in/s)-1)*s + k - in, 0),
+lo = pad_total // 2, hi = rest. For k=3: s=1 -> (1,1); s=2, even in -> (0,1).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+
+def same_pad(in_size: int, stride: int, k: int = 3):
+    out = -(-in_size // stride)
+    total = max((out - 1) * stride + k - in_size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_nhwc(x: np.ndarray, stride: int, k: int = 3) -> np.ndarray:
+    lo_h, hi_h = same_pad(x.shape[1], stride, k)
+    lo_w, hi_w = same_pad(x.shape[2], stride, k)
+    return np.pad(x, ((0, 0), (lo_h, hi_h), (lo_w, hi_w), (0, 0)))
+
+
+def _act(y: np.ndarray, relu6: bool) -> np.ndarray:
+    y = np.maximum(y, np.float32(0))
+    if relu6:
+        y = np.minimum(y, np.float32(6))
+    return y
+
+
+def conv2d_ref(x, w, stride, bias=None, relu6=None):
+    """Standard 3x3 conv; x (N,H,W,Cin) f32, w (3,3,Cin,Cout) HWIO.
+
+    Accumulation: float32, tap-major (dy, dx, cin).
+    """
+    x = np.asarray(x, np.float32)
+    xp = _pad_nhwc(x, stride)
+    n, _, _, cin = x.shape
+    h_out = -(-x.shape[1] // stride)
+    w_out = -(-x.shape[2] // stride)
+    cout = w.shape[3]
+    acc = np.zeros((n, h_out, w_out, cout), np.float32)
+    for dy in range(3):
+        for dx in range(3):
+            patch = xp[:, dy : dy + h_out * stride : stride, dx : dx + w_out * stride : stride, :]
+            for ci in range(cin):
+                acc += patch[..., ci : ci + 1] * w[dy, dx, ci]
+    if bias is not None:
+        acc += np.asarray(bias, np.float32)
+    if relu6 is not None:
+        acc = _act(acc, relu6)
+    return acc
+
+
+def depthwise_ref(x, w, stride, bias=None, relu6=None):
+    """Depthwise 3x3; w (3,3,1,C). Tap-major float32 accumulation."""
+    x = np.asarray(x, np.float32)
+    xp = _pad_nhwc(x, stride)
+    h_out = -(-x.shape[1] // stride)
+    w_out = -(-x.shape[2] // stride)
+    acc = np.zeros((x.shape[0], h_out, w_out, x.shape[3]), np.float32)
+    for dy in range(3):
+        for dx in range(3):
+            patch = xp[:, dy : dy + h_out * stride : stride, dx : dx + w_out * stride : stride, :]
+            acc += patch * w[dy, dx, 0]
+    if bias is not None:
+        acc += np.asarray(bias, np.float32)
+    if relu6 is not None:
+        acc = _act(acc, relu6)
+    return acc
+
+
+def pointwise_ref(x, w, bias=None, relu6=None):
+    """Pointwise 1x1; x (N,H,W,Cin), w (Cin,Cout); float32 dot."""
+    y = np.asarray(x, np.float32) @ np.asarray(w, np.float32)
+    if bias is not None:
+        y = y + np.asarray(bias, np.float32)
+    if relu6 is not None:
+        y = _act(y, relu6)
+    return y.astype(np.float32)
+
+
+def forward_all_v2(params: Dict[str, Any], x: np.ndarray, config):
+    """Golden per-layer MobileNet-V2 forward (NumPy twin of
+    models.mobilenet_v2.forward_v2(collect=True); config is a V2Config).
+
+    Same fixed-order float32 accumulation as the V1 oracle; the projection
+    is LINEAR (bias, no activation) and residual adds are plain f32 sums.
+    """
+    acts: Dict[str, np.ndarray] = {}
+    y = conv2d_ref(x, params["conv1"]["w"], 2, params["conv1"]["b"], True)
+    acts["conv1"] = y
+    for i, ((t, cin, cout, stride), blk) in enumerate(
+            zip(config.block_defs, params["blocks"])):
+        z = y
+        if "exp" in blk:
+            z = pointwise_ref(z, blk["exp"]["w"], blk["exp"]["b"], True)
+            acts[f"block{i:02d}_exp"] = z
+        z = depthwise_ref(z, blk["dw"]["w"], stride, blk["dw"]["b"], True)
+        acts[f"block{i:02d}_dw"] = z
+        out = pointwise_ref(z, blk["prj"]["w"], blk["prj"]["b"], None)
+        acts[f"block{i:02d}_prj"] = out
+        if stride == 1 and cin == cout:
+            out = out + y
+            acts[f"block{i:02d}_out"] = out
+        y = out
+    y = pointwise_ref(y, params["conv_last"]["w"], params["conv_last"]["b"], True)
+    acts["conv_last"] = y
+    pooled = y.astype(np.float32).mean(axis=(1, 2))
+    acts["pool"] = pooled
+    logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
+    acts["logits"] = logits
+    return logits, acts

@@ -3,8 +3,8 @@
     python -m mobilenet_tpu_torch.profile [--model v1|v2] [--int8] \\
         [--batch 256 1] [--steps 10]
 
-Builds the 1.0-224 pipeline of MobileNet-V1 (bf16, or int8 with --int8) or
-of MobileNet-V2 (--model v2, bf16) on the card, warms it on one
+Builds the 1.0-224 pipeline of MobileNet-V1 or MobileNet-V2 (--model v2),
+bf16 or exact int8 (--int8), on the card, warms it on one
 device-resident uint8 batch, then records `--steps` forwards under
 torch.profiler (CPU + CUDA).
 Prints one JSON line: the window's wall time (CUDA events), the device
@@ -56,23 +56,23 @@ def profile(pipe, batch: int, steps: int, top: int = 12):
 
 
 def main(argv=None):
-    from . import InferencePipeline, Int8Pipeline  # noqa: PLC0415
+    from . import InferencePipeline, Int8Pipeline, Int8PipelineV2  # noqa: PLC0415
     from .runtime.serving import make_config  # noqa: PLC0415
 
     p = argparse.ArgumentParser(prog="mobilenet_tpu_torch.profile")
     p.add_argument("--model", default="v1", choices=["v1", "v2"])
-    p.add_argument("--int8", action="store_true", help="the V1 int8 path")
+    p.add_argument("--int8", action="store_true", help="the model's exact int8 path")
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--steps", type=int, default=10)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.profile measures the card; "
                          "torch.cuda.is_available() is False")
-    if args.int8 and args.model != "v1":
-        raise SystemExit("--int8 profiles the V1 int8 path only")
     cfg = make_config(args.model, 1.0, 224, "bfloat16")
-    pipe = (Int8Pipeline(cfg, device="cuda") if args.int8
-            else InferencePipeline(cfg, device="cuda"))
+    if args.int8:
+        pipe = (Int8PipelineV2 if args.model == "v2" else Int8Pipeline)(cfg, device="cuda")
+    else:
+        pipe = InferencePipeline(cfg, device="cuda")
     for batch in args.batch:
         print(json.dumps({"model": args.model, "path": "int8" if args.int8 else "bfloat16",
                           **profile(pipe, batch, args.steps)}), flush=True)

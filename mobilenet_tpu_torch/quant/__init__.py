@@ -1,7 +1,9 @@
 """The exact int8 path of the port: host quantization (`quantize`), plain
 int8 ops (`ops`), the NumPy oracle (`oracle`), the int8 forward and
-`Int8Pipeline` (`model`), and the per-layer gate (`verify`)."""
+`Int8Pipeline` (`model`), MobileNet-V2's calibration, oracle, forward and
+`Int8PipelineV2` (`v2`), and the per-layer gates (`verify`)."""
 
 from .quantize import (  # noqa: F401
     ACT_HIDDEN_SCALE, ACT_IN_SCALE, QuantizedParams, QuantLayer, quantize, quantize_input,
 )
+from .v2 import V2QuantizedParams, quantize_v2  # noqa: F401

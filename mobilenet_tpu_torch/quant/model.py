@@ -30,13 +30,11 @@ from .quantize import ACT_HIDDEN_SCALE, ACT_IN_SCALE, QuantizedParams, quantize
 DW_BACKENDS = ("plain", "fused")
 
 
-def _routing_i8(config: ModelConfig, dw_backend, batch: int):
-    """Resolve the per-block int8 backend tuple (len == 13), as the float
-    path's models.mobilenet_v1._routing: None -> "plain"; "auto" -> "fused"
-    at every batch (the TPU's measured all-plain batch-1 rule does not carry
-    over, and the card's crossover is not measured yet, so "mixed" is not
-    accepted)."""
-    n = len(config.block_strides)
+def resolve_i8_routing(n: int, dw_backend) -> tuple:
+    """The per-block int8 backend tuple of an n-block network: None ->
+    "plain"; "auto" -> "fused" at every batch (the TPU's measured all-plain
+    batch-1 rule does not carry over, and the card's crossover is not
+    measured yet, so "mixed" is not accepted); a name; or n names."""
     if dw_backend is None:
         dw_backend = "plain"
     if dw_backend == "auto":
@@ -49,6 +47,12 @@ def _routing_i8(config: ModelConfig, dw_backend, batch: int):
         raise ValueError(f"per-block dw_backend must be {n} names from "
                          f"{DW_BACKENDS}, got {dw_backend!r}")
     return tuple(dw_backend)
+
+
+def _routing_i8(config: ModelConfig, dw_backend, batch: int):
+    """Resolve the per-block int8 backend tuple (len == 13), as the float
+    path's models.mobilenet_v1._routing (`resolve_i8_routing`)."""
+    return resolve_i8_routing(len(config.block_strides), dw_backend)
 
 
 def forward_i8(dev: Dict[str, Any], x_i8: torch.Tensor, config: ModelConfig, *,
@@ -103,23 +107,30 @@ def quantize_for_device(folded, config: ModelConfig, dw_backend="auto") -> Quant
     return quantize(folded, config)
 
 
+def _put(a, device) -> torch.Tensor:
+    return torch.as_tensor(a).to(device).contiguous()
+
+
+def device_layer(ql, device) -> Dict[str, Any]:
+    """One QuantLayer on `device`: int8 weights, int32 biases, float32
+    multipliers, and six_q as a Python float."""
+    return {"w": _put(ql.w_i8, device), "b": _put(ql.bias_i32, device),
+            "m": _put(ql.m, device), "six_q": float(ql.six_q)}
+
+
+def device_fc(q, device) -> Dict[str, Any]:
+    return {"w": _put(q.fc_w_i8, device), "s_w": _put(q.fc_s_w, device),
+            "b": _put(q.fc_b_f32, device)}
+
+
 def to_device_i8(q, device) -> Dict[str, Any]:
-    """Quantized constants onto `device`, once: int8 weights, int32 biases,
-    float32 multipliers, and six_q as a Python float. `q` is a
+    """Quantized constants onto `device`, once (`device_layer`). `q` is a
     QuantizedParams of this package or of the JAX package (both hold only
     numpy fields)."""
-
-    def put(a):
-        return torch.as_tensor(a).to(device).contiguous()
-
-    def layer(ql):
-        return {"w": put(ql.w_i8), "b": put(ql.bias_i32), "m": put(ql.m),
-                "six_q": float(ql.six_q)}
-
     return {
-        "conv1": layer(q.conv1),
-        "blocks": [{"dw": layer(b["dw"]), "pw": layer(b["pw"])} for b in q.blocks],
-        "fc": {"w": put(q.fc_w_i8), "s_w": put(q.fc_s_w), "b": put(q.fc_b_f32)},
+        "conv1": device_layer(q.conv1, device),
+        "blocks": [{k: device_layer(b[k], device) for k in ("dw", "pw")} for b in q.blocks],
+        "fc": device_fc(q, device),
     }
 
 
@@ -127,6 +138,8 @@ class Int8Pipeline(PipelineBase):
     """Device-resident int8 weights and the uint8 -> probabilities entry:
     the `.config` / `run_batch` surface MicroBatchServer needs, plus
     classify and benchmark()."""
+
+    _forward = staticmethod(forward_i8)
 
     def __init__(self, config: ModelConfig, params=None, *, device="cuda", seed: int = 0,
                  dw_backend: Any = "auto"):
@@ -145,11 +158,11 @@ class Int8Pipeline(PipelineBase):
     def _entry(self, kind: str):
         if kind != "probs_u8":
             raise KeyError(kind)
-        cfg = self.config
+        cfg, forward = self.config, self._forward
 
         def fn(images_u8):
             x = preprocess(images_u8, cfg.resolution, torch.float32)
             x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
-            return softmax(forward_i8(self.dev, x_q, cfg, dw_backend=self.dw_backend))
+            return softmax(forward(self.dev, x_q, cfg, dw_backend=self.dw_backend))
 
         return fn

@@ -4,7 +4,9 @@ the JAX package's `quant/ops.py`, exact on the CPU and on the card.
 Semantics (shared bit for bit with `quant/oracle.py`):
   acc: exact integer accumulation;
   requant: v = float32(acc) * m[oc]; v = max(v, 0); v = min(v, six_q) when
-           relu6; round half to even; clamp to [-128, 127]; int8.
+           relu6; round half to even; clamp to [-128, 127]; int8;
+  linear requant (V2 projections): the same without max/min;
+  residual (V2): int32 sum of two int8 tensors, clamp to [-128, 127].
 
 Where exactness is at stake on the card:
 - Integer products: `torch.matmul` has no int8/int32 CUDA kernel, so the
@@ -56,6 +58,17 @@ def _taps(x: torch.Tensor, stride: int, k: int = 3):
                              dx:dx + stride * (wo - 1) + 1:stride, :]
 
 
+def requantize_linear(acc_i32: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The signed linear requant of MobileNet-V2's projections: v =
+    float32(acc) * m; round half to even; clamp to [-128, 127]; no ReLU."""
+    return torch.round(acc_i32.float() * m.float()).clamp(-128, 127).to(torch.int8)
+
+
+def residual_add_i8(a_i8: torch.Tensor, b_i8: torch.Tensor) -> torch.Tensor:
+    """Saturating int8 add of two tensors at one scale: int32 sum, clamp."""
+    return (a_i8.to(torch.int32) + b_i8.to(torch.int32)).clamp(-128, 127).to(torch.int8)
+
+
 def depthwise_i8(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch.Tensor,
                  m: torch.Tensor, six_q: float, stride: int,
                  relu6: bool = True) -> torch.Tensor:
@@ -82,6 +95,14 @@ def pointwise_i8(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch.Tensor,
     n, h, w, cin = x_i8.shape
     acc = _int_matmul(x_i8.reshape(n * h * w, cin), w_i8) + bias_i32
     return requantize(acc, m, six_q, relu6).reshape(n, h, w, -1)
+
+
+def pointwise_i8_linear(x_i8: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch.Tensor,
+                        m: torch.Tensor) -> torch.Tensor:
+    """Pointwise 1x1 with the linear requant (a V2 projection)."""
+    n, h, w, cin = x_i8.shape
+    acc = _int_matmul(x_i8.reshape(n * h * w, cin), w_i8) + bias_i32
+    return requantize_linear(acc, m).reshape(n, h, w, -1)
 
 
 def conv1_i8(x_q: torch.Tensor, w_i8: torch.Tensor, bias_i32: torch.Tensor,

@@ -1,7 +1,7 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
 The port of the JAX package's `runtime/serving.py` for one variant on one
-device: MobileNet-V1 float or int8, or MobileNet-V2 float:
+device: MobileNet-V1 or -V2, float or exact int8:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
     `max_delay_ms`), pads to the smallest precomputed bucket that fits, and
@@ -57,8 +57,8 @@ def default_buckets(max_batch: int) -> List[int]:
 
 
 class MicroBatchServer:
-    """Micro-batching inference server over an InferencePipeline or an
-    Int8Pipeline."""
+    """Micro-batching inference server over an InferencePipeline, an
+    Int8Pipeline or an Int8PipelineV2."""
 
     def __init__(self, pipeline, max_batch: int = 64, max_delay_ms: float = 3.0,
                  request_timeout_s: float = 30.0, device_retries: int = 1,
@@ -306,13 +306,14 @@ def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
     """One variant on one device, `streams`-wide micro-batches: the float
     InferencePipeline of a ModelConfig or a V2Config (or of a variant
     string, `config_from_variant`, in bfloat16), or with int8=True the
-    quantized V1 Int8Pipeline."""
+    quantized Int8Pipeline (V1) or Int8PipelineV2 (V2, calibrated here)."""
     if isinstance(cfg, str):
         cfg = config_from_variant(cfg)
     if int8 and isinstance(cfg, V2Config):
-        raise NotImplementedError("int8 MobileNet-V2 serving is not ported yet: it is "
-                                  "the next slice of the port (V2 int8, quant/v2.py)")
-    if int8:
+        from ..quant.v2 import Int8PipelineV2  # noqa: PLC0415
+
+        pipeline = Int8PipelineV2(cfg, params, device=device, seed=seed)
+    elif int8:
         from ..quant.model import Int8Pipeline  # noqa: PLC0415
 
         pipeline = Int8Pipeline(cfg, params, device=device, seed=seed)
@@ -329,7 +330,7 @@ def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
     """Build the server, run the selftest (one JSON line of stats), then, if
     not selftest_only, serve NDJSON over TCP on `port` until killed. `model`
     is "v1" or "v2"; `dtype` is the float path's compute dtype; int8=True
-    serves the V1 int8 path."""
+    serves the model's exact int8 path."""
     cfg = make_config(model, alpha, res, dtype)
 
     async def run():

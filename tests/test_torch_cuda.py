@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 ragged and narrow shapes of the whole alpha grid (partial pixel and channel
-tiles, C = 8 .. 1024), the V1 and V2 kernel routes against the plain
-routes, and the float32 stem against float64 without any TF32 flag set.
+tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8) against
+the plain routes, and the float32 stem against float64 without any TF32 flag
+set.
 Marked `cuda`: skipped without a card. Imports no JAX, so it runs where JAX
 is not installed:
 
@@ -12,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from mobilenet_tpu_torch import InferencePipeline, Int8Pipeline, ModelConfig, V2Config
-from mobilenet_tpu_torch.checkpoints import fold_bn, init_params
+from mobilenet_tpu_torch import (
+    InferencePipeline, Int8Pipeline, Int8PipelineV2, ModelConfig, V2Config,
+)
+from mobilenet_tpu_torch.checkpoints import fold_bn, fold_bn_v2, init_params, init_params_v2
 from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2
 from mobilenet_tpu_torch.ops import _build
 from mobilenet_tpu_torch.ops import preprocess as prep
@@ -22,6 +25,9 @@ from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8, depthwise_i8_plai
 from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
 from mobilenet_tpu_torch.ops.inverted_residual import (
     inverted_residual, inverted_residual_plain, ir_plan, ir_smem_bytes,
+)
+from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
+    inverted_residual_i8, inverted_residual_i8_plain, ir_i8_plan, ir_i8_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.separable_block import (
     separable_block, separable_block_plain,
@@ -32,7 +38,9 @@ from mobilenet_tpu_torch.ops.separable_block_i8 import (
 from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
 from mobilenet_tpu_torch.quant import ops as qops
 from mobilenet_tpu_torch.quant.model import forward_i8
-from mobilenet_tpu_torch.quant.verify import verify_int8
+from mobilenet_tpu_torch.quant.v2 import forward_v2_i8
+from mobilenet_tpu_torch.quant.verify import verify_int8, verify_int8_v2
+from mobilenet_tpu_torch.runtime.serving import build_server, selftest
 
 pytestmark = pytest.mark.cuda
 
@@ -334,3 +342,124 @@ def test_int8_routes_and_verify(dev, alpha, res):
     before = depthwise_i8.launches
     assert verify_int8(cfg, folded, x, device="cuda", use_dw_kernel=True)
     assert depthwise_i8.launches == before + 13
+
+
+# -- V2 int8: exact ------------------------------------------------------------
+
+
+def _i8_ir(rng, dev, n, h, cin, e, cout, prj_gain=1.0):
+    """int8 inverted-residual operands: x over the whole int8 range (a
+    bottleneck activation), multipliers that spread each requant's values
+    over its range (prj_gain > 1 drives the projection into saturation)."""
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def layer(shape, c, m_scale):
+        return (t(rng.integers(-127, 128, shape).astype(np.int8)),
+                t(rng.integers(-5000, 5000, (c,)).astype(np.int32)),
+                t((rng.uniform(0.2, 1.5, (c,)) * m_scale).astype(np.float32)))
+
+    x = t(rng.integers(-128, 128, (n, h, h, cin)).astype(np.int8))
+    ew, eb, em = layer((cin, e), e, 0.0113 / cin ** 0.5)
+    dw, db, dm = layer((3, 3, 1, e), e, 0.0055)
+    pw, pb, pm = layer((e, cout), cout, prj_gain * 0.0137 / e ** 0.5)
+    return (x, ew, eb, em, 127.0, dw, db, dm, 127.0, pw, pb, pm)
+
+
+def _equal_i8(got, ref):
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == ref.shape
+    assert torch.equal(got, ref), f"{int((got != ref).sum())} elements differ"
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual", [
+    (2, 112, 16, 96, 24, 2, False),   # V2 1.0-224 b01 (the packed s2 expand block's)
+    (2, 56, 24, 144, 24, 1, True),    # b02: Cin and E not multiples of 32
+    (3, 14, 96, 576, 160, 2, False),  # b13 (the JAX package's V3-kernel bridge)
+    (2, 7, 160, 960, 320, 1, False),  # b16: TM x Cout at the fragment limit
+    (2, 9, 8, 48, 8, 1, True),        # alpha 0.35's narrowest, odd side
+    (3, 10, 40, 240, 48, 2, False),   # ragged tiles at stride 2
+])
+def test_inverted_residual_i8(dev, n, h, cin, e, cout, stride, residual):
+    rng = np.random.default_rng(cin + e + stride)
+    args = _i8_ir(rng, dev, n, h, cin, e, cout) + (stride, residual)
+    before = inverted_residual_i8.launches
+    got = inverted_residual_i8(*args)
+    assert inverted_residual_i8.launches == before + 1
+    ref = inverted_residual_i8_plain(*args)
+    _equal_i8(got, ref)
+    assert (ref < 0).any() and len(torch.unique(ref)) > 64  # a spread, not a constant
+
+
+def test_inverted_residual_i8_saturation(dev):
+    """Inputs at the int8 rails and a projection driven into saturation:
+    the kernel's requant clamp and saturating residual add equal the plain
+    version's."""
+    rng = np.random.default_rng(7)
+    args = list(_i8_ir(rng, dev, 2, 28, 32, 192, 32, prj_gain=8.0)) + [1, True]
+    args[0] = torch.where(torch.rand(args[0].shape, device=dev) < 0.5, 120, -120).to(
+        torch.int8)
+    ref = inverted_residual_i8_plain(*args)
+    _equal_i8(inverted_residual_i8(*args), ref)
+    assert (ref == 127).any() and (ref == -128).any()
+
+
+def test_ir_i8_smem_plan_matches_kernel(dev):
+    """The Python mirror of the int8 kernel's shared-memory plan equals the
+    kernel's own for every V2 block's tile at batch 1 and 256."""
+    lib = _build.library()
+    for alpha in (0.35, 1.0, 1.4):
+        h = 112
+        for t, cin, cout, stride in V2Config(alpha, 224).block_defs:
+            for n in (1, 256):
+                th, tw = ir_i8_plan(n, h, h, cin, cout, stride)
+                assert lib.inverted_residual_i8_smem_bytes(cin, cout, stride, th, tw) == \
+                    ir_i8_smem_bytes(th, tw, cin, cout, stride)
+            h //= stride
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 112, 32, 16, 1), (3, 10, 8, 24, 2),
+                                                 (1, 9, 40, 136, 1)])
+def test_separable_block_i8_linear(dev, n, h, cin, cout, stride):
+    """The linear mode (V2 block 0 at 1.0-224 first): no ReLU, negative
+    outputs survive; the ReLU6 mode of the same operands differs."""
+    rng = np.random.default_rng(cin + cout)
+    args = _i8_block(rng, dev, n, h, cin, cout) + (stride, 127.0, 0.0, True)
+    ref = separable_block_i8_plain(*args, pw_linear=True)
+    _equal_i8(separable_block_i8(*args, pw_linear=True), ref)
+    assert (ref < 0).any()
+    assert not torch.equal(ref, separable_block_i8(*args))
+
+
+def test_v2_int8_routes_verify_and_server(dev):
+    """V2 0.35-96: the int8 kernel route's logits equal the plain route's
+    bit for bit at batch 1 and 4; the per-layer gate is exact; a V2 int8
+    server (build_server) answers with 0 errors through both kernels."""
+    import asyncio
+
+    cfg = V2Config(0.35, 96)
+    pipe = Int8PipelineV2(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    for batch in (1, 4):
+        imgs = torch.from_numpy(rng.integers(0, 256, (batch, 96, 96, 3), dtype=np.uint8))
+        x_q = qops.quantize_input_dev(prep.preprocess(imgs.to(dev), 96), ACT_IN_SCALE)
+        with torch.inference_mode():
+            got = forward_v2_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+            ref = forward_v2_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+        assert torch.equal(got, ref)
+    x = rng.uniform(-1, 1, (2, 96, 96, 3)).astype(np.float32)
+    folded = fold_bn_v2(init_params_v2(cfg, seed=1), eps=cfg.bn_eps)
+    assert verify_int8_v2(cfg, folded, x, n_calib=8, device="cuda")
+
+    async def serve():
+        server = build_server(cfg, 8, device="cuda", int8=True)
+        await server.start()
+        try:
+            return await selftest(server, streams=8, requests_per_stream=2)
+        finally:
+            await server.close()
+
+    before = (inverted_residual_i8.launches, separable_block_i8.launches)
+    stats = asyncio.run(serve())
+    assert stats["errors"] == 0
+    assert inverted_residual_i8.launches > before[0] and separable_block_i8.launches > before[1]

@@ -29,6 +29,8 @@ def test_import_builds_nothing():
     import mobilenet_tpu_torch.models.mobilenet_v1  # noqa: F401
     import mobilenet_tpu_torch.models.mobilenet_v2  # noqa: F401
     import mobilenet_tpu_torch.ops.inverted_residual  # noqa: F401
+    import mobilenet_tpu_torch.ops.inverted_residual_i8  # noqa: F401
+    import mobilenet_tpu_torch.quant.v2  # noqa: F401
     from mobilenet_tpu_torch.ops import _build
 
     assert _build._lib is None
@@ -38,4 +40,8 @@ def test_v2_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"mobilenet_tpu_torch/models/mobilenet_v2.py",
             "mobilenet_tpu_torch/checkpoints/v2.py",
-            "mobilenet_tpu_torch/ops/inverted_residual.py"} <= names
+            "mobilenet_tpu_torch/ops/inverted_residual.py",
+            "mobilenet_tpu_torch/ops/inverted_residual_i8.py",
+            "mobilenet_tpu_torch/quant/v2.py",
+            "mobilenet_tpu_torch/oracle/numpy_ref.py",
+            "mobilenet_tpu_torch/runtime/eval.py"} <= names

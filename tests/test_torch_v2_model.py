@@ -207,7 +207,9 @@ def test_routing():
 def test_pipeline_and_server_on_cpu():
     """InferencePipeline(V2Config) serves uint8 batches with the JAX
     pipeline's top-1, its taps match the plain forward's, and a V2 server's
-    selftest has 0 errors; int8 V2 serving is refused."""
+    selftest has 0 errors; with int8=True the server runs Int8PipelineV2
+    (tests/test_torch_quant_v2.py serves it)."""
+    from mobilenet_tpu_torch import Int8PipelineV2
     from mobilenet_tpu.runtime.pipeline import InferencePipeline as JaxPipeline
 
     cfg = V2Config(0.35, 96)
@@ -233,5 +235,5 @@ def test_pipeline_and_server_on_cpu():
 
     stats = asyncio.run(run())
     assert stats["errors"] == 0 and stats["requests"] == 8
-    with pytest.raises(NotImplementedError):
-        build_server(cfg, 4, device="cpu", int8=True)
+    server = build_server(cfg, 4, device="cpu", int8=True)
+    assert isinstance(server.pipeline, Int8PipelineV2) and server.pipeline.config == cfg
