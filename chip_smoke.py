@@ -51,7 +51,21 @@ file; imports nothing of JAX. Phases, one JSON line each:
      batch 256 and 1; the per-layer gate verify_int8_v2 at batch 2, exact;
  16. the V2 int8 benchmark(): batch-256 img/s and batch-1 latency;
  17. the V2 int8 main path: counters set to 0, a 64-stream V2 int8 server
-     and one lone request; 0 errors and both V2 int8 kernels launched.
+     and one lone request; 0 errors and both V2 int8 kernels launched;
+ 18. the MobileNet-V3 bottleneck kernel against its plain version at the 12
+     distinct block shapes of V3-Large 1.0-224 at batch 256, with non-zero
+     SE biases: float32 then bfloat16, no TF32 flag set; its tile plans and
+     the shared-memory mirror;
+ 19. the V3-Large bf16 pipeline (seeded weights with non-zero SE, head and
+     fc biases), kernel route against plain route at batch 256 and 1 (the
+     anchored routing gate, as V2), a float32 full-network check at batch 2
+     at the JAX package's V3 gate, and the per-layer gate verify_v3 at
+     batch 2 on every tap;
+ 20. V3 benchmark(): "auto" and "plain" at batch 256, and the batch-1
+     latency of "mixed" against "auto" (alternating, in one process);
+ 21. the V3 float main path: counters set to 0, a 64-stream V3-Large server
+     and one lone request; 0 errors, and the V3 bottleneck kernel and the
+     fused head launched.
 Then one JSON line of per-kernel results and, last, the result line.
 Any failure raises and the script exits non-zero without the result line.
 
@@ -90,6 +104,10 @@ ROUTE_ATOL, ROUTE_REL = 6e-2, 4.5e-2
 # package's V2 gate (golden.V2_TOL): the linear bottlenecks carry f32
 # reassociation noise unclipped through 17 blocks.
 V2_F32_ATOL, V2_F32_RTOL = 1e-3, 1e-3
+# V3 float32 network, kernel route vs plain route (logits): the JAX
+# package's V3 gate (golden.V3_TOL): unbounded relu / hard-swish activations
+# of O(30) and the SE gates carry f32 reassociation through 15 blocks.
+V3_F32_ATOL, V3_F32_RTOL = 3e-3, 1e-3
 # V2 bf16 routes: the JAX package's V2 routing verify (golden.
 # routing_bf16_atol and cli._verify_routing). The linear bottlenecks carry
 # the bf16 rounding noise of two valid routes unclipped, so the max-abs
@@ -130,19 +148,24 @@ def block_work(n, h, cin, cout, stride, kind, k=1):
     return nbytes, ops
 
 
-def ir_work(n, h, cin, e, cout, stride, kind):
+def ir_work(n, h, cin, e, cout, stride, kind, k=3, se=0, identity=False):
     """(bytes, ops) of one inverted-residual block on (n, h, h, cin): the
     input and output once, the weights once; the expansion of every input
-    pixel (the stride-2 depthwise reads all of them), the 9 taps and the
-    projection of every output pixel, and the residual add where there is
-    one. Halo recompute inside the kernel is not counted."""
+    pixel (the stride-2 depthwise reads all of them; none for the identity
+    expansion), the k*k taps and the projection of every output pixel, and
+    the residual add where there is one; with an SE width `se`, its weights,
+    its pool, two (n, e) x (e, se) products and the gate's multiply. The
+    kernel's recompute (halo, SE blocks' second pass) is not counted."""
     act, w, b, _ = ELEM_BYTES[kind]
     ho = -(-h // stride)
     pix_in, pix_out = n * h * h, n * ho * ho
-    weights = cin * e * w + 9 * e * w + e * cout * w + (2 * e + cout) * b
+    exp = 0 if identity else cin * e
+    weights = (exp + k * k * e + e * cout + 2 * e * se) * w
+    weights += ((0 if identity else e) + e + cout + (se + e if se else 0)) * b
     nbytes = pix_in * cin * act + weights + pix_out * cout * act
-    ops = (2 * pix_in * cin * e + 2 * 9 * pix_out * e + 2 * pix_out * e * cout
-           + (pix_out * cout if stride == 1 and cin == cout else 0))
+    ops = (2 * pix_in * exp + 2 * k * k * pix_out * e + 2 * pix_out * e * cout
+           + (pix_out * cout if stride == 1 and cin == cout else 0)
+           + (2 * pix_out * e + 4 * n * e * se if se else 0))
     return nbytes, ops
 
 
@@ -474,16 +497,17 @@ def rms(t) -> float:
     return float(t.float().pow(2).mean().sqrt())
 
 
-def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False):
+def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False, params=None):
     """The bf16 pipeline's kernel route against its plain route at batch 256
     and 1 (the routing gate, with anchored=True the V2 form above; a top-1
     flip only between near-tied classes), then a float32 pipeline of
-    `cfg32` (the same seeded weights) at batch 2 within f32_atol/rtol."""
+    `cfg32` (the same weights: `params`, the host tree `pipe` was built on,
+    or the seeded set) at batch 2 within f32_atol/rtol."""
     from mobilenet_tpu_torch import InferencePipeline
     from mobilenet_tpu_torch.ops.preprocess import preprocess
 
     cfg = pipe.config
-    pipe32 = InferencePipeline(cfg32, device="cuda")
+    pipe32 = InferencePipeline(cfg32, params, device="cuda")
     rng = np.random.default_rng(0)
     with torch.inference_mode():
         for batch in (256, 1):
@@ -832,6 +856,139 @@ def v2_int8_phases(smi, kernels, launches):
     return summary
 
 
+def v3_block_shapes(cfg, batch):
+    """(name, N, H, block def, count) of each distinct V3 block shape,
+    `count` = how many blocks of one forward have it."""
+    shapes, hw = {}, cfg.resolution // 2
+    for i, bd in enumerate(cfg.block_defs):
+        key = (hw, bd)
+        if key in shapes:
+            shapes[key][1] += 1
+        else:
+            shapes[key] = [f"b{i:02d}", 1]
+        hw //= bd.stride
+    return [(nm, batch, h, bd, cnt) for (h, bd), (nm, cnt) in shapes.items()]
+
+
+def rand_v3(gen, n, h, bd, dtype):
+    """V3 bottleneck operands on the card, (x, exp_w, exp_b, dw_w, dw_b,
+    prj_w, prj_b, se_w1, se_b1, se_w2, se_b2), None where the block has no
+    such layer: x in [-2, 2) (a bottleneck activation), weights scaled so
+    that the activations stay O(1), SE biases non-zero (the seeded set has
+    none)."""
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype).contiguous()
+
+    e, k, se = bd.cexp, bd.kernel, bd.se_mid
+    x = ((torch.rand(n, h, h, bd.cin, generator=gen, device="cuda") * 4 - 2).to(dtype)
+         .contiguous())
+    exp = ((r(bd.cin, e, scale=1.5 / bd.cin ** 0.5), r(e, scale=0.3)) if bd.has_expand
+           else (None, None))
+    ses = ((r(e, se, scale=e ** -0.5), r(se, scale=0.3), r(se, e, scale=se ** -0.5),
+            r(e, scale=0.3)) if se else (None,) * 4)
+    return (x, *exp, r(k, k, 1, e, scale=0.3), r(e, scale=0.2),
+            r(e, bd.cout, scale=e ** -0.5), r(bd.cout, scale=0.2), *ses)
+
+
+def v3_folded(cfg, seed):
+    """The seeded folded V3 tree with its zero biases (SE b1/b2, head, fc)
+    drawn non-zero, so that the routes and the gate exercise them."""
+    from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
+
+    tree = fold_bn_v3(init_params_v3(cfg, seed=seed), eps=cfg.bn_eps)
+    rng = np.random.default_rng(seed + 100)
+
+    def bias(a, scale):
+        return (rng.standard_normal(a.shape) * scale).astype(np.float32)
+
+    for blk in tree["blocks"]:
+        for name in ("b1", "b2") if "se" in blk else ():
+            blk["se"][name] = bias(blk["se"][name], 0.3)
+    tree["head"]["b"] = bias(tree["head"]["b"], 0.1)
+    tree["fc"]["b"] = bias(tree["fc"]["b"], 0.1)
+    return tree
+
+
+def v3_phases(smi, gen, kernels, launches):
+    """Phases 18-21. Fills launches["v3_block"] from the V3 server; returns
+    the kernel's summary row."""
+    from mobilenet_tpu_torch import InferencePipeline, V3Config
+    from mobilenet_tpu_torch.models import mobilenet_v3
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
+    from mobilenet_tpu_torch.runtime.eval import verify_v3
+
+    cfg = V3Config("large", ALPHA, RES, compute_dtype="bfloat16")
+    summary = {"v3_block": {
+        "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block.cu",
+        "replaces": "mobilenet_tpu/ops/pallas_ir_v3.py:414",
+        "also_runs": ["V3-L b00 (JAX: mobilenet_tpu/ops/pallas_block_packed.py:132)",
+                      "V3-L b01 (JAX: mobilenet_tpu/ops/pallas_expand_s2.py:238)"]}}
+    summary["v3_block"].update(FLOAT_ROW)
+
+    # -- 18. the V3 kernel vs plain ------------------------------------------------
+    lib = _build.library()
+    plans = {}
+    for nm, n, h, bd, cnt in v3_block_shapes(cfg, 256):
+        name = (f"{nm} ({n},{h},{h},{bd.cin})->{bd.cout} E{bd.cexp} k{bd.kernel} "
+                f"s{bd.stride} se{bd.se_mid} {bd.act}{' res' if bd.has_res else ''}"
+                f"{'' if bd.has_expand else ' identity'}")
+        for b, item in ((256, 2), (1, 2), (256, 4)):
+            th, tw = plans[f"{nm} batch {b} itemsize {item}"] = v3_plan(
+                b, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, item)
+            c_bytes = lib.v3_block_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
+                                              bd.stride, th, tw, item)
+            if c_bytes != v3_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
+                                        bd.stride, item):
+                raise AssertionError(f"{name}: the kernel plans {c_bytes} B of shared "
+                                     "memory, v3_smem_bytes another")
+        kw = dict(k=bd.kernel, stride=bd.stride, act=bd.act, residual=bd.has_res)
+
+        def call(fn, kw=kw):
+            return lambda *a: fn(*a[:7], se_w1=a[7], se_b1=a[8], se_w2=a[9], se_b2=a[10], **kw)
+
+        check_float(summary, "v3_block", name, cnt, call(v3_block), call(v3_block_plain),
+                    rand_v3(gen, n, h, bd, torch.float32), rand_v3(gen, n, h, bd, torch.bfloat16),
+                    lambda kind: ir_work(n, h, bd.cin, bd.cexp, bd.cout, bd.stride, kind,
+                                         k=bd.kernel, se=bd.se_mid,
+                                         identity=not bd.has_expand))
+        torch.cuda.empty_cache()
+    emit("v3_plans", plans=plans)
+
+    # -- 19. V3 pipeline: kernel route vs plain route; the per-layer gate -------------
+    tree = v3_folded(cfg, 0)
+    pipe = InferencePipeline(cfg, tree, device="cuda")
+    check_routes(pipe, mobilenet_v3.forward_v3, V3Config("large", ALPHA, RES), V3_F32_ATOL,
+                 V3_F32_RTOL, anchored=True, params=tree)
+    x = np.random.default_rng(5).uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
+    ok = verify_v3(cfg, v3_folded(cfg, 1), x, device="cuda")
+    emit("verify_v3", model=cfg.variant_name(), batch=2, tolerance=[V3_F32_ATOL, V3_F32_RTOL],
+         ok=ok)
+    if not ok:
+        raise AssertionError("verify_v3 at 1.0-224: a tap is outside the V3 gate")
+    torch.cuda.empty_cache()
+
+    # -- 20. V3 benchmark; batch-1 "mixed" vs "auto" ----------------------------------
+    emit("benchmark", model=cfg.variant_name(), route="auto", nvidia_smi=smi,
+         **pipe.benchmark(batch_size=256, steps=40))
+    plain = InferencePipeline(cfg, tree, device="cuda", dw_backend="plain")
+    emit("benchmark", model=cfg.variant_name(), route="plain", nvidia_smi=smi,
+         **plain.benchmark(batch_size=256, steps=5, latency_iters=10))
+    del plain
+    torch.cuda.empty_cache()
+    mixed = InferencePipeline(cfg, tree, device="cuda", dw_backend="mixed")
+    emit("latency_b1", model=cfg.variant_name(), nvidia_smi=smi,
+         **batch1_latency([("auto", pipe), ("mixed", mixed)]))
+    del mixed
+
+    # -- 21. the V3 float main path: 64-stream server ---------------------------------
+    got = serve_main_path(pipe, kernels, ("v3_block", "fused_head"), "serving_v3", smi)
+    launches["v3_block"] = got["v3_block"]
+    del pipe
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -849,6 +1006,7 @@ def main() -> int:
         separable_block, separable_block_plain,
     )
     from mobilenet_tpu_torch.ops.separable_block_i8 import separable_block_i8
+    from mobilenet_tpu_torch.ops.v3_block import v3_block
 
     # -- 1. card, versions, build ---------------------------------------------
     smi = subprocess.run(
@@ -919,7 +1077,7 @@ def main() -> int:
     kernels = {"separable_block": separable_block, "fused_head": fused_head,
                "chain": chain, "separable_block_i8": separable_block_i8,
                "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual,
-               "inverted_residual_i8": inverted_residual_i8}
+               "inverted_residual_i8": inverted_residual_i8, "v3_block": v3_block}
     launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
                                "serving", smi)
     del pipe
@@ -933,6 +1091,9 @@ def main() -> int:
 
     # -- 14-17. the V2 int8 path ----------------------------------------------------
     summary.update(v2_int8_phases(smi, kernels, launches))
+
+    # -- 18-21. the V3-Large float path -----------------------------------------------
+    summary.update(v3_phases(smi, gen, kernels, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

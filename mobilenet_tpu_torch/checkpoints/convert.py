@@ -1,10 +1,11 @@
 """Weights from the JAX package, and the layouts the kernels want at load.
 
-`from_jax_params` (V1) and `from_jax_params_v2` take the JAX package's
-folded tree as numpy arrays (the same nested dict/list scheme and NHWC/HWIO
-layouts this package uses) and return device tensors ready for
-`models.mobilenet_v1.forward` / `models.mobilenet_v2.forward_v2`. The tests
-use them so that both packages compute on the same weights.
+`from_jax_params` (V1), `from_jax_params_v2` and `from_jax_params_v3` take
+the JAX package's folded tree as numpy arrays (the same nested dict/list
+scheme and NHWC/HWIO layouts this package uses) and return device tensors
+ready for `models.mobilenet_v1.forward` / `models.mobilenet_v2.forward_v2` /
+`models.mobilenet_v3.forward_v3`. The tests use them so that both packages
+compute on the same weights.
 """
 
 from __future__ import annotations
@@ -72,4 +73,27 @@ def from_jax_params_v2(tree: Params, device, dtype: torch.dtype, config) -> Para
     for i, ((t, cin, cout, _s), blk) in enumerate(zip(defs, tree["blocks"])):
         if ("exp" in blk) != (t > 1) or tuple(np.shape(blk["prj"]["w"])) != (t * cin, cout):
             raise ValueError(f"block {i} does not match (t={t}, {cin}->{cout})")
+    return to_device(tree, device, dtype)
+
+
+def from_jax_params_v3(tree: Params, device, dtype: torch.dtype, config) -> Params:
+    """JAX folded V3 tree (numpy leaves) -> this package's device tensors.
+    Raises on a tree that is not a folded V3 tree of `config` (a V3Config):
+    the block count and each block's expansion, depthwise kernel, SE and
+    projection shapes must match `config.block_defs`."""
+    for key in ("conv1", "blocks", "conv_last", "head", "fc"):
+        if key not in tree:
+            raise ValueError(f"not a folded V3 tree: missing {key!r}")
+    defs = config.block_defs
+    if len(tree["blocks"]) != len(defs):
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config has {len(defs)}")
+    for i, (bd, blk) in enumerate(zip(defs, tree["blocks"])):
+        shapes = {name: tuple(np.shape(blk[name]["w"])) for name in ("dw", "prj")}
+        ok = (("exp" in blk) == bd.has_expand and ("se" in blk) == bool(bd.se_mid)
+              and shapes["dw"] == (bd.kernel, bd.kernel, 1, bd.cexp)
+              and shapes["prj"] == (bd.cexp, bd.cout)
+              and (not bd.has_expand or tuple(np.shape(blk["exp"]["w"])) == (bd.cin, bd.cexp))
+              and (not bd.se_mid or tuple(np.shape(blk["se"]["w1"])) == (bd.cexp, bd.se_mid)))
+        if not ok:
+            raise ValueError(f"block {i} does not match {bd}")
     return to_device(tree, device, dtype)

@@ -1,13 +1,13 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-    python -m mobilenet_tpu_torch.cli serve --streams 64 [--model v1|v2] \\
-        --alpha 1.0 --res 224 [--dtype bfloat16 | --int8] [--device cuda] \\
-        [--tcp --port 8000]
+    python -m mobilenet_tpu_torch.cli serve --streams 64 [--model v1|v2|v3] \\
+        [--minimalistic] --alpha 1.0 --res 224 [--dtype bfloat16 | --int8] \\
+        [--device cuda] [--tcp --port 8000]
 
-`serve` builds the micro-batching server (MobileNet-V1 or -V2, the float
-path in --dtype, or the model's exact int8 path with --int8), runs a selftest of
-`--streams` concurrent streams (one JSON line of stats), and with --tcp then
-serves NDJSON requests on --port until killed.
+`serve` builds the micro-batching server (MobileNet-V1, -V2 or -V3-Large,
+the float path in --dtype, or the exact int8 path of V1 or V2 with --int8),
+runs a selftest of `--streams` concurrent streams (one JSON line of stats),
+and with --tcp then serves NDJSON requests on --port until killed.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def cmd_serve(args):
     serve_main(alpha=args.alpha, res=args.res, dtype=args.dtype,
                streams=args.streams, port=args.port, device=args.device,
                seed=args.seed, selftest_only=not args.tcp, params=params,
-               int8=args.int8, model=args.model)
+               int8=args.int8, model=args.model, minimalistic=args.minimalistic)
 
 
 def main(argv=None):
@@ -39,9 +39,12 @@ def main(argv=None):
     sp.add_argument("--tcp", action="store_true",
                     help="after the selftest, bind the NDJSON TCP front end "
                          "on --port and serve until killed")
-    sp.add_argument("--model", default="v1", choices=["v1", "v2"],
-                    help="model family: v1 (default) or v2 (inverted residuals; "
-                         "alphas 0.35-1.4)")
+    sp.add_argument("--model", default="v1", choices=["v1", "v2", "v3"],
+                    help="model family: v1 (default), v2 (inverted residuals; "
+                         "alphas 0.35-1.4) or v3 (MobileNet-V3-Large)")
+    sp.add_argument("--minimalistic", action="store_true",
+                    help="with --model v3: MobileNet-V3-Large-minimalistic "
+                         "(kernel 3, relu, no squeeze-excite)")
     sp.add_argument("--alpha", type=float, default=1.0)
     sp.add_argument("--res", type=int, default=224)
     sp.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])

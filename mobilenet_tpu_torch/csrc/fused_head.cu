@@ -60,16 +60,9 @@ constexpr int CPT = 2;             // output columns per thread and pass
 constexpr int MAX_POST = 2;
 constexpr int SMEM_MAX = 232448;
 
-enum Act { kNone = -1, kLinear = 0, kRelu = 1, kRelu6 = 2, kHswish = 3 };
-
-__device__ __forceinline__ float head_act(float y, int a) {
-  switch (a) {
-    case kRelu: return fmaxf(y, 0.0f);
-    case kRelu6: return fminf(fmaxf(y, 0.0f), 6.0f);
-    case kHswish: return y * (fminf(fmaxf(y + 3.0f, 0.0f), 6.0f) * (1.0f / 6.0f));
-    default: return y;
-  }
-}
+using mnk::kHswish;
+using mnk::kLinear;
+using mnk::kNone;
 
 template <typename T> struct ConvSmem {
   static constexpr int A_BYTES = RT * LDA * int(sizeof(T));
@@ -189,7 +182,7 @@ __global__ void __launch_bounds__(CONV_THREADS)
       const float bias = to_f(cb[e0 + tid]);
       for (int r = 0; r < RT && r0 + r < rows; ++r)
         pool[((r0 + r) / HW) * CT + tid] +=
-            to_f(from_f<T>(head_act(Cs[r * LDC + tid] + bias, conv_act)));
+            to_f(from_f<T>(mnk::act_named(Cs[r * LDC + tid] + bias, conv_act)));
     }
   }
   __syncthreads();
@@ -262,7 +255,8 @@ __global__ void __launch_bounds__(POST_THREADS)
         const float bias = to_f(b[col]);
 #pragma unroll
         for (int bi = 0; bi < HB; ++bi)
-          hout[bi * s.maxw + col] = to_f(from_f<T>(head_act(acc[q][bi] + bias, s.post_act[j])));
+          hout[bi * s.maxw + col] =
+              to_f(from_f<T>(mnk::act_named(acc[q][bi] + bias, s.post_act[j])));
       }
     }
     __syncthreads();

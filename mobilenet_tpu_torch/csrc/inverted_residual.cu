@@ -53,13 +53,18 @@
 
 #include <type_traits>
 
+#include "ir_tile.cuh"
 #include "numerics.cuh"
 
 namespace {
 
 using mnk::act;
 using mnk::from_f;
+using mnk::kVec;
+using mnk::ld16;
+using mnk::st16;
 using mnk::to_f;
+using mnk::Vec16;
 
 constexpr int IR_THREADS = 256;        // 8 warps
 constexpr int KE = 32;                 // expanded channels per chunk
@@ -70,22 +75,6 @@ constexpr int LDZ = KE + 4;            // f32 expanded tile row stride
 constexpr int LDE = KE + 8;            // expand weight slice row stride
 constexpr int LDA = KE + 8;            // depthwise tile row stride
 constexpr int SMEM_MAX = 232448;       // 227 KB, the per-block opt-in limit
-
-// Loads and stores of 16 bytes (VEC elements of T): every channel count is a
-// multiple of 8 and every tensor 16-byte aligned (the wrapper checks both),
-// so a row of channels moves as whole vectors, and a thread's loads of one
-// loop are few and independent instead of a chain of dependent L2 trips.
-template <typename T> constexpr int kVec = 16 / int(sizeof(T));
-
-template <typename T> union Vec16 {
-  uint4 u;
-  T t[kVec<T>];
-};
-
-__device__ __forceinline__ uint4 ld16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ void st16(void* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
 
 struct IrShape {
   int N, H, W, Cin, E, Cout, stride, Ho, Wo, residual;
@@ -136,46 +125,6 @@ __host__ inline bool make_shape(IrShape* s, int N, int H, int W, int Cin, int E,
                   TH > 0 && TW > 0 && (s->TMp / 16) * (s->CoutP / 16) <= MAX_FRAGS &&
                   (!residual || (stride == 1 && Cin == Cout)) && s->smem <= SMEM_MAX;
   return ok;
-}
-
-// Zf (Pp x KE, f32) = Xs (Pp x CinP) @ Es (CinP x KE).
-template <typename T>
-__device__ __forceinline__ void expand_product(const T* Xs, const T* Es, float* Zf,
-                                               const IrShape& s) {
-  const int tid = threadIdx.x;
-  if constexpr (std::is_same<T, float>::value) {
-    const int k = tid % KE;
-    for (int p = tid / KE; p < s.Pp; p += 2 * (IR_THREADS / KE)) {
-      const float* x0 = Xs + p * s.ldx;
-      const float* x1 = x0 + (IR_THREADS / KE) * s.ldx;  // row p + 8 (Pp % 16 == 0)
-      float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll 4
-      for (int c = 0; c < s.CinP; ++c) {
-        const float w = Es[c * LDE + k];
-        a0 = fmaf(x0[c], w, a0);
-        a1 = fmaf(x1[c], w, a1);
-      }
-      Zf[p * LDZ + k] = a0;
-      Zf[(p + IR_THREADS / KE) * LDZ + k] = a1;
-    }
-  } else {
-    using namespace nvcuda;
-    const int warp = tid / 32;
-    const int frags = (s.Pp / 16) * (KE / 16);
-    for (int f = warp; f < frags; f += IR_THREADS / 32) {
-      const int mi = f / (KE / 16), ni = f % (KE / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-      wmma::fill_fragment(cf, 0.0f);
-      for (int kk = 0; kk < s.CinP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(af, Xs + mi * 16 * s.ldx + kk, s.ldx);
-        wmma::load_matrix_sync(bf, Es + kk * LDE + ni * 16, LDE);
-        wmma::mma_sync(cf, af, bf, cf);
-      }
-      wmma::store_matrix_sync(Zf + mi * 16 * LDZ + ni * 16, cf, LDZ, wmma::mem_row_major);
-    }
-  }
 }
 
 template <typename T>
@@ -240,7 +189,7 @@ __global__ void __launch_bounds__(IR_THREADS, 2)
                                     ? ld16(pw + (long long)(e0 + k) * s.Cout + co) : zero4);
     }
     __syncthreads();
-    expand_product<T>(Xs, Es, Zf, s);
+    mnk::expand_product<T, IR_THREADS, KE, LDZ, LDE>(Xs, Es, Zf, s);
     __syncthreads();
     // + bias, ReLU6, rounded to T; 0 outside the image (SAME pads the
     // expanded activation) and beyond E

@@ -1,14 +1,17 @@
 """Per-block times of the inverted-residual kernels at candidate tiles.
 
-    python -m mobilenet_tpu_torch.ir_tiles [--batch 1 256] [--alpha 1.0] [--res 224] [--int8]
+    python -m mobilenet_tpu_torch.ir_tiles [--batch 1 256] [--alpha 1.0] [--res 224] \
+        [--int8 | --model v3]
 
 For each expanded block of MobileNet-V2 at the given width and size, and
 each batch, times the bf16 kernel (or with --int8 the int8 kernel; CUDA
 events, random operands) at the tile that `ops.inverted_residual.ir_plan`
 (`ops.inverted_residual_i8.ir_i8_plan`) picks and at a few others, and
 prints one JSON line per block and batch: the shape, the plan, and the ms
-of each tile. These are the timings behind the plans' time model
-(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, and the int8 plan's output cap).
+of each tile. With --model v3, the same for every block of MobileNet-V3-Large
+and the bf16 V3 bottleneck kernel (`ops.v3_block.v3_plan`; SE blocks with
+both of their launches). These are the timings behind the plans' time model
+(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, and the int8 and V3 plans' output caps).
 Refuses to run without a card.
 """
 
@@ -41,6 +44,55 @@ def tile_ms(fn, args, tile, reps: int, tail=()) -> float:
     return start.elapsed_time(end) / reps
 
 
+def v3_rows(lib, args, gen):
+    """One JSON line per V3-Large block and batch: the bf16 V3 kernel's ms at
+    the plan's tile and at candidate tiles of up to MAX_OUTPUTS_V3 outputs."""
+    from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
+    from .ops.head import ACTS  # noqa: PLC0415
+    from .ops.inverted_residual import MAX_FRAGS, SMEM_MAX  # noqa: PLC0415
+    from .ops.v3_block import MAX_OUTPUTS_V3, v3_plan, v3_smem_bytes  # noqa: PLC0415
+
+    def rand(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    h = args.res // 2
+    for i, bd in enumerate(V3Config("large", args.alpha, args.res).block_defs):
+        e, ho, se, k = bd.cexp, -(-h // bd.stride), bd.se_mid, bd.kernel
+        for n in args.batch:
+            x = rand(n, h, h, bd.cin, scale=1.0)
+            exp = ((rand(bd.cin, e, scale=bd.cin ** -0.5), rand(e, scale=0.1))
+                   if bd.has_expand else None)
+            ses = ((rand(e, se, scale=e ** -0.5), rand(se, scale=0.1),
+                    rand(se, e, scale=se ** -0.5), rand(e, scale=0.1)) if se else None)
+            dw = (rand(k, k, 1, e, scale=0.3), rand(e, scale=0.1))
+            prj = (rand(e, bd.cout, scale=e ** -0.5), rand(bd.cout, scale=0.1))
+            out = torch.empty(n, ho, ho, bd.cout, dtype=x.dtype, device="cuda")
+            part = torch.empty(n * ho * ho * e if se else 1, device="cuda")  # the 1x1 tile's
+            ptrs = [x.data_ptr(), *((t.data_ptr() for t in exp) if exp else (0, 0)),
+                    *(t.data_ptr() for t in dw + prj),
+                    *((t.data_ptr() for t in ses) if ses else (0,) * 4), part.data_ptr(),
+                    out.data_ptr()]
+            call = (*ptrs, n, h, h, bd.cin, e, bd.cout, se, k, bd.stride,
+                    ACTS[bd.act if bd.has_expand else "linear"], ACTS[bd.act],
+                    int(bd.has_res), int(not bd.has_expand))
+            plan = v3_plan(n, h, h, bd.cin, e, bd.cout, k, bd.stride, se, 2)
+            tiles = {plan, (1, 1), (1, min(ho, 7)), (2, min(ho, 14)), (4, min(ho, 14)),
+                     (4, min(ho, 16)), (min(ho, 7), min(ho, 7)), (min(ho, 8), min(ho, 8)),
+                     (min(ho, 8), min(ho, 16)), (min(ho, 16), min(ho, 16)),
+                     (min(ho, 7), min(ho, 14)), (min(ho, 14), min(ho, 14))}
+            ms = {f"{th}x{tw}": tile_ms(lib.v3_block_bf16, call, (th, tw), 20 if n == 1 else 5)
+                  for th, tw in sorted(tiles)
+                  if (th * tw <= MAX_OUTPUTS_V3
+                      and -(-th * tw // 16) * -(-bd.cout // 16) <= MAX_FRAGS
+                      and v3_smem_bytes(th, tw, bd.cin, e, bd.cout, se, k, bd.stride, 2)
+                      <= SMEM_MAX)}
+            print(json.dumps({"device": torch.cuda.get_device_name(0), "model": "v3",
+                              "block": i, "batch": n, "h": h, "cin": bd.cin, "e": e,
+                              "cout": bd.cout, "k": k, "stride": bd.stride, "se": se,
+                              "plan": plan, "ms": ms}), flush=True)
+        h = ho
+
+
 def main(argv=None):
     from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
     from .ops import _build  # noqa: PLC0415
@@ -56,12 +108,20 @@ def main(argv=None):
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--res", type=int, default=224)
     p.add_argument("--int8", action="store_true", help="time the int8 kernel")
+    p.add_argument("--model", default="v2", choices=["v2", "v3"],
+                   help="v2 (default): the inverted-residual kernels; v3: the V3 "
+                        "bottleneck kernel over MobileNet-V3-Large")
     args = p.parse_args(argv)
+    if args.int8 and args.model == "v3":
+        raise SystemExit("mobilenet_tpu_torch.ir_tiles: the V3 int8 kernel is not ported yet")
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.ir_tiles measures the card; "
                          "torch.cuda.is_available() is False")
     lib = _build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.model == "v3":
+        v3_rows(lib, args, gen)
+        return
 
     def rand(*shape, scale=1.0):
         if args.int8:

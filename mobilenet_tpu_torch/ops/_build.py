@@ -45,6 +45,10 @@ _HEAD = [_P] * 9 + [_I] * 10
 # x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, out | N, H, W, Cin, E, Cout,
 # stride, residual, TH, TW
 _IR = [_P] * 8 + [_I] * 10
+# x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se_w1, se_b1, se_w2, se_b2,
+# partial, out | N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+# identity, TH, TW
+_V3 = [_P] * 13 + [_I] * 15
 _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
 # C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
@@ -60,6 +64,7 @@ _SIGNATURES = {
     # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
     "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
     "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
+    "v3_block_bf16": _V3, "v3_block_f32": _V3,
     "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
 }
 # C functions that launch nothing: (argument types, no stream; result type).
@@ -68,6 +73,8 @@ _HOST_SIGNATURES = {
     "inverted_residual_smem_bytes": ([_I] * 6, ctypes.c_int),
     # Cin, Cout, stride, TH, TW -> bytes of dynamic shared memory
     "inverted_residual_i8_smem_bytes": ([_I] * 5, ctypes.c_int),
+    # Cin, E, Cout, Se, K, stride, TH, TW, itemsize -> bytes of dynamic shared memory
+    "v3_block_smem_bytes": ([_I] * 9, ctypes.c_int),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -20,7 +20,7 @@ import torch
 from . import _build
 from .separable_block import check_aligned, check_channels, check_kernel_args
 
-# The kernel's activation codes (fused_head.cu enum Act).
+# The kernels' activation codes (numerics.cuh enum Act): fused_head, v3_block.
 ACTS = {"linear": 0, "relu": 1, "relu6": 2, "hswish": 3}
 MAX_POST = 2
 HB = 2                  # images per thread block

@@ -68,10 +68,11 @@ def ir_plan(n: int, h: int, w: int, cin: int, cout: int, stride: int,
 
 
 def plan_tile(n: int, h: int, w: int, cin: int, cout: int, stride: int, smem_bytes,
-              max_outputs: int = 64) -> Optional[Tuple[int, int]]:
+              max_outputs: int = 64, k: int = 3) -> Optional[Tuple[int, int]]:
     """`ir_plan`'s search, for any inverted-residual kernel with this
     one's tile loop: `smem_bytes(th, tw)` is the kernel's shared memory,
-    `max_outputs` the largest tile it takes (TH, TW <= 16 either way)."""
+    `max_outputs` the largest tile it takes (TH, TW <= 16 either way), `k`
+    the depthwise kernel's side (the input window of a tile)."""
     if stride == 2 and (h % 2 or w % 2):
         return None
     ho, wo = -(-h // stride), -(-w // stride)
@@ -85,7 +86,7 @@ def plan_tile(n: int, h: int, w: int, cin: int, cout: int, stride: int, smem_byt
             smem = smem_bytes(th, tw)
             if smem > SMEM_MAX:
                 continue
-            pp = _rup(((th - 1) * stride + 3) * ((tw - 1) * stride + 3), 16)
+            pp = _rup(((th - 1) * stride + k) * ((tw - 1) * stride + k), 16)
             blocks = n * -(-ho // th) * -(-wo // tw)
             slots = SLOTS_TWO_PER_SM if smem <= SMEM_PREFERRED else SLOTS_ONE_PER_SM
             cost = (max(1.0, blocks / slots)

@@ -1,5 +1,6 @@
-"""Pure-NumPy float32 golden reference of MobileNet-V2's layers: the port's
-copy of what the V2 int8 calibration needs from the JAX package's
+"""Pure-NumPy float32 golden reference of MobileNet-V2's and MobileNet-V3's
+layers: the port's copy of what the V2 int8 calibration and the V3 float
+gate (`runtime.eval.verify_v3`) need from the JAX package's
 `oracle/numpy_ref.py`, verbatim.
 
 The calibration takes absmax over these taps; a reordered float32 sum could
@@ -118,5 +119,108 @@ def forward_all_v2(params: Dict[str, Any], x: np.ndarray, config):
     pooled = y.astype(np.float32).mean(axis=(1, 2))
     acts["pool"] = pooled
     logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
+    acts["logits"] = logits
+    return logits, acts
+
+
+# ---------------------------------------------------------------------------
+# MobileNet-V3 oracle (named activations, k in {3,5} depthwise, SE gates)
+# ---------------------------------------------------------------------------
+
+
+def act_named_ref(y: np.ndarray, act) -> np.ndarray:
+    """Named activations, float32, same formula order as the device twin
+    (ops.conv.apply_act_named): hsigmoid = clip(y+3, 0, 6) * (1/6);
+    hswish = y * hsigmoid(y)."""
+    if act is None:
+        return y
+    y = np.asarray(y, np.float32)
+    if act == "relu":
+        return np.maximum(y, np.float32(0))
+    if act == "relu6":
+        return np.clip(y, np.float32(0), np.float32(6))
+    if act == "hsigmoid":
+        return (np.clip(y + np.float32(3), np.float32(0), np.float32(6))
+                * np.float32(1.0 / 6.0))
+    if act == "hswish":
+        return y * (np.clip(y + np.float32(3), np.float32(0), np.float32(6))
+                    * np.float32(1.0 / 6.0))
+    raise ValueError(act)
+
+
+def depthwise_ref_any(x, w, stride, bias=None, act=None):
+    """Depthwise kxk (k from w.shape, {3,5}); tap-major f32 accumulation."""
+    x = np.asarray(x, np.float32)
+    k = int(w.shape[0])
+    xp = _pad_nhwc(x, stride, k)
+    h_out = -(-x.shape[1] // stride)
+    w_out = -(-x.shape[2] // stride)
+    acc = np.zeros((x.shape[0], h_out, w_out, x.shape[3]), np.float32)
+    for dy in range(k):
+        for dx in range(k):
+            patch = xp[:, dy : dy + h_out * stride : stride,
+                       dx : dx + w_out * stride : stride, :]
+            acc += patch * w[dy, dx, 0]
+    if bias is not None:
+        acc += np.asarray(bias, np.float32)
+    return act_named_ref(acc, act)
+
+
+def pointwise_ref_any(x, w, bias=None, act=None):
+    y = np.asarray(x, np.float32) @ np.asarray(w, np.float32)
+    if bias is not None:
+        y = y + np.asarray(bias, np.float32)
+    return act_named_ref(y, act).astype(np.float32)
+
+
+def se_ref(z: np.ndarray, se: Dict[str, np.ndarray]) -> np.ndarray:
+    """Squeeze-excite gate twin of models.mobilenet_v3.se_apply."""
+    pooled = np.asarray(z, np.float32).mean(axis=(1, 2))
+    g = pooled @ np.asarray(se["w1"], np.float32) + np.asarray(
+        se["b1"], np.float32)
+    g = np.maximum(g, np.float32(0))
+    g = g @ np.asarray(se["w2"], np.float32) + np.asarray(
+        se["b2"], np.float32)
+    g = act_named_ref(g, "hsigmoid")
+    return (z * g[:, None, None, :]).astype(np.float32)
+
+
+def forward_all_v3(params: Dict[str, Any], x: np.ndarray, config):
+    """Golden per-layer MobileNet-V3 forward (NumPy twin of
+    models.mobilenet_v3.forward_v3(collect=True); config is a V3Config).
+    Layer names match the device taps exactly."""
+    acts: Dict[str, np.ndarray] = {}
+    head_act = config.head_act
+    # stem is 3x3: conv2d_ref's fixed tap order, then the named activation
+    y = conv2d_ref(x, params["conv1"]["w"], 2, params["conv1"]["b"], None)
+    y = act_named_ref(y, head_act)
+    acts["conv1"] = y
+    for i, (bd, blk) in enumerate(zip(config.block_defs, params["blocks"])):
+        z = y
+        if bd.has_expand:
+            z = pointwise_ref_any(z, blk["exp"]["w"], blk["exp"]["b"], bd.act)
+            acts[f"block{i:02d}_exp"] = z
+        z = depthwise_ref_any(z, blk["dw"]["w"], bd.stride, blk["dw"]["b"],
+                              bd.act)
+        acts[f"block{i:02d}_dw"] = z
+        if bd.se_mid:
+            z = se_ref(z, blk["se"])
+            acts[f"block{i:02d}_se"] = z
+        out = pointwise_ref_any(z, blk["prj"]["w"], blk["prj"]["b"], None)
+        acts[f"block{i:02d}_prj"] = out
+        if bd.has_res:
+            out = out + y
+            acts[f"block{i:02d}_out"] = out
+        y = out
+    y = pointwise_ref_any(y, params["conv_last"]["w"],
+                          params["conv_last"]["b"], head_act)
+    acts["conv_last"] = y
+    pooled = y.astype(np.float32).mean(axis=(1, 2))
+    acts["pool"] = pooled
+    h = pooled @ np.asarray(params["head"]["w"], np.float32) + np.asarray(
+        params["head"]["b"], np.float32)
+    h = act_named_ref(h, head_act)
+    acts["head"] = h
+    logits = h @ params["fc"]["w"] + params["fc"]["b"]
     acts["logits"] = logits
     return logits, acts

@@ -1,14 +1,58 @@
-"""Evaluation inputs: the JAX package's `runtime/eval.py` `synth_images`,
-copied verbatim (the int8 V2 calibration set). The rest of that module, the
-end-to-end accuracy gate, is not ported yet."""
+"""Evaluation inputs and the MobileNet-V3 float gate.
+
+`synth_images` is the JAX package's `runtime/eval.py` function, copied
+verbatim (the int8 V2 calibration set). `verify_v3` is the JAX package's
+float per-layer gate of V3 (`cli._verify_v3`): every tap of the plain route
+against the NumPy oracle. The rest of that module, the end-to-end accuracy
+gate, is not ported yet."""
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Any, Dict, List
 
 import numpy as np
+import torch
 
 from ..config import ModelConfig
+from ..oracle import numpy_ref
+
+# The JAX package's V3 per-layer tolerance (atol, rtol), utils/golden.py
+# V3_TOL: unbounded relu and hard-swish activations of O(30) and the SE
+# gate's pooled product carry float32 reassociation through 15 blocks;
+# a wrong pad, stride or fold is O(1e-1..1).
+V3_TOL = (3e-3, 1e-3)
+
+
+@torch.inference_mode()
+def verify_v3(config, folded: Dict[str, Any], x_f32: np.ndarray, *, device="cuda") -> bool:
+    """The V3 float gate: the float32 plain route's taps on `device`
+    (conv1, block{i:02d}_exp/_dw/_se/_prj/_out, conv_last, pool, head,
+    logits) against `numpy_ref.forward_all_v3` on the same folded weights
+    and input, elementwise |diff| <= atol + rtol |ref| at V3_TOL. Prints one
+    line per tap; True when every tap passes."""
+    from .pipeline import InferencePipeline  # noqa: PLC0415
+
+    cfg = dataclasses.replace(config, compute_dtype="float32")
+    pipe = InferencePipeline(cfg, folded, device=device, dw_backend="plain")
+    _, acts = pipe.activations(x_f32)
+    _, ref = numpy_ref.forward_all_v3(folded, x_f32, cfg)
+    atol, rtol = V3_TOL
+    ok = set(acts) == set(ref)
+    for name, want in ref.items():
+        got = acts.get(name)
+        if got is None or got.shape != want.shape:
+            print(f"[FAIL] {name:14s} missing or shape {None if got is None else got.shape}")
+            ok = False
+            continue
+        diff = np.abs(got - want)
+        excess = float((diff - (atol + rtol * np.abs(want))).max())
+        ok &= excess <= 0
+        print(f"[{'OK ' if excess <= 0 else 'FAIL'}] {name:14s} max_abs={float(diff.max()):.3e} "
+              f"(gate atol={atol:g} rtol={rtol:g})")
+    print(f"VERIFY {'OK' if ok else 'FAILED'} ({len(ref)} layers, numpy oracle, "
+          f"{cfg.variant_name()})")
+    return ok
 
 
 def synth_images(config: ModelConfig, n: int, seed: int,

@@ -1,10 +1,11 @@
 """Inference runtime: device-resident weights and the entry points.
 
-The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1 and
-MobileNet-V2 on one device. `PipelineBase` holds the uint8-in paths
-(classify, run_batch, benchmark) that the float `InferencePipeline` and the
-int8 `quant.model.Int8Pipeline` share. The weights move to the device once, at construction. PyTorch runs
-eagerly, so an "entry" is a plain function; each call runs the kernels on
+The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1,
+MobileNet-V2 and MobileNet-V3 on one device. `PipelineBase` holds the
+uint8-in paths (classify, run_batch, benchmark) that the float
+`InferencePipeline` and the int8 `quant.model.Int8Pipeline` share. The
+weights move to the device once, at construction. PyTorch runs eagerly,
+so an "entry" is a plain function; each call runs the kernels on
 the current CUDA stream. `benchmark()` times with CUDA events on a
 device-resident batch and refuses to run without a card.
 """
@@ -17,14 +18,24 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..checkpoints import fold_bn, fold_bn_v2, init_params, init_params_v2, to_device
+from ..checkpoints import (
+    fold_bn, fold_bn_v2, fold_bn_v3, init_params, init_params_v2, init_params_v3, to_device,
+)
 from ..checkpoints.convert import prepare_kernel_layouts
 from ..config import ModelConfig
-from ..models import mobilenet_v1, mobilenet_v2
+from ..models import mobilenet_v1, mobilenet_v2, mobilenet_v3
 from ..models.mobilenet_v2 import V2Config
+from ..models.mobilenet_v3 import V3Config
 from ..ops.preprocess import preprocess
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# config type -> (init, fold, forward, predict) of the inverted-residual families
+_FAMILIES = {
+    V2Config: (init_params_v2, fold_bn_v2, mobilenet_v2.forward_v2,
+               mobilenet_v2.predict_probs_v2),
+    V3Config: (init_params_v3, fold_bn_v3, mobilenet_v3.forward_v3,
+               mobilenet_v3.predict_probs_v3),
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -128,7 +139,8 @@ class PipelineBase:
 
 class InferencePipeline(PipelineBase):
     """Owns device-resident weights and the entry points for one V1 variant
-    (a ModelConfig) or one V2 variant (a V2Config)."""
+    (a ModelConfig), one V2 variant (a V2Config) or one V3 variant (a
+    V3Config)."""
 
     def __init__(self, config, params: Optional[Dict[str, Any]] = None,
                  *, device="cuda", seed: int = 0, dw_backend: Any = "auto",
@@ -136,20 +148,23 @@ class InferencePipeline(PipelineBase):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
-        a per-block tuple (models.mobilenet_v1._routing), or for V2 also
-        "mixed" (models.mobilenet_v2._routing_v2)."""
+        a per-block tuple (models.mobilenet_v1._routing), or for V2 and V3
+        also "mixed" (models.mobilenet_v2._routing_v2,
+        models.mobilenet_v3._routing_v3; a V3-Small config takes "plain"
+        only)."""
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
         self.dw_backend = dw_backend
-        if isinstance(config, V2Config):
-            host = params if params is not None else fold_bn_v2(
-                init_params_v2(config, seed=seed), eps=config.bn_eps)
+        if type(config) in _FAMILIES:
+            init, fold, self._forward, self._predict = _FAMILIES[type(config)]
+            host = params if params is not None else fold(
+                init(config, seed=seed), eps=config.bn_eps)
             self.params = to_device(host, self.device, self.dtype)
-            self._forward, self._predict = mobilenet_v2.forward_v2, mobilenet_v2.predict_probs_v2
             return
         if not isinstance(config, ModelConfig):
-            raise TypeError(f"config must be a ModelConfig or a V2Config, got {config!r}")
+            raise TypeError(f"config must be a ModelConfig, a V2Config or a V3Config, "
+                            f"got {config!r}")
         host = params if params is not None else fold_bn(
             init_params(config, seed=seed), eps=config.bn_eps)
         self.params = prepare_kernel_layouts(

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 ragged and narrow shapes of the whole alpha grid (partial pixel and channel
-tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8) against
-the plain routes, and the float32 stem against float64 without any TF32 flag
-set.
+tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8) and the
+V3-Large float routes against the plain routes, and the float32 stem against
+float64 without any TF32 flag set.
 Marked `cuda`: skipped without a card. Imports no JAX, so it runs where JAX
 is not installed:
 
@@ -14,10 +14,10 @@ import pytest
 import torch
 
 from mobilenet_tpu_torch import (
-    InferencePipeline, Int8Pipeline, Int8PipelineV2, ModelConfig, V2Config,
+    InferencePipeline, Int8Pipeline, Int8PipelineV2, ModelConfig, V2Config, V3Config,
 )
 from mobilenet_tpu_torch.checkpoints import fold_bn, fold_bn_v2, init_params, init_params_v2
-from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2
+from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2, mobilenet_v3
 from mobilenet_tpu_torch.ops import _build
 from mobilenet_tpu_torch.ops import preprocess as prep
 from mobilenet_tpu_torch.ops.chain import chain, chain_plain
@@ -35,6 +35,7 @@ from mobilenet_tpu_torch.ops.separable_block import (
 from mobilenet_tpu_torch.ops.separable_block_i8 import (
     separable_block_i8, separable_block_i8_plain,
 )
+from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
 from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
 from mobilenet_tpu_torch.quant import ops as qops
 from mobilenet_tpu_torch.quant.model import forward_i8
@@ -463,3 +464,87 @@ def test_v2_int8_routes_verify_and_server(dev):
     stats = asyncio.run(serve())
     assert stats["errors"] == 0
     assert inverted_residual_i8.launches > before[0] and separable_block_i8.launches > before[1]
+
+
+# -- MobileNet-V3 ------------------------------------------------------------
+
+
+def _v3_args(rng, dev, dtype, n, h, cin, e, cout, k, se, identity=False):
+    """v3_block operands; SE biases non-zero (the seeded weights have none)."""
+    kw = {"x": _t(rng, (n, h, h, cin), dtype, dev, 0.7),
+          "exp_w": None if identity else _t(rng, (cin, e), dtype, dev, cin ** -0.5),
+          "exp_b": None if identity else _t(rng, (e,), dtype, dev, 0.2),
+          "dw_w": _t(rng, (k, k, 1, e), dtype, dev, 0.25), "dw_b": _t(rng, (e,), dtype, dev, 0.2),
+          "prj_w": _t(rng, (e, cout), dtype, dev, e ** -0.5),
+          "prj_b": _t(rng, (cout,), dtype, dev, 0.2)}
+    if se:
+        kw.update(se_w1=_t(rng, (e, se), dtype, dev, e ** -0.5),
+                  se_b1=_t(rng, (se,), dtype, dev, 0.3),
+                  se_w2=_t(rng, (se, e), dtype, dev, se ** -0.5),
+                  se_b2=_t(rng, (e,), dtype, dev, 0.3))
+    return kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,e,cout,k,stride,se,act,residual,identity", [
+    (2, 16, 16, 16, 16, 3, 1, 0, "relu", True, True),          # V3-L b00: identity, residual
+    (3, 10, 16, 64, 24, 3, 2, 0, "relu", False, False),        # b01 widths, ragged tiles
+    (2, 12, 24, 72, 40, 5, 2, 24, "relu", False, False),       # b03: k5 s2 SE, E tail chunk
+    (2, 9, 40, 120, 40, 5, 1, 32, "relu", True, False),        # b04: SE, residual, odd side
+    (1, 14, 80, 200, 80, 3, 1, 0, "hswish", True, False),      # b07
+    (2, 14, 80, 480, 112, 3, 1, 120, "hswish", False, False),  # b10: several tiles + SE
+    (2, 14, 112, 672, 160, 5, 2, 168, "hswish", False, False),  # b12
+    (3, 7, 160, 960, 160, 5, 1, 240, "hswish", True, False),    # b13: the widest
+    (2, 8, 24, 72, 24, 3, 1, 24, "relu6", True, False),         # relu6 with SE
+])
+def test_v3_block(dev, dtype, n, h, cin, e, cout, k, stride, se, act, residual, identity):
+    rng = np.random.default_rng(cin + e + k)
+    kw = _v3_args(rng, dev, dtype, n, h, cin, e, cout, k, se, identity)
+    kw.update(k=k, stride=stride, act=act, residual=residual)
+    before = v3_block.launches
+    got = v3_block(**kw)
+    assert v3_block.launches == before + 1
+    _close(got, v3_block_plain(**kw), dtype)
+
+
+def test_v3_smem_plan_matches_kernel(dev):
+    """The Python mirror of the V3 kernel's shared-memory plan equals the
+    kernel's own for every V3-Large and -minimalistic block's tile at batch 1
+    and 256 and both itemsizes."""
+    lib = _build.library()
+    for mini in (False, True):
+        h = 112
+        for bd in V3Config("large", 1.0, 224, minimalistic=mini).block_defs:
+            for n, item in ((1, 2), (256, 2), (1, 4), (256, 4)):
+                th, tw = v3_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                 bd.se_mid, item)
+                assert lib.v3_block_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
+                                               bd.stride, th, tw, item) == v3_smem_bytes(
+                    th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride, item)
+            h //= bd.stride
+
+
+@pytest.mark.parametrize("mini,batch", [(False, 1), (False, 4), (True, 2)])
+def test_v3_pipeline_routes_agree(dev, mini, batch):
+    """V3-Large 1.0-96: the float32 kernel route against the float32 plain
+    route at golden.V3_TOL; the bf16 kernel route against the bf16 plain
+    route at the JAX package's V2/V3 routing gate (chip_smoke.py
+    check_routes(anchored=True)); the kernel launched once per block."""
+    x = np.random.default_rng(batch).uniform(-1, 1, (batch, 96, 96, 3)).astype(np.float32)
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = V3Config("large", 1.0, 96, minimalistic=mini, compute_dtype=dtype)
+        pipe = InferencePipeline(cfg, device="cuda")
+        xd = torch.from_numpy(x).to(dev, pipe.dtype)
+        before = v3_block.launches
+        with torch.inference_mode():
+            logits[dtype] = [mobilenet_v3.forward_v3(pipe.params, xd, cfg, dw_backend=r).float()
+                             for r in ("auto", "plain")]
+        assert v3_block.launches == before + len(cfg.block_defs)
+    (got32, ref32), (got, ref) = logits["float32"], logits["bfloat16"]
+    torch.testing.assert_close(got32, ref32, atol=3e-3, rtol=1e-3)
+    rms = lambda t: float(t.pow(2).mean().sqrt())  # noqa: E731
+    atol = max(6e-2, 4.5e-2 * float(ref.abs().max()),
+               1.5 * rms(got - ref) * float(np.sqrt(2 * np.log(got.numel()))))
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+    assert rms(got - ref32) <= 1.5 * rms(ref - ref32) + 6e-2

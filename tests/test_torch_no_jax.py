@@ -28,8 +28,10 @@ def test_no_jax_import(path):
 def test_import_builds_nothing():
     import mobilenet_tpu_torch.models.mobilenet_v1  # noqa: F401
     import mobilenet_tpu_torch.models.mobilenet_v2  # noqa: F401
+    import mobilenet_tpu_torch.models.mobilenet_v3  # noqa: F401
     import mobilenet_tpu_torch.ops.inverted_residual  # noqa: F401
     import mobilenet_tpu_torch.ops.inverted_residual_i8  # noqa: F401
+    import mobilenet_tpu_torch.ops.v3_block  # noqa: F401
     import mobilenet_tpu_torch.quant.v2  # noqa: F401
     from mobilenet_tpu_torch.ops import _build
 
@@ -45,3 +47,16 @@ def test_v2_modules_are_checked():
             "mobilenet_tpu_torch/quant/v2.py",
             "mobilenet_tpu_torch/oracle/numpy_ref.py",
             "mobilenet_tpu_torch/runtime/eval.py"} <= names
+
+
+def test_v3_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/models/mobilenet_v3.py",
+            "mobilenet_tpu_torch/checkpoints/v3.py",
+            "mobilenet_tpu_torch/checkpoints/convert.py",
+            "mobilenet_tpu_torch/ops/v3_block.py",
+            "mobilenet_tpu_torch/ops/conv.py",
+            "mobilenet_tpu_torch/oracle/numpy_ref.py",
+            "mobilenet_tpu_torch/runtime/eval.py",
+            "mobilenet_tpu_torch/runtime/pipeline.py",
+            "mobilenet_tpu_torch/runtime/serving.py"} <= names
