@@ -65,7 +65,26 @@ file; imports nothing of JAX. Phases, one JSON line each:
      latency of "mixed" against "auto" (alternating, in one process);
  21. the V3 float main path: counters set to 0, a 64-stream V3-Large server
      and one lone request; 0 errors, and the V3 bottleneck kernel and the
-     fused head launched.
+     fused head launched;
+ 22-25. phases 18-21 for MobileNet-V3-Small 1.0-224: the V3 kernel at its
+     nine distinct block shapes (block 0 with the identity expansion at
+     stride 2 and SE), the routes, verify_v3, benchmark() and batch-1
+     "mixed" (four plain blocks) against "auto", the 64-stream V3-Small
+     server;
+ 26. V3-Large int8 calibration (32 images, seconds printed);
+ 27. the int8 V3 kernel against its plain version, exactly, at the 12
+     distinct block shapes of V3-Large 1.0-224 at batch 256 and 1 (non-zero
+     SE biases, the identity block 0, block 1's expansion at stride 2) and a
+     saturating residual; its tile plans and the shared-memory mirror;
+ 28. the V3-Large int8 pipeline on the calibrated tree: kernel route
+     against plain route, logits equal bit for bit at batch 256 and 1; the
+     per-layer gate verify_int8_v3 at batch 2, every int8 tap exact;
+ 29. V3-Large int8 benchmark(): kernel and plain routes at batch 256, and
+     their batch-1 latency (alternating);
+ 30. the V3-Large int8 main path: counters set to 0, a 64-stream int8
+     server and one lone request, then `cli serve --model v3 --int8` in
+     this process (it calibrates anew); 0 errors and the int8 V3 kernel
+     launched in each.
 Then one JSON line of per-kernel results and, last, the result line.
 Any failure raises and the script exits non-zero without the result line.
 
@@ -81,6 +100,8 @@ the float32 stem turns cuDNN's TF32 off around its own call.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -909,24 +930,14 @@ def v3_folded(cfg, seed):
     return tree
 
 
-def v3_phases(smi, gen, kernels, launches):
-    """Phases 18-21. Fills launches["v3_block"] from the V3 server; returns
-    the kernel's summary row."""
-    from mobilenet_tpu_torch import InferencePipeline, V3Config
-    from mobilenet_tpu_torch.models import mobilenet_v3
+def v3_kernel_checks(summary, row, cfg, gen):
+    """The V3 kernel against its plain version at each distinct block shape
+    of `cfg` at batch 256 (float32 then bfloat16, `check_float`; non-zero SE
+    biases), adding to `summary[row]`; the tile plans at batch 256 and 1 and
+    the kernel's shared memory against its Python mirror."""
     from mobilenet_tpu_torch.ops import _build
     from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
-    from mobilenet_tpu_torch.runtime.eval import verify_v3
 
-    cfg = V3Config("large", ALPHA, RES, compute_dtype="bfloat16")
-    summary = {"v3_block": {
-        "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block.cu",
-        "replaces": "mobilenet_tpu/ops/pallas_ir_v3.py:414",
-        "also_runs": ["V3-L b00 (JAX: mobilenet_tpu/ops/pallas_block_packed.py:132)",
-                      "V3-L b01 (JAX: mobilenet_tpu/ops/pallas_expand_s2.py:238)"]}}
-    summary["v3_block"].update(FLOAT_ROW)
-
-    # -- 18. the V3 kernel vs plain ------------------------------------------------
     lib = _build.library()
     plans = {}
     for nm, n, h, bd, cnt in v3_block_shapes(cfg, 256):
@@ -947,28 +958,57 @@ def v3_phases(smi, gen, kernels, launches):
         def call(fn, kw=kw):
             return lambda *a: fn(*a[:7], se_w1=a[7], se_b1=a[8], se_w2=a[9], se_b2=a[10], **kw)
 
-        check_float(summary, "v3_block", name, cnt, call(v3_block), call(v3_block_plain),
+        check_float(summary, row, name, cnt, call(v3_block), call(v3_block_plain),
                     rand_v3(gen, n, h, bd, torch.float32), rand_v3(gen, n, h, bd, torch.bfloat16),
                     lambda kind: ir_work(n, h, bd.cin, bd.cexp, bd.cout, bd.stride, kind,
                                          k=bd.kernel, se=bd.se_mid,
                                          identity=not bd.has_expand))
         torch.cuda.empty_cache()
-    emit("v3_plans", plans=plans)
+    emit("v3_plans", model=cfg.variant_name(), plans=plans)
 
-    # -- 19. V3 pipeline: kernel route vs plain route; the per-layer gate -------------
+
+V3_ROWS = {
+    "large": ("v3_block", "mobilenet_tpu/ops/pallas_ir_v3.py:414",
+              ["V3-L b00 (JAX: mobilenet_tpu/ops/pallas_block_packed.py:132)",
+               "V3-L b01 (JAX: mobilenet_tpu/ops/pallas_expand_s2.py:238)"]),
+    "small": ("v3_block[v3small]", "mobilenet_tpu/ops/pallas_se_packed.py:175",
+              ["V3-S b02, b04-b07 (JAX: the row's TPU kernel)",
+               "V3-S b01 (JAX: mobilenet_tpu/ops/pallas_expand_s2.py:238)",
+               "V3-S b03, b08-b10 (JAX: mobilenet_tpu/ops/pallas_ir_v3.py:414)",
+               "V3-S b00 (JAX: XLA ops)"]),
+}
+
+
+def v3_phases(smi, gen, kernels, launches, variant="large"):
+    """Phases 18-21 (V3-Large) or 22-25 (V3-Small). Fills the row's
+    launches from the V3 server; returns the kernel's summary row."""
+    from mobilenet_tpu_torch import InferencePipeline, V3Config
+    from mobilenet_tpu_torch.models import mobilenet_v3
+    from mobilenet_tpu_torch.runtime.eval import verify_v3
+
+    cfg = V3Config(variant, ALPHA, RES, compute_dtype="bfloat16")
+    row, replaces, also = V3_ROWS[variant]
+    summary = {row: {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block.cu",
+                     "replaces": replaces, "also_runs": also}}
+    summary[row].update(FLOAT_ROW)
+
+    # -- 18 / 22. the V3 kernel vs plain -------------------------------------------
+    v3_kernel_checks(summary, row, cfg, gen)
+
+    # -- 19 / 23. V3 pipeline: kernel route vs plain route; the per-layer gate ---------
     tree = v3_folded(cfg, 0)
     pipe = InferencePipeline(cfg, tree, device="cuda")
-    check_routes(pipe, mobilenet_v3.forward_v3, V3Config("large", ALPHA, RES), V3_F32_ATOL,
+    check_routes(pipe, mobilenet_v3.forward_v3, V3Config(variant, ALPHA, RES), V3_F32_ATOL,
                  V3_F32_RTOL, anchored=True, params=tree)
     x = np.random.default_rng(5).uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
     ok = verify_v3(cfg, v3_folded(cfg, 1), x, device="cuda")
     emit("verify_v3", model=cfg.variant_name(), batch=2, tolerance=[V3_F32_ATOL, V3_F32_RTOL],
          ok=ok)
     if not ok:
-        raise AssertionError("verify_v3 at 1.0-224: a tap is outside the V3 gate")
+        raise AssertionError(f"verify_v3 at {cfg.variant_name()}: a tap is outside the V3 gate")
     torch.cuda.empty_cache()
 
-    # -- 20. V3 benchmark; batch-1 "mixed" vs "auto" ----------------------------------
+    # -- 20 / 24. V3 benchmark; batch-1 "mixed" vs "auto" --------------------------------
     emit("benchmark", model=cfg.variant_name(), route="auto", nvidia_smi=smi,
          **pipe.benchmark(batch_size=256, steps=40))
     plain = InferencePipeline(cfg, tree, device="cuda", dw_backend="plain")
@@ -981,10 +1021,170 @@ def v3_phases(smi, gen, kernels, launches):
          **batch1_latency([("auto", pipe), ("mixed", mixed)]))
     del mixed
 
-    # -- 21. the V3 float main path: 64-stream server ---------------------------------
-    got = serve_main_path(pipe, kernels, ("v3_block", "fused_head"), "serving_v3", smi)
-    launches["v3_block"] = got["v3_block"]
+    # -- 21 / 25. the V3 float main path: 64-stream server -------------------------------
+    got = serve_main_path(pipe, kernels, ("v3_block", "fused_head"),
+                          "serving_v3" if variant == "large" else "serving_v3small", smi)
+    launches[row] = got["v3_block"]
     del pipe
+    torch.cuda.empty_cache()
+    return summary
+
+
+def v3_int8_layers(rng, cin, e, cout, k, se, identity, prj_gain=1.0):
+    """(exp, dw, prj, se1, se2) of one int8 V3 block on the card, quantized
+    from random float weights by quant/v3's _quant_named at fixed scales
+    (input 0.05, expansion and depthwise 0.06, SE mid 0.03, the projection
+    back at the input's scale / prj_gain): non-zero biases everywhere, the
+    SE's included; exp None for the identity, the SE pair None without SE."""
+    from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3
+
+    def lay(shape, axis, s_in, s_out, scale, b_scale, **kw):
+        w = rng.normal(0, scale, shape).astype(np.float32)
+        b = rng.normal(0, b_scale, (shape[axis],)).astype(np.float32)
+        return device_layer_v3(_quant_named(w, b, axis, s_in, s_out, **kw), "cuda")
+
+    s_x, s_e, s_d, s_g = 0.05, 0.06, 0.06, 0.03
+    exp = None if identity else lay((cin, e), 1, s_x, s_e, 1.5 * cin ** -0.5, 0.3)
+    dw = lay((k, k, 1, e), 3, s_x if identity else s_e, s_d, 0.3, 0.2, k_taps=k * k)
+    se1 = lay((e, se), 1, s_d, s_g, e ** -0.5, 0.3) if se else None
+    se2 = lay((se, e), 1, s_g, 1.0, se ** -0.5, 0.3) if se else None
+    prj = lay((e, cout), 1, s_d, s_x / prj_gain, e ** -0.5, 0.2)
+    return exp, dw, prj, se1, se2
+
+
+def v3_int8_phases(smi, kernels, launches):
+    """Phases 26-30. Fills launches["v3_block_i8"] from the V3-Large int8
+    server; returns the kernel's summary row."""
+    from mobilenet_tpu_torch import Int8PipelineV3, V3Config, cli
+    from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.v3_block_i8 import (
+        v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
+    )
+    from mobilenet_tpu_torch.quant import ACT_IN_SCALE
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.v3 import forward_v3_i8, quantize_v3
+    from mobilenet_tpu_torch.quant.verify import verify_int8_v3
+
+    cfg = V3Config("large", ALPHA, RES)
+    summary = {"v3_block_i8": {
+        "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block_i8.cu",
+        "replaces": "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290",
+        "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:436 (V3-L b00)",
+                          "mobilenet_tpu/quant/pallas_block_packed_i8.py:632 (V3-L b01)"],
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+        "ops_ms": 0.0, "library_ms": LIBRARY_MS}}
+
+    # -- 26. calibration ------------------------------------------------------------
+    folded = fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps)
+    t0 = time.perf_counter()
+    q = quantize_v3(folded, cfg)
+    emit("calibration", model=cfg.variant_name(), n_images=32,
+         seconds=time.perf_counter() - t0)
+
+    # -- 27. the int8 V3 kernel vs plain, exact, at batch 256 and 1 ----------------------
+    lib = _build.library()
+    rng = np.random.default_rng(6)
+    plans = {}
+    for nm, _, h, bd, cnt in v3_block_shapes(cfg, 256):
+        ident = not bd.has_expand
+        name = (f"{nm} ({{n}},{h},{h},{bd.cin})->{bd.cout} E{bd.cexp} k{bd.kernel} "
+                f"s{bd.stride} se{bd.se_mid} {bd.act}{' res' if bd.has_res else ''}"
+                f"{' identity' if ident else ''}")
+        layers = v3_int8_layers(rng, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.se_mid, ident)
+        kw = dict(k=bd.kernel, stride=bd.stride, act=bd.act, se1=layers[3], se2=layers[4],
+                  residual=bd.has_res)
+        for n in (256, 1):
+            th, tw = plans[f"{nm} batch {n}"] = v3_i8_plan(
+                n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, ident)
+            c_bytes = lib.v3_block_i8_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid,
+                                                 bd.kernel, bd.stride, int(ident), th, tw)
+            if c_bytes != v3_i8_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid,
+                                           bd.kernel, bd.stride, ident):
+                raise AssertionError(f"{nm}: the int8 V3 kernel plans {c_bytes} B of shared "
+                                     "memory, v3_i8_smem_bytes another")
+            x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, bd.cin)).astype(
+                np.int8)).cuda()
+            ref = check_i8(summary, "v3_block_i8", name.format(n=n), cnt if n == 256 else 0,
+                           lambda *a: v3_block_i8(*a, **kw),
+                           lambda *a: v3_block_i8_plain(*a, **kw), (x, *layers[:3]),
+                           ir_work(n, h, bd.cin, bd.cexp, bd.cout, bd.stride, "int8",
+                                   k=bd.kernel, se=bd.se_mid, identity=ident), smi)
+            if not ((ref < 0).any() and (ref > 0).any()):
+                raise AssertionError(f"{nm} batch {n}: a one-signed int8 output")
+            del x, ref
+        del layers
+        torch.cuda.empty_cache()
+    emit("v3_i8_plans", plans=plans)
+    # saturation: inputs at the rails, the projection driven past the int8 range
+    layers = v3_int8_layers(rng, 24, 72, 24, 3, 0, False, prj_gain=8.0)
+    x = torch.from_numpy(np.where(rng.random((256, 56, 56, 24)) < 0.5, 120, -120).astype(
+        np.int8)).cuda()
+    kw = dict(k=3, stride=1, act="relu", residual=True)
+    ref = check_i8(summary, "v3_block_i8", "saturation (256,56,56,24)->24 E72 k3 s1 res", 0,
+                   lambda *a: v3_block_i8(*a, **kw), lambda *a: v3_block_i8_plain(*a, **kw),
+                   (x, *layers[:3]), ir_work(256, 56, 24, 72, 24, 1, "int8"), smi)
+    if not ((ref == 127).any() and (ref == -128).any()):
+        raise AssertionError("saturation case: the output did not reach both int8 rails")
+    del layers, x, ref
+    torch.cuda.empty_cache()
+
+    # -- 28. V3-L int8 routes on one calibrated tree; the per-layer gate -------------------
+    pipe = Int8PipelineV3(cfg, device="cuda", quantized=q)
+    with torch.inference_mode():
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            x_q = qops.quantize_input_dev(preprocess(imgs, RES), ACT_IN_SCALE)
+            got = forward_v3_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+            ref = forward_v3_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"V3-L int8 pipeline batch {batch}: kernel route logits "
+                                     "differ from the plain route")
+            if not torch.isfinite(got).all() or got.shape != (batch, cfg.num_classes):
+                raise AssertionError(f"V3-L int8 pipeline batch {batch}: bad logits")
+            emit("pipeline", model=cfg.variant_name(), dtype="int8", batch=batch,
+                 max_abs_err=0.0, tolerance=0, top1_agree=batch, rows=batch,
+                 logits_absmax=float(ref.abs().max()))
+    del imgs, x_q, got, ref
+    x = rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
+    ok = verify_int8_v3(cfg, fold_bn_v3(init_params_v3(cfg, seed=1), eps=cfg.bn_eps), x,
+                        n_calib=8, device="cuda")
+    emit("verify_int8_v3", model=cfg.variant_name(), batch=2, n_calib=8, exact=ok)
+    if not ok:
+        raise AssertionError("verify_int8_v3 at 1.0-224: a layer differs from the oracle")
+    torch.cuda.empty_cache()
+
+    # -- 29. V3-L int8 benchmark; batch-1 fused vs plain ------------------------------------
+    emit("benchmark", model=cfg.variant_name(), route="int8 auto", nvidia_smi=smi,
+         **pipe.benchmark(batch_size=256, steps=40))
+    plain = Int8PipelineV3(cfg, device="cuda", quantized=q, dw_backend="plain")
+    emit("benchmark", model=cfg.variant_name(), route="int8 plain", nvidia_smi=smi,
+         **plain.benchmark(batch_size=256, steps=5, latency_iters=10))
+    emit("latency_b1", model=cfg.variant_name(), dtype="int8", nvidia_smi=smi,
+         **batch1_latency([("auto", pipe), ("plain", plain)]))
+    del plain
+    torch.cuda.empty_cache()
+
+    # -- 30. the V3-L int8 main path: 64-stream server; cli serve --model v3 --int8 ----------
+    got = serve_main_path(pipe, kernels, ("v3_block_i8",), "serving_v3_int8", smi)
+    launches["v3_block_i8"] = got["v3_block_i8"]
+    del pipe
+    torch.cuda.empty_cache()
+    for k in kernels.values():
+        k.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["serve", "--model", "v3", "--int8", "--streams", "64", "--alpha", str(ALPHA),
+                  "--res", str(RES)])
+    torch.cuda.synchronize()
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    emit("cli_serve_v3_int8", nvidia_smi=smi, launches={"v3_block_i8": v3_block_i8.launches},
+         **stats)
+    if stats["errors"] != 0 or v3_block_i8.launches <= 0:
+        raise AssertionError("cli serve --model v3 --int8: errors, or v3_block_i8 not launched")
     torch.cuda.empty_cache()
     return summary
 
@@ -1007,6 +1207,7 @@ def main() -> int:
     )
     from mobilenet_tpu_torch.ops.separable_block_i8 import separable_block_i8
     from mobilenet_tpu_torch.ops.v3_block import v3_block
+    from mobilenet_tpu_torch.ops.v3_block_i8 import v3_block_i8
 
     # -- 1. card, versions, build ---------------------------------------------
     smi = subprocess.run(
@@ -1077,7 +1278,8 @@ def main() -> int:
     kernels = {"separable_block": separable_block, "fused_head": fused_head,
                "chain": chain, "separable_block_i8": separable_block_i8,
                "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual,
-               "inverted_residual_i8": inverted_residual_i8, "v3_block": v3_block}
+               "inverted_residual_i8": inverted_residual_i8, "v3_block": v3_block,
+               "v3_block_i8": v3_block_i8}
     launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
                                "serving", smi)
     del pipe
@@ -1094,6 +1296,12 @@ def main() -> int:
 
     # -- 18-21. the V3-Large float path -----------------------------------------------
     summary.update(v3_phases(smi, gen, kernels, launches))
+
+    # -- 22-25. the V3-Small float path -----------------------------------------------
+    summary.update(v3_phases(smi, gen, kernels, launches, variant="small"))
+
+    # -- 26-30. the V3-Large int8 path ------------------------------------------------
+    summary.update(v3_int8_phases(smi, kernels, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

@@ -1,13 +1,14 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-    python -m mobilenet_tpu_torch.cli serve --streams 64 [--model v1|v2|v3] \\
+    python -m mobilenet_tpu_torch.cli serve --streams 64 [--model v1|v2|v3|v3small] \\
         [--minimalistic] --alpha 1.0 --res 224 [--dtype bfloat16 | --int8] \\
         [--device cuda] [--tcp --port 8000]
 
-`serve` builds the micro-batching server (MobileNet-V1, -V2 or -V3-Large,
-the float path in --dtype, or the exact int8 path of V1 or V2 with --int8),
-runs a selftest of `--streams` concurrent streams (one JSON line of stats),
-and with --tcp then serves NDJSON requests on --port until killed.
+`serve` builds the micro-batching server (MobileNet-V1, -V2, -V3-Large or
+-V3-Small, the float path in --dtype, or the exact int8 path of V1, V2 or
+V3-Large with --int8), runs a selftest of `--streams` concurrent streams
+(one JSON line of stats), and with --tcp then serves NDJSON requests on
+--port until killed.
 """
 
 from __future__ import annotations
@@ -39,20 +40,21 @@ def main(argv=None):
     sp.add_argument("--tcp", action="store_true",
                     help="after the selftest, bind the NDJSON TCP front end "
                          "on --port and serve until killed")
-    sp.add_argument("--model", default="v1", choices=["v1", "v2", "v3"],
+    sp.add_argument("--model", default="v1", choices=["v1", "v2", "v3", "v3small"],
                     help="model family: v1 (default), v2 (inverted residuals; "
-                         "alphas 0.35-1.4) or v3 (MobileNet-V3-Large)")
+                         "alphas 0.35-1.4), v3 (MobileNet-V3-Large) or v3small "
+                         "(MobileNet-V3-Small)")
     sp.add_argument("--minimalistic", action="store_true",
-                    help="with --model v3: MobileNet-V3-Large-minimalistic "
+                    help="with --model v3 or v3small: the -minimalistic variant "
                          "(kernel 3, relu, no squeeze-excite)")
     sp.add_argument("--alpha", type=float, default=1.0)
     sp.add_argument("--res", type=int, default=224)
     sp.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     sp.add_argument("--int8", action="store_true",
                     help="serve the exact int8 path of --model (per-layer "
-                         "requantization, exact against the int8 oracle; V2 "
-                         "calibrates its bottleneck scales at start); --dtype is "
-                         "then unused")
+                         "requantization, exact against the int8 oracle; V2 and "
+                         "V3 calibrate their scales at start; V3-Small's is not "
+                         "ported yet); --dtype is then unused")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--ckpt", default=None, help="folded .npz checkpoint path")
     sp.add_argument("--device", default="cuda",

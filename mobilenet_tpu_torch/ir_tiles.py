@@ -1,18 +1,20 @@
 """Per-block times of the inverted-residual kernels at candidate tiles.
 
     python -m mobilenet_tpu_torch.ir_tiles [--batch 1 256] [--alpha 1.0] [--res 224] \
-        [--int8 | --model v3]
+        [--model v2|v3|v3small] [--int8]
 
 For each expanded block of MobileNet-V2 at the given width and size, and
 each batch, times the bf16 kernel (or with --int8 the int8 kernel; CUDA
 events, random operands) at the tile that `ops.inverted_residual.ir_plan`
 (`ops.inverted_residual_i8.ir_i8_plan`) picks and at a few others, and
 prints one JSON line per block and batch: the shape, the plan, and the ms
-of each tile. With --model v3, the same for every block of MobileNet-V3-Large
-and the bf16 V3 bottleneck kernel (`ops.v3_block.v3_plan`; SE blocks with
-both of their launches). These are the timings behind the plans' time model
-(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, and the int8 and V3 plans' output caps).
-Refuses to run without a card.
+of each tile. With --model v3 (v3small), the same for every block of
+MobileNet-V3-Large (-Small) and the bf16 V3 bottleneck kernel
+(`ops.v3_block.v3_plan`), or with --int8 the int8 V3 bottleneck kernel
+(`ops.v3_block_i8.v3_i8_plan`); SE blocks with both of their launches.
+These are the timings behind the plans' time model (CHUNK_OVERHEAD,
+SLOTS_TWO_PER_SM, and the int8 and V3 plans' output caps). Refuses to run
+without a card.
 """
 
 from __future__ import annotations
@@ -45,51 +47,78 @@ def tile_ms(fn, args, tile, reps: int, tail=()) -> float:
 
 
 def v3_rows(lib, args, gen):
-    """One JSON line per V3-Large block and batch: the bf16 V3 kernel's ms at
-    the plan's tile and at candidate tiles of up to MAX_OUTPUTS_V3 outputs."""
+    """One JSON line per V3 block and batch: the V3 kernel's ms (bf16, or
+    the int8 kernel with --int8) at the plan's tile and at candidate tiles
+    of up to the plan's output cap."""
     from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
     from .ops.head import ACTS  # noqa: PLC0415
     from .ops.inverted_residual import MAX_FRAGS, SMEM_MAX  # noqa: PLC0415
+    from .ops.inverted_residual_i8 import MAX_OUTPUTS_I8  # noqa: PLC0415
     from .ops.v3_block import MAX_OUTPUTS_V3, v3_plan, v3_smem_bytes  # noqa: PLC0415
+    from .ops.v3_block_i8 import v3_i8_plan, v3_i8_smem_bytes  # noqa: PLC0415
 
     def rand(*shape, scale):
+        if args.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                 dtype=torch.int8)
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
 
+    def layer(w_shape, c, scale):  # (w, b[, multiplier]) of one layer
+        if args.int8:
+            return (rand(*w_shape, scale=0), torch.zeros(c, dtype=torch.int32, device="cuda"),
+                    torch.full((c,), 1e-3, device="cuda"))
+        return rand(*w_shape, scale=scale), rand(c, scale=0.1)
+
+    variant = "small" if args.model == "v3small" else "large"
     h = args.res // 2
-    for i, bd in enumerate(V3Config("large", args.alpha, args.res).block_defs):
-        e, ho, se, k = bd.cexp, -(-h // bd.stride), bd.se_mid, bd.kernel
+    for i, bd in enumerate(V3Config(variant, args.alpha, args.res).block_defs):
+        e, ho, se, k, cout = bd.cexp, -(-h // bd.stride), bd.se_mid, bd.kernel, bd.cout
+        identity = not bd.has_expand
         for n in args.batch:
             x = rand(n, h, h, bd.cin, scale=1.0)
-            exp = ((rand(bd.cin, e, scale=bd.cin ** -0.5), rand(e, scale=0.1))
-                   if bd.has_expand else None)
-            ses = ((rand(e, se, scale=e ** -0.5), rand(se, scale=0.1),
-                    rand(se, e, scale=se ** -0.5), rand(e, scale=0.1)) if se else None)
-            dw = (rand(k, k, 1, e, scale=0.3), rand(e, scale=0.1))
-            prj = (rand(e, bd.cout, scale=e ** -0.5), rand(bd.cout, scale=0.1))
-            out = torch.empty(n, ho, ho, bd.cout, dtype=x.dtype, device="cuda")
-            part = torch.empty(n * ho * ho * e if se else 1, device="cuda")  # the 1x1 tile's
-            ptrs = [x.data_ptr(), *((t.data_ptr() for t in exp) if exp else (0, 0)),
-                    *(t.data_ptr() for t in dw + prj),
-                    *((t.data_ptr() for t in ses) if ses else (0,) * 4), part.data_ptr(),
-                    out.data_ptr()]
-            call = (*ptrs, n, h, h, bd.cin, e, bd.cout, se, k, bd.stride,
-                    ACTS[bd.act if bd.has_expand else "linear"], ACTS[bd.act],
-                    int(bd.has_res), int(not bd.has_expand))
-            plan = v3_plan(n, h, h, bd.cin, e, bd.cout, k, bd.stride, se, 2)
+            exp = () if identity else layer((bd.cin, e), e, bd.cin ** -0.5)
+            dw, prj = layer((k, k, 1, e), e, 0.3), layer((e, cout), cout, e ** -0.5)
+            ses = (layer((e, se), se, e ** -0.5) + layer((se, e), e, se ** -0.5)) if se else ()
+            out = torch.empty(n, ho, ho, cout, dtype=x.dtype, device="cuda")
+            if args.int8:
+                part = torch.empty(n * e if se else 1, dtype=torch.int32, device="cuda")
+                ptrs = [x.data_ptr(), *((t.data_ptr() for t in exp) if exp else (0,) * 3),
+                        *(t.data_ptr() for t in dw + prj),
+                        *((t.data_ptr() for t in ses) if ses else (0,) * 6),
+                        part.data_ptr(), out.data_ptr()]
+                fn, cap = lib.v3_block_i8, MAX_OUTPUTS_I8
+                tail = (1e-3, 1e-3, 1.0 / (ho * ho), 1.0 / 6)  # m6 exp, m6 dw, 1/hw, 1/6
+                plan = v3_i8_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, identity)
+
+                def smem(th, tw):
+                    return v3_i8_smem_bytes(th, tw, bd.cin, e, cout, se, k, bd.stride, identity)
+            else:
+                part = torch.empty(n * ho * ho * e if se else 1, device="cuda")  # the 1x1 tile's
+                ptrs = [x.data_ptr(), *((t.data_ptr() for t in exp) if exp else (0, 0)),
+                        *(t.data_ptr() for t in dw + prj),
+                        *((t.data_ptr() for t in ses) if ses else (0,) * 4), part.data_ptr(),
+                        out.data_ptr()]
+                fn, tail, cap = lib.v3_block_bf16, (), MAX_OUTPUTS_V3
+                plan = v3_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, 2)
+
+                def smem(th, tw):
+                    return v3_smem_bytes(th, tw, bd.cin, e, cout, se, k, bd.stride, 2)
+            call = (*ptrs, n, h, h, bd.cin, e, cout, se, k, bd.stride,
+                    ACTS["linear" if identity else bd.act], ACTS[bd.act], int(bd.has_res),
+                    int(identity))
             tiles = {plan, (1, 1), (1, min(ho, 7)), (2, min(ho, 14)), (4, min(ho, 14)),
                      (4, min(ho, 16)), (min(ho, 7), min(ho, 7)), (min(ho, 8), min(ho, 8)),
                      (min(ho, 8), min(ho, 16)), (min(ho, 16), min(ho, 16)),
                      (min(ho, 7), min(ho, 14)), (min(ho, 14), min(ho, 14))}
-            ms = {f"{th}x{tw}": tile_ms(lib.v3_block_bf16, call, (th, tw), 20 if n == 1 else 5)
+            ms = {f"{th}x{tw}": tile_ms(fn, call, (th, tw), 20 if n == 1 else 5, tail)
                   for th, tw in sorted(tiles)
-                  if (th * tw <= MAX_OUTPUTS_V3
-                      and -(-th * tw // 16) * -(-bd.cout // 16) <= MAX_FRAGS
-                      and v3_smem_bytes(th, tw, bd.cin, e, bd.cout, se, k, bd.stride, 2)
-                      <= SMEM_MAX)}
-            print(json.dumps({"device": torch.cuda.get_device_name(0), "model": "v3",
-                              "block": i, "batch": n, "h": h, "cin": bd.cin, "e": e,
-                              "cout": bd.cout, "k": k, "stride": bd.stride, "se": se,
-                              "plan": plan, "ms": ms}), flush=True)
+                  if (th * tw <= cap and -(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
+                      and smem(th, tw) <= SMEM_MAX)}
+            print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model,
+                              "int8": args.int8, "block": i, "batch": n, "h": h,
+                              "cin": bd.cin, "e": e, "cout": cout, "k": k,
+                              "stride": bd.stride, "se": se, "plan": plan, "ms": ms}),
+                  flush=True)
         h = ho
 
 
@@ -108,18 +137,16 @@ def main(argv=None):
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--res", type=int, default=224)
     p.add_argument("--int8", action="store_true", help="time the int8 kernel")
-    p.add_argument("--model", default="v2", choices=["v2", "v3"],
-                   help="v2 (default): the inverted-residual kernels; v3: the V3 "
-                        "bottleneck kernel over MobileNet-V3-Large")
+    p.add_argument("--model", default="v2", choices=["v2", "v3", "v3small"],
+                   help="v2 (default): the inverted-residual kernels; v3 (v3small): "
+                        "the V3 bottleneck kernels over MobileNet-V3-Large (-Small)")
     args = p.parse_args(argv)
-    if args.int8 and args.model == "v3":
-        raise SystemExit("mobilenet_tpu_torch.ir_tiles: the V3 int8 kernel is not ported yet")
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.ir_tiles measures the card; "
                          "torch.cuda.is_available() is False")
     lib = _build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.model == "v3":
+    if args.model != "v2":
         v3_rows(lib, args, gen)
         return
 

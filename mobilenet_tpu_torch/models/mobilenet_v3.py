@@ -18,11 +18,11 @@ fused_head kernel (ops/head.py). The stem convolution, normalize and softmax
 are plain ops on every route.
 
 The TPU's detours are not ported: the lane-packed block-0 and stride-2
-expand routes, `packed_expand`, the lane-packed SE kernel, and the
-`v3_fits` XLA fallback. The Hopper kernel takes the checkpoint's own widths;
-a block it cannot plan raises. V3-Small's fused path (the chain and
-lane-packed SE kernels, ROADMAP A9) is not ported yet: a Small config runs
-the "plain" route only.
+expand routes, `packed_expand`, the lane-packed SE kernel (`se_block_packed`,
+V3-Small's blocks 2 and 4-7 in the JAX package), the V3 chain kernel, and
+the `v3_fits` XLA fallback. The Hopper kernel takes the checkpoint's own
+widths on every block of Large and Small (V3-Small's block 0, which the JAX
+package runs on XLA ops, included); a block it cannot plan raises.
 """
 
 from __future__ import annotations
@@ -174,6 +174,7 @@ class V3Config:
         return f"mobilenet_v3_{self.variant}_{mini}{self.alpha:g}_{self.resolution}"
 
 
+@ops.ieee_f32
 def se_apply(z: torch.Tensor, se: Dict[str, Any]) -> torch.Tensor:
     """Squeeze-excite gate (keras _se_block :571-590), the JAX package's
     plain route: the float32 mean over H, W rounded to z's dtype -> 1x1
@@ -187,6 +188,7 @@ def se_apply(z: torch.Tensor, se: Dict[str, Any]) -> torch.Tensor:
     return z * g[:, None, None, :]
 
 
+@ops.ieee_f32
 def head_matmul(pooled: torch.Tensor, head: Dict[str, Any], act: str) -> torch.Tensor:
     """The post-pool head conv (keras :345-356) on (N, C): float32 product
     and bias, the activation in float32, then pooled's dtype."""
@@ -207,33 +209,26 @@ def mixed_b1_routing(config: V3Config) -> Tuple[str, ...]:
 def _routing_v3(config: V3Config, dw_backend, batch: int) -> Tuple[str, ...]:
     """Resolve the per-block backend tuple.
 
-    None -> "plain". "auto" -> "fused" at every batch: the v5e batch-1
-    crossover does not carry over, and no H100 crossover has been adopted.
-    "mixed" -> `mixed_b1_routing`. A tuple names each block's backend. A
-    V3-Small config takes only plain blocks: its fused path is not ported
-    yet (ROADMAP A9)."""
+    None -> "plain". "auto" -> "fused" at every batch, on Large and Small:
+    the v5e batch-1 crossover does not carry over, and no H100 crossover
+    has been adopted. "mixed" -> `mixed_b1_routing`. A tuple names each
+    block's backend."""
     n = len(config.block_defs)
     if dw_backend is None:
         dw_backend = "plain"
     if dw_backend == "auto":
         dw_backend = "fused"
     if dw_backend == "mixed":
-        routing = mixed_b1_routing(config)
-    elif isinstance(dw_backend, str):
+        return mixed_b1_routing(config)
+    if isinstance(dw_backend, str):
         if dw_backend not in DW_BACKENDS:
             raise ValueError(f"dw_backend {dw_backend!r} not in {DW_BACKENDS}, "
                              "'auto' or 'mixed'")
-        routing = (dw_backend,) * n
-    elif len(dw_backend) != n or any(b not in DW_BACKENDS for b in dw_backend):
+        return (dw_backend,) * n
+    if len(dw_backend) != n or any(b not in DW_BACKENDS for b in dw_backend):
         raise ValueError(f"per-block dw_backend must be {n} names from "
                          f"{DW_BACKENDS}, got {dw_backend!r}")
-    else:
-        routing = tuple(dw_backend)
-    if config.variant == "small" and "fused" in routing:
-        raise ValueError("MobileNet-V3-Small runs the 'plain' route only: its fused "
-                         "path (the V3 chain and lane-packed SE kernels) is not "
-                         "ported yet (ROADMAP A9)")
-    return routing
+    return tuple(dw_backend)
 
 
 def forward_v3(params: Dict[str, Any], x: torch.Tensor, config: V3Config, *,

@@ -5,8 +5,10 @@ These are the port's own reference: the "plain" routing runs them, the
 per-layer taps (`forward(collect=True)`) use them, and the kernels' plain
 versions share their stencil. Cast points follow the JAX ops:
 - float32 runs in true float32 (the 9-tap stencil and the matmuls are
-  computed from float32 operands, and the stem convolution turns cuDNN's
-  TF32 off around its call, whatever the global flag says);
+  computed from float32 operands; the stem convolution and every float32
+  matmul of the port turn TF32 off around their call (`no_tf32`), whatever
+  the global flags say: cuDNN's convolutions default to TF32, and
+  `torch.set_float32_matmul_precision("high")` sends float32 matmuls to it);
 - the depthwise and stem convolutions produce the compute dtype and add
   their bias in it (XLA's bf16 convolution has a bf16 result);
 - the pointwise and fc products accumulate in float32 and add the bias there
@@ -96,19 +98,35 @@ def dw_taps_f32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _no_tf32(x: torch.Tensor):
-    """cuDNN convolutions in IEEE float32 for a float32 input on the card
-    (cuDNN's TF32 default keeps ~10 mantissa bits). A bf16 input needs no
-    guard: its values and their products are exact in TF32."""
+def no_tf32(x: torch.Tensor):
+    """IEEE float32 for cuDNN convolutions and cuBLAS matmuls on the card
+    while a float32 `x` is being computed on: cuDNN's TF32 default and a
+    float32 matmul precision of "high" or "medium" keep ~10 mantissa bits
+    (the JAX package pins Precision.HIGHEST on every float32 dot). A bf16
+    input needs no guard: its values and their products are exact in TF32.
+    Both flags are restored on exit."""
     if not (x.is_cuda and x.dtype == torch.float32):
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
+    prev_conv = torch.backends.cudnn.allow_tf32
+    prev_mm = torch.get_float32_matmul_precision()
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32 = prev_conv
+        torch.set_float32_matmul_precision(prev_mm)
+
+
+def ieee_f32(fn):
+    """`fn(x, ...)` run under `no_tf32(x)`: the float32 matmuls of the port's
+    plain ops and of the kernels' plain versions."""
+    @functools.wraps(fn)
+    def wrapped(x, *args, **kwargs):
+        with no_tf32(x):
+            return fn(x, *args, **kwargs)
+    return wrapped
 
 
 def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int,
@@ -120,7 +138,7 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor, stride: int,
     k = int(w.shape[0])
     (ph0, ph1), (pw0, pw1) = same_pads(h, stride, k), same_pads(wd, stride, k)
     xc = F.pad(x.float().permute(0, 3, 1, 2), (pw0, pw1, ph0, ph1))
-    with _no_tf32(x):
+    with no_tf32(x):
         y = F.conv2d(xc, w.float().permute(3, 2, 0, 1), stride=stride)
     y = y.permute(0, 2, 3, 1).to(x.dtype)
     return bias_act(y, bias, relu6, act).to(x.dtype)
@@ -135,6 +153,7 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
     return bias_act(y, bias, relu6, act).to(x.dtype)
 
 
+@ieee_f32
 def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
                    relu6: Optional[bool] = None, act: Optional[str] = None) -> torch.Tensor:
@@ -151,6 +170,7 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.float().mean(dim=(1, 2)).to(x.dtype)
 
 
+@ieee_f32
 def fc(x: torch.Tensor, w: torch.Tensor,
        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Classifier fc, x (N, C) @ w (C, classes): float32 accumulation and

@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from .conv import ieee_f32
 from .separable_block import check_aligned, check_channels, check_kernel_args
 
 # The kernels' activation codes (numerics.cuh enum Act): fused_head, v3_block.
@@ -61,6 +62,7 @@ def head_act(y: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {act!r}")
 
 
+@ieee_f32
 def fused_head_plain(x, conv: Optional[Tuple], post: Sequence[Tuple]) -> torch.Tensor:
     """The kernel's arithmetic in plain ops: [f32 conv_last + bias, act,
     cast], f32 mean over H*W cast to x's dtype, then each post: f32 product

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .conv import apply_activation, dw_taps_f32
+from .conv import apply_activation, dw_taps_f32, ieee_f32
 from .separable_block import check_aligned, check_channels, check_kernel_args
 
 # Mirrors of inverted_residual.cu's constants.
@@ -97,6 +97,7 @@ def plan_tile(n: int, h: int, w: int, cin: int, cout: int, stride: int, smem_byt
     return None if best is None else best[1]
 
 
+@ieee_f32
 def inverted_residual_plain(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, stride: int,
                             residual: bool) -> torch.Tensor:
     """The kernel's arithmetic in plain ops: f32 expansion + bias in f32,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .conv import apply_activation, dw_taps_f32
+from .conv import apply_activation, dw_taps_f32, ieee_f32
 
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -51,6 +51,7 @@ def check_channels(name: str, *channels: int) -> None:
                              "multiple of 8")
 
 
+@ieee_f32
 def separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride: int,
                           relu6: bool = True, pw_act: bool = True) -> torch.Tensor:
     """The kernel's arithmetic in plain ops: f32 taps, + dw bias in f32,

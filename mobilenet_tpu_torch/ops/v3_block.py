@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .conv import apply_act_named, dw_taps_f32
+from .conv import apply_act_named, dw_taps_f32, ieee_f32
 from .head import ACTS
 from .inverted_residual import KE, _rup, plan_tile
 from .separable_block import check_aligned, check_channels, check_kernel_args
@@ -63,6 +63,7 @@ def v3_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int, stride:
                                                   itemsize), max_outputs=MAX_OUTPUTS_V3, k=k)
 
 
+@ieee_f32
 def v3_block_plain(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k: int, stride: int,
                    act: str, se_w1=None, se_b1=None, se_w2=None, se_b2=None,
                    residual: bool = False) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Where the device time of one pipeline forward goes, by kernel name.
 
-    python -m mobilenet_tpu_torch.profile [--model v1|v2|v3] [--int8] \\
+    python -m mobilenet_tpu_torch.profile [--model v1|v2|v3|v3small] [--int8] \\
         [--batch 256 1] [--steps 10]
 
-Builds the 1.0-224 pipeline of MobileNet-V1, -V2 (--model v2) or
--V3-Large (--model v3), bf16 or exact int8 (--int8, V1 and V2), on the
-card, warms it on one device-resident uint8 batch, then records `--steps`
-forwards under torch.profiler (CPU + CUDA).
+Builds the 1.0-224 pipeline of MobileNet-V1, -V2 (--model v2), -V3-Large
+(--model v3) or -V3-Small (--model v3small), bf16 or exact int8 (--int8;
+V1, V2 and V3-Large), on the card, warms it on one device-resident uint8
+batch, then records `--steps` forwards under torch.profiler (CPU + CUDA).
 Prints one JSON line: the window's wall time (CUDA events), the device
 busy time (the sum of the device activities' durations: one stream, so they
 do not overlap), the idle share, and the device time per kernel name, most
@@ -56,24 +56,27 @@ def profile(pipe, batch: int, steps: int, top: int = 12):
 
 
 def main(argv=None):
-    from . import InferencePipeline, Int8Pipeline, Int8PipelineV2  # noqa: PLC0415
+    from . import (  # noqa: PLC0415
+        InferencePipeline, Int8Pipeline, Int8PipelineV2, Int8PipelineV3,
+    )
     from .runtime.serving import make_config  # noqa: PLC0415
 
     p = argparse.ArgumentParser(prog="mobilenet_tpu_torch.profile")
-    p.add_argument("--model", default="v1", choices=["v1", "v2", "v3"])
+    p.add_argument("--model", default="v1", choices=["v1", "v2", "v3", "v3small"])
     p.add_argument("--int8", action="store_true", help="the model's exact int8 path")
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--steps", type=int, default=10)
     args = p.parse_args(argv)
-    if args.int8 and args.model == "v3":
-        raise SystemExit("mobilenet_tpu_torch.profile: the MobileNet-V3 int8 path is not "
-                         "ported yet")
+    if args.int8 and args.model == "v3small":
+        raise SystemExit("mobilenet_tpu_torch.profile: the MobileNet-V3-Small int8 fused "
+                         "path is not ported yet (ROADMAP A9/B19)")
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.profile measures the card; "
                          "torch.cuda.is_available() is False")
     cfg = make_config(args.model, 1.0, 224, "bfloat16")
     if args.int8:
-        pipe = (Int8PipelineV2 if args.model == "v2" else Int8Pipeline)(cfg, device="cuda")
+        pipe = {"v1": Int8Pipeline, "v2": Int8PipelineV2, "v3": Int8PipelineV3}[args.model](
+            cfg, device="cuda")
     else:
         pipe = InferencePipeline(cfg, device="cuda")
     for batch in args.batch:

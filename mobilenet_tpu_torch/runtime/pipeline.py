@@ -150,8 +150,7 @@ class InferencePipeline(PipelineBase):
         "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
         a per-block tuple (models.mobilenet_v1._routing), or for V2 and V3
         also "mixed" (models.mobilenet_v2._routing_v2,
-        models.mobilenet_v3._routing_v3; a V3-Small config takes "plain"
-        only)."""
+        models.mobilenet_v3._routing_v3)."""
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]

@@ -1,8 +1,8 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
 The port of the JAX package's `runtime/serving.py` for one variant on one
-device: MobileNet-V1 or -V2, float or exact int8, or MobileNet-V3-Large
-(or -minimalistic), float:
+device: MobileNet-V1, -V2 or -V3-Large, float or exact int8, or
+MobileNet-V3-Small (or either V3 -minimalistic), float:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
     `max_delay_ms`), pads to the smallest precomputed bucket that fits, and
@@ -280,18 +280,19 @@ async def selftest(server: MicroBatchServer, streams: int = 64,
     }
 
 
-MODELS = ("v1", "v2", "v3")
+MODELS = ("v1", "v2", "v3", "v3small")
 
 
 def make_config(model: str, alpha: float, res: int, dtype: str = "bfloat16",
                 minimalistic: bool = False):
     """ModelConfig (model "v1"), V2Config ("v2") or V3Config ("v3":
-    MobileNet-V3-Large, -minimalistic with `minimalistic`) of one variant."""
-    if minimalistic and model != "v3":
+    MobileNet-V3-Large, "v3small": MobileNet-V3-Small; -minimalistic with
+    `minimalistic`) of one variant."""
+    if minimalistic and model not in ("v3", "v3small"):
         raise ValueError(f"minimalistic is a MobileNet-V3 variant, not {model!r}")
-    if model == "v3":
-        return V3Config(variant="large", alpha=float(alpha), resolution=int(res),
-                        minimalistic=minimalistic, compute_dtype=dtype)
+    if model in ("v3", "v3small"):
+        return V3Config(variant="large" if model == "v3" else "small", alpha=float(alpha),
+                        resolution=int(res), minimalistic=minimalistic, compute_dtype=dtype)
     if model == "v2":
         return V2Config(alpha=float(alpha), resolution=int(res), compute_dtype=dtype)
     if model == "v1":
@@ -301,7 +302,7 @@ def make_config(model: str, alpha: float, res: int, dtype: str = "bfloat16",
 
 def config_from_variant(spec: str, dtype: str = "bfloat16"):
     """The JAX package's variant string: "alpha:res" (V1) or
-    "model:alpha:res", e.g. "v2:1.0:224" or "v3:1.0:224"."""
+    "model:alpha:res", e.g. "v2:1.0:224", "v3:1.0:224" or "v3small:1.0:224"."""
     parts = spec.split(":")
     if len(parts) == 2:
         parts = ["v1", *parts]
@@ -315,14 +316,16 @@ def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
     """One variant on one device, `streams`-wide micro-batches: the float
     InferencePipeline of a ModelConfig, a V2Config or a V3Config (or of a
     variant string, `config_from_variant`, in bfloat16), or with int8=True
-    the quantized Int8Pipeline (V1) or Int8PipelineV2 (V2, calibrated
-    here)."""
+    the quantized Int8Pipeline (V1), Int8PipelineV2 (V2) or Int8PipelineV3
+    (V3-Large; both calibrated here). V3-Small's int8 path raises: its fused
+    route is not ported yet (ROADMAP A9/B19)."""
     if isinstance(cfg, str):
         cfg = config_from_variant(cfg)
     if int8 and isinstance(cfg, V3Config):
-        raise NotImplementedError("the MobileNet-V3 int8 path is not ported yet "
-                                  "(ROADMAP A9)")
-    if int8 and isinstance(cfg, V2Config):
+        from ..quant.v3 import Int8PipelineV3  # noqa: PLC0415
+
+        pipeline = Int8PipelineV3(cfg, params, device=device, seed=seed)
+    elif int8 and isinstance(cfg, V2Config):
         from ..quant.v2 import Int8PipelineV2  # noqa: PLC0415
 
         pipeline = Int8PipelineV2(cfg, params, device=device, seed=seed)
@@ -342,9 +345,9 @@ def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
                int8: bool = False, model: str = "v1", minimalistic: bool = False):
     """Build the server, run the selftest (one JSON line of stats), then, if
     not selftest_only, serve NDJSON over TCP on `port` until killed. `model`
-    is "v1", "v2" or "v3" (V3-Large, -minimalistic with `minimalistic`);
-    `dtype` is the float path's compute dtype; int8=True serves the model's
-    exact int8 path (V1, V2)."""
+    is "v1", "v2", "v3" (V3-Large) or "v3small" (V3-Small), -minimalistic
+    with `minimalistic`; `dtype` is the float path's compute dtype;
+    int8=True serves the model's exact int8 path (V1, V2, V3-Large)."""
     cfg = make_config(model, alpha, res, dtype, minimalistic)
 
     async def run():

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 ragged and narrow shapes of the whole alpha grid (partial pixel and channel
-tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8) and the
-V3-Large float routes against the plain routes, and the float32 stem against
-float64 without any TF32 flag set.
+tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8), the
+V3-Large and -Small float routes and the V3-Large int8 routes against the
+plain routes, and the float32 stem and matmuls against float64 without any
+TF32 flag set or with the float32 matmul precision at "high".
 Marked `cuda`: skipped without a card. Imports no JAX, so it runs where JAX
 is not installed:
 
@@ -14,9 +15,12 @@ import pytest
 import torch
 
 from mobilenet_tpu_torch import (
-    InferencePipeline, Int8Pipeline, Int8PipelineV2, ModelConfig, V2Config, V3Config,
+    InferencePipeline, Int8Pipeline, Int8PipelineV2, Int8PipelineV3, ModelConfig, V2Config,
+    V3Config,
 )
-from mobilenet_tpu_torch.checkpoints import fold_bn, fold_bn_v2, init_params, init_params_v2
+from mobilenet_tpu_torch.checkpoints import (
+    fold_bn, fold_bn_v2, fold_bn_v3, init_params, init_params_v2, init_params_v3,
+)
 from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2, mobilenet_v3
 from mobilenet_tpu_torch.ops import _build
 from mobilenet_tpu_torch.ops import preprocess as prep
@@ -36,11 +40,15 @@ from mobilenet_tpu_torch.ops.separable_block_i8 import (
     separable_block_i8, separable_block_i8_plain,
 )
 from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
+from mobilenet_tpu_torch.ops.v3_block_i8 import (
+    v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
+)
 from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
 from mobilenet_tpu_torch.quant import ops as qops
 from mobilenet_tpu_torch.quant.model import forward_i8
 from mobilenet_tpu_torch.quant.v2 import forward_v2_i8
-from mobilenet_tpu_torch.quant.verify import verify_int8, verify_int8_v2
+from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3, forward_v3_i8
+from mobilenet_tpu_torch.quant.verify import verify_int8, verify_int8_v2, verify_int8_v3
 from mobilenet_tpu_torch.runtime.serving import build_server, selftest
 
 pytestmark = pytest.mark.cuda
@@ -159,6 +167,30 @@ def test_stem_is_true_float32_without_flags():
     ref = (ref.permute(0, 2, 3, 1) + b).clamp(0, 6).cpu().numpy()
     assert torch.backends.cudnn.allow_tf32
     np.testing.assert_allclose(acts["conv1"], ref, atol=1e-4, rtol=3e-4)
+
+
+def test_matmuls_are_true_float32_under_high_precision():
+    """The float32 pipeline's pointwise products under
+    torch.set_float32_matmul_precision("high"), which lets cuBLAS run
+    float32 matmuls in TF32: the block00_pw tap (K = 32) against its
+    float64 recomputation from the block00_dw tap within golden.MM_TOL
+    (1e-4, 3e-4). The precision is restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        pipe = InferencePipeline(ModelConfig(1.0, 224), device="cuda", seed=3)
+        x = np.random.default_rng(4).uniform(-1, 1, (8, 224, 224, 3)).astype(np.float32)
+        _, acts = pipe.activations(x)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    pw = pipe.params["blocks"][0]["pw"]
+    dw = torch.from_numpy(acts["block00_dw"]).double()
+    ref = (dw.reshape(-1, dw.shape[-1]) @ pw["w"].double().cpu() + pw["b"].double().cpu())
+    ref = ref.clamp(0, 6).reshape(*dw.shape[:3], -1).numpy()
+    np.testing.assert_allclose(acts["block00_pw"], ref, atol=1e-4, rtol=3e-4)
 
 
 def _ir_args(rng, dev, dtype, n, h, cin, e, cout):
@@ -509,12 +541,12 @@ def test_v3_block(dev, dtype, n, h, cin, e, cout, k, stride, se, act, residual, 
 
 def test_v3_smem_plan_matches_kernel(dev):
     """The Python mirror of the V3 kernel's shared-memory plan equals the
-    kernel's own for every V3-Large and -minimalistic block's tile at batch 1
-    and 256 and both itemsizes."""
+    kernel's own for every V3-Large, -minimalistic and -Small block's tile at
+    batch 1 and 256 and both itemsizes."""
     lib = _build.library()
-    for mini in (False, True):
+    for variant, mini in (("large", False), ("large", True), ("small", False)):
         h = 112
-        for bd in V3Config("large", 1.0, 224, minimalistic=mini).block_defs:
+        for bd in V3Config(variant, 1.0, 224, minimalistic=mini).block_defs:
             for n, item in ((1, 2), (256, 2), (1, 4), (256, 4)):
                 th, tw = v3_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
                                  bd.se_mid, item)
@@ -548,3 +580,170 @@ def test_v3_pipeline_routes_agree(dev, mini, batch):
                1.5 * rms(got - ref) * float(np.sqrt(2 * np.log(got.numel()))))
     torch.testing.assert_close(got, ref, atol=atol, rtol=0)
     assert rms(got - ref32) <= 1.5 * rms(ref - ref32) + 6e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,e,cout,k,stride,se,act,residual,identity", [
+    (2, 16, 16, 16, 16, 3, 2, 8, "relu", False, True),        # V3-S b00: identity, s2, SE
+    (2, 14, 16, 72, 24, 3, 2, 0, "relu", False, False),       # b01
+    (2, 14, 24, 88, 24, 3, 1, 0, "relu", True, False),        # b02 (the JAX se_block_packed)
+    (2, 14, 24, 96, 40, 5, 2, 24, "hswish", False, False),    # b03
+    (2, 7, 40, 240, 40, 5, 1, 64, "hswish", True, False),     # b04-b05
+    (3, 7, 40, 120, 48, 5, 1, 32, "hswish", False, False),    # b06
+    (2, 7, 48, 144, 48, 5, 1, 40, "hswish", True, False),     # b07
+    (2, 8, 48, 288, 96, 5, 2, 72, "hswish", False, False),    # b08
+    (2, 4, 96, 576, 96, 5, 1, 144, "hswish", True, False),    # b09-b10
+])
+def test_v3_block_small_shapes(dev, dtype, n, h, cin, e, cout, k, stride, se, act, residual,
+                               identity):
+    """The V3 kernel at V3-Small's eleven block classes (reduced spatial)."""
+    rng = np.random.default_rng(cin + e + k + stride)
+    kw = _v3_args(rng, dev, dtype, n, h, cin, e, cout, k, se, identity)
+    kw.update(k=k, stride=stride, act=act, residual=residual)
+    _close(v3_block(**kw), v3_block_plain(**kw), dtype)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_v3_small_pipeline_routes_agree(dev, batch):
+    """V3-Small 1.0-96: the float32 kernel route against the float32 plain
+    route at golden.V3_TOL, the bf16 routes at the anchored routing gate,
+    one kernel launch per block; "mixed" runs four plain blocks."""
+    x = np.random.default_rng(batch + 10).uniform(-1, 1, (batch, 96, 96, 3)).astype(
+        np.float32)
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = V3Config("small", 1.0, 96, compute_dtype=dtype)
+        pipe = InferencePipeline(cfg, device="cuda")
+        xd = torch.from_numpy(x).to(dev, pipe.dtype)
+        before = v3_block.launches
+        with torch.inference_mode():
+            logits[dtype] = [mobilenet_v3.forward_v3(pipe.params, xd, cfg, dw_backend=r).float()
+                             for r in ("auto", "plain")]
+            assert v3_block.launches == before + 11
+            mobilenet_v3.forward_v3(pipe.params, xd, cfg, dw_backend="mixed")
+            assert v3_block.launches == before + 11 + 7
+    (got32, ref32), (got, ref) = logits["float32"], logits["bfloat16"]
+    torch.testing.assert_close(got32, ref32, atol=3e-3, rtol=1e-3)
+    rms = lambda t: float(t.pow(2).mean().sqrt())  # noqa: E731
+    atol = max(6e-2, 4.5e-2 * float(ref.abs().max()),
+               1.5 * rms(got - ref) * float(np.sqrt(2 * np.log(got.numel()))))
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+    assert rms(got - ref32) <= 1.5 * rms(ref - ref32) + 6e-2
+
+
+# -- MobileNet-V3 int8 ---------------------------------------------------------
+
+
+def _v3_i8_layers(rng, dev, cin, e, cout, k, se, identity, prj_gain=1.0):
+    """(exp, dw, prj, se1, se2) of one int8 V3 block, quantized from random
+    float weights with quant/v3's _quant_named at fixed scales (input 0.05,
+    expansion and depthwise 0.06, SE mid 0.03; the projection back at the
+    input's scale, / prj_gain): non-zero biases everywhere, SE included."""
+    def lay(shape, axis, s_in, s_out, scale, b_scale, **kw):
+        w = rng.normal(0, scale, shape).astype(np.float32)
+        b = rng.normal(0, b_scale, (shape[axis],)).astype(np.float32)
+        return device_layer_v3(_quant_named(w, b, axis, s_in, s_out, **kw), dev)
+
+    s_x, s_e, s_d, s_g = 0.05, 0.06, 0.06, 0.03
+    exp = None if identity else lay((cin, e), 1, s_x, s_e, 1.5 * cin ** -0.5, 0.3)
+    dw = lay((k, k, 1, e), 3, s_x if identity else s_e, s_d, 0.3, 0.2, k_taps=k * k)
+    se1 = lay((e, se), 1, s_d, s_g, e ** -0.5, 0.3) if se else None
+    se2 = lay((se, e), 1, s_g, 1.0, se ** -0.5, 0.3) if se else None
+    prj = lay((e, cout), 1, s_d, s_x / prj_gain, e ** -0.5, 0.2)
+    return exp, dw, prj, se1, se2
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,k,stride,se,act,residual,identity", [
+    (2, 16, 16, 16, 16, 3, 1, 0, "relu", True, True),           # V3-L b00: identity, residual
+    (3, 10, 16, 64, 24, 3, 2, 0, "relu", False, False),         # b01: expansion at s2, ragged
+    (2, 12, 24, 72, 40, 5, 2, 24, "relu", False, False),        # b03: k5 s2 SE, E tail chunk
+    (2, 9, 40, 120, 40, 5, 1, 32, "relu", True, False),         # b04: SE, residual, odd side
+    (2, 28, 40, 240, 80, 3, 2, 0, "hswish", False, False),      # b06
+    (1, 14, 80, 200, 80, 3, 1, 0, "hswish", True, False),       # b07
+    (2, 14, 80, 480, 112, 3, 1, 120, "hswish", False, False),   # b10: several tiles + SE
+    (2, 14, 112, 672, 160, 5, 2, 168, "hswish", False, False),  # b12
+    (3, 7, 160, 960, 160, 5, 1, 240, "hswish", True, False),    # b13: the widest
+    (2, 16, 16, 16, 16, 3, 2, 8, "relu", False, True),          # V3-S b00: identity, s2, SE
+    (2, 10, 48, 144, 48, 5, 1, 40, "hswish", True, False),      # V3-S b07
+])
+def test_v3_block_i8(dev, n, h, cin, e, cout, k, stride, se, act, residual, identity):
+    rng = np.random.default_rng(cin + e + k + stride)
+    exp, dw, prj, se1, se2 = _v3_i8_layers(rng, dev, cin, e, cout, k, se, identity)
+    x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, cin)).astype(np.int8)).to(dev)
+    kw = dict(k=k, stride=stride, act=act, se1=se1, se2=se2, residual=residual)
+    before = v3_block_i8.launches
+    got = v3_block_i8(x, exp, dw, prj, **kw)
+    assert v3_block_i8.launches == before + 1
+    ref = v3_block_i8_plain(x, exp, dw, prj, **kw)
+    _equal_i8(got, ref)
+    assert (ref < 0).any() and (ref > 0).any()
+
+
+def test_v3_block_i8_saturation(dev):
+    """Inputs at the rails and a projection driven past the int8 range: the
+    residual saturates at both rails, equal to the plain version."""
+    rng = np.random.default_rng(3)
+    exp, dw, prj, se1, se2 = _v3_i8_layers(rng, dev, 40, 120, 40, 5, 32, False, prj_gain=8.0)
+    x = torch.from_numpy(np.where(rng.random((2, 14, 14, 40)) < 0.5, 120, -120).astype(
+        np.int8)).to(dev)
+    kw = dict(k=5, stride=1, act="hswish", se1=se1, se2=se2, residual=True)
+    ref = v3_block_i8_plain(x, exp, dw, prj, **kw)
+    _equal_i8(v3_block_i8(x, exp, dw, prj, **kw), ref)
+    assert (ref == 127).any() and (ref == -128).any()
+
+
+def test_v3_i8_smem_plan_matches_kernel(dev):
+    """The Python mirror of the int8 V3 kernel's shared-memory plan equals
+    the kernel's own for every V3-Large and -Small block's tile at batch 1
+    and 256."""
+    lib = _build.library()
+    for variant in ("large", "small"):
+        h = 112
+        for bd in V3Config(variant, 1.0, 224).block_defs:
+            ident = not bd.has_expand
+            for n in (1, 256):
+                th, tw = v3_i8_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                    bd.se_mid, ident)
+                assert lib.v3_block_i8_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid,
+                                                  bd.kernel, bd.stride, int(ident), th,
+                                                  tw) == v3_i8_smem_bytes(
+                    th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride, ident)
+            h //= bd.stride
+
+
+def test_v3_int8_routes_verify_and_server(dev):
+    """V3-Large 1.0-96: the int8 kernel route's logits equal the plain
+    route's bit for bit at batch 1 and 4 (one launch per block); the
+    per-layer gate is exact; a V3 int8 server (build_server) answers with
+    0 errors through the kernel; V3-Small's fused int8 route raises."""
+    import asyncio
+
+    cfg = V3Config("large", 1.0, 96)
+    pipe = Int8PipelineV3(cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    for batch in (1, 4):
+        imgs = torch.from_numpy(rng.integers(0, 256, (batch, 96, 96, 3), dtype=np.uint8))
+        x_q = qops.quantize_input_dev(prep.preprocess(imgs.to(dev), 96), ACT_IN_SCALE)
+        before = v3_block_i8.launches
+        with torch.inference_mode():
+            got = forward_v3_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+            assert v3_block_i8.launches == before + 15
+            ref = forward_v3_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+        assert torch.equal(got, ref)
+    x = rng.uniform(-1, 1, (2, 96, 96, 3)).astype(np.float32)
+    folded = fold_bn_v3(init_params_v3(cfg, seed=1), eps=cfg.bn_eps)
+    assert verify_int8_v3(cfg, folded, x, n_calib=8, device="cuda")
+
+    async def serve():
+        server = build_server(cfg, 8, device="cuda", int8=True)
+        await server.start()
+        try:
+            return await selftest(server, streams=8, requests_per_stream=2)
+        finally:
+            await server.close()
+
+    before = v3_block_i8.launches
+    stats = asyncio.run(serve())
+    assert stats["errors"] == 0 and v3_block_i8.launches > before
+    with pytest.raises(ValueError, match="B19"):
+        Int8PipelineV3(V3Config("small", 1.0, 96), device="cuda")

@@ -32,7 +32,9 @@ def test_import_builds_nothing():
     import mobilenet_tpu_torch.ops.inverted_residual  # noqa: F401
     import mobilenet_tpu_torch.ops.inverted_residual_i8  # noqa: F401
     import mobilenet_tpu_torch.ops.v3_block  # noqa: F401
+    import mobilenet_tpu_torch.ops.v3_block_i8  # noqa: F401
     import mobilenet_tpu_torch.quant.v2  # noqa: F401
+    import mobilenet_tpu_torch.quant.v3  # noqa: F401
     from mobilenet_tpu_torch.ops import _build
 
     assert _build._lib is None
@@ -60,3 +62,10 @@ def test_v3_modules_are_checked():
             "mobilenet_tpu_torch/runtime/eval.py",
             "mobilenet_tpu_torch/runtime/pipeline.py",
             "mobilenet_tpu_torch/runtime/serving.py"} <= names
+
+
+def test_v3_int8_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/quant/v3.py",
+            "mobilenet_tpu_torch/quant/verify.py",
+            "mobilenet_tpu_torch/ops/v3_block_i8.py"} <= names

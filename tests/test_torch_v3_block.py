@@ -3,15 +3,21 @@ wrapper runs on CPU tensors) against the JAX package's `v3_block_pallas` in
 interpret mode, at the shape classes of the JAX package's own kernel tests
 (tests/test_pallas_ir_v3.py): k 3 and 5 at both strides, the squeeze-excite
 gate with non-zero SE biases, relu / hswish / relu6, the identity expansion,
-the residual and expanded widths that end in a partial 32-channel chunk.
-Also the tile plan (`v3_plan`), which is the kernel's fits-function."""
+the residual and expanded widths that end in a partial 32-channel chunk;
+and against `se_block_packed` (interpret mode), the lane-packed stride-1
+bottleneck the JAX package runs V3-Small's blocks 2 and 4-7 on, which the
+port's kernel takes too. Also the tile plan (`v3_plan`), which is the
+kernel's fits-function."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mobilenet_tpu.ops.pallas_block_packed import pack
 from mobilenet_tpu.ops.pallas_ir_v3 import v3_block_pallas
+from mobilenet_tpu.ops.pallas_se_packed import se_block_packed, se_packed_geometry
+from mobilenet_tpu.utils import golden
 from mobilenet_tpu_torch import V3Config
 from mobilenet_tpu_torch.ops.inverted_residual import MAX_FRAGS, SMEM_MAX
 from mobilenet_tpu_torch.ops.v3_block import (
@@ -139,3 +145,47 @@ def test_wrapper_rejects_what_no_kernel_takes():
         v3_block(**t, k=3, stride=1, act="hsigmoid")
     with pytest.raises(ValueError):
         v3_block(**dict(t, x=t["x"][:, :7].contiguous()), k=3, stride=2, act="relu")  # odd, s2
+
+
+def _rms(a):
+    return float(np.sqrt(np.mean(np.square(a))))
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,k,se_mid,act,residual", [
+    (2, 8, 24, 88, 24, 3, 0, "relu", True),        # V3-S b02 (28² x 24 in the network)
+    (2, 6, 40, 240, 40, 5, 64, "hswish", True),    # b04 and b05 (14² x 40)
+    (2, 6, 40, 120, 48, 5, 32, "hswish", False),   # b06
+    (1, 6, 48, 144, 48, 5, 40, "hswish", True),    # b07
+])
+def test_vs_se_block_packed(n, h, cin, e, cout, k, se_mid, act, residual):
+    """The port's V3 kernel against the JAX package's lane-packed SE block
+    at V3-Small's B15 shapes (stride 1, small spatial), on the same inputs
+    with non-zero SE biases: float32 within 1e-4; bf16 at the anchored
+    routing gate (golden.routing_bf16_atol, and the port no farther in RMS
+    from the float32 block than 1.5x the JAX kernel + 6e-2): the two round
+    at different places (the JAX kernel keeps the expansion in float32 and
+    adds the residual before its one rounding)."""
+    arrs = _make(n * h + cin + e, n, h, cin, e, cout, k, se_mid)
+    cp, _, cout_p, _ = se_packed_geometry(cin, e, cout, h, k, 1)
+    ref32 = v3_block_plain(**{a: torch.from_numpy(v) for a, v in arrs.items()}, k=k, stride=1,
+                           act=act, residual=residual).numpy()
+    for dtype in ("float32", "bfloat16"):
+        jdt, tdt = _DT[dtype]
+        jx = {a: jnp.asarray(v, jdt) for a, v in arrs.items()}
+        xin = jnp.pad(jx["x"], ((0, 0), (0, 0), (0, 0), (0, cp - cin)))
+        ew = jnp.pad(jx["exp_w"], ((0, cp - cin), (0, 0)))
+        se = ((jx["se_w1"], jx["se_b1"], jx["se_w2"], jx["se_b2"]) if se_mid
+              else (None,) * 4)
+        out = se_block_packed(pack(xin, cp), ew, jx["exp_b"], jx["dw_w"], jx["dw_b"], *se,
+                              jx["prj_w"], jx["prj_b"], cp, k, act, residual, se_mid,
+                              interpret=True)
+        want = np.asarray(out.reshape(n, h, h, cout_p)[..., :cout], np.float32)
+        got = v3_block(**{a: torch.from_numpy(v).to(tdt) for a, v in arrs.items()}, k=k,
+                       stride=1, act=act, residual=residual).float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+            continue
+        atol = golden.routing_bf16_atol(float(np.abs(want).max()), _rms(got - want), got.size)
+        np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+        assert _rms(got - ref32) <= golden.ROUTING_ANCHOR_FACTOR * _rms(want - ref32) + \
+            golden.ROUTING_BF16_ATOL

@@ -241,7 +241,7 @@ def test_fused_route_runs_one_kernel_per_block(monkeypatch):
 def test_routing_resolves_as_jax():
     """"mixed" and the per-block tuple resolve as the JAX package's
     _routing_v3 does ("xla" is the port's "plain"); "auto" is fused at
-    every batch; a V3-Small config takes the plain route only."""
+    every batch, on Large and on Small."""
     to_port = {"xla": "plain", "fused": "fused"}
     for name in ("large", "small"):
         cfg, jcfg = _cfgs(name, 224)
@@ -263,16 +263,21 @@ def test_routing_resolves_as_jax():
     for bad in ("xla", ("fused",) * (n - 1), ("fused",) * (n - 1) + ("pallas",)):
         with pytest.raises(ValueError):
             mobilenet_v3._routing_v3(cfg, bad, 1)
-    small = _cfgs("small", 224)[0]
-    for route in ("auto", "fused", "mixed", ("fused",) + ("plain",) * 10):
-        with pytest.raises(ValueError, match="ROADMAP A9"):
-            mobilenet_v3._routing_v3(small, route, 1)
+    small, jsmall = _cfgs("small", 224)
+    assert mobilenet_v3._routing_v3(small, "auto", 1) == ("fused",) * 11
+    assert mobilenet_v3._routing_v3(small, "auto", 256) == ("fused",) * 11
+    assert mobilenet_v3._routing_v3(small, "mixed", 1) == ("plain",) * 4 + ("fused",) * 7
+    tup = ("fused",) + ("plain",) * 10
+    assert mobilenet_v3._routing_v3(small, tup, 1) == tuple(
+        to_port[r] for r in jax_v3._routing_v3(
+            jsmall, tuple("xla" if r == "plain" else r for r in tup), 1))
 
 
 def test_pipeline_gate_and_server_on_cpu(capsys):
     """InferencePipeline(V3Config) serves uint8 batches with the JAX
     pipeline's top-1 and its taps match the plain forward's; verify_v3
-    passes every tap on the CPU; a V3 server's selftest has 0 errors."""
+    passes every tap on the CPU; a V3 server's selftest has 0 errors; a
+    V3-Small int8 server raises."""
     from mobilenet_tpu.runtime.pipeline import InferencePipeline as JaxPipeline
 
     cfg, jcfg = _cfgs("large")
@@ -299,8 +304,8 @@ def test_pipeline_gate_and_server_on_cpu(capsys):
 
     stats = asyncio.run(run())
     assert stats["errors"] == 0 and stats["requests"] == 8
-    with pytest.raises(NotImplementedError):
-        build_server(cfg, 4, device="cpu", int8=True)
+    with pytest.raises(ValueError, match="B19"):  # V3-Small int8: its fused route is not ported
+        build_server(_cfgs("small")[0], 4, device="cpu", int8=True)
 
 
 def test_verify_v3_catches_a_wrong_tap(monkeypatch, capsys):
@@ -323,3 +328,82 @@ def test_cli_serve_v3_on_cpu(capsys):
     assert '"errors": 0' in out
     with pytest.raises(SystemExit):
         cli.main(["serve", "--model", "v2", "--minimalistic", "--device", "cpu"])
+
+
+def test_small_golden_fixture_fused_vs_jax_fused():
+    """V3-Small 1.0-96 on the golden fixture's input and weights: the port's
+    fused route (one v3_block per block, block 0 included, its plain version
+    on CPU tensors, then the fused head) within 1e-3 in float32 of the JAX
+    package's fused route (se_block_packed, expand_block_packed_s2 and
+    v3_block_pallas in interpret mode, block 0 on XLA ops), and within
+    golden.V3_TOL of the fixture's logits."""
+    data = np.load(GOLDEN)
+    cfg, jcfg = _cfgs("small", 96)
+    tree = _tree(0, jcfg)
+    params = from_jax_params_v3(tree, "cpu", torch.float32, cfg)
+    got = mobilenet_v3.forward_v3(params, torch.from_numpy(data["x"]), cfg,
+                                  dw_backend="auto").numpy()
+    ref = np.asarray(jax_v3.forward_v3(tree, jnp.asarray(data["x"]), jcfg, dw_backend="fused"))
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-3)
+    atol, rtol = golden.V3_TOL
+    np.testing.assert_allclose(got, data["logits"], atol=atol, rtol=rtol)
+    np.testing.assert_array_equal(got.argmax(-1), data["logits"].argmax(-1))
+
+
+def test_small_bf16_fused_route_vs_plain_route():
+    """V3-Small's bf16 routes at the anchored routing gate, as Large's
+    (test_bf16_fused_route_vs_plain_route), SE biases made non-zero."""
+    cfg, jcfg = _cfgs("small", 96)
+    tree = _tree(6, jcfg)
+    rng = np.random.default_rng(9)
+    for blk in tree["blocks"]:
+        for b in ("b1", "b2") if "se" in blk else ():
+            blk["se"][b] = (rng.standard_normal(blk["se"][b].shape) * 0.2).astype(np.float32)
+    x = _x(10, 4, 96)
+    params = from_jax_params_v3(tree, "cpu", torch.bfloat16, cfg)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = mobilenet_v3.forward_v3(params, xb, cfg, dw_backend="auto").float().numpy()
+    ref = mobilenet_v3.forward_v3(params, xb, cfg, dw_backend="plain").float().numpy()
+    ora = np.asarray(numpy_ref.forward_all_v3(tree, x, cfg)[0], np.float32)
+    atol = golden.routing_bf16_atol(float(np.abs(ref).max()), _rms(got - ref), got.size)
+    np.testing.assert_allclose(got, ref, atol=atol, rtol=0)
+    srt = np.sort(ref, -1)
+    flips = got.argmax(-1) != ref.argmax(-1)
+    assert not (flips & (srt[:, -1] - srt[:, -2] >= atol)).any()
+    assert _rms(got - ora) <= golden.ROUTING_ANCHOR_FACTOR * _rms(ref - ora) + \
+        golden.ROUTING_BF16_ATOL
+
+
+def test_small_fused_route_one_kernel_per_block_and_serve(monkeypatch, capsys):
+    """make_config("v3small") is the JAX package's V3-Small config; its
+    fused route sends all 11 blocks to v3_block (block 0: the identity
+    expansion at stride 2 with SE); `cli serve --model v3small` answers with
+    0 errors on the CPU."""
+    from mobilenet_tpu_torch import cli
+    from mobilenet_tpu_torch.runtime.serving import MODELS, make_config
+
+    assert "v3small" in MODELS
+    for mini in (False, True):
+        ours = make_config("v3small", 1.0, 224, "float32", mini)
+        ref = jax_v3.V3Config("small", 1.0, 224, minimalistic=mini)
+        assert ours == V3Config("small", 1.0, 224, minimalistic=mini)
+        assert [dataclasses.astuple(b) for b in ours.block_defs] == [
+            dataclasses.astuple(b) for b in ref.block_defs]
+    cfg, jcfg = _cfgs("small")
+    params = from_jax_params_v3(_tree(4, jcfg), "cpu", torch.float32, cfg)
+    calls = []
+    real = mobilenet_v3.v3_block
+
+    def block(x, exp_w, *a, **kw):
+        calls.append((exp_w is None, kw["k"], kw["stride"], kw["se_w1"] is not None,
+                      kw["residual"]))
+        return real(x, exp_w, *a, **kw)
+
+    monkeypatch.setattr(mobilenet_v3, "v3_block", block)
+    mobilenet_v3.forward_v3(params, torch.from_numpy(_x(5, 1)), cfg, dw_backend="auto")
+    assert calls == [(not b.has_expand, b.kernel, b.stride, b.se_mid > 0, b.has_res)
+                     for b in cfg.block_defs]
+    assert calls[0] == (True, 3, 2, True, False)
+    cli.main(["serve", "--model", "v3small", "--streams", "2", "--alpha", "1.0",
+              "--res", str(RES), "--device", "cpu", "--dtype", "float32"])
+    assert '"errors": 0' in capsys.readouterr().out
