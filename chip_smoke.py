@@ -32,8 +32,9 @@ file; imports nothing of JAX. Phases, one JSON line each:
  10. each MobileNet-V2 kernel against its plain version at the 12 distinct
      block shapes of V2 1.0-224 at batch 256 (the inverted-residual kernel,
      the block-0 linear-projection mode of the separable block) and the
-     conv_last head at batch 256 and 1, plus a V3-Large-shaped head (two
-     hswish stages) at batch 256: float32 then bfloat16, no TF32 flag set;
+     conv_last head at batch 256 and 1, plus the V3-Large- and
+     V3-Small-shaped heads (two hswish stages) at batch 256: float32 then
+     bfloat16, no TF32 flag set;
  11. the V2 bf16 pipeline, kernel route against plain route, at batch 256
      and 1 (the routing gate with the JAX package's V2 extreme-value term
      and float32 anchor, below), and a float32 full-network check at batch 2;
@@ -59,7 +60,7 @@ file; imports nothing of JAX. Phases, one JSON line each:
  19. the V3-Large bf16 pipeline (seeded weights with non-zero SE, head and
      fc biases), kernel route against plain route at batch 256 and 1 (the
      anchored routing gate, as V2), a float32 full-network check at batch 2
-     at the JAX package's V3 gate, and the per-layer gate verify_v3 at
+     at the JAX package's V3 gate, and the per-layer gate verify_layers at
      batch 2 on every tap;
  20. V3 benchmark(): "auto" and "plain" at batch 256, and the batch-1
      latency of "mixed" against "auto" (alternating, in one process);
@@ -68,7 +69,7 @@ file; imports nothing of JAX. Phases, one JSON line each:
      fused head launched;
  22-25. phases 18-21 for MobileNet-V3-Small 1.0-224: the V3 kernel at its
      nine distinct block shapes (block 0 with the identity expansion at
-     stride 2 and SE), the routes, verify_v3, benchmark() and batch-1
+     stride 2 and SE), the routes, verify_layers, benchmark() and batch-1
      "mixed" (four plain blocks) against "auto", the 64-stream V3-Small
      server;
  26. V3-Large int8 calibration (32 images, seconds printed);
@@ -85,6 +86,38 @@ file; imports nothing of JAX. Phases, one JSON line each:
      server and one lone request, then `cli serve --model v3 --int8` in
      this process (it calibrates anew); 0 errors and the int8 V3 kernel
      launched in each.
+ 31. the standalone depthwise kernel against its plain version at the 13
+     depthwise layers of V1 1.0-224 (their distinct shapes), at batch 256
+     and 2, float32 then bfloat16: max-abs error, CUDA-event ms, the bound,
+     the launches, and the time of the nearest library call at the same
+     shape (cuDNN's grouped conv in channels-last, then clamp_: "two
+     calls", a yardstick the port never calls);
+ 32. the V1 "dw" route (the depthwise kernel, then the plain pointwise)
+     against the plain route: bf16 at batch 256 and 1 with the anchored
+     gate, float32 at batch 2 within MM_TOL; then a "fused" pipeline's
+     per-layer taps (activations) at batch 8, counters set to 0: the
+     depthwise kernel launched once per layer, 13 times;
+ 33. `cli verify` in this process at 1.0-224, batch 2 (counters set to 0
+     before, read after; every run must pass): V1 with the C++ and the
+     NumPy oracle, V1 --int8 with both, V1 --routing dw, fused and auto
+     (bfloat16), V2, V3, V3-Small, V3-Large --int8 and V3-Small --int8;
+     seconds of each;
+ 34. V3-Small int8 calibration (seconds); the int8 V3 kernel against its
+     plain version, exactly, at the nine distinct block shapes of V3-Small
+     1.0-224 at batch 256 and 1 (non-zero SE biases; block 0 with the
+     identity expansion at stride 2 and SE 8, the JAX package's
+     packed_block_i8_named_s2_se) and a block 0 driven into saturation;
+     its tile plans and the shared-memory mirror;
+ 35. the V3-Small int8 pipeline on the calibrated tree: kernel route
+     against plain route, logits equal bit for bit at batch 256 and 1;
+     verify_int8_v3 at batch 2, every int8 tap exact;
+ 36. V3-Small int8 benchmark(): kernel and plain routes at batch 256, and
+     their batch-1 latency (alternating);
+ 37. the V3-Small int8 main path: counters set to 0, a 64-stream int8
+     server and one lone request, then `cli serve --model v3small --int8`
+     in this process; 0 errors and the int8 V3 kernel launched in each.
+Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
+route at batch 256, bit for bit.
 Then one JSON line of per-kernel results and, last, the result line.
 Any failure raises and the script exits non-zero without the result line.
 
@@ -103,6 +136,7 @@ import asyncio
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -144,9 +178,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # bytes per element of (activations, weights, biases, multipliers)
 ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
-# No single PyTorch call computes any of the kernels' functions (fused dw+pw
+# No single PyTorch call computes the fused kernels' functions (fused dw+pw
 # with requant, pool+fc, K chained blocks, int8 dw+requant, fused expand +
-# dw + projection with or without requants).
+# dw + projection with or without requants). The standalone float depthwise
+# has a nearest library form (phase 31).
 LIBRARY_MS = None
 
 
@@ -518,10 +553,11 @@ def rms(t) -> float:
     return float(t.float().pow(2).mean().sqrt())
 
 
-def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False, params=None):
-    """The bf16 pipeline's kernel route against its plain route at batch 256
-    and 1 (the routing gate, with anchored=True the V2 form above; a top-1
-    flip only between near-tied classes), then a float32 pipeline of
+def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False, params=None,
+                 route="auto"):
+    """The bf16 pipeline's kernel route (`route`) against its plain route at
+    batch 256 and 1 (the routing gate, with anchored=True the V2 form above;
+    a top-1 flip only between near-tied classes), then a float32 pipeline of
     `cfg32` (the same weights: `params`, the host tree `pipe` was built on,
     or the seeded set) at batch 2 within f32_atol/rtol."""
     from mobilenet_tpu_torch import InferencePipeline
@@ -535,7 +571,7 @@ def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False, param
             imgs = torch.from_numpy(
                 rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
             x = preprocess(imgs, RES, torch.bfloat16)
-            got = forward(pipe.params, x, cfg, dw_backend="auto").float()
+            got = forward(pipe.params, x, cfg, dw_backend=route).float()
             ref = forward(pipe.params, x, cfg, dw_backend="plain").float()
             torch.cuda.synchronize()
             scale = float(ref.abs().max())
@@ -560,17 +596,17 @@ def check_routes(pipe, forward, cfg32, f32_atol, f32_rtol, anchored=False, param
                 if gap > atol:
                     raise AssertionError(f"batch {batch} row {i}: top-1 {int(top_k[i])} "
                                          f"vs plain {int(top_p[i])}, gap {gap:.3e}")
-            emit("pipeline", model=cfg.variant_name(), dtype="bfloat16", batch=batch,
-                 max_abs_err=err, atol=atol, logits_absmax=scale,
+            emit("pipeline", model=cfg.variant_name(), route=route, dtype="bfloat16",
+                 batch=batch, max_abs_err=err, atol=atol, logits_absmax=scale,
                  top1_agree=batch - len(flips), rows=batch, **anchor)
         x32 = torch.from_numpy(
             rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)).cuda()
-        got = forward(pipe32.params, x32, cfg32, dw_backend="auto")
+        got = forward(pipe32.params, x32, cfg32, dw_backend=route)
         ref = forward(pipe32.params, x32, cfg32, dw_backend="plain")
         err = compare(f"{cfg32.variant_name()} f32 batch 2", got, ref, f32_atol, f32_rtol)
         if not torch.equal(got.argmax(-1), ref.argmax(-1)):
             raise AssertionError("pipeline f32: top-1 differs from the plain route")
-        emit("pipeline", model=cfg32.variant_name(), dtype="float32", batch=2,
+        emit("pipeline", model=cfg32.variant_name(), route=route, dtype="float32", batch=2,
              max_abs_err=err, atol=f32_atol, rtol=f32_rtol, top1_agree=2, rows=2)
         del pipe32
     torch.cuda.empty_cache()
@@ -699,6 +735,14 @@ def v2_phases(smi, gen, kernels, launches):
                 "(256,7,7,160) conv_last 960 hswish -> 1280 hswish -> 1000", 0,
                 fused_head, fused_head_plain, mk(torch.float32), mk(torch.bfloat16),
                 lambda kind: head_work(256, hw, 160, 960, [1280, 1000], kind))
+    # V3-Small's form (conv_last 96 -> 576 hswish, head 576 -> 1024 hswish,
+    # fc), which V3-Small's float route launches: its time and bound
+    mk = lambda dt: rand_head(gen, 256, hw, 96, (576, "hswish"),  # noqa: E731
+                              [(1024, "hswish"), (1000, "linear")], dt)
+    check_float(summary, "fused_head[conv_last]",
+                "(256,7,7,96) conv_last 576 hswish -> 1024 hswish -> 1000", 0,
+                fused_head, fused_head_plain, mk(torch.float32), mk(torch.bfloat16),
+                lambda kind: head_work(256, hw, 96, 576, [1024, 1000], kind))
 
     # -- 11. V2 pipeline: kernel route vs plain route -----------------------------
     pipe = InferencePipeline(cfg, device="cuda")
@@ -984,7 +1028,7 @@ def v3_phases(smi, gen, kernels, launches, variant="large"):
     launches from the V3 server; returns the kernel's summary row."""
     from mobilenet_tpu_torch import InferencePipeline, V3Config
     from mobilenet_tpu_torch.models import mobilenet_v3
-    from mobilenet_tpu_torch.runtime.eval import verify_v3
+    from mobilenet_tpu_torch.runtime.eval import verify_layers
 
     cfg = V3Config(variant, ALPHA, RES, compute_dtype="bfloat16")
     row, replaces, also = V3_ROWS[variant]
@@ -1001,11 +1045,11 @@ def v3_phases(smi, gen, kernels, launches, variant="large"):
     check_routes(pipe, mobilenet_v3.forward_v3, V3Config(variant, ALPHA, RES), V3_F32_ATOL,
                  V3_F32_RTOL, anchored=True, params=tree)
     x = np.random.default_rng(5).uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
-    ok = verify_v3(cfg, v3_folded(cfg, 1), x, device="cuda")
-    emit("verify_v3", model=cfg.variant_name(), batch=2, tolerance=[V3_F32_ATOL, V3_F32_RTOL],
+    ok = verify_layers(cfg, v3_folded(cfg, 1), x, device="cuda")
+    emit("verify_layers", model=cfg.variant_name(), batch=2, tolerance=[V3_F32_ATOL, V3_F32_RTOL],
          ok=ok)
     if not ok:
-        raise AssertionError(f"verify_v3 at {cfg.variant_name()}: a tap is outside the V3 gate")
+        raise AssertionError(f"verify_layers at {cfg.variant_name()}: a tap is outside the V3 gate")
     torch.cuda.empty_cache()
 
     # -- 20 / 24. V3 benchmark; batch-1 "mixed" vs "auto" --------------------------------
@@ -1052,40 +1096,17 @@ def v3_int8_layers(rng, cin, e, cout, k, se, identity, prj_gain=1.0):
     return exp, dw, prj, se1, se2
 
 
-def v3_int8_phases(smi, kernels, launches):
-    """Phases 26-30. Fills launches["v3_block_i8"] from the V3-Large int8
-    server; returns the kernel's summary row."""
-    from mobilenet_tpu_torch import Int8PipelineV3, V3Config, cli
-    from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
+def v3_i8_kernel_checks(summary, row, cfg, rng, smi):
+    """The int8 V3 kernel against its plain version, exactly, at each
+    distinct block shape of `cfg` at batch 256 and 1 (random layers with
+    non-zero SE biases), adding the batch-256 numbers to `summary[row]`; the
+    tile plans and the kernel's shared memory against its Python mirror."""
     from mobilenet_tpu_torch.ops import _build
-    from mobilenet_tpu_torch.ops.preprocess import preprocess
     from mobilenet_tpu_torch.ops.v3_block_i8 import (
         v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
     )
-    from mobilenet_tpu_torch.quant import ACT_IN_SCALE
-    from mobilenet_tpu_torch.quant import ops as qops
-    from mobilenet_tpu_torch.quant.v3 import forward_v3_i8, quantize_v3
-    from mobilenet_tpu_torch.quant.verify import verify_int8_v3
 
-    cfg = V3Config("large", ALPHA, RES)
-    summary = {"v3_block_i8": {
-        "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block_i8.cu",
-        "replaces": "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290",
-        "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:436 (V3-L b00)",
-                          "mobilenet_tpu/quant/pallas_block_packed_i8.py:632 (V3-L b01)"],
-        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-        "ops_ms": 0.0, "library_ms": LIBRARY_MS}}
-
-    # -- 26. calibration ------------------------------------------------------------
-    folded = fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps)
-    t0 = time.perf_counter()
-    q = quantize_v3(folded, cfg)
-    emit("calibration", model=cfg.variant_name(), n_images=32,
-         seconds=time.perf_counter() - t0)
-
-    # -- 27. the int8 V3 kernel vs plain, exact, at batch 256 and 1 ----------------------
     lib = _build.library()
-    rng = np.random.default_rng(6)
     plans = {}
     for nm, _, h, bd, cnt in v3_block_shapes(cfg, 256):
         ident = not bd.has_expand
@@ -1106,7 +1127,7 @@ def v3_int8_phases(smi, kernels, launches):
                                      "memory, v3_i8_smem_bytes another")
             x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, bd.cin)).astype(
                 np.int8)).cuda()
-            ref = check_i8(summary, "v3_block_i8", name.format(n=n), cnt if n == 256 else 0,
+            ref = check_i8(summary, row, name.format(n=n), cnt if n == 256 else 0,
                            lambda *a: v3_block_i8(*a, **kw),
                            lambda *a: v3_block_i8_plain(*a, **kw), (x, *layers[:3]),
                            ir_work(n, h, bd.cin, bd.cexp, bd.cout, bd.stride, "int8",
@@ -1116,7 +1137,42 @@ def v3_int8_phases(smi, kernels, launches):
             del x, ref
         del layers
         torch.cuda.empty_cache()
-    emit("v3_i8_plans", plans=plans)
+    emit("v3_i8_plans", model=cfg.variant_name(), plans=plans)
+
+
+def v3_int8_phases(smi, kernels, launches):
+    """Phases 26-30. Fills launches["v3_block_i8"] from the V3-Large int8
+    server; returns the kernel's summary row."""
+    from mobilenet_tpu_torch import Int8PipelineV3, V3Config, cli
+    from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.v3_block_i8 import v3_block_i8, v3_block_i8_plain
+    from mobilenet_tpu_torch.quant import ACT_IN_SCALE
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.v3 import forward_v3_i8, quantize_v3
+    from mobilenet_tpu_torch.quant.verify import verify_int8_v3
+
+    cfg = V3Config("large", ALPHA, RES)
+    summary = {"v3_block_i8": {
+        "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block_i8.cu",
+        "replaces": "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290",
+        "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:436 (V3-L b00)",
+                          "mobilenet_tpu/quant/pallas_block_packed_i8.py:632 (V3-L b01)",
+                          "mobilenet_tpu/quant/pallas_block_packed_i8.py:821 (V3-S b00, "
+                          "row v3_block_i8[v3small])"],
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+        "ops_ms": 0.0, "library_ms": LIBRARY_MS}}
+
+    # -- 26. calibration ------------------------------------------------------------
+    folded = fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps)
+    t0 = time.perf_counter()
+    q = quantize_v3(folded, cfg)
+    emit("calibration", model=cfg.variant_name(), n_images=32,
+         seconds=time.perf_counter() - t0)
+
+    # -- 27. the int8 V3 kernel vs plain, exact, at batch 256 and 1 ----------------------
+    rng = np.random.default_rng(6)
+    v3_i8_kernel_checks(summary, "v3_block_i8", cfg, rng, smi)
     # saturation: inputs at the rails, the projection driven past the int8 range
     layers = v3_int8_layers(rng, 24, 72, 24, 3, 0, False, prj_gain=8.0)
     x = torch.from_numpy(np.where(rng.random((256, 56, 56, 24)) < 0.5, 120, -120).astype(
@@ -1149,6 +1205,25 @@ def v3_int8_phases(smi, kernels, launches):
                  max_abs_err=0.0, tolerance=0, top1_agree=batch, rows=batch,
                  logits_absmax=float(ref.abs().max()))
     del imgs, x_q, got, ref
+    # V3-Large-minimalistic (k 3, relu, no SE): its own calibrated tree
+    mini = V3Config("large", ALPHA, RES, minimalistic=True)
+    t0 = time.perf_counter()
+    q_mini = quantize_v3(fold_bn_v3(init_params_v3(mini, seed=0), eps=mini.bn_eps), mini)
+    mini_s = time.perf_counter() - t0
+    dev_mini = Int8PipelineV3(mini, device="cuda", quantized=q_mini).dev
+    with torch.inference_mode():
+        imgs = torch.from_numpy(rng.integers(0, 256, (256, RES, RES, 3), dtype=np.uint8)).cuda()
+        x_q = qops.quantize_input_dev(preprocess(imgs, RES), ACT_IN_SCALE)
+        got = forward_v3_i8(dev_mini, x_q, mini, dw_backend="auto")
+        ref = forward_v3_i8(dev_mini, x_q, mini, dw_backend="plain")
+        torch.cuda.synchronize()
+    if not torch.equal(got, ref) or got.shape != (256, mini.num_classes):
+        raise AssertionError("V3-L-minimalistic int8 batch 256: kernel route logits differ "
+                             "from the plain route")
+    emit("pipeline", model=mini.variant_name(), dtype="int8", batch=256, max_abs_err=0.0,
+         tolerance=0, top1_agree=256, rows=256, logits_absmax=float(ref.abs().max()),
+         calibration_s=mini_s)
+    del dev_mini, q_mini, imgs, x_q, got, ref
     x = rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
     ok = verify_int8_v3(cfg, fold_bn_v3(init_params_v3(cfg, seed=1), eps=cfg.bn_eps), x,
                         n_calib=8, device="cuda")
@@ -1189,6 +1264,247 @@ def v3_int8_phases(smi, kernels, launches):
     return summary
 
 
+def dw_shapes(cfg, batch):
+    """(name, N, H, C, stride, count) of each distinct depthwise layer shape
+    of a V1 config, `count` = how many of one forward's 13 layers have it."""
+    shapes = {}
+    for nm, n, h, cin, _, stride, cnt in block_shapes(cfg, batch):
+        key = (h, cin, stride)
+        if key in shapes:
+            shapes[key][1] += cnt
+        else:
+            shapes[key] = [nm, cnt]
+    return [(nm, batch, h, c, s, cnt) for (h, c, s), (nm, cnt) in shapes.items()]
+
+
+VERIFY_RUNS = (
+    ("v1 cpp", []), ("v1 numpy", ["--oracle", "numpy"]), ("v1 int8 cpp", ["--int8"]),
+    ("v1 int8 numpy", ["--int8", "--oracle", "numpy"]), ("v1 routing dw", ["--routing", "dw"]),
+    ("v1 routing fused", ["--routing", "fused"]),
+    ("v1 routing auto bf16", ["--routing", "auto", "--dtype", "bfloat16"]),
+    ("v2", ["--model", "v2"]), ("v3", ["--model", "v3"]), ("v3small", ["--model", "v3small"]),
+    ("v3 int8", ["--model", "v3", "--int8"]), ("v3small int8", ["--model", "v3small", "--int8"]),
+)
+
+
+def dw_phases(smi, gen, kernels, launches):
+    """Phases 31-33. Fills launches["depthwise"] from the `cli verify` runs;
+    returns the depthwise kernel's summary row."""
+    import torch.nn.functional as F
+
+    from mobilenet_tpu_torch import InferencePipeline, ModelConfig, cli
+    from mobilenet_tpu_torch.models import mobilenet_v1
+    from mobilenet_tpu_torch.ops.conv import no_tf32
+    from mobilenet_tpu_torch.ops.depthwise import depthwise, depthwise_plain
+    from mobilenet_tpu_torch.utils import golden
+
+    cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")
+    row = {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/depthwise.cu",
+           "replaces": "mobilenet_tpu/ops/pallas_dw.py:112", **FLOAT_ROW,
+           "library_ms": 0.0, "library": "F.conv2d(groups=C, channels-last) + clamp_: two calls",
+           "ms_f32": 0.0, "plain_ms_f32": 0.0, "library_ms_f32": 0.0, "bound_ms_f32": 0.0}
+
+    # -- 31. the depthwise kernel vs plain at V1's 13 layers, batch 256 and 2 ----------------
+    for batch in (256, 2):
+        for nm, n, h, c, stride, cnt in dw_shapes(cfg, batch):
+            entry = {}
+            for tag, dt, atol, rtol in (("f32", torch.float32, 2e-6, 1e-6),
+                                        ("bf16", torch.bfloat16, 0.0, 2 ** -8)):
+                x = (torch.rand(n, h, h, c, generator=gen, device="cuda") * 4 - 2).to(dt)
+                w = (torch.randn(3, 3, 1, c, generator=gen, device="cuda") * 0.5).to(dt)
+                b = (torch.randn(c, generator=gen, device="cuda") * 0.2).to(dt)
+                before = depthwise.launches
+                got = depthwise(x, w, stride, b, True)
+                ref = depthwise_plain(x, w, stride, b, True)
+                torch.cuda.synchronize()
+                err = compare(f"depthwise {nm} {tag}", got, ref, atol, rtol)
+                kms = cuda_ms(lambda: depthwise(x, w, stride, b, True))
+                pms = cuda_ms(lambda: depthwise_plain(x, w, stride, b, True))
+                xn = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC data: channels-last
+                wl = w.reshape(3, 3, c).permute(2, 0, 1).unsqueeze(1).contiguous()
+                with no_tf32(x):
+                    lms = cuda_ms(lambda: F.conv2d(xn, wl, b, stride, 1, 1, c).clamp_(0, 6))
+                b_ms, b_by, t_b, t_o = bound(*dw_work(n, h, c, stride, tag), "f32")
+                entry[tag] = {"max_abs_err": err, "atol": atol, "rtol": rtol, "ms": kms,
+                              "plain_ms": pms, "library_ms": lms, "bound_ms": b_ms,
+                              "bound_by": b_by, "launches": depthwise.launches - before}
+                if batch == 256 and tag == "bf16":
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    row["ms"] += cnt * kms
+                    row["plain_ms"] += cnt * pms
+                    row["library_ms"] += cnt * lms
+                    row["bound_ms"] += cnt * b_ms
+                    row["bytes_ms"] += cnt * t_b
+                    row["ops_ms"] += cnt * t_o
+                elif batch == 256:
+                    row["max_abs_err_f32"] = max(row["max_abs_err_f32"], err)
+                    row["ms_f32"] += cnt * kms
+                    row["plain_ms_f32"] += cnt * pms
+                    row["library_ms_f32"] += cnt * lms
+                    row["bound_ms_f32"] += cnt * b_ms
+                del x, w, b, got, ref, xn, wl
+            emit("kernel", kernel="depthwise", shape=f"{nm}_dw ({n},{h},{h},{c}) s{stride}",
+                 count_per_forward=cnt, nvidia_smi=smi, **entry)
+            torch.cuda.empty_cache()
+
+    # -- 32. the V1 "dw" route vs plain; a fused pipeline's per-layer taps --------------------
+    pipe = InferencePipeline(cfg, device="cuda")
+    cfg32 = ModelConfig(ALPHA, RES, compute_dtype="float32")
+    check_routes(pipe, mobilenet_v1.forward, cfg32, F32_ATOL, F32_RTOL, anchored=True,
+                 route="dw")
+    del pipe
+    x = np.random.default_rng(8).uniform(-1, 1, (8, RES, RES, 3)).astype(np.float32)
+    _, plain_taps = InferencePipeline(cfg32, device="cuda", dw_backend="plain").activations(x)
+    fused32 = InferencePipeline(cfg32, device="cuda", dw_backend="fused")
+    for k in kernels.values():
+        k.launches = 0
+    _, taps = fused32.activations(x)
+    torch.cuda.synchronize()
+    n_dw = depthwise.launches
+    reports = golden.compare_activations(taps, plain_taps)
+    bad = golden.first_divergence(reports)
+    emit("collect_fused", model=cfg32.variant_name(), batch=8, taps=len(taps),
+         launches={"depthwise": n_dw}, max_abs_err=max(r.max_abs for r in reports),
+         first_divergence=None if bad is None else bad.name)
+    if n_dw != 13 or bad is not None:
+        raise AssertionError(f"fused collect: {n_dw} depthwise launches (13 wanted), "
+                             f"first divergence from the plain taps {bad}")
+    del fused32, taps, plain_taps
+    torch.cuda.empty_cache()
+
+    # -- 33. cli verify at 1.0-224, batch 2 ---------------------------------------------------
+    for k in kernels.values():
+        k.launches = 0
+    for name, extra in VERIFY_RUNS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        code = 0
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(["verify", "--alpha", str(ALPHA), "--res", str(RES), "--batch", "2",
+                          *extra])
+        except SystemExit as e:
+            code = e.code
+        lines = out.getvalue().strip().splitlines()
+        max_abs = [float(m.group(1)) for ln in lines
+                   for m in [re.search(r"max_abs=([0-9.eE+-]+)", ln)] if m]
+        emit("cli_verify", run=name, seconds=time.perf_counter() - t0, exit=code,
+             last_line=lines[-1] if lines else "", worst_max_abs=max(max_abs, default=None),
+             failed=[ln for ln in lines if "FAIL" in ln][:5])
+        if code not in (0, None):
+            raise AssertionError(f"cli verify {name}: exit {code}")
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches["depthwise"] = depthwise.launches
+    emit("cli_verify_launches", launches={k: v.launches for k, v in kernels.items()})
+    if depthwise.launches <= 0:
+        raise AssertionError("cli verify: the depthwise kernel was not launched")
+    return {"depthwise": row}
+
+
+def v3small_int8_phases(smi, kernels, launches):
+    """Phases 34-37. Fills launches["v3_block_i8[v3small]"] from the
+    V3-Small int8 server; returns the row's summary."""
+    from mobilenet_tpu_torch import Int8PipelineV3, V3Config, cli
+    from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.v3_block_i8 import v3_block_i8, v3_block_i8_plain
+    from mobilenet_tpu_torch.quant import ACT_IN_SCALE
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.v3 import forward_v3_i8, quantize_v3
+    from mobilenet_tpu_torch.quant.verify import verify_int8_v3
+
+    cfg = V3Config("small", ALPHA, RES)
+    row = "v3_block_i8[v3small]"
+    summary = {row: {
+        "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block_i8.cu",
+        "replaces": "mobilenet_tpu/quant/pallas_block_packed_i8.py:821",
+        "also_runs": ["V3-S b01-b10 (JAX: mobilenet_tpu/quant/pallas_ir_v3_i8.py:290)"],
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+        "ops_ms": 0.0, "library_ms": LIBRARY_MS}}
+
+    # -- 34. calibration; the int8 V3 kernel vs plain at V3-Small's shapes ----------------------
+    folded = fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps)
+    t0 = time.perf_counter()
+    q = quantize_v3(folded, cfg)
+    emit("calibration", model=cfg.variant_name(), n_images=32,
+         seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(7)
+    v3_i8_kernel_checks(summary, row, cfg, rng, smi)
+    # block 0 saturated: inputs at the rails, the projection driven past the int8 range
+    layers = v3_int8_layers(rng, 16, 16, 16, 3, 8, True, prj_gain=8.0)
+    x = torch.from_numpy(np.where(rng.random((256, 112, 112, 16)) < 0.5, 120, -120).astype(
+        np.int8)).cuda()
+    kw = dict(k=3, stride=2, act="relu", se1=layers[3], se2=layers[4], residual=False)
+    ref = check_i8(summary, row, "saturation b00 (256,112,112,16)->16 identity k3 s2 se8", 0,
+                   lambda *a: v3_block_i8(*a, **kw), lambda *a: v3_block_i8_plain(*a, **kw),
+                   (x, *layers[:3]), ir_work(256, 112, 16, 16, 16, 2, "int8", k=3, se=8,
+                                             identity=True), smi)
+    if not ((ref == 127).any() and (ref == -128).any()):
+        raise AssertionError("block-0 saturation case: the output did not reach both rails")
+    del layers, x, ref
+    torch.cuda.empty_cache()
+
+    # -- 35. V3-S int8 routes on the calibrated tree; the per-layer gate --------------------------
+    pipe = Int8PipelineV3(cfg, device="cuda", quantized=q)
+    with torch.inference_mode():
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            x_q = qops.quantize_input_dev(preprocess(imgs, RES), ACT_IN_SCALE)
+            got = forward_v3_i8(pipe.dev, x_q, cfg, dw_backend="auto")
+            ref = forward_v3_i8(pipe.dev, x_q, cfg, dw_backend="plain")
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"V3-S int8 pipeline batch {batch}: kernel route logits "
+                                     "differ from the plain route")
+            if not torch.isfinite(got).all() or got.shape != (batch, cfg.num_classes):
+                raise AssertionError(f"V3-S int8 pipeline batch {batch}: bad logits")
+            emit("pipeline", model=cfg.variant_name(), dtype="int8", batch=batch,
+                 max_abs_err=0.0, tolerance=0, top1_agree=batch, rows=batch,
+                 logits_absmax=float(ref.abs().max()))
+    del imgs, x_q, got, ref
+    x = rng.uniform(-1, 1, (2, RES, RES, 3)).astype(np.float32)
+    ok = verify_int8_v3(cfg, fold_bn_v3(init_params_v3(cfg, seed=1), eps=cfg.bn_eps), x,
+                        n_calib=8, device="cuda")
+    emit("verify_int8_v3", model=cfg.variant_name(), batch=2, n_calib=8, exact=ok)
+    if not ok:
+        raise AssertionError("verify_int8_v3 at V3-S 1.0-224: a layer differs from the oracle")
+    torch.cuda.empty_cache()
+
+    # -- 36. V3-S int8 benchmark; batch-1 fused vs plain ----------------------------------------
+    emit("benchmark", model=cfg.variant_name(), route="int8 auto", nvidia_smi=smi,
+         **pipe.benchmark(batch_size=256, steps=40))
+    plain = Int8PipelineV3(cfg, device="cuda", quantized=q, dw_backend="plain")
+    emit("benchmark", model=cfg.variant_name(), route="int8 plain", nvidia_smi=smi,
+         **plain.benchmark(batch_size=256, steps=5, latency_iters=10))
+    emit("latency_b1", model=cfg.variant_name(), dtype="int8", nvidia_smi=smi,
+         **batch1_latency([("auto", pipe), ("plain", plain)]))
+    del plain
+    torch.cuda.empty_cache()
+
+    # -- 37. the V3-S int8 main path: 64-stream server; cli serve --model v3small --int8 ---------
+    got = serve_main_path(pipe, kernels, ("v3_block_i8",), "serving_v3small_int8", smi)
+    launches[row] = got["v3_block_i8"]
+    del pipe
+    torch.cuda.empty_cache()
+    for k in kernels.values():
+        k.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["serve", "--model", "v3small", "--int8", "--streams", "64", "--alpha",
+                  str(ALPHA), "--res", str(RES)])
+    torch.cuda.synchronize()
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    emit("cli_serve_v3small_int8", nvidia_smi=smi,
+         launches={"v3_block_i8": v3_block_i8.launches}, **stats)
+    if stats["errors"] != 0 or v3_block_i8.launches <= 0:
+        raise AssertionError("cli serve --model v3small --int8: errors, or v3_block_i8 not "
+                             "launched")
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1198,6 +1514,7 @@ def main() -> int:
     from mobilenet_tpu_torch.models import mobilenet_v1
     from mobilenet_tpu_torch.ops import _build
     from mobilenet_tpu_torch.ops.chain import chain, chain_plain
+    from mobilenet_tpu_torch.ops.depthwise import depthwise
     from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
     from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual
@@ -1279,7 +1596,7 @@ def main() -> int:
                "chain": chain, "separable_block_i8": separable_block_i8,
                "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual,
                "inverted_residual_i8": inverted_residual_i8, "v3_block": v3_block,
-               "v3_block_i8": v3_block_i8}
+               "v3_block_i8": v3_block_i8, "depthwise": depthwise}
     launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
                                "serving", smi)
     del pipe
@@ -1302,6 +1619,12 @@ def main() -> int:
 
     # -- 26-30. the V3-Large int8 path ------------------------------------------------
     summary.update(v3_int8_phases(smi, kernels, launches))
+
+    # -- 31-33. the depthwise kernel, the V1 "dw" route and cli verify ----------------------
+    summary.update(dw_phases(smi, gen, kernels, launches))
+
+    # -- 34-37. the V3-Small int8 path ------------------------------------------------
+    summary.update(v3small_int8_phases(smi, kernels, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

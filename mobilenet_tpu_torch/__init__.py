@@ -2,10 +2,10 @@
 
 MobileNet-V1, -V2 and -V3 (Large, Small, minimalistic) serving on an NVIDIA
 H100, float (`InferencePipeline`, with a ModelConfig, a V2Config or a
-V3Config) and exact int8 for V1, V2 and V3-Large (`Int8Pipeline`,
-`Int8PipelineV2`, `Int8PipelineV3`): plain PyTorch
-ops around hand-written CUDA kernels for Hopper (`csrc/`), built with nvcc
-at first use. The JAX package `mobilenet_tpu` is the reference it is tested
+V3Config) and exact int8 for V1, V2 and V3 (`Int8Pipeline`,
+`Int8PipelineV2`, `Int8PipelineV3`), and the per-layer verify gates
+(`cli verify`): plain PyTorch ops around hand-written CUDA kernels for
+Hopper (`csrc/`), built with nvcc at first use. The JAX package `mobilenet_tpu` is the reference it is tested
 against; this package never imports JAX.
 """
 

@@ -2,10 +2,17 @@
 
 The layer schedule, the routing helpers (`_routing`, `_chain_runs`,
 `_run_blocks`) and the tap names follow the JAX package's
-`models/mobilenet_v1.py`. Backends per block:
-  "plain" - plain PyTorch depthwise + pointwise ops (the reference route);
+`models/mobilenet_v1.py`. Backends per block (the JAX package's names in
+brackets):
+  "plain" - plain PyTorch depthwise + pointwise ops, the reference route
+            ["xla"];
+  "dw"    - the standalone depthwise kernel (ops/depthwise.py), then the
+            plain pointwise ["pallas"];
   "fused" - the fused separable-block kernel (ops/separable_block.py), and
-            at batch 1 the chain kernel over the 14x14 stretch.
+            at batch 1 the chain kernel over the 14x14 stretch ["fused"].
+With collect=True a "fused" block runs its depthwise tap through the
+depthwise kernel, as the JAX package does, and a "dw" block the same; a
+"plain" block keeps the plain ops.
 The stem convolution, normalize and softmax are plain ops on every route.
 """
 
@@ -19,11 +26,12 @@ from ..checkpoints.convert import stack_run
 from ..config import ModelConfig
 from ..ops import conv as ops
 from ..ops.chain import chain, chain_fits, stride1_runs
+from ..ops.depthwise import depthwise
 from ..ops.head import fused_head
 from ..ops.preprocess import preprocess
 from ..ops.separable_block import separable_block
 
-DW_BACKENDS = ("plain", "fused")
+DW_BACKENDS = ("plain", "dw", "fused")
 
 # Collapse the eligible stride-1 run (blocks 6-10) into one chain launch at
 # batch 1, where the forward is bound by launches and idle SMs.
@@ -57,9 +65,10 @@ def forward(params: Dict[str, Any], x: torch.Tensor, config: ModelConfig, *,
     """Run the 28-layer network on a folded-BN device tree.
 
     x: (N, H, W, 3) preprocessed NHWC images in [-1, 1], in the compute
-    dtype. collect=True runs every block on plain ops and also returns each
-    post-activation tensor by layer name (conv1, blockNN_dw, blockNN_pw,
-    pool, logits).
+    dtype. collect=True runs every block unfused (the depthwise kernel on
+    "dw" and "fused" blocks, plain ops on "plain" blocks), the head on
+    plain ops, and also returns each post-activation tensor by layer name
+    (conv1, blockNN_dw, blockNN_pw, pool, logits).
 
     Returns logits (N, classes), or (logits, {name: activation}) if collect.
     """
@@ -111,7 +120,8 @@ def _chain_weights(params, i: int, run: int):
 
 
 def _run_blocks(params, y, config, routing, relu6, acts=None):
-    """The 13 dw/pw blocks, per-block backend routing."""
+    """The 13 dw/pw blocks, per-block backend routing; `acts` collects the
+    taps (module docstring)."""
     collect = acts is not None
     chain_on = CHAIN_AT_BATCH1 and int(y.shape[0]) == 1 and not collect
     chain_runs = (_chain_runs(params, config, routing, y.shape, y.element_size())
@@ -129,8 +139,11 @@ def _run_blocks(params, y, config, routing, relu6, acts=None):
             y = separable_block(y, blk["dw"]["w"], blk["dw"]["b"], blk["pw"]["w"],
                                 blk["pw"]["b"], stride, relu6)
             continue
-        y = ops.depthwise_conv(y, blk["dw"]["w"], stride, bias=blk["dw"]["b"],
-                               relu6=relu6)
+        if routing[i] == "plain":
+            y = ops.depthwise_conv(y, blk["dw"]["w"], stride, bias=blk["dw"]["b"],
+                                   relu6=relu6)
+        else:
+            y = depthwise(y, blk["dw"]["w"], stride, bias=blk["dw"]["b"], relu6=relu6)
         if collect:
             acts[f"block{i:02d}_dw"] = y
         y = ops.pointwise_conv(y, blk["pw"]["w"], bias=blk["pw"]["b"], relu6=relu6)

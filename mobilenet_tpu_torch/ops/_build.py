@@ -68,6 +68,8 @@ _SIGNATURES = {
     "v3_block_i8": [_P] * 18 + [_I] * 15 + [_F] * 4,
     # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
     "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
+    # x, w, b (or 0), out | N, H, W, C, stride, relu6
+    "depthwise_f32": [_P] * 4 + [_I] * 6, "depthwise_bf16": [_P] * 4 + [_I] * 6,
     "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
     "v3_block_bf16": _V3, "v3_block_f32": _V3,
     "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,

@@ -1,7 +1,7 @@
-"""Pure-NumPy float32 golden reference of MobileNet-V2's and MobileNet-V3's
-layers: the port's copy of what the V2 int8 calibration and the V3 float
-gate (`runtime.eval.verify_v3`) need from the JAX package's
-`oracle/numpy_ref.py`, verbatim.
+"""Pure-NumPy float32 golden reference of MobileNet-V1's, -V2's and -V3's
+layers: the port's copy of the JAX package's `oracle/numpy_ref.py`,
+verbatim: the oracle of the float verify gates (`runtime/eval.py`) and of
+the V2 and V3 int8 calibrations.
 
 The calibration takes absmax over these taps; a reordered float32 sum could
 move an absmax in its last bit and with it every requant multiplier of a
@@ -88,6 +88,30 @@ def pointwise_ref(x, w, bias=None, relu6=None):
     if relu6 is not None:
         y = _act(y, relu6)
     return y.astype(np.float32)
+
+
+def forward_all(params: Dict[str, Any], x: np.ndarray, config):
+    """Golden per-layer forward. Returns (logits, {layer_name: activation}),
+    matching models.mobilenet_v1.forward(collect=True) layer names exactly."""
+    relu6 = config.relu6
+    acts: Dict[str, np.ndarray] = {}
+    y = conv2d_ref(x, params["conv1"]["w"], 2, params["conv1"]["b"], relu6)
+    acts["conv1"] = y
+    for i, (blk, stride) in enumerate(zip(params["blocks"], config.block_strides)):
+        y = depthwise_ref(y, blk["dw"]["w"], stride, blk["dw"]["b"], relu6)
+        acts[f"block{i:02d}_dw"] = y
+        y = pointwise_ref(y, blk["pw"]["w"], blk["pw"]["b"], relu6)
+        acts[f"block{i:02d}_pw"] = y
+    pooled = y.astype(np.float32).mean(axis=(1, 2))
+    acts["pool"] = pooled
+    logits = pooled @ params["fc"]["w"] + params["fc"]["b"]
+    acts["logits"] = logits
+    return logits, acts
+
+
+def preprocess_ref(img_u8: np.ndarray) -> np.ndarray:
+    """uint8 HWC -> float32 in [-1, 1] (TF mode; keras mobilenet.py:418-422)."""
+    return (img_u8.astype(np.float32) / np.float32(127.5)) + np.float32(-1.0)
 
 
 def forward_all_v2(params: Dict[str, Any], x: np.ndarray, config):

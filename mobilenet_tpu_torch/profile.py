@@ -4,9 +4,9 @@
         [--batch 256 1] [--steps 10]
 
 Builds the 1.0-224 pipeline of MobileNet-V1, -V2 (--model v2), -V3-Large
-(--model v3) or -V3-Small (--model v3small), bf16 or exact int8 (--int8;
-V1, V2 and V3-Large), on the card, warms it on one device-resident uint8
-batch, then records `--steps` forwards under torch.profiler (CPU + CUDA).
+(--model v3) or -V3-Small (--model v3small), bf16 or exact int8 (--int8),
+on the card, warms it on one device-resident uint8 batch, then records
+`--steps` forwards under torch.profiler (CPU + CUDA).
 Prints one JSON line: the window's wall time (CUDA events), the device
 busy time (the sum of the device activities' durations: one stream, so they
 do not overlap), the idle share, and the device time per kernel name, most
@@ -67,16 +67,13 @@ def main(argv=None):
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--steps", type=int, default=10)
     args = p.parse_args(argv)
-    if args.int8 and args.model == "v3small":
-        raise SystemExit("mobilenet_tpu_torch.profile: the MobileNet-V3-Small int8 fused "
-                         "path is not ported yet (ROADMAP A9/B19)")
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.profile measures the card; "
                          "torch.cuda.is_available() is False")
     cfg = make_config(args.model, 1.0, 224, "bfloat16")
     if args.int8:
-        pipe = {"v1": Int8Pipeline, "v2": Int8PipelineV2, "v3": Int8PipelineV3}[args.model](
-            cfg, device="cuda")
+        pipe = {"v1": Int8Pipeline, "v2": Int8PipelineV2, "v3": Int8PipelineV3,
+                "v3small": Int8PipelineV3}[args.model](cfg, device="cuda")
     else:
         pipe = InferencePipeline(cfg, device="cuda")
     for batch in args.batch:

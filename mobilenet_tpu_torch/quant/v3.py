@@ -27,11 +27,12 @@ Routes per block (`forward_v3_i8`): "plain" runs the plain int8 ops (the
 reference route; the JAX package's XLA route); "fused" runs one int8 V3
 bottleneck kernel per block (ops/v3_block_i8.py): on MobileNet-V3-Large,
 block 0 with the identity expansion, block 1 with its expansion at stride
-2, blocks 2-14 as they are. "auto" is "fused" at every batch. V3-Small's
-fused route is not ported yet (its block 0 runs a fifth TPU kernel,
-ROADMAP A9/B19): "fused" and "auto" raise for Small; "plain" takes both
-variants. The stem, input quantization, conv_last, pool, head, fc and
-softmax are plain ops on every route (XLA ops in the JAX package).
+2, blocks 2-14 as they are; on MobileNet-V3-Small, all 11 blocks, block 0
+with the identity expansion at stride 2 and the quantized SE (the JAX
+package's `packed_block_i8_named_s2_se`). "auto" is "fused" at every batch
+(the JAX package resolves V3-Small's "auto" to fused at batch 1 too). The
+stem, input quantization, conv_last, pool, head, fc and softmax are plain
+ops on every route (XLA ops in the JAX package).
 
 Not ported:
 - the two-multiply requant order (`FOLDED_REQUANT = False`), the JAX
@@ -359,13 +360,8 @@ def to_device_i8_v3(q, device) -> Dict[str, Any]:
 def _routing_v3_i8(config: V3Config, dw_backend, batch: int) -> Tuple[str, ...]:
     """Resolve the per-block backend tuple (`resolve_i8_routing`: None ->
     "plain", "auto" -> "fused" at every batch, a name, or one name per
-    block). A V3-Small config takes no fused block: its block 0 runs a TPU
-    kernel not ported yet (ROADMAP A9/B19)."""
-    routing = resolve_i8_routing(len(config.block_defs), dw_backend)
-    if config.variant == "small" and "fused" in routing:
-        raise ValueError("MobileNet-V3-Small int8 runs the 'plain' route only: its fused "
-                         "path waits for the int8 block-0 kernel (ROADMAP A9/B19)")
-    return routing
+    block), for V3-Large and V3-Small alike."""
+    return resolve_i8_routing(len(config.block_defs), dw_backend)
 
 
 def forward_v3_i8(dev: Dict[str, Any], x_i8: torch.Tensor, config: V3Config, *,
@@ -444,7 +440,7 @@ class Int8PipelineV3(Int8Pipeline):
         `quantized`: a V3QuantizedParams of either package instead, used as
         it is. `device`: "cuda" (default), "cuda:N" or "cpu". `dw_backend`:
         "auto" (the kernel), "plain", "fused", or a per-block tuple
-        (_routing_v3_i8; a V3-Small config takes "plain" only)."""
+        (_routing_v3_i8), for V3-Large and V3-Small."""
         _routing_v3_i8(config, dw_backend, 1)
         self.config = config
         self.device = resolve_device(device)

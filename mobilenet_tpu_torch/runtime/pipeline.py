@@ -199,7 +199,9 @@ class InferencePipeline(PipelineBase):
 
     @torch.inference_mode()
     def activations(self, x):
-        """Per-layer taps for the verify gate: (logits, {name: array})."""
+        """Per-layer taps for the verify gates: (logits, {name: array}), on
+        the pipeline's routing (MobileNet-V1: the depthwise kernel gives the
+        depthwise taps of "fused" and "dw" blocks, the plain ops the rest)."""
         logits, acts = self._entry("collect")(torch.as_tensor(x).to(self.device))
         return (logits.float().cpu().numpy(),
                 {k: v.float().cpu().numpy() for k, v in acts.items()})

@@ -1,8 +1,8 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
 The port of the JAX package's `runtime/serving.py` for one variant on one
-device: MobileNet-V1, -V2 or -V3-Large, float or exact int8, or
-MobileNet-V3-Small (or either V3 -minimalistic), float:
+device: MobileNet-V1, -V2, -V3-Large or -V3-Small (or either V3
+-minimalistic), float or exact int8:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
     `max_delay_ms`), pads to the smallest precomputed bucket that fits, and
@@ -317,8 +317,7 @@ def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
     InferencePipeline of a ModelConfig, a V2Config or a V3Config (or of a
     variant string, `config_from_variant`, in bfloat16), or with int8=True
     the quantized Int8Pipeline (V1), Int8PipelineV2 (V2) or Int8PipelineV3
-    (V3-Large; both calibrated here). V3-Small's int8 path raises: its fused
-    route is not ported yet (ROADMAP A9/B19)."""
+    (V3-Large and V3-Small; both calibrated here)."""
     if isinstance(cfg, str):
         cfg = config_from_variant(cfg)
     if int8 and isinstance(cfg, V3Config):
@@ -347,7 +346,7 @@ def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
     not selftest_only, serve NDJSON over TCP on `port` until killed. `model`
     is "v1", "v2", "v3" (V3-Large) or "v3small" (V3-Small), -minimalistic
     with `minimalistic`; `dtype` is the float path's compute dtype;
-    int8=True serves the model's exact int8 path (V1, V2, V3-Large)."""
+    int8=True serves the model's exact int8 path."""
     cfg = make_config(model, alpha, res, dtype, minimalistic)
 
     async def run():

@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 ragged and narrow shapes of the whole alpha grid (partial pixel and channel
 tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8), the
-V3-Large and -Small float routes and the V3-Large int8 routes against the
-plain routes, and the float32 stem and matmuls against float64 without any
-TF32 flag set or with the float32 matmul precision at "high".
+V3-Large and -Small float and int8 routes against the plain routes, the
+float32 stem and matmuls against float64 without any TF32 flag set or with
+the float32 matmul precision at "high", and `cli verify` on the card.
 Marked `cuda`: skipped without a card. Imports no JAX, so it runs where JAX
 is not installed:
 
@@ -25,6 +25,7 @@ from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2, mobilenet_v3
 from mobilenet_tpu_torch.ops import _build
 from mobilenet_tpu_torch.ops import preprocess as prep
 from mobilenet_tpu_torch.ops.chain import chain, chain_plain
+from mobilenet_tpu_torch.ops.depthwise import depthwise, depthwise_plain
 from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8, depthwise_i8_plain
 from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
 from mobilenet_tpu_torch.ops.inverted_residual import (
@@ -715,7 +716,8 @@ def test_v3_int8_routes_verify_and_server(dev):
     """V3-Large 1.0-96: the int8 kernel route's logits equal the plain
     route's bit for bit at batch 1 and 4 (one launch per block); the
     per-layer gate is exact; a V3 int8 server (build_server) answers with
-    0 errors through the kernel; V3-Small's fused int8 route raises."""
+    0 errors through the kernel; V3-Small's int8 pipeline runs its fused
+    route (11 launches), equal to its plain route."""
     import asyncio
 
     cfg = V3Config("large", 1.0, 96)
@@ -745,5 +747,60 @@ def test_v3_int8_routes_verify_and_server(dev):
     before = v3_block_i8.launches
     stats = asyncio.run(serve())
     assert stats["errors"] == 0 and v3_block_i8.launches > before
-    with pytest.raises(ValueError, match="B19"):
-        Int8PipelineV3(V3Config("small", 1.0, 96), device="cuda")
+    small = V3Config("small", 1.0, 96)
+    pipe = Int8PipelineV3(small, device="cuda")
+    x_q = qops.quantize_input_dev(prep.preprocess(imgs.to(dev), 96), ACT_IN_SCALE)
+    before = v3_block_i8.launches
+    with torch.inference_mode():
+        got = forward_v3_i8(pipe.dev, x_q, small, dw_backend="auto")
+        assert v3_block_i8.launches == before + 11
+        assert torch.equal(got, forward_v3_i8(pipe.dev, x_q, small, dw_backend="plain"))
+
+
+def test_v3_block_i8_small_block0_full_size(dev):
+    """V3-Small's int8 block 0 at its network shape (112² x 16 -> 16,
+    identity, k 3, stride 2, SE 8, relu; the JAX package's
+    packed_block_i8_named_s2_se), batch 2 then 1: equal to the plain
+    version, the SE pool buffer zeroed between the calls."""
+    rng = np.random.default_rng(19)
+    exp, dw, prj, se1, se2 = _v3_i8_layers(rng, dev, 16, 16, 16, 3, 8, True)
+    kw = dict(k=3, stride=2, act="relu", se1=se1, se2=se2, residual=False)
+    for n in (2, 1, 1):
+        x = torch.from_numpy(rng.integers(-128, 128, (n, 112, 112, 16)).astype(np.int8)).to(dev)
+        ref = v3_block_i8_plain(x, exp, dw, prj, **kw)
+        _equal_i8(v3_block_i8(x, exp, dw, prj, **kw), ref)
+        assert ref.shape == (n, 56, 56, 16) and (ref < 0).any() and (ref > 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,c,stride,bias", [
+    (2, 112, 32, 1, True),    # V1 block00 at 1.0-224
+    (2, 112, 64, 2, True),    # block01
+    (3, 7, 1024, 1, True),    # block12
+    (1, 7, 32, 2, False),     # odd side at stride 2, no bias
+    (2, 10, 24, 1, True),     # 0.75's narrow channels, a partial row tile
+])
+def test_depthwise(dev, dtype, n, h, c, stride, bias):
+    """The standalone depthwise kernel against its plain version: float32
+    within the JAX kernel's test tolerance, bf16 within one bf16 step."""
+    rng = np.random.default_rng(n + h + c + stride)
+    x = _t(rng, (n, h, h, c), dtype, dev, 1.0)
+    w = _t(rng, (3, 3, 1, c), dtype, dev, 0.5)
+    b = _t(rng, (c,), dtype, dev, 0.2) if bias else None
+    for relu6 in (True, False):
+        before = depthwise.launches
+        got = depthwise(x, w, stride, b, relu6)
+        assert depthwise.launches == before + 1 and got.dtype == dtype
+        ref = depthwise_plain(x, w, stride, b, relu6)
+        torch.cuda.synchronize()
+        atol, rtol = (2e-6, 1e-6) if dtype == torch.float32 else (0.0, 2 ** -8)
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_cli_verify_v1_on_card(dev, capsys):
+    """`cli verify --model v1` (1.0-224, batch 2, the C++ oracle) on the
+    card: every tap within the golden gate, no exit."""
+    from mobilenet_tpu_torch.cli import main as cli_main
+
+    cli_main(["verify", "--model", "v1"])
+    assert "VERIFY OK: all 29 layers match" in capsys.readouterr().out

@@ -69,3 +69,27 @@ def test_v3_int8_modules_are_checked():
     assert {"mobilenet_tpu_torch/quant/v3.py",
             "mobilenet_tpu_torch/quant/verify.py",
             "mobilenet_tpu_torch/ops/v3_block_i8.py"} <= names
+
+
+def test_verify_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/cli.py",
+            "mobilenet_tpu_torch/cpu_ref/__init__.py",
+            "mobilenet_tpu_torch/ops/depthwise.py",
+            "mobilenet_tpu_torch/utils/golden.py",
+            "mobilenet_tpu_torch/runtime/eval.py",
+            "mobilenet_tpu_torch/quant/verify.py"} <= names
+
+
+def test_verify_imports_build_nothing():
+    """Importing the verify entry point, the depthwise wrapper and the C++
+    oracle's loader builds neither the kernels nor the oracle library's
+    binding (the oracle builds at its first call)."""
+    import mobilenet_tpu_torch.cli  # noqa: F401
+    import mobilenet_tpu_torch.ops.depthwise  # noqa: F401
+    import mobilenet_tpu_torch.runtime.eval  # noqa: F401
+    from mobilenet_tpu_torch import cpu_ref
+    from mobilenet_tpu_torch.ops import _build
+
+    assert _build._lib is None
+    assert cpu_ref.library_path().name.startswith("libcpuref_")

@@ -2,11 +2,12 @@
 8 calibration images (the size of tests/test_quant_v3.py), for Large and
 Small: the quantizer field by field, the scale groups, every tap of the
 oracle and of the collect route, the plain and fused routes' logits (the
-kernel's plain version on the CPU) against the JAX XLA int8 route and, for
-Large, the JAX fused route with its Pallas kernels in interpret mode;
-Small's fused route raises. Also Int8PipelineV3 against the JAX
-Int8PipelineV3, the per-layer gate, the server and the CLI. Every int8
-comparison is exact; so are the logits."""
+kernel's plain version on the CPU) against the JAX XLA int8 route and the
+JAX fused route with its Pallas kernels in interpret mode (Large at 1.0-96;
+Small at 1.0-224, batch 1, the size at which the JAX fused route runs
+Small's block 0 on `packed_block_i8_named_s2_se`). Also Int8PipelineV3
+against the JAX Int8PipelineV3, the per-layer gate, the servers and the
+CLI. Every int8 comparison is exact; so are the logits."""
 
 import asyncio
 import dataclasses
@@ -134,9 +135,10 @@ def test_collect_route_every_tap(setup):
 
 
 def test_routes_vs_jax_xla_route(setup, monkeypatch):
-    """The port's plain route (both variants) and fused route (Large: one
-    v3_block_i8 per block, its plain version here; Small: raises, naming
-    B19) equal the JAX XLA int8 route and the oracle, bit for bit."""
+    """The port's plain route and fused route (one v3_block_i8 per block,
+    its plain version here: 15 on Large, 11 on Small, block 0 with the
+    identity expansion) equal the JAX XLA int8 route and the oracle, bit for
+    bit; so does a per-block route with one fused block."""
     cfg, jcfg = setup["cfg"], setup["jcfg"]
     dev = qv3.to_device_i8_v3(setup["q"], "cpu")
     x = torch.from_numpy(setup["x_i8"])
@@ -145,11 +147,6 @@ def test_routes_vs_jax_xla_route(setup, monkeypatch):
         jnp.asarray(setup["x_i8"])))
     np.testing.assert_array_equal(xla, setup["logits"])
     np.testing.assert_array_equal(qv3.forward_v3_i8(dev, x, cfg).numpy(), xla)
-    if cfg.variant == "small":
-        for route in ("fused", "auto", ("plain",) * 10 + ("fused",)):
-            with pytest.raises(ValueError, match="B19"):
-                qv3.forward_v3_i8(dev, x, cfg, dw_backend=route)
-        return
     calls = []
     real = qv3.v3_block_i8
 
@@ -165,6 +162,11 @@ def test_routes_vs_jax_xla_route(setup, monkeypatch):
                                       xla)
         assert calls == [(not b.has_expand, b.kernel, b.stride, b.act, b.se_mid > 0, b.has_res)
                          for b in cfg.block_defs]
+    assert len(calls) == (11 if cfg.variant == "small" else 15)
+    calls.clear()
+    one = ("plain",) * (len(cfg.block_defs) - 1) + ("fused",)
+    np.testing.assert_array_equal(qv3.forward_v3_i8(dev, x, cfg, dw_backend=one).numpy(), xla)
+    assert len(calls) == 1
 
 
 def test_fused_route_vs_jax_fused_route():
@@ -179,6 +181,36 @@ def test_fused_route_vs_jax_fused_route():
     got = qv3.forward_v3_i8(dev, torch.from_numpy(setup["x_i8"]), setup["cfg"],
                             dw_backend="fused")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_small_fused_route_vs_jax_fused_route_at_224(monkeypatch):
+    """V3-Small 1.0-224, batch 1 (8 calibration images): the port's fused
+    route against the JAX package's fused route, bit for bit. At this size
+    the JAX route runs block 0 on `packed_block_i8_named_s2_se` (a spy sees
+    one call; at 1.0-96 and 1.0-128 its plan takes block 0 whole-image and
+    the kernel is never called) and blocks 1-10 on `v3_block_pallas_i8`."""
+    from mobilenet_tpu.quant import pallas_block_packed_i8 as jax_pbi8
+
+    cfg, jcfg = V3Config("small", 1.0, 224), jax_v3.V3Config("small", 1.0, 224)
+    folded = jax_fold_bn_v3(jax_init_params_v3(jcfg, seed=0), eps=jcfg.bn_eps)
+    jq = jax_qv3.quantize_v3(folded, jcfg, n_calib=N_CALIB)
+    x_i8 = quantize_input(
+        np.random.default_rng(9).uniform(-1, 1, (1, 224, 224, 3)).astype(np.float32))
+    seen = []
+    real = jax_pbi8.packed_block_i8_named_s2_se
+
+    def spy(x_packed, *args, **kw):
+        seen.append(tuple(x_packed.shape))
+        return real(x_packed, *args, **kw)
+
+    monkeypatch.setattr(jax_pbi8, "packed_block_i8_named_s2_se", spy)
+    want = jax_qv3.forward_v3_i8(jax_qv3._as_device_tree_v3(jq), jnp.asarray(x_i8), jcfg,
+                                 use_fused=True)
+    assert seen == [(1, 112, 14, 128)]
+    got = qv3.forward_v3_i8(qv3.to_device_i8_v3(jq, "cpu"), torch.from_numpy(x_i8), cfg,
+                            dw_backend="fused")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), jax_qv3.forward_all_v3_i8(jq, x_i8, jcfg)[0])
 
 
 def test_to_device_i8_v3_constants(setup):
@@ -210,50 +242,48 @@ def test_verify_int8_v3_catches_a_wrong_tap(monkeypatch, capsys):
 
 
 def test_int8_pipeline_v3_vs_jax_pipeline():
-    """Both pipelines calibrate the seed-0 V3-Large weights themselves (32
-    images); the JAX one runs its XLA route on the CPU. Softmax is float32
-    in two frameworks, so the probabilities agree to 1e-6, the classes
-    exactly."""
+    """V3-Large and V3-Small: both pipelines calibrate the seed-0 weights
+    themselves (32 images); the port's runs its fused route ("auto"; the
+    kernel's plain version), the JAX one its XLA route on the CPU. Softmax
+    is float32 in two frameworks, so the probabilities agree to 1e-6, the
+    classes exactly; the port's plain route gives the fused route's bits."""
     imgs = np.random.default_rng(7).integers(0, 256, (2, RES, RES, 3), dtype=np.uint8)
-    pipe = Int8PipelineV3(V3Config("large", 1.0, RES), device="cpu", seed=0)
-    ours = pipe.run_batch(imgs)
-    ref = jax_qv3.Int8PipelineV3(jax_v3.V3Config("large", 1.0, RES), seed=0,
-                                 use_fused=False).run_batch(imgs)
-    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=0)
-    np.testing.assert_array_equal(ours.argmax(-1), ref.argmax(-1))
-    assert pipe.classify(imgs[1])[0][0] == int(ref[1].argmax())
-    with pytest.raises(ValueError, match="B19"):
-        Int8PipelineV3(V3Config("small", 1.0, RES), device="cpu")
-    plain = Int8PipelineV3(V3Config("small", 1.0, RES), device="cpu", dw_backend="plain",
-                           seed=0)
-    assert plain.run_batch(imgs).shape == (2, 1000)
+    for variant in ("large", "small"):
+        pipe = Int8PipelineV3(V3Config(variant, 1.0, RES), device="cpu", seed=0)
+        ours = pipe.run_batch(imgs)
+        ref = jax_qv3.Int8PipelineV3(jax_v3.V3Config(variant, 1.0, RES), seed=0,
+                                     use_fused=False).run_batch(imgs)
+        np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(ours.argmax(-1), ref.argmax(-1))
+        assert pipe.classify(imgs[1])[0][0] == int(ref[1].argmax())
+        plain = Int8PipelineV3(V3Config(variant, 1.0, RES), device="cpu",
+                               dw_backend="plain", quantized=pipe.q)
+        np.testing.assert_array_equal(plain.run_batch(imgs), ours)
 
 
 def test_int8_v3_server_selftest():
-    """A V3-Large int8 server (build_server calibrates) answers with 0
-    errors, on CPU tensors through the kernel's plain version (no launch);
-    V3-Small's raises."""
-    cfg = V3Config("large", 1.0, 64)
-    before = v3_block_i8_mod.v3_block_i8.launches
+    """A V3-Large (1.0-64) and a V3-Small (1.0-96) int8 server (build_server
+    calibrates) answer with 0 errors, on CPU tensors through the kernel's
+    plain version (no launch)."""
+    for variant, res in (("large", 64), ("small", RES)):
+        cfg = V3Config(variant, 1.0, res)
+        before = v3_block_i8_mod.v3_block_i8.launches
+        frame = np.random.default_rng(1).integers(0, 256, (res, res, 3), np.uint8)
 
-    async def run():
-        server = build_server(cfg, 4, device="cpu", int8=True)
-        await server.start()
-        try:
-            stats = await selftest(server, streams=4, requests_per_stream=2)
-            frame = np.random.default_rng(1).integers(0, 256, (64, 64, 3), np.uint8)
-            lone = await server.submit(frame)
-            return server, stats, lone, frame
-        finally:
-            await server.close()
+        async def run(cfg=cfg, frame=frame):
+            server = build_server(cfg, 4, device="cpu", int8=True)
+            await server.start()
+            try:
+                stats = await selftest(server, streams=4, requests_per_stream=2)
+                return server, stats, await server.submit(frame)
+            finally:
+                await server.close()
 
-    server, stats, lone, frame = asyncio.run(run())
-    assert isinstance(server.pipeline, Int8PipelineV3)
-    assert stats["errors"] == 0 and stats["requests"] == 8
-    assert lone[0][0] == server.pipeline.classify(frame)[0][0]
-    assert v3_block_i8_mod.v3_block_i8.launches == before  # CPU tensors: the plain version
-    with pytest.raises(ValueError, match="B19"):
-        build_server(V3Config("small", 1.0, 64), 4, device="cpu", int8=True)
+        server, stats, lone = asyncio.run(run())
+        assert isinstance(server.pipeline, Int8PipelineV3) and server.pipeline.config == cfg
+        assert stats["errors"] == 0 and stats["requests"] == 8
+        assert lone[0][0] == server.pipeline.classify(frame)[0][0]
+        assert v3_block_i8_mod.v3_block_i8.launches == before  # CPU tensors: the plain version
 
 
 def test_cli_serve_v3_int8_on_cpu(capsys):
@@ -261,6 +291,7 @@ def test_cli_serve_v3_int8_on_cpu(capsys):
               "--res", "64", "--device", "cpu"])
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["errors"] == 0 and stats["requests"] == 2 * 8
-    with pytest.raises(SystemExit, match="B19"):
-        cli_main(["serve", "--model", "v3small", "--int8", "--streams", "2", "--res", "64",
-                  "--device", "cpu"])
+    cli_main(["serve", "--model", "v3small", "--int8", "--streams", "2", "--alpha", "1.0",
+              "--res", str(RES), "--device", "cpu"])
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["errors"] == 0 and stats["requests"] == 2 * 8

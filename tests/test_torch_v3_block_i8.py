@@ -3,12 +3,17 @@ the wrapper runs on CPU tensors) against the JAX package's int8 kernels in
 interpret mode, EXACT: `v3_block_pallas_i8` at the V3-Large and -Small
 block classes (identity and expansion, k 3 and 5, stride 1 and 2, the
 quantized SE gate with non-zero biases, relu and hswish, residual on and
-off, one that saturates), and the lane-packed named-act kernels of
-V3-Large's blocks 0 and 1, `packed_block_i8_named` and
-`packed_block_i8_named_s2` (after `packed_expand_i8_named`), which the
-port's kernel also takes. Every JAX kernel gets fold=True (the folded
-requant order, the only one the port has). Also the tile plan
-(`v3_i8_plan`), which is the kernel's fits-function."""
+off, one that saturates), the lane-packed named-act kernels of V3-Large's
+blocks 0 and 1, `packed_block_i8_named` and `packed_block_i8_named_s2`
+(after `packed_expand_i8_named`), and V3-Small's block 0,
+`packed_block_i8_named_s2_se` (identity, stride 2, the quantized SE), which
+the port's kernel also takes. Every JAX kernel gets `fold=` explicitly:
+True (the folded requant order, the only one the port has), and for
+V3-Small's block 0 also False, whose relu and linear requants the port's
+folded order matches there. Also the tile plan (`v3_i8_plan`), which is the
+kernel's fits-function."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,15 +22,17 @@ import torch
 
 from mobilenet_tpu.ops.pallas_block_packed import pack
 from mobilenet_tpu.quant.pallas_block_packed_i8 import (
-    packed_block_i8_named, packed_block_i8_named_s2, packed_expand_i8_named,
+    packed_block_i8_named, packed_block_i8_named_s2, packed_block_i8_named_s2_se,
+    packed_expand_i8_named,
 )
 from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
 from mobilenet_tpu_torch import V3Config
+from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
 from mobilenet_tpu_torch.ops.inverted_residual import MAX_FRAGS, SMEM_MAX
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
     v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
 )
-from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3
+from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3, quantize_v3
 
 
 def _layers(seed, cin, e, cout, k, se, identity, prj_gain=1.0):
@@ -146,6 +153,49 @@ def test_block1_vs_packed_block_i8_named_s2():
     want = np.asarray(yp).reshape(2, 4, 8, 128)[..., :24]
     got = _port(x, q, k=3, stride=2, act="relu")
     np.testing.assert_array_equal(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _small_224_b0():
+    """V3-Small 1.0-224's block-0 QLayerN's (dw, se1, se2, prj), calibrated
+    on 8 images from the seed-0 weights."""
+    cfg = V3Config("small", 1.0, 224)
+    q = quantize_v3(fold_bn_v3(init_params_v3(cfg, seed=0), eps=cfg.bn_eps), cfg, n_calib=8)
+    return q.blocks[0]
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("shape,layers", [((1, 112, 112, 16), "small_224_b0"),
+                                          ((2, 56, 56, 16), "random")])
+def test_small_block0_vs_packed_block_i8_named_s2_se(shape, layers, fold):
+    """V3-Small block 0 (112² x 16 -> 16, identity, k 3, stride 2, SE 8,
+    relu): the JAX package's lane-packed kernel with the in-kernel
+    quantized SE, called as quant/v3.py calls it (the bf16-carried input
+    packed, the projection padded to cout_p zero columns, the output
+    reshaped and sliced back to 16 channels), against the port's kernel
+    with the identity expansion, exactly, with fold= True and False."""
+    q = _small_224_b0() if layers == "small_224_b0" else _layers(21, 16, 16, 16, 3, 8, True)
+    x = np.random.default_rng(22).integers(-128, 128, shape).astype(np.int8)
+    d, p, s1, s2 = q["dw"], q["prj"], q["se1"], q["se2"]
+    assert tuple(s1.w_i8.shape) == (16, 8)
+    cin, r2 = 16, (128 // 16) // 2
+    cout_p = -(-16 // (128 // r2)) * (128 // r2)
+    pad = (0, cout_p - 16)
+    yp = packed_block_i8_named_s2_se(
+        pack(jnp.asarray(x, jnp.bfloat16), cin), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
+        jnp.asarray(d.a), jnp.asarray(s1.w_i8), jnp.asarray(s1.bias_i32), jnp.asarray(s1.a),
+        jnp.asarray(s2.w_i8), jnp.asarray(s2.bias_i32), jnp.asarray(s2.a),
+        jnp.pad(jnp.asarray(p.w_i8), ((0, 0), pad)), jnp.pad(jnp.asarray(p.bias_i32), pad),
+        jnp.pad(jnp.asarray(p.a), pad), cin, cout_p, "relu", float(d.inv_s), float(s1.inv_s),
+        float(p.inv_s), out_dtype="int8", interpret=True, fold=fold)
+    yp = np.asarray(yp)
+    want = yp.reshape(yp.shape[0], yp.shape[1], -1, cout_p)[..., :16]
+    got = _port(x, {"dw": d, "prj": p, "se1": s1, "se2": s2}, k=3, stride=2, act="relu")
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 16)
+    np.testing.assert_array_equal(got, want)
+    assert (got < 0).any() and (got > 0).any()
+    for n in (256, 1):
+        assert v3_i8_plan(n, 112, 112, 16, 16, 16, 3, 2, 8, True) is not None
 
 
 @pytest.mark.parametrize("variant", ["large", "small"])

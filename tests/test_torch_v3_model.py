@@ -275,9 +275,9 @@ def test_routing_resolves_as_jax():
 
 def test_pipeline_gate_and_server_on_cpu(capsys):
     """InferencePipeline(V3Config) serves uint8 batches with the JAX
-    pipeline's top-1 and its taps match the plain forward's; verify_v3
+    pipeline's top-1 and its taps match the plain forward's; verify_layers
     passes every tap on the CPU; a V3 server's selftest has 0 errors; a
-    V3-Small int8 server raises."""
+    V3-Small int8 server builds on its fused route."""
     from mobilenet_tpu.runtime.pipeline import InferencePipeline as JaxPipeline
 
     cfg, jcfg = _cfgs("large")
@@ -290,7 +290,7 @@ def test_pipeline_gate_and_server_on_cpu(capsys):
     logits, acts = pipe.activations(np.zeros((1, RES, RES, 3), np.float32))
     assert logits.shape == (1, 1000) and "block14_se" in acts and "head" in acts
     folded = fold_bn_v3(init_params_v3(cfg, 1), eps=cfg.bn_eps)
-    assert teval.verify_v3(cfg, folded, _x(3, 1), device="cpu")
+    assert teval.verify_layers(cfg, folded, _x(3, 1), device="cpu")
     assert "VERIFY OK" in capsys.readouterr().out
     assert config_from_variant("v3:1.0:224", "float32") == V3Config("large", 1.0, 224)
 
@@ -304,8 +304,8 @@ def test_pipeline_gate_and_server_on_cpu(capsys):
 
     stats = asyncio.run(run())
     assert stats["errors"] == 0 and stats["requests"] == 8
-    with pytest.raises(ValueError, match="B19"):  # V3-Small int8: its fused route is not ported
-        build_server(_cfgs("small")[0], 4, device="cpu", int8=True)
+    small = build_server(_cfgs("small")[0], 1, device="cpu", int8=True)  # warm-runs bucket 1
+    assert small.pipeline.dw_backend == "auto" and small.pipeline.config.variant == "small"
 
 
 def test_verify_v3_catches_a_wrong_tap(monkeypatch, capsys):
@@ -315,7 +315,7 @@ def test_verify_v3_catches_a_wrong_tap(monkeypatch, capsys):
     real = mobilenet_v3.head_matmul
     monkeypatch.setattr(mobilenet_v3, "head_matmul",
                         lambda pooled, head, act: real(pooled, head, act) * 1.01)
-    assert not teval.verify_v3(cfg, folded, _x(4, 1), device="cpu")
+    assert not teval.verify_layers(cfg, folded, _x(4, 1), device="cpu")
     assert "[FAIL] head" in capsys.readouterr().out
 
 
