@@ -18,7 +18,8 @@ file; imports nothing of JAX. Phases, one JSON line each:
   5. the float main path: launch counters set to 0, a 64-stream
      MicroBatchServer built (it warm-runs buckets 1, 8 and 64), a selftest
      of every stream, one lone request (bucket 1); counters read; 0 errors
-     and every float kernel launched are required;
+     and every float kernel of the path launched (the stem kernel, the
+     block kernel, the head kernel, the chain at batch 1) are required;
   6. the int8 kernels against their plain versions at every 1.0-224 int8
      block and depthwise shape at batch 256, exactly (torch.equal), and the
      input quantization over all 256 uint8 values against the host twin;
@@ -116,6 +117,26 @@ file; imports nothing of JAX. Phases, one JSON line each:
  37. the V3-Small int8 main path: counters set to 0, a 64-stream int8
      server and one lone request, then `cli serve --model v3small --int8`
      in this process; 0 errors and the int8 V3 kernel launched in each.
+ 38. the stem kernels against their plain versions at V1 1.0-224, batch
+     256 and 2, float32 then bf16 (the fused normalize + stem + block-0
+     kernel in float32 at 1.0-160, where the routing gate lets it run):
+     max-abs error, CUDA-event ms, the bound, and the yardsticks: the
+     unfused sequence it replaces (preprocess, the plain route's stem,
+     block 0's separable_block) and, for the stem alone, the plain route's
+     cuDNN stem (`ops/conv.conv2d_same`: conv, bias, clamp); the stem
+     kernel also on odd sides (1.0-225x223, batch 2);
+ 39. the fused-stem pipeline against the default pipeline: bf16 1.0-224 at
+     batch 256 and 1 (the routing gate; the fused kernel launched once a
+     forward, separable_block 12 times at batch 256, 7 and the chain once
+     at batch 1), float32 1.0-160 at batch 2 within 1e-4/1e-3, and the
+     float32 1.0-224 pipeline (counters set to 0 before, read after): the
+     gate refuses the fused kernel there, and the default route runs, its
+     stem on the stem kernel;
+ 40. benchmark() of the fused-stem and the default pipeline, alternating
+     in one process at batch 256, and their batch-1 p50/p99;
+ 41. the fused-stem main path: counters set to 0, a 64-stream server on
+     the fused-stem pipeline and one lone request; 0 errors, and the fused
+     stem kernel launched.
 Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
 route at batch 256, bit for bit.
 Then one JSON line of per-kernel results and, last, the result line.
@@ -416,7 +437,8 @@ def int8_phases(smi, kernels, launches):
         "separable_block_i8": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block_i8.cu",
             "replaces": "mobilenet_tpu/quant/pallas_block_i8.py:201",
-            "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:222"]},
+            "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:222",
+                              "mobilenet_tpu/ops/pallas_block_packed_mxu.py:391"]},
         "depthwise_i8": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/depthwise_i8.cu",
             "replaces": "mobilenet_tpu/quant/pallas_dw_i8.py:74"},
@@ -1505,6 +1527,234 @@ def v3small_int8_phases(smi, kernels, launches):
     return summary
 
 
+def stem_work(n, h, cout, kind, block0=True):
+    """(bytes, ops_ms) of the fused stem kernel (block0=True: uint8 images
+    (n, h, h, 3) in, block 0's output out) or the stem alone (a float input
+    in, the stem output out): the input and output once, the weights once.
+    The stem and depthwise multiply-adds count at the CUDA cores' float32
+    rate (their inputs have 3 and 1 channels: no matrix unit shape), the
+    pointwise at its dtype's rate."""
+    act = ELEM_BYTES[kind][0]
+    hs = h // 2
+    pix = n * hs * hs
+    c1 = 32 if block0 else cout
+    stem_ops = 2 * 27 * pix * c1
+    if not block0:
+        nbytes = n * h * h * 3 * act + (27 * cout + cout) * act + pix * cout * act
+        return nbytes, stem_ops / PEAK_OPS_PER_S["f32"] * 1e3
+    weights = (27 * c1 + c1 + 9 * c1 + c1 + c1 * cout + cout) * act
+    nbytes = n * h * h * 3 + weights + pix * cout * act
+    return nbytes, ((stem_ops + 2 * 9 * pix * c1) / PEAK_OPS_PER_S["f32"]
+                    + 2 * pix * c1 * cout / PEAK_OPS_PER_S[kind]) * 1e3
+
+
+def stem_phases(smi, gen, kernels, launches):
+    """Phases 38-41. Fills launches["stem_block0"] (the fused-stem server;
+    launches["stem_conv"] comes from the float main path, phase 5, whose
+    "fused" block 0 puts the stem on it); returns the two kernels' rows."""
+    from mobilenet_tpu_torch import InferencePipeline, ModelConfig
+    from mobilenet_tpu_torch.models import mobilenet_v1
+    from mobilenet_tpu_torch.ops.conv import conv2d_same
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.separable_block import separable_block
+    from mobilenet_tpu_torch.ops.stem import (
+        stem_block0, stem_block0_plain, stem_conv, stem_conv_plain,
+    )
+
+    chain = kernels["chain"]
+    extra = {"ms_f32": 0.0, "plain_ms_f32": 0.0, "bound_ms_f32": 0.0}
+    rows = {
+        "stem_block0": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem.cu",
+                        "replaces": "mobilenet_tpu/ops/pallas_stem_b0.py:124", **FLOAT_ROW,
+                        **extra, "unfused_ms": 0.0, "unfused_ms_f32": 0.0,
+                        "unfused": "preprocess + conv2d_same (cuDNN) + separable_block b00"},
+        "stem_conv": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem.cu",
+                      "replaces": "mobilenet_tpu/ops/pallas_stem.py:146", **FLOAT_ROW,
+                      **extra, "library_ms": 0.0, "library_ms_f32": 0.0,
+                      "library": "ops/conv.conv2d_same: F.conv2d (cuDNN), bias, clamp"},
+    }
+
+    def r(*shape, scale, dt):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt).contiguous()
+
+    def add(row, tag, batch, err, kms, pms, b_ms, t_b, t_o, yard_key, yard_ms):
+        if batch != 256:
+            return
+        if tag == "bf16":
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row.update(ms=kms, plain_ms=pms, bound_ms=b_ms, bytes_ms=t_b, ops_ms=t_o)
+            row[yard_key] = yard_ms
+        else:
+            row["max_abs_err_f32"] = max(row["max_abs_err_f32"], err)
+            row.update(ms_f32=kms, plain_ms_f32=pms, bound_ms_f32=b_ms)
+            row[f"{yard_key}_f32"] = yard_ms
+
+    # -- 38. the stem kernels vs plain at V1 1.0-224, batch 256 and 2 ---------------------
+    cout = 64
+    for batch in (256, 2):
+        for tag, dt, atol, rtol in (("f32", torch.float32, F32_ATOL, F32_RTOL),
+                                    ("bf16", torch.bfloat16, BF16_ATOL, BF16_RTOL)):
+            # the fused kernel: float32 only up to 160 px (the routing gate)
+            h = 160 if tag == "f32" else RES
+            imgs = torch.randint(0, 256, (batch, h, h, 3), generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+            imgs[:, -1] = 255  # beside the stem's pad
+            imgs[:, :, -1] = 255
+            w = (r(3, 3, 3, 32, scale=0.4, dt=dt), r(32, scale=0.2, dt=dt),
+                 r(3, 3, 1, 32, scale=0.5, dt=dt), r(32, scale=0.2, dt=dt),
+                 r(32, cout, scale=3 * 32 ** -0.5, dt=dt), r(cout, scale=0.2, dt=dt))
+            got = stem_block0(imgs, *w, True)
+            ref = stem_block0_plain(imgs, *w, True)
+            torch.cuda.synchronize()
+            err = compare(f"stem_block0 ({batch},{h},{h},3) {tag}", got, ref, atol, rtol)
+            sat = float((ref.float() == 6).float().mean())
+            del got, ref
+            kms = cuda_ms(lambda: stem_block0(imgs, *w, True))
+            pms = cuda_ms(lambda: stem_block0_plain(imgs, *w, True), reps=3, warmup=1)
+
+            def unfused():
+                x = preprocess(imgs, h, dt)
+                y = conv2d_same(x, w[0], 2, bias=w[1], relu6=True)
+                return separable_block(y, w[2], w[3], w[4], w[5], 1, True)
+
+            ums = cuda_ms(unfused)
+            nbytes, t_o = stem_work(batch, h, cout, tag)
+            t_b = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ms = max(t_b, t_o)
+            emit("kernel", kernel="stem_block0", shape=f"({batch},{h},{h},3) u8 -> {cout}",
+                 dtype=tag, nvidia_smi=smi, max_abs_err=err, atol=atol, rtol=rtol,
+                 relu6_saturated=sat, ms=kms, plain_ms=pms, unfused_ms=ums, bound_ms=b_ms,
+                 bound_by="bytes" if t_b >= t_o else "operations")
+            add(rows["stem_block0"], tag, batch, err, kms, pms, b_ms, t_b, t_o, "unfused_ms",
+                ums)
+            del imgs, w
+
+            x = (torch.rand(batch, RES, RES, 3, generator=gen, device="cuda") * 2 - 1).to(dt)
+            x[:, -1] = 1
+            x[:, :, -1] = 1
+            ws, bs = r(3, 3, 3, 32, scale=0.8, dt=dt), r(32, scale=0.2, dt=dt)
+            got = stem_conv(x, ws, bs, True)
+            ref = stem_conv_plain(x, ws, bs, True)
+            torch.cuda.synchronize()
+            err = compare(f"stem_conv ({batch},{RES},{RES},3) {tag}", got, ref, atol, rtol)
+            sat = float((ref.float() == 6).float().mean())
+            del got, ref
+            kms = cuda_ms(lambda: stem_conv(x, ws, bs, True))
+            pms = cuda_ms(lambda: stem_conv_plain(x, ws, bs, True), reps=3, warmup=1)
+            lms = cuda_ms(lambda: conv2d_same(x, ws, 2, bias=bs, relu6=True))
+            nbytes, t_o = stem_work(batch, RES, 32, tag, block0=False)
+            t_b = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ms = max(t_b, t_o)
+            emit("kernel", kernel="stem_conv", shape=f"({batch},{RES},{RES},3) -> 32",
+                 dtype=tag, nvidia_smi=smi, max_abs_err=err, atol=atol, rtol=rtol,
+                 relu6_saturated=sat, ms=kms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                 bound_by="bytes" if t_b >= t_o else "operations")
+            add(rows["stem_conv"], tag, batch, err, kms, pms, b_ms, t_b, t_o, "library_ms", lms)
+            del x
+            torch.cuda.empty_cache()
+    # the stem kernel on odd sides, where TF-SAME pads (1, 1)
+    for tag, dt, atol, rtol in (("f32", torch.float32, F32_ATOL, F32_RTOL),
+                                ("bf16", torch.bfloat16, BF16_ATOL, BF16_RTOL)):
+        x = (torch.rand(2, RES + 1, RES - 1, 3, generator=gen, device="cuda") * 2 - 1).to(dt)
+        ws, bs = r(3, 3, 3, 32, scale=0.8, dt=dt), r(32, scale=0.2, dt=dt)
+        got = stem_conv(x, ws, bs, True)
+        err = compare(f"stem_conv (2,{RES + 1},{RES - 1},3) {tag}", got,
+                      stem_conv_plain(x, ws, bs, True), atol, rtol)
+        emit("kernel", kernel="stem_conv", shape=f"(2,{RES + 1},{RES - 1},3) -> 32",
+             dtype=tag, max_abs_err=err, atol=atol, rtol=rtol, out=list(got.shape))
+
+    # -- 39. the fused-stem pipeline vs the default pipeline ------------------------------
+    cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")
+    base = InferencePipeline(cfg, device="cuda")
+    fused = InferencePipeline(cfg, device="cuda", fuse_stem=True)
+    rng = np.random.default_rng(3)
+
+    def logits(pipe, imgs, c, dt, fuse):
+        return mobilenet_v1.forward_u8(pipe.params, imgs, c, dtype=dt, dw_backend="auto",
+                                       fuse_stem=fuse).float()
+
+    with torch.inference_mode():
+        for batch, n_sep, n_chain in ((256, 12, 0), (1, 7, 1)):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            for k in kernels.values():
+                k.launches = 0
+            got = logits(fused, imgs, cfg, torch.bfloat16, True)
+            torch.cuda.synchronize()
+            counts = {k: kernels[k].launches for k in ("stem_block0", "stem_conv",
+                                                       "separable_block", "chain")}
+            ref = logits(base, imgs, cfg, torch.bfloat16, False)
+            scale = float(ref.abs().max())
+            atol = max(ROUTE_ATOL, ROUTE_REL * scale)
+            err = compare(f"fused stem bf16 batch {batch}", got, ref, atol, 0.0)
+            top_g, top_r = got.argmax(-1), ref.argmax(-1)
+            flips = (top_g != top_r).nonzero().flatten().tolist()
+            for i in flips:  # a flip only between near-tied classes, as check_routes
+                gap = float(ref[i, top_r[i]] - ref[i, top_g[i]])
+                if gap > atol:
+                    raise AssertionError(f"fused stem batch {batch} row {i}: top-1 "
+                                         f"{int(top_g[i])} vs {int(top_r[i])}, gap {gap:.3e}")
+            emit("fused_stem_route", model=cfg.variant_name(), dtype="bfloat16", batch=batch,
+                 max_abs_err=err, atol=atol, logits_absmax=scale,
+                 top1_agree=batch - len(flips), rows=batch, launches=counts)
+            want = {"stem_block0": 1, "stem_conv": 0, "separable_block": n_sep,
+                    "chain": n_chain}
+            if counts != want:
+                raise AssertionError(f"fused stem batch {batch}: launches {counts}, "
+                                     f"wanted {want}")
+    del base, fused
+    torch.cuda.empty_cache()
+
+    for res, fuses in ((160, True), (RES, False)):
+        cfg32 = ModelConfig(ALPHA, res, compute_dtype="float32")
+        base32 = InferencePipeline(cfg32, device="cuda")
+        fused32 = InferencePipeline(cfg32, device="cuda", fuse_stem=True)
+        imgs = rng.integers(0, 256, (2, res, res, 3), dtype=np.uint8)
+        for k in kernels.values():
+            k.launches = 0
+        got = fused32.run_batch(imgs)
+        torch.cuda.synchronize()
+        counts = {k: kernels[k].launches for k in ("stem_block0", "stem_conv")}
+        ref = base32.run_batch(imgs)
+        with torch.inference_mode():
+            d = torch.from_numpy(imgs).cuda()
+            lg = logits(fused32, d, cfg32, torch.float32, True)
+            lr = logits(base32, d, cfg32, torch.float32, False)
+        err = compare(f"fused stem f32 {res} logits", lg, lr, 1e-4, 1e-3)
+        perr = compare(f"fused stem f32 {res} probs", torch.from_numpy(got),
+                       torch.from_numpy(ref), 1e-4, 1e-3)
+        emit("fused_stem_route", model=cfg32.variant_name(), dtype="float32", batch=2,
+             max_abs_err=err, probs_max_abs_err=perr, atol=1e-4, rtol=1e-3,
+             fused=fuses, launches=counts)
+        if counts != ({"stem_block0": 1, "stem_conv": 0} if fuses
+                      else {"stem_block0": 0, "stem_conv": 1}):
+            raise AssertionError(f"fused stem f32 {res}: launches {counts}")
+        del base32, fused32
+        torch.cuda.empty_cache()
+
+    # -- 40. benchmark(): fuse_stem on and off, alternating; batch-1 latency ----------------
+    pipes = [("default", InferencePipeline(cfg, device="cuda")),
+             ("fuse_stem", InferencePipeline(cfg, device="cuda", fuse_stem=True))]
+    runs = {name: [] for name, _ in pipes}
+    for name, p in pipes + pipes[::-1]:
+        runs[name].append(p.benchmark(batch_size=256, steps=20, latency_iters=5))
+    for name, rs in runs.items():
+        emit("benchmark", route=f"auto {name}", nvidia_smi=smi,
+             images_per_sec=[x["images_per_sec"] for x in rs],
+             e2e_images_per_sec=[x["e2e_images_per_sec"] for x in rs],
+             device=rs[0]["device"], batch_size=256)
+    emit("batch1_latency", nvidia_smi=smi, **batch1_latency(pipes))
+
+    # -- 41. the fused-stem main path: 64-stream server ------------------------------------
+    got = serve_main_path(pipes[1][1], kernels,
+                          ("stem_block0", "separable_block", "fused_head", "chain"),
+                          "serving_fuse_stem", smi)
+    launches["stem_block0"] = got["stem_block0"]
+    del pipes
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1523,6 +1773,7 @@ def main() -> int:
         separable_block, separable_block_plain,
     )
     from mobilenet_tpu_torch.ops.separable_block_i8 import separable_block_i8
+    from mobilenet_tpu_torch.ops.stem import stem_block0, stem_conv
     from mobilenet_tpu_torch.ops.v3_block import v3_block
     from mobilenet_tpu_torch.ops.v3_block_i8 import v3_block_i8
 
@@ -1549,11 +1800,13 @@ def main() -> int:
                             "replaces": "mobilenet_tpu/ops/pallas_block.py:217",
                             "also_replaces": [
                                 "mobilenet_tpu/ops/pallas_block_packed.py:132",
-                                "mobilenet_tpu/ops/pallas_block_packed.py:371"]},
+                                "mobilenet_tpu/ops/pallas_block_packed.py:371",
+                                "mobilenet_tpu/ops/pallas_block_packed_mxu.py:264"]},
         "fused_head": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
                        "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
         "chain": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/chain.cu",
-                  "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120"},
+                  "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120",
+                  "also_replaces": ["mobilenet_tpu/ops/pallas_chain.py:74"]},
     }
     for s in summary.values():
         s.update(FLOAT_ROW)
@@ -1596,8 +1849,10 @@ def main() -> int:
                "chain": chain, "separable_block_i8": separable_block_i8,
                "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual,
                "inverted_residual_i8": inverted_residual_i8, "v3_block": v3_block,
-               "v3_block_i8": v3_block_i8, "depthwise": depthwise}
-    launches = serve_main_path(pipe, kernels, ("separable_block", "fused_head", "chain"),
+               "v3_block_i8": v3_block_i8, "depthwise": depthwise,
+               "stem_block0": stem_block0, "stem_conv": stem_conv}
+    launches = serve_main_path(pipe, kernels,
+                               ("stem_conv", "separable_block", "fused_head", "chain"),
                                "serving", smi)
     del pipe
     torch.cuda.empty_cache()
@@ -1625,6 +1880,9 @@ def main() -> int:
 
     # -- 34-37. the V3-Small int8 path ------------------------------------------------
     summary.update(v3small_int8_phases(smi, kernels, launches))
+
+    # -- 38-41. the stem kernels and the fused-stem path ----------------------------------
+    summary.update(stem_phases(smi, gen, kernels, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

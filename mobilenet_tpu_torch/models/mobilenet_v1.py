@@ -13,7 +13,13 @@ brackets):
 With collect=True a "fused" block runs its depthwise tap through the
 depthwise kernel, as the JAX package does, and a "dw" block the same; a
 "plain" block keeps the plain ops.
-The stem convolution, normalize and softmax are plain ops on every route.
+The stem convolution follows block 0's route: the stem kernel (ops/stem.py
+`stem_conv`) when block 0 is "fused", the plain convolution otherwise and
+under collect=True, which taps the plain stem as it taps the plain
+pointwise.
+Under `forward_u8(fuse_stem=True)` normalize, the stem and block 0 run as
+one kernel (`stem_block0`) where `_stem_fusible` allows. Softmax and, off
+that kernel, normalize are plain ops on every route.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..ops.depthwise import depthwise
 from ..ops.head import fused_head
 from ..ops.preprocess import preprocess
 from ..ops.separable_block import separable_block
+from ..ops.stem import C1, stem_block0, stem_conv
 
 DW_BACKENDS = ("plain", "dw", "fused")
 
@@ -76,34 +83,41 @@ def forward(params: Dict[str, Any], x: torch.Tensor, config: ModelConfig, *,
     relu6 = config.relu6
     routing = _routing(config, dw_backend, int(x.shape[0]))
 
-    y = ops.conv2d_same(x, params["conv1"]["w"], 2, bias=params["conv1"]["b"],
-                        relu6=relu6)
-    if collect:
-        acts["conv1"] = y
-    y = _run_blocks(params, y, config, routing, relu6, acts if collect else None)
-
-    if not collect and routing[-1] == "fused":
-        return fused_head(y, None, [(params["fc"]["w"], params["fc"]["b"], "linear")])
+    w1, b1 = params["conv1"]["w"], params["conv1"]["b"]
+    if routing[0] == "fused" and not collect:
+        y = stem_conv(x.contiguous(), w1, b1, relu6)
+    else:
+        y = ops.conv2d_same(x, w1, 2, bias=b1, relu6=relu6)
+    if not collect:
+        return _logits(params, _run_blocks(params, y, config, routing, relu6), routing)
+    acts["conv1"] = y
+    y = _run_blocks(params, y, config, routing, relu6, acts)
     pooled = ops.global_avg_pool(y)
-    if collect:
-        acts["pool"] = pooled
+    acts["pool"] = pooled
     logits = ops.fc(pooled, params["fc"]["w"], params["fc"]["b"])
-    if collect:
-        acts["logits"] = logits
-        return logits, acts
-    return logits
+    acts["logits"] = logits
+    return logits, acts
 
 
-def _chain_runs(params, config, routing, y_shape, itemsize):
+def _logits(params, y, routing):
+    """The head: the fused pool + fc kernel on a "fused" last block, else
+    the plain pool and fc."""
+    if routing[-1] == "fused":
+        return fused_head(y, None, [(params["fc"]["w"], params["fc"]["b"], "linear")])
+    return ops.fc(ops.global_avg_pool(y), params["fc"]["w"], params["fc"]["b"])
+
+
+def _chain_runs(params, config, routing, y_shape, itemsize, start: int = 0):
     """Maximal runs of >= 3 consecutive fused stride-1 C->C blocks (the
-    14x14 stretch) that the chain kernel takes (`chain_fits`). `y_shape` is
-    the activation shape entering block 0. Returns {start_index: length}."""
+    14x14 stretch) from block `start` on that the chain kernel takes
+    (`chain_fits`). `y_shape` is the activation shape entering block
+    `start`. Returns {start_index: length}."""
     shapes = [tuple(b["pw"]["w"].shape) for b in params["blocks"]]
     runs = stride1_runs(shapes, config.block_strides,
-                        [r == "fused" for r in routing])
+                        [r == "fused" and i >= start for i, r in enumerate(routing)])
     n, spatial, fits = int(y_shape[0]), int(y_shape[1]), {}
-    for i, stride in enumerate(config.block_strides):
-        spatial = -(-spatial // stride)  # output side of block i (TF-SAME)
+    for i in range(start, len(config.block_strides)):
+        spatial = -(-spatial // config.block_strides[i])  # output side of block i (TF-SAME)
         if i in runs and chain_fits(n, spatial, spatial, shapes[i][0], runs[i],
                                     itemsize):
             fits[i] = runs[i]
@@ -119,14 +133,14 @@ def _chain_weights(params, i: int, run: int):
     return stack_run(params["blocks"][i:i + run])
 
 
-def _run_blocks(params, y, config, routing, relu6, acts=None):
-    """The 13 dw/pw blocks, per-block backend routing; `acts` collects the
-    taps (module docstring)."""
+def _run_blocks(params, y, config, routing, relu6, acts=None, start: int = 0):
+    """The 13 dw/pw blocks from block `start` (y enters it), per-block
+    backend routing; `acts` collects the taps (module docstring)."""
     collect = acts is not None
     chain_on = CHAIN_AT_BATCH1 and int(y.shape[0]) == 1 and not collect
-    chain_runs = (_chain_runs(params, config, routing, y.shape, y.element_size())
+    chain_runs = (_chain_runs(params, config, routing, y.shape, y.element_size(), start)
                   if chain_on else {})
-    skip_until = 0
+    skip_until = start
     for i, (blk, stride) in enumerate(zip(params["blocks"], config.block_strides)):
         if i < skip_until:
             continue
@@ -152,12 +166,46 @@ def _run_blocks(params, y, config, routing, relu6, acts=None):
     return y
 
 
+def _stem_fusible(params, config: ModelConfig, x_shape, routing, dtype) -> bool:
+    """True when `stem_block0` takes normalize + conv1 + block 0: the JAX
+    package's gate (`models/mobilenet_v1.py` `_stem_fusible`), clause for
+    clause: block 0 routed "fused" and stride 1, a 32-channel stem (alpha
+    1.0), H and W even, (W/2) % 8 == 0, (8 * Cout) % 128 == 0, and no
+    fusion for a 4-byte dtype above 160 px. That last clause comes from the
+    TPU kernel, which held whole images in a 16 MB VMEM scope that float32
+    overflows at 224; the card's kernel tiles and has no such limit, but
+    the clause stays so that both packages take the same route on the same
+    shapes."""
+    h, w = int(x_shape[1]), int(x_shape[2])
+    c1 = int(params["conv1"]["w"].shape[3])
+    cout = int(params["blocks"][0]["pw"]["w"].shape[1])
+    if dtype.itemsize > 2 and h > 160:
+        return False
+    return (routing[0] == "fused" and config.block_strides[0] == 1 and c1 == C1
+            and h % 2 == 0 and w % 2 == 0 and (w // 2) % 8 == 0
+            and (8 * cout) % 128 == 0)
+
+
 def forward_u8(params: Dict[str, Any], images_u8: torch.Tensor,
                config: ModelConfig, *, dtype=torch.float32,
-               dw_backend=None) -> torch.Tensor:
-    """uint8 NHWC -> logits: preprocess (resize, normalize), then forward."""
-    x = preprocess(images_u8, config.resolution, dtype)
-    return forward(params, x, config, dw_backend=dw_backend)
+               dw_backend=None, fuse_stem: bool = False) -> torch.Tensor:
+    """uint8 NHWC -> logits: preprocess (resize, normalize), then forward.
+
+    With fuse_stem=True and `_stem_fusible` (images at model resolution),
+    normalize + conv1 + block 0 run as one kernel (`stem_block0`), then
+    blocks 1-12 and the head; where the gate refuses, preprocess + forward,
+    as with fuse_stem=False. The JAX package keeps fuse_stem off by
+    default, and so does the port."""
+    routing = _routing(config, dw_backend, int(images_u8.shape[0]))
+    if not (fuse_stem and _stem_fusible(params, config, images_u8.shape, routing, dtype)):
+        x = preprocess(images_u8, config.resolution, dtype)
+        return forward(params, x, config, dw_backend=dw_backend)
+    blk0 = params["blocks"][0]
+    y = stem_block0(images_u8, *(t.to(dtype) for t in (
+        params["conv1"]["w"], params["conv1"]["b"], blk0["dw"]["w"], blk0["dw"]["b"],
+        blk0["pw"]["w"], blk0["pw"]["b"])), config.relu6)
+    y = _run_blocks(params, y, config, routing, config.relu6, start=1)
+    return _logits(params, y, routing)
 
 
 def predict_probs(params, x, config: ModelConfig, **kw) -> torch.Tensor:

@@ -50,6 +50,7 @@ _IR = [_P] * 8 + [_I] * 10
 # identity, TH, TW
 _V3 = [_P] * 13 + [_I] * 15
 _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
+_STEM_B0 = [_P] * 8 + [_I] * 5 + [_F] * 2
 # C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
     "separable_block_bf16": _BLOCK, "separable_block_f32": _BLOCK,
@@ -73,6 +74,11 @@ _SIGNATURES = {
     "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
     "v3_block_bf16": _V3, "v3_block_f32": _V3,
     "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
+    # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
+    # relu6 | normalize scale, offset
+    "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0,
+    # x, w, b, out | N, H, W, Cout, relu6
+    "stem_conv_f32": [_P] * 4 + [_I] * 5, "stem_conv_bf16": [_P] * 4 + [_I] * 5,
 }
 # C functions that launch nothing: (argument types, no stream; result type).
 _HOST_SIGNATURES = {

@@ -1,0 +1,179 @@
+"""The stem kernels: the CUDA kernel `csrc/stem.cu` (two entry points) and
+their plain PyTorch versions.
+
+Replaces the TPU kernels `mobilenet_tpu/ops/pallas_stem_b0.py`
+`stem_block0_fused` (uint8 normalize + the 3x3 s2 stem + block 0's
+depthwise and pointwise in one launch: `stem_block0`) and
+`mobilenet_tpu/ops/pallas_stem.py` `stem_conv_packed` (the stem alone on a
+preprocessed input: `stem_conv`, which is also the stem of every forward
+whose block 0 is routed "fused"). No lane packing: both read and write dense
+NHWC. The stem's TF-SAME padding at stride 2 is (0, 1) per axis on an even
+input and (1, 1) on an odd one (`ops/conv.same_pads`), zero in the
+normalized domain; PyTorch's `padding=1` would be wrong on the even sizes
+the model runs. What bounds the kernels on the card and what the
+design does about it is in the CUDA source's header.
+
+The plain versions do every product as elementwise multiply-then-add in a
+fixed order (stem taps in (dy, dx, c) order, depthwise taps in (dy, dx)
+order, pointwise inputs in k order), never through a convolution or matmul
+library call, so they hold on the card whatever its TF32 flags say.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import PREPROCESS_OFFSET, PREPROCESS_SCALE
+from . import _build
+from .conv import apply_activation, dw_taps_f32, same_pads
+from .preprocess import normalize
+from .separable_block import check_aligned, check_channels, check_kernel_args
+
+C1 = 32  # block 0's width: the fused kernel's stem output channels (alpha 1.0)
+MAX_STEM_COUT = 256  # stem_conv stages 27 x Cout weights in shared memory
+
+
+def _stem_taps_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 3x3 s2 stem's sums in float32: TF-SAME pad with zeros, the 27
+    taps in (dy, dx, c) order, each a float32 multiply then add.
+    x (N,H,W,3) float, w (3,3,3,Cout) -> (N,ceil(H/2),ceil(W/2),Cout) float32."""
+    n, h, wd, _ = x.shape
+    (ph0, ph1), (pw0, pw1) = same_pads(h, 2), same_pads(wd, 2)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pw0, pw1, ph0, ph1))
+    ho, wo = -(-h // 2), -(-wd // 2)
+    wf = w.float()
+    acc = torch.zeros((n, ho, wo, w.shape[3]), dtype=torch.float32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[:, dy:dy + 2 * ho - 1:2, dx:dx + 2 * wo - 1:2, :]
+            for c in range(3):
+                acc = acc + tap[..., c:c + 1] * wf[dy, dx, c]
+    return acc
+
+
+def _pointwise_f32(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum over k of y[..., k] * w[k] in float32, k in order: the pointwise
+    product without a matmul. y (N,H,W,K) float32, w (K,Cout)."""
+    wf = w.float()
+    acc = torch.zeros(y.shape[:-1] + (w.shape[1],), dtype=torch.float32, device=y.device)
+    for k in range(w.shape[0]):
+        acc = acc + y[..., k:k + 1] * wf[k]
+    return acc
+
+
+def stem_conv_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    relu6: bool = True) -> torch.Tensor:
+    """The stem kernel's arithmetic in plain ops, as `stem_conv_packed`
+    computes it: taps and weights in x's dtype (the wrapper's dtype check),
+    float32 sums, + bias in float32, ReLU or ReLU6, one rounding to x's
+    dtype."""
+    y = _stem_taps_f32(x, w) + b.float()
+    return apply_activation(y, relu6).to(x.dtype)
+
+
+def stem_block0_plain(images_u8: torch.Tensor, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b,
+                      relu6: bool = True) -> torch.Tensor:
+    """The fused kernel's stages in plain ops, in `stem_block0_fused`'s
+    order: normalize in float32 and round to the weights' dtype; the stem
+    (zero pad in the normalized domain), + bias, activation, round; block
+    0's depthwise (zero SAME pad in the stem-activation domain), + bias,
+    activation, round; the pointwise, + bias, activation, round."""
+    dtype = pw_w.dtype
+    y = _stem_taps_f32(normalize(images_u8, dtype), stem_w) + stem_b.float()
+    y = apply_activation(y, relu6).to(dtype)
+    y = dw_taps_f32(y, dw_w, 1) + dw_b.float()
+    y = apply_activation(y, relu6).to(dtype).float()
+    y = _pointwise_f32(y, pw_w) + pw_b.float()
+    return apply_activation(y, relu6).to(dtype)
+
+
+def _check_input(name: str, x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[3] != 3:
+        raise ValueError(f"{name}: input must be (N,H,W,3), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+def stem_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              relu6: bool = True) -> torch.Tensor:
+    """The 3x3 s2 stem + bias + ReLU(6), TF-SAME, NHWC: the function of
+    `stem_conv_packed`.
+
+    x (N,H,W,3) float32 or bf16 (preprocessed); w (3,3,3,Cout) and b (Cout,)
+    in x's dtype, Cout a multiple of 8 up to 256 -> (N,ceil(H/2),ceil(W/2),
+    Cout) in x's dtype. On CPU tensors this is the plain version;
+    on CUDA tensors it launches the kernel or raises."""
+    name = "stem_conv"
+    sfx = check_kernel_args(name, x, w, b)
+    _check_input(name, x)
+    n, h, wd, _ = x.shape
+    cout = int(w.shape[-1])
+    if tuple(w.shape) != (3, 3, 3, cout) or tuple(b.shape) != (cout,):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} or bias {tuple(b.shape)} "
+                         "is not a 3x3x3 stem")
+    check_channels(name, cout)
+    if cout > MAX_STEM_COUT:
+        raise ValueError(f"{name}: Cout {cout} above {MAX_STEM_COUT}")
+    if x.device.type == "cpu":
+        return stem_conv_plain(x, w, b, relu6)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    lib = _build.library()
+    out = torch.empty((n, -(-h // 2), -(-wd // 2), cout), dtype=x.dtype, device=x.device)
+    code = getattr(lib, f"stem_conv_{sfx}")(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cout,
+        int(relu6), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, name)
+    stem_conv.launches += 1
+    return out
+
+
+stem_conv.launches = 0
+
+
+def stem_block0(images_u8: torch.Tensor, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b,
+                relu6: bool = True) -> torch.Tensor:
+    """uint8 normalize + the 3x3 s2 stem + block 0's depthwise 3x3 s1 and
+    pointwise, each with bias and ReLU(6), in one launch: the function of
+    `stem_block0_fused`, with a dense output.
+
+    images_u8 (N,H,W,3) uint8 at model resolution, H and W even; stem_w
+    (3,3,3,32), stem_b (32,), dw_w (3,3,1,32), dw_b (32,), pw_w (32,Cout),
+    pw_b (Cout,), all in one dtype (float32 or bf16), Cout a multiple of 8
+    -> (N,H/2,W/2,Cout) in that dtype. On CPU tensors this is the plain
+    version; on CUDA tensors it launches the kernel or raises."""
+    name = "stem_block0"
+    weights = (stem_w, stem_b, dw_w, dw_b, pw_w, pw_b)
+    sfx = check_kernel_args(name, *weights)
+    if images_u8.dtype != torch.uint8:
+        raise ValueError(f"{name}: images must be uint8, got {images_u8.dtype}")
+    if images_u8.device != stem_w.device:
+        raise ValueError(f"{name}: tensors on {images_u8.device} and {stem_w.device}")
+    _check_input(name, images_u8)
+    if images_u8.shape[1] % 2 or images_u8.shape[2] % 2:
+        raise ValueError(f"{name}: H and W must be even, got {tuple(images_u8.shape[1:3])}")
+    cout = int(pw_w.shape[-1])
+    if (tuple(stem_w.shape) != (3, 3, 3, C1) or tuple(stem_b.shape) != (C1,)
+            or tuple(dw_w.shape) != (3, 3, 1, C1) or tuple(dw_b.shape) != (C1,)
+            or tuple(pw_w.shape) != (C1, cout) or tuple(pw_b.shape) != (cout,)):
+        raise ValueError(f"{name}: weight shapes {[tuple(t.shape) for t in weights]} "
+                         f"are not a {C1}-channel stem and block 0")
+    check_channels(name, cout)
+    if images_u8.device.type == "cpu":
+        return stem_block0_plain(images_u8, *weights, relu6)
+    if images_u8.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {images_u8.device}")
+    check_aligned(name, *weights)
+    n, h, w, _ = images_u8.shape
+    lib = _build.library()
+    out = torch.empty((n, h // 2, w // 2, cout), dtype=pw_w.dtype, device=pw_w.device)
+    code = getattr(lib, f"stem_block0_{sfx}")(
+        images_u8.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(), n, h, w,
+        cout, int(relu6), float(PREPROCESS_SCALE), float(PREPROCESS_OFFSET),
+        torch.cuda.current_stream(images_u8.device).cuda_stream)
+    _build.check(lib, code, name)
+    stem_block0.launches += 1
+    return out
+
+
+stem_block0.launches = 0

@@ -144,17 +144,21 @@ class InferencePipeline(PipelineBase):
 
     def __init__(self, config, params: Optional[Dict[str, Any]] = None,
                  *, device="cuda", seed: int = 0, dw_backend: Any = "auto",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, fuse_stem: bool = False):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
         a per-block tuple (models.mobilenet_v1._routing), or for V2 and V3
         also "mixed" (models.mobilenet_v2._routing_v2,
-        models.mobilenet_v3._routing_v3)."""
+        models.mobilenet_v3._routing_v3). `fuse_stem` (MobileNet-V1 only;
+        V2 and V3 ignore it, as in the JAX package): uint8 batches at model
+        resolution take `mobilenet_v1.forward_u8(fuse_stem=True)`, the
+        normalize + stem + block-0 kernel; off by default."""
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
         self.dw_backend = dw_backend
+        self.fuse_stem = fuse_stem
         if type(config) in _FAMILIES:
             init, fold, self._forward, self._predict = _FAMILIES[type(config)]
             host = params if params is not None else fold(
@@ -175,7 +179,13 @@ class InferencePipeline(PipelineBase):
     def _entry(self, kind: str):
         cfg = self.config
         if kind == "probs_u8":
+            fuse = self.fuse_stem and isinstance(cfg, ModelConfig)
+
             def fn(images_u8):
+                if fuse and images_u8.shape[1] == images_u8.shape[2] == cfg.resolution:
+                    return mobilenet_v1.predict_probs_u8(
+                        self.params, images_u8, cfg, dtype=self.dtype,
+                        dw_backend=self.dw_backend, fuse_stem=True)
                 x = preprocess(images_u8, cfg.resolution, self.dtype)
                 return self._predict(self.params, x, cfg, dw_backend=self.dw_backend)
         elif kind == "probs_f":

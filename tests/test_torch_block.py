@@ -12,7 +12,9 @@ from mobilenet_tpu.ops.pallas_block import separable_block_pallas
 from mobilenet_tpu.ops.pallas_block_packed import (
     pack, separable_block_packed, separable_block_packed_s2, unpack,
 )
-from mobilenet_tpu_torch.ops.separable_block import separable_block
+from mobilenet_tpu.ops.pallas_block_packed_mxu import separable_block_packed_mxu
+from mobilenet_tpu_torch.ops.separable_block import separable_block, separable_block_plain
+from mobilenet_tpu_torch.utils.golden import MM_TOL
 
 # float32: the JAX kernel tests' tolerance (tests/test_pallas_block.py).
 F32_TOL = dict(atol=3e-5, rtol=1e-5)
@@ -78,6 +80,33 @@ def test_narrow_s2_vs_packed(dtype):
                                            interpret=True), 128)
     np.testing.assert_allclose(_ours(arrs, dtype, 2),
                                np.asarray(ref, np.float32), **_tol(dtype))
+
+
+# V1's narrow shapes of tests/test_pallas_block_packed_mxu.py at h <= 16:
+# block 0 (32 -> 64 s1) and block 1 (64 -> 128 s2) of alpha 1.0, alpha
+# 0.25's, and the packed -> dense boundary.
+MXU_SHAPES = [(2, 16, 32, 64, 1), (2, 16, 64, 128, 2), (2, 16, 8, 16, 1),
+              (2, 16, 16, 32, 2), (2, 8, 64, 128, 1), (1, 16, 64, 128, 2)]
+# bfloat16: chip_smoke.py's BF16_ATOL/RTOL (the banded-matmul depthwise sums
+# in another order than the 9-tap stencil).
+MXU_BF16_TOL = dict(atol=6e-2, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,cin,cout,stride", MXU_SHAPES)
+def test_narrow_vs_packed_mxu(dtype, n, h, cin, cout, stride):
+    """The plain separable block against separable_block_packed_mxu (the
+    depthwise as banded matmuls, behind the DW_MXU_* knobs) in interpret
+    mode: the port's dense kernel computes its function (B20)."""
+    arrs = _inputs(cin * 7 + stride, n, h, cin, cout)
+    x, *w = _jax(arrs, dtype)
+    ref = unpack(separable_block_packed_mxu(pack(x, cin), *w, cin, cout, stride, True,
+                                            interpret=True), cout)
+    got = separable_block_plain(*[torch.from_numpy(a).to(_DT[dtype][2]) for a in arrs],
+                                stride, True)
+    atol, rtol = MM_TOL
+    tol = dict(atol=atol, rtol=rtol) if dtype == "float32" else MXU_BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **tol)
 
 
 def test_relu_without_clip():

@@ -10,6 +10,7 @@ import torch
 
 from mobilenet_tpu.ops.pallas_block_packed import pack, unpack
 from mobilenet_tpu.quant.pallas_block_i8 import separable_block_i8 as jax_block_i8
+from mobilenet_tpu.ops.pallas_block_packed_mxu import separable_block_packed_i8_mxu
 from mobilenet_tpu.quant.pallas_block_packed_i8 import separable_block_packed_i8
 from mobilenet_tpu.quant.pallas_dw_i8 import depthwise_i8_pallas
 from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8
@@ -55,6 +56,24 @@ def test_narrow_vs_packed(cin, cout, stride):
     ref = unpack(separable_block_packed_i8(pack(x, cin), *w, cin, cout, stride, DW_SIX_Q,
                                            PW_SIX_Q, True, interpret=True), cout)
     np.testing.assert_array_equal(_ours(arrs, stride), np.asarray(ref))
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride", [
+    (2, 16, 32, 64, 1), (2, 16, 64, 128, 2), (2, 16, 8, 16, 1), (2, 16, 16, 32, 2),
+    (2, 8, 64, 128, 1), (1, 16, 64, 128, 2)])
+def test_narrow_vs_packed_i8_mxu(n, h, cin, cout, stride):
+    """V1's narrow int8 blocks against separable_block_packed_i8_mxu (both
+    convolutions as s8 x s8 -> s32 matmuls, behind the DW_MXU_* knobs) in
+    interpret mode, exactly: the port's int8 kernel computes its function
+    (B20)."""
+    arrs = _inputs(cin * 5 + stride, n, h, cin, cout)
+    x, *w = map(jnp.asarray, arrs)
+    ref = unpack(separable_block_packed_i8_mxu(pack(x, cin), *w, cin, cout, stride,
+                                               DW_SIX_Q, PW_SIX_Q, True, interpret=True),
+                 cout)
+    got = _ours(arrs, stride)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert 0 < (got == PW_SIX_Q).sum() < (got > 0).sum()
 
 
 def test_relu_without_clip():

@@ -7,9 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+from mobilenet_tpu.ops.pallas_chain import chained_blocks_pallas
 from mobilenet_tpu.ops.pallas_chain_systolic import chain_systolic
-from mobilenet_tpu_torch.ops.chain import L2_BUDGET_BYTES, chain, chain_fits
+from mobilenet_tpu_torch.ops.chain import L2_BUDGET_BYTES, chain, chain_fits, chain_plain
 from mobilenet_tpu_torch.ops.separable_block import separable_block
+from mobilenet_tpu_torch.utils.golden import MM_TOL
 
 # float32: the JAX chain test's tolerance (tests/test_pallas_chain_systolic.py).
 F32_TOL = dict(atol=5e-5, rtol=1e-4)
@@ -36,6 +38,18 @@ def test_vs_chain_systolic(dtype, n, h, c, k):
     got = chain(*[torch.from_numpy(a).to(tdt) for a in arrs], True)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
                                **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def test_vs_chained_blocks_pallas():
+    """The plain chain against chained_blocks_pallas (the un-pipelined
+    forerunner of chain_systolic, which nothing calls) in interpret mode at
+    its test's shape, K = 3 at 14x14x64, batch 2: chain.cu computes its
+    function (B23)."""
+    arrs = _inputs(23, 2, 14, 64, 3)
+    ref = chained_blocks_pallas(*map(jnp.asarray, arrs), True, interpret=True)
+    got = chain_plain(*map(torch.from_numpy, arrs), True)
+    atol, rtol = MM_TOL
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
 
 
 def test_equals_blocks_in_sequence():

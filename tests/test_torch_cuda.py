@@ -40,6 +40,7 @@ from mobilenet_tpu_torch.ops.separable_block import (
 from mobilenet_tpu_torch.ops.separable_block_i8 import (
     separable_block_i8, separable_block_i8_plain,
 )
+from mobilenet_tpu_torch.ops.stem import stem_block0, stem_block0_plain, stem_conv, stem_conv_plain
 from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
     v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
@@ -289,9 +290,14 @@ def test_v2_pipeline_routes_agree(dev, batch):
 def test_cpu_tensor_never_launches(dev):
     x = torch.zeros(1, 8, 8, 8)
     w = (torch.zeros(3, 3, 1, 8), torch.zeros(8), torch.zeros(8, 8), torch.zeros(8))
-    before = separable_block.launches
+    img = torch.zeros(1, 16, 16, 3, dtype=torch.uint8)
+    ws = (torch.zeros(3, 3, 3, 32), torch.zeros(32), torch.zeros(3, 3, 1, 32), torch.zeros(32),
+          torch.zeros(32, 16), torch.zeros(16))
+    before = (separable_block.launches, stem_block0.launches, stem_conv.launches)
     separable_block(x, *w, 1, True)
-    assert separable_block.launches == before
+    stem_block0(img, *ws, True)
+    stem_conv(img.float(), ws[0], ws[1], True)
+    assert (separable_block.launches, stem_block0.launches, stem_conv.launches) == before
 
 
 # -- int8: every comparison is exact (torch.equal) ---------------------------
@@ -804,3 +810,118 @@ def test_cli_verify_v1_on_card(dev, capsys):
 
     cli_main(["verify", "--model", "v1"])
     assert "VERIFY OK: all 29 layers match" in capsys.readouterr().out
+
+
+# -- the stem kernels and the fused-stem route --------------------------------
+
+
+def _stem_b0_weights(rng, dev, dtype, cout, gain):
+    """Stem and block-0 weights; `gain` scales them so that part of every
+    ReLU6 saturates."""
+    return (_t(rng, (3, 3, 3, 32), dtype, dev, 0.4 * gain), _t(rng, (32,), dtype, dev, 0.2),
+            _t(rng, (3, 3, 1, 32), dtype, dev, 0.5 * gain), _t(rng, (32,), dtype, dev, 0.2),
+            _t(rng, (32, cout), dtype, dev, gain * 32 ** -0.5), _t(rng, (cout,), dtype, dev, 0.2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cout,relu6", [
+    (2, 32, 32, 64, True),    # one tile row, two tile columns
+    (3, 40, 52, 16, False),   # ragged tiles at both edges, plain ReLU
+    (1, 224, 224, 64, True),  # V1 1.0-224 block 0
+    (4, 224, 224, 64, True),
+])
+def test_stem_block0(dev, dtype, n, h, w, cout, relu6):
+    """The fused stem kernel against its plain version. The last input row
+    and column are 255, so a pad taken as normalize(0) = -1 instead of 0
+    would show; the weights drive part of each ReLU6 into its clip."""
+    rng = np.random.default_rng(h + w + cout)
+    img = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    img[:, -1] = 255
+    img[:, :, -1] = 255
+    x = torch.from_numpy(img).to(dev)
+    wts = _stem_b0_weights(rng, dev, dtype, cout, 3.0)
+    before = stem_block0.launches
+    got = stem_block0(x, *wts, relu6)
+    assert stem_block0.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, h // 2, w // 2, cout)
+    ref = stem_block0_plain(x, *wts, relu6)
+    _close(got, ref, dtype)
+    if relu6:
+        assert 0.01 < float((ref.float() == 6).float().mean()) < 0.99
+    else:
+        assert float(ref.float().max()) > 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cout,relu6", [
+    (2, 32, 32, 32, True), (3, 38, 50, 24, False), (1, 224, 224, 32, True),
+    (2, 224, 224, 16, True), (1, 16, 16, 256, True), (2, 37, 45, 32, True),
+    (1, 225, 224, 16, False),
+])
+def test_stem_conv(dev, dtype, n, h, w, cout, relu6):
+    """The stem kernel against its plain version; the last row and column
+    of the input are 1 (the largest normalized value) beside the pad; odd
+    sides pad (1, 1), as TF-SAME does."""
+    rng = np.random.default_rng(h + w + cout)
+    x = _t(rng, (n, h, w, 3), dtype, dev, lo=-1)
+    x[:, -1] = 1
+    x[:, :, -1] = 1
+    wt, b = _t(rng, (3, 3, 3, cout), dtype, dev, 1.5), _t(rng, (cout,), dtype, dev, 0.2)
+    before = stem_conv.launches
+    got = stem_conv(x, wt, b, relu6)
+    assert stem_conv.launches == before + 1 and got.dtype == dtype
+    assert got.shape == (n, -(-h // 2), -(-w // 2), cout)
+    ref = stem_conv_plain(x, wt, b, relu6)
+    _close(got, ref, dtype)
+    if relu6:
+        assert 0 < float((ref.float() == 6).float().mean()) < 1
+
+
+def _reset(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def test_fused_stem_pipeline_launches(dev):
+    """bf16 1.0-224 with fuse_stem=True: one stem_block0 launch per forward,
+    separable_block on blocks 1-12 (12 at batch 4; 7 at batch 1, where the
+    chain takes blocks 6-10), and logits within the routing gate of the
+    plain route."""
+    cfg = ModelConfig(1.0, 224, compute_dtype="bfloat16")
+    pipe = InferencePipeline(cfg, device="cuda", fuse_stem=True)
+    rng = np.random.default_rng(1)
+    for batch, n_sep, n_chain in ((4, 12, 0), (1, 7, 1)):
+        imgs = torch.from_numpy(rng.integers(0, 256, (batch, 224, 224, 3), np.uint8)).to(dev)
+        _reset(stem_block0, stem_conv, separable_block, chain)
+        with torch.inference_mode():
+            got = mobilenet_v1.forward_u8(pipe.params, imgs, cfg, dtype=torch.bfloat16,
+                                          dw_backend="auto", fuse_stem=True).float()
+            torch.cuda.synchronize()
+            counts = (stem_block0.launches, stem_conv.launches, separable_block.launches,
+                      chain.launches)
+            ref = mobilenet_v1.forward(pipe.params, prep.preprocess(imgs, 224, torch.bfloat16),
+                                       cfg, dw_backend="plain").float()
+        assert counts == (1, 0, n_sep, n_chain)
+        atol = max(6e-2, 4.5e-2 * float(ref.abs().max()))
+        torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+        _reset(stem_block0)
+        pipe.run_batch(imgs.cpu().numpy())
+        assert stem_block0.launches == 1
+
+
+@pytest.mark.parametrize("res,fuses", [(160, True), (224, False)])
+def test_fused_stem_float32(dev, res, fuses):
+    """float32: at 1.0-160 the fused stem matches the default pipeline
+    within 1e-4/1e-3; at 1.0-224 the gate refuses (as the JAX package's
+    does) and the default route runs, its stem on stem_conv."""
+    cfg = ModelConfig(1.0, res, compute_dtype="float32")
+    base = InferencePipeline(cfg, device="cuda", seed=4)
+    fused = InferencePipeline(cfg, device="cuda", seed=4, fuse_stem=True)
+    imgs = np.random.default_rng(res).integers(0, 256, (2, res, res, 3), np.uint8)
+    _reset(stem_block0, stem_conv)
+    got = fused.run_batch(imgs)
+    torch.cuda.synchronize()
+    assert (stem_block0.launches, stem_conv.launches) == ((1, 0) if fuses else (0, 1))
+    ref = base.run_batch(imgs)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-3)
+

@@ -93,3 +93,17 @@ def test_verify_imports_build_nothing():
 
     assert _build._lib is None
     assert cpu_ref.library_path().name.startswith("libcpuref_")
+
+
+def test_stem_modules_are_checked():
+    """The stem kernels' wrapper and the fused-stem route are among the
+    files checked above, and importing them builds nothing."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/ops/stem.py",
+            "mobilenet_tpu_torch/models/mobilenet_v1.py",
+            "mobilenet_tpu_torch/profile.py"} <= names
+    import mobilenet_tpu_torch.ops.stem  # noqa: F401
+    import mobilenet_tpu_torch.profile  # noqa: F401
+    from mobilenet_tpu_torch.ops import _build
+
+    assert _build._lib is None
