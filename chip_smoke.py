@@ -137,6 +137,36 @@ file; imports nothing of JAX. Phases, one JSON line each:
  41. the fused-stem main path: counters set to 0, a 64-stream server on
      the fused-stem pipeline and one lone request; 0 errors, and the fused
      stem kernel launched.
+ 42. the V3 chain kernel on every run that the greedy chain knob forms at
+     V3-Large and V3-Small 1.0-224 (blocks 1 to the last), bf16 at batch
+     256 and 1 and float32 at batch 8, random weights with non-zero SE
+     biases: bit-equal to v3_block called per block in sequence, within
+     BF16/F32_ATOL/RTOL of v3_chain_plain; its ms beside the same blocks'
+     per-block ms, plain ms, its bound (input and output once, the blocks'
+     operations) and the sum of the per-block bounds, and its grid (the
+     launch's block count); the wrapper's host ms a call, its tables made
+     anew and kept;
+ 43. the chained V3-Large and V3-Small bf16 pipelines: logits equal to the
+     per-block "auto" route's bit for bit at batch 256 and 1 (one chain
+     launch a forward), the anchored routing gate against the plain route
+     with the knob on (and the float32 check at batch 2); benchmark() at
+     batch 256 with the knob off and on (V3-Large also with the run split
+     before block 12, whose tile halves residency), alternating in one
+     process; batch-1 p50/p99 of each, and of the chain with its wrapper's
+     checks and tables made anew at every call;
+ 44. the chained V3-Small main path: counters set to 0, a 64-stream server
+     with the knob on and one lone request; 0 errors and v3_chain launched;
+ 45. the floor probes (`python -m mobilenet_tpu_torch.floors`'s run,
+     counters set to 0 before and read after; the JSON written to
+     build/achievable_h100.json): the copies bit-equal to their input at
+     the five audit shapes, the stencil's variants against their plain
+     versions (bf16 bit-equal; float32 within one bf16 step, relative, for
+     FMA contraction) at the timed 56^2 x 128 shape after 2, 8 and 256
+     rounds, the short runs required to depend on x (`check_stencil`), the
+     library copy's time; the roofline floors of V1, V2,
+     V3-Large and V3-Small 1.0-224 at batch 256 at the published and the
+     measured rates.
+Phases 18-25 also hold the default V3 routes to no v3_chain launch.
 Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
 route at batch 256, bit for bit.
 Then one JSON line of per-kernel results and, last, the result line.
@@ -164,6 +194,8 @@ import time
 
 import numpy as np
 import torch
+
+from mobilenet_tpu_torch.floors import cuda_ms
 
 # bf16 kernel vs plain: the depthwise result is rounded to bf16 before the
 # product and the output to bf16 after it; a last-bit difference in the f32
@@ -271,18 +303,6 @@ def dw_work(n, h, c, stride, kind="int8"):
 
 def emit(phase: str, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare(name, got, ref, atol, rtol):
@@ -1054,6 +1074,7 @@ def v3_phases(smi, gen, kernels, launches, variant="large"):
 
     cfg = V3Config(variant, ALPHA, RES, compute_dtype="bfloat16")
     row, replaces, also = V3_ROWS[variant]
+    kernels["v3_chain"].launches = 0  # the default routes must launch none (checked below)
     summary = {row: {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block.cu",
                      "replaces": replaces, "also_runs": also}}
     summary[row].update(FLOAT_ROW)
@@ -1088,8 +1109,12 @@ def v3_phases(smi, gen, kernels, launches, variant="large"):
     del mixed
 
     # -- 21 / 25. the V3 float main path: 64-stream server -------------------------------
+    if kernels["v3_chain"].launches:
+        raise AssertionError(f"{cfg.variant_name()}: the default routes launched v3_chain")
     got = serve_main_path(pipe, kernels, ("v3_block", "fused_head"),
                           "serving_v3" if variant == "large" else "serving_v3small", smi)
+    if kernels["v3_chain"].launches:  # serve_main_path set every count to 0 first
+        raise AssertionError(f"{cfg.variant_name()}: the default server launched v3_chain")
     launches[row] = got["v3_block"]
     del pipe
     torch.cuda.empty_cache()
@@ -1755,6 +1780,306 @@ def stem_phases(smi, gen, kernels, launches):
     return rows
 
 
+@contextlib.contextmanager
+def chain_knob(variant, value):
+    """mobilenet_v3's chain knob of `variant` set to `value` inside."""
+    from mobilenet_tpu_torch.models import mobilenet_v3
+
+    name = "CHAIN_V3_SMALL" if variant == "small" else "CHAIN_V3"
+    old = getattr(mobilenet_v3, name)
+    setattr(mobilenet_v3, name, value)
+    try:
+        yield
+    finally:
+        setattr(mobilenet_v3, name, old)
+
+
+class ChainKnobView:
+    """A pipeline run with the variant's chain knob at `value`, for helpers
+    that alternate pipelines (batch1_latency). forget=True drops the chain
+    wrapper's kept checks and tables before every call, so that each call
+    pays them, as the wrapper did before it kept them."""
+
+    def __init__(self, pipe, variant, value, forget=False):
+        self.pipe, self.variant, self.value, self.forget = pipe, variant, value, forget
+
+    def _forget(self):
+        from mobilenet_tpu_torch.ops import v3_chain
+
+        if self.forget:
+            v3_chain._PLANS.clear()
+
+    def run_batch(self, frame):
+        self._forget()
+        with chain_knob(self.variant, self.value):
+            return self.pipe.run_batch(frame)
+
+    def _entry(self, kind):
+        entry = self.pipe._entry(kind)
+
+        def run(x):
+            self._forget()
+            with chain_knob(self.variant, self.value):
+                return entry(x)
+        return run
+
+
+def v3_chain_work(n, h, defs, kind):
+    """(bytes, ops) of a chain over blocks `defs` on (n, h, h, Cin): the
+    input read once, the output written once, every block's weights once,
+    and the blocks' operations (ir_work's, summed). Intermediates need not
+    leave the chip, so they are not counted (the kernel still writes them
+    to its scratch buffers)."""
+    act = ELEM_BYTES[kind][0]
+    nbytes, ops = n * h * h * defs[0].cin * act, 0
+    for bd in defs:
+        b, o = ir_work(n, h, bd.cin, bd.cexp, bd.cout, bd.stride, kind, k=bd.kernel,
+                       se=bd.se_mid, identity=not bd.has_expand)
+        ho = -(-h // bd.stride)
+        nbytes += b - n * h * h * bd.cin * act - n * ho * ho * bd.cout * act  # its weights
+        ops += o
+        h = ho
+    return nbytes + n * h * h * defs[-1].cout * act, ops
+
+
+def v3_chain_checks(summary, gen):
+    """Phase 42: the chain kernel on every run the greedy knob forms at
+    V3-Large and V3-Small 1.0-224, bf16 at batch 256 and 1 and float32 at
+    batch 8 (random weights, non-zero SE biases): bit-equal to v3_block in
+    sequence, within the kernel tolerance of v3_chain_plain; its ms beside
+    the same blocks' per-block ms, plain ms, its bound and the sum of the
+    per-block bounds; the launch's grid; and the wrapper's host ms a call
+    (host clock around one call on an idle card, median), with its checks
+    and tables made anew ("miss") and kept from an earlier call ("hit").
+    V3-Small bf16 batch 256 (the run the chained server of phase 44 takes)
+    fills the row."""
+    from mobilenet_tpu_torch import V3Config
+    from mobilenet_tpu_torch.models import mobilenet_v3
+    from mobilenet_tpu_torch.ops import v3_chain as v3_chain_mod
+    from mobilenet_tpu_torch.ops.v3_block import v3_block
+    from mobilenet_tpu_torch.ops.v3_chain import v3_chain, v3_chain_plain
+
+    def host_ms(fn, forget, reps=30):
+        times = []
+        for _ in range(reps):
+            if forget:
+                v3_chain_mod._PLANS.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return float(np.median(times) * 1e3)
+
+    row = summary["v3_chain"]
+    for variant in ("large", "small"):
+        for dtype, batch in ((torch.bfloat16, 256), (torch.bfloat16, 1), (torch.float32, 8)):
+            kind = "bf16" if dtype == torch.bfloat16 else "f32"
+            item = 2 if kind == "bf16" else 4
+            atol, rtol = (BF16_ATOL, BF16_RTOL) if kind == "bf16" else (F32_ATOL, F32_RTOL)
+            cfg = V3Config(variant, ALPHA, RES, compute_dtype="bfloat16" if item == 2
+                           else "float32")
+            with chain_knob(variant, True):
+                runs = mobilenet_v3.chain_runs(cfg, mobilenet_v3._routing_v3(cfg, "auto", batch),
+                                               batch, RES // 2, RES // 2, item)
+            if not runs:
+                raise AssertionError(f"{cfg.variant_name()} batch {batch}: no chain formed")
+            sides, h = [], RES // 2
+            for bd in cfg.block_defs:
+                sides.append(h)
+                h = -(-h // bd.stride)
+            for start, stop in runs.items():
+                defs, h = cfg.block_defs[start:stop], sides[start]
+                blocks = []
+                for bd in defs:
+                    t = rand_v3(gen, 1, 1, bd, dtype)
+                    blocks.append(dict(zip(("exp_w", "exp_b", "dw_w", "dw_b", "prj_w", "prj_b",
+                                            "se_w1", "se_b1", "se_w2", "se_b2"), t[1:]),
+                                       k=bd.kernel, stride=bd.stride, act=bd.act,
+                                       residual=bd.has_res))
+                x = rand_v3(gen, batch, h, defs[0], dtype)[0]
+
+                def per_block(x=x, blocks=blocks):
+                    y = x
+                    for b in blocks:
+                        y = v3_block(y, **b)
+                    return y
+
+                name = (f"{cfg.variant_name()} b{start:02d}-b{stop - 1:02d} batch {batch} "
+                        f"{kind}")
+                got, ref = v3_chain(x, blocks), per_block()
+                grid = v3_chain.grid
+                plain = v3_chain_plain(x, blocks)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{name}: the chain differs from v3_block in sequence "
+                                         f"by {float((got.float() - ref.float()).abs().max())}")
+                err = compare(name, got, plain, atol, rtol)
+                kms = cuda_ms(lambda: v3_chain(x, blocks))
+                bms = cuda_ms(per_block)
+                pms = cuda_ms(lambda: v3_chain_plain(x, blocks), reps=2, warmup=1)
+                b_ms, b_by, t_b, t_o = bound(*v3_chain_work(batch, h, defs, kind), kind)
+                per_bounds, hh = 0.0, h
+                for bd in defs:
+                    per_bounds += bound(*ir_work(batch, hh, bd.cin, bd.cexp, bd.cout, bd.stride,
+                                                 kind, k=bd.kernel, se=bd.se_mid), kind)[0]
+                    hh = -(-hh // bd.stride)
+                host = {"miss": host_ms(lambda: v3_chain(x, blocks), True),
+                        "hit": host_ms(lambda: v3_chain(x, blocks), False)}
+                emit("v3_chain", run=name, blocks=stop - start, bit_equal_to_v3_block=True,
+                     max_abs_err_vs_plain=err, atol=atol, rtol=rtol, ms=kms, per_block_ms=bms,
+                     plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                     sum_of_per_block_bounds_ms=per_bounds, grid=grid, host_ms=host)
+                if variant == "small" and kind == "bf16" and batch == 256:
+                    row.update(ms=kms, per_block_ms=bms, plain_ms=pms, bound_ms=b_ms,
+                               bytes_ms=t_b, ops_ms=t_o, max_abs_err=err,
+                               run=name, bit_equal_to_v3_block=True)
+                elif kind == "f32":
+                    row["max_abs_err_f32"] = max(row["max_abs_err_f32"], err)
+                del x, blocks, got, ref, plain
+                torch.cuda.empty_cache()
+
+
+def v3_chain_phases(smi, gen, kernels, launches):
+    """Phases 42-44. Fills launches["v3_chain"] from the chained V3-Small
+    server; returns the chain kernel's row."""
+    from mobilenet_tpu_torch import InferencePipeline, V3Config
+    from mobilenet_tpu_torch.models import mobilenet_v3
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+
+    v3_chain = kernels["v3_chain"]
+    summary = {"v3_chain": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_chain.cu",
+                            "replaces": "mobilenet_tpu/ops/pallas_chain_v3.py:239",
+                            **FLOAT_ROW, "per_block_ms": 0.0}}
+
+    # -- 42. the chain kernel at full width ------------------------------------------
+    v3_chain_checks(summary, gen)
+
+    # -- 43. the chained pipelines -----------------------------------------------------
+    pipes = {}
+    for variant in ("large", "small"):
+        cfg = V3Config(variant, ALPHA, RES, compute_dtype="bfloat16")
+        tree = v3_folded(cfg, 0)
+        pipe = pipes[variant] = InferencePipeline(cfg, tree, device="cuda")
+        rng = np.random.default_rng(3)
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            with torch.inference_mode():
+                x = preprocess(imgs, RES, torch.bfloat16)
+                base = mobilenet_v3.forward_v3(pipe.params, x, cfg, dw_backend="auto")
+                v3_chain.launches = 0
+                with chain_knob(variant, True):
+                    got = mobilenet_v3.forward_v3(pipe.params, x, cfg, dw_backend="auto")
+                torch.cuda.synchronize()
+            if v3_chain.launches != 1 or not torch.equal(got, base):
+                raise AssertionError(f"{cfg.variant_name()} batch {batch}: {v3_chain.launches} "
+                                     "chain launches; logits equal to the per-block route: "
+                                     f"{torch.equal(got, base)}")
+            emit("chained_pipeline", model=cfg.variant_name(), batch=batch,
+                 logits_equal_to_per_block=True, v3_chain_launches=v3_chain.launches,
+                 top1_agree=batch)
+        with chain_knob(variant, True):
+            check_routes(pipe, mobilenet_v3.forward_v3, V3Config(variant, ALPHA, RES),
+                         V3_F32_ATOL, V3_F32_RTOL, anchored=True, params=tree)
+        arms = [("per_block", False), ("chain", True)]
+        if variant == "large":  # the run split before b12, whose tile halves residency
+            arms.append(("chain_b01-b11_b13-b14", ((1, 12), (13, 15))))
+        rates = {name: [] for name, _ in arms}
+        for name, value in arms + arms[::-1]:
+            with chain_knob(variant, value):
+                r = pipe.benchmark(batch_size=256, steps=40, latency_iters=10)
+            rates[name].append(r["images_per_sec"])
+        emit("benchmark_chain", model=cfg.variant_name(), nvidia_smi=smi, batch_size=256,
+             images_per_sec=rates)
+        views = [(name, ChainKnobView(pipe, variant, value)) for name, value in arms]
+        views.append(("chain_checks_each_call", ChainKnobView(pipe, variant, True, forget=True)))
+        emit("batch1_latency_chain", model=cfg.variant_name(), nvidia_smi=smi,
+             **batch1_latency(views))
+        torch.cuda.empty_cache()
+
+    # -- 44. the 64-stream server on the chained V3-Small pipeline ---------------------
+    with chain_knob("small", True):
+        got = serve_main_path(pipes["small"], kernels, ("v3_chain", "v3_block", "fused_head"),
+                              "serving_v3small_chain", smi)
+    launches["v3_chain"] = got["v3_chain"]
+    del pipes
+    torch.cuda.empty_cache()
+    return summary
+
+
+def floor_phases(smi, launches):
+    """Phase 45: the floor probes (`python -m mobilenet_tpu_torch.floors`'s
+    run, counters set to 0 before and read after), then each probe against
+    its plain version, and the roofline floors of V1, V2, V3-Large and
+    V3-Small 1.0-224 at batch 256 at the published and the measured rates.
+    Returns the three probes' rows."""
+    from mobilenet_tpu_torch import floors, roofline
+
+    probes = {"hbm_copy": floors.hbm_copy, "hbm_copy_flat": floors.hbm_copy_flat,
+              "stencil": floors.stencil}
+    for fn in probes.values():
+        fn.launches = 0
+    res = floors.measure()
+    torch.cuda.synchronize()
+    launches.update({name: fn.launches for name, fn in probes.items()})
+    floors.OUT.parent.mkdir(parents=True, exist_ok=True)
+    floors.OUT.write_text(json.dumps(res, indent=1))
+    emit("floors", **res)
+
+    src = "mobilenet_tpu_torch/csrc/floors.cu"
+    rows = {name: {"route": "cuda", "source": src, "replaces": f"tools/microbench_floors.py:{ln}",
+                   **FLOAT_ROW, "library_ms": 0.0 if name != "stencil" else LIBRARY_MS}
+            for name, ln in (("hbm_copy", 52), ("stencil", 116), ("hbm_copy_flat", 144))}
+    for label, shape in floors.AUDIT_SHAPES:  # the copies: bit-equal; summed over the shapes
+        x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+        for name in ("hbm_copy", "hbm_copy_flat"):
+            got = probes[name](x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, x):
+                raise AssertionError(f"{name} {label}: the copy differs from its input")
+            b_ms, _, t_b, t_o = bound(2 * x.numel() * x.element_size(), 0, "bf16")
+            r = rows[name]
+            r["ms"] += res["hbm_ms"][label][name]
+            r["plain_ms"] += cuda_ms(lambda: floors.hbm_copy_plain(x))
+            r["library_ms"] += res["hbm_ms"][label]["library_copy"]
+            r["bound_ms"] += b_ms
+            r["bytes_ms"] += t_b
+            r["ops_ms"] += t_o
+        del x, got
+        torch.cuda.empty_cache()
+    # the stencil against its plain version (floors.check_stencil: within
+    # STENCIL_RTOL relative, bf16 bit-equal) at the timed run's 256 rounds,
+    # whose output the weights set, and at 2 and 8 rounds, where it must
+    # still depend on x
+    label, _, h, w, c, reps, images = floors.STENCIL_RUNS[0]
+    checks = {f"{variant} x{r}": floors.check_stencil(variant, images, h, w, c, r, "cuda")
+              for variant in floors.VARIANTS for r in (2, 8, reps)}
+    x, wt = floors.stencil_inputs(images, h, w, c, "cuda")
+    elems = x.numel()
+    # 9 FMAs (two operations each) and the epilogue's add and min a round
+    b_ms, _, t_b, t_o = bound(2 * elems * 2 + 9 * c * 2, reps * (9 * 2 + 2) * elems, "f32")
+    rows["stencil"].update(
+        ms=res["stencil_ms"][label],
+        max_abs_err=max(v["max_abs"] for k, v in checks.items() if k.startswith("chain ")),
+        plain_ms=cuda_ms(lambda: floors.stencil_plain(x, wt, reps), reps=1, warmup=1),
+        bound_ms=b_ms, bytes_ms=t_b, ops_ms=t_o, atol=0.0, rtol=floors.STENCIL_RTOL)
+    rows["hbm_copy"]["max_abs_err"] = rows["hbm_copy_flat"]["max_abs_err"] = 0.0
+    emit("floor_probes", nvidia_smi=smi, stencil_checks=checks,
+         stencil_rtol=floors.STENCIL_RTOL, copies_bit_equal=True)
+    measured, _ = roofline.achievable_rates(floors.OUT)
+    for model in ("v1", "v2", "v3", "v3small"):
+        out = {}
+        for tag, rates in (("published", roofline.H100), ("achievable", measured)):
+            cfg, fl = roofline.floors(model, 256, 2, rates)
+            out[tag] = {"total_ms": sum(f["floor_ms"] for f in fl.values()),
+                        "floors_ms": {k: f["floor_ms"] for k, f in fl.items()},
+                        "binding": {k: f["binding"] for k, f in fl.items()}}
+        emit("roofline", model=cfg.variant_name(), batch=256, dtype="bf16", nvidia_smi=smi,
+             **out)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1776,6 +2101,7 @@ def main() -> int:
     from mobilenet_tpu_torch.ops.stem import stem_block0, stem_conv
     from mobilenet_tpu_torch.ops.v3_block import v3_block
     from mobilenet_tpu_torch.ops.v3_block_i8 import v3_block_i8
+    from mobilenet_tpu_torch.ops.v3_chain import v3_chain
 
     # -- 1. card, versions, build ---------------------------------------------
     smi = subprocess.run(
@@ -1850,7 +2176,7 @@ def main() -> int:
                "depthwise_i8": depthwise_i8, "inverted_residual": inverted_residual,
                "inverted_residual_i8": inverted_residual_i8, "v3_block": v3_block,
                "v3_block_i8": v3_block_i8, "depthwise": depthwise,
-               "stem_block0": stem_block0, "stem_conv": stem_conv}
+               "stem_block0": stem_block0, "stem_conv": stem_conv, "v3_chain": v3_chain}
     launches = serve_main_path(pipe, kernels,
                                ("stem_conv", "separable_block", "fused_head", "chain"),
                                "serving", smi)
@@ -1883,6 +2209,12 @@ def main() -> int:
 
     # -- 38-41. the stem kernels and the fused-stem path ----------------------------------
     summary.update(stem_phases(smi, gen, kernels, launches))
+
+    # -- 42-44. the V3 chain kernel and the chained V3 routes ------------------------------
+    summary.update(v3_chain_phases(smi, gen, kernels, launches))
+
+    # -- 45. the floor probes and the roofline floors ---------------------------------------
+    summary.update(floor_phases(smi, launches))
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

@@ -1,0 +1,312 @@
+"""Floor probes on the card: the rates that an H100 sustains for moving bytes
+and for float32 multiply-adds on the CUDA cores, beside the published peaks
+that the roofline model (`roofline.py`) divides by.
+
+    python -m mobilenet_tpu_torch.floors [--out PATH]
+
+The probe kernels are `csrc/floors.cu` (which names the TPU probes of the JAX
+package's tools/microbench_floors.py that they replace); each has its plain
+PyTorch version here, which the wrappers run on CPU tensors. The run times,
+with CUDA events at the audit geometries (batch 256, 112^2 x 64 down to
+7^2 x 1024):
+  - hbm_copy (an image's bytes by its own blocks) and hbm_copy_flat (one
+    grid-stride loop over the flat buffer), beside the library copy
+    `Tensor.copy_` as a yardstick the port never calls -> GB/s, read + write;
+  - the stencil, each variant (chain, ilp3, const, bf16, noepi, and the
+    TPU tool's grid and width forms) -> T-FMA/s, against the 33.5 T-FMA/s
+    (67 TFLOP/s) float32 CUDA-core peak;
+  - the implied multiply-add rate of the port's depthwise kernel at two V1
+    layers (9 x outputs over its time, HBM and epilogue included);
+  - one bf16 `torch.matmul` at 8192^3 -> TFLOP/s (the JAX tool leaves this
+    product to XLA outside any kernel);
+and writes them to build/achievable_h100.json for `roofline.py --achievable`.
+Needs a CUDA card; refuses to run without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from pathlib import Path
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from .ops import _build
+
+VARIANTS = ("chain", "ilp3", "const", "bf16", "noepi")
+# the TPU tool's audit geometries (V1 1.0-224's activations, batch 256)
+AUDIT_SHAPES = (("112x64", (256, 112, 112, 64)), ("56x128", (256, 56, 56, 128)),
+                ("28x256", (256, 28, 28, 256)), ("14x512", (256, 14, 14, 512)),
+                ("7x1024", (256, 7, 7, 1024)))
+# the TPU tool's stencil formulations: (label, variant, h, w, c, reps, images)
+STENCIL_RUNS = (("chain", "chain", 56, 56, 128, 256, 1), ("ilp3", "ilp3", 56, 56, 128, 256, 1),
+                ("const", "const", 56, 56, 128, 256, 1), ("bf16", "bf16", 56, 56, 128, 256, 1),
+                ("noepi", "noepi", 56, 56, 128, 256, 1),
+                ("chain_g8", "chain", 56, 56, 128, 64, 8),
+                ("ilp3_g8", "ilp3", 56, 56, 128, 64, 8),
+                ("const_c512", "const", 14, 14, 512, 256, 1))
+# NVIDIA's H100 SXM data sheet: HBM bytes/s, float32 CUDA-core FMA/s (67
+# TFLOP/s, an FMA counting two), bf16 tensor-core FLOP/s
+PUBLISHED = {"hbm_gbps": 3350.0, "cuda_core_tfmas": 33.5, "mxu_tflops": 989.0}
+OUT = Path(__file__).resolve().parents[1] / "build" / "achievable_h100.json"
+
+
+def _check(name: str, x: torch.Tensor) -> None:
+    if not x.is_contiguous() or x.data_ptr() % 16 or (x.numel() * x.element_size()) % 16:
+        raise ValueError(f"{name}: needs a contiguous, 16-byte aligned tensor of a "
+                         "multiple of 16 bytes")
+
+
+def hbm_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+def hbm_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of the batch x (N, ...), each image's bytes by its own blocks.
+    On CPU tensors the plain version; on CUDA tensors the kernel or raise."""
+    _check("hbm_copy", x)
+    if x.device.type == "cpu":
+        return hbm_copy_plain(x)
+    lib = _build.library()
+    out = torch.empty_like(x)
+    per_image = x[0].numel() * x.element_size()
+    code = lib.hbm_copy(x.data_ptr(), out.data_ptr(), int(x.shape[0]), per_image,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "hbm_copy")
+    hbm_copy.launches += 1
+    return out
+
+
+def hbm_copy_flat(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x's bytes as one flat buffer. On CPU tensors the plain
+    version; on CUDA tensors the kernel or raise."""
+    _check("hbm_copy_flat", x)
+    if x.device.type == "cpu":
+        return hbm_copy_plain(x)
+    lib = _build.library()
+    out = torch.empty_like(x)
+    code = lib.hbm_copy_flat(x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "hbm_copy_flat")
+    hbm_copy_flat.launches += 1
+    return out
+
+
+def stencil_plain(x: torch.Tensor, w: torch.Tensor, reps: int,
+                  variant: str = "chain") -> torch.Tensor:
+    """The TPU probe's arithmetic (`_stencil_kernel`) in plain ops: x
+    (..., C) bf16, w (3, 3, C) bf16; REPS rounds of the 9 products of each
+    element with its channel's weights summed (float32; bf16 rounds every
+    product and sum), then min(s + 1, 127) (noepi: none); rounded to bf16."""
+    dt = torch.bfloat16 if variant == "bf16" else torch.float32
+    acc, wt = x.to(dt), w.to(dt)
+    consts = [float(torch.tensor(1.0 + 0.001 * t, dtype=torch.float32)) for t in range(9)]
+    for _ in range(reps):
+        if variant == "ilp3":
+            rows = []
+            for dy in range(3):
+                s = acc * wt[dy, 0]
+                for dx in (1, 2):
+                    s = s + acc * wt[dy, dx]
+                rows.append(s)
+            s = (rows[0] + rows[1]) + rows[2]
+        else:
+            s = torch.zeros_like(acc)
+            for t in range(9):
+                s = s + acc * (consts[t] if variant == "const" else wt[t // 3, t % 3])
+        acc = s if variant == "noepi" else torch.clamp_max(s + 1.0, 127.0)
+    return acc.to(x.dtype)
+
+
+def stencil(x: torch.Tensor, w: torch.Tensor, reps: int, variant: str = "chain") -> torch.Tensor:
+    """The stencil probe on x (..., C) bf16 with weights w (3, 3, C) bf16.
+    On CPU tensors the plain version; on CUDA tensors the kernel or raise."""
+    c = int(x.shape[-1])
+    if variant not in VARIANTS:
+        raise ValueError(f"stencil: variant {variant!r} not in {VARIANTS}")
+    if (x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or tuple(w.shape) != (3, 3, c)
+            or not (x.is_contiguous() and w.is_contiguous()) or w.device != x.device
+            or reps < 0):
+        raise ValueError("stencil: needs contiguous bf16 x (..., C), w (3, 3, C), reps >= 0")
+    if x.device.type == "cpu":
+        return stencil_plain(x, w, reps, variant)
+    lib = _build.library()
+    out = torch.empty_like(x)
+    code = lib.stencil(x.data_ptr(), w.data_ptr(), out.data_ptr(), x.numel(), c, reps,
+                       VARIANTS.index(variant), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "stencil")
+    stencil.launches += 1
+    return out
+
+
+hbm_copy.launches = hbm_copy_flat.launches = stencil.launches = 0
+
+
+def cuda_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
+    """CUDA-event milliseconds per call of fn, after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# Tap weights: their sum is a channel's gain a round. Without the clamp
+# (noepi) the sum stays within 0.9-1.1, so that 256 rounds stay finite and
+# far from zero; under it, (0.05, 0.2) sums to 0.45-1.8.
+W_RANGE = {"noepi": (0.1, 0.122)}
+# The kernel contracts each product and sum into one FMA where the plain
+# version rounds twice: the float32 variants agree within one bf16 step of
+# the output (relative, no absolute term); the bf16 variant, every step
+# rounded on both sides, bit for bit.
+STENCIL_RTOL = 2 ** -7
+
+
+def stencil_inputs(n: int, h: int, w: int, c: int, device, variant: str = "chain",
+                   seed: int = 0):
+    """x in [0, 1) and positive tap weights (W_RANGE), bf16."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((n, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+    lo, hi = W_RANGE.get(variant, (0.05, 0.2))
+    wt = (lo + (hi - lo) * torch.rand((3, 3, c), generator=gen, device=device))
+    return x, wt.to(torch.bfloat16)
+
+
+def check_stencil(variant: str, n: int, h: int, w: int, c: int, reps: int,
+                  device) -> Dict[str, float]:
+    """The stencil on seeded inputs against its plain version, at
+    STENCIL_RTOL (bf16: equal); raises AssertionError where they disagree.
+    Over many rounds the output forgets x: with the clamp every element
+    tends to a value set by its channel's weights (127 where they sum above
+    1), and const's gain of 9.04 a round reaches 127 by round 4. So at 2
+    rounds (8 but for const) the check also requires that the plain output
+    on a second seeded x differ beyond the tolerance in over half of the
+    elements: a kernel that ignored x could not pass. Returns the max-abs
+    and max relative difference and that share ("sees_x")."""
+    x, wt = stencil_inputs(n, h, w, c, device, variant)
+    x2 = stencil_inputs(n, h, w, c, device, variant, seed=1)[0]
+    got, ref = stencil(x, wt, reps, variant), stencil_plain(x, wt, reps, variant)
+    other = stencil_plain(x2, wt, reps, variant).float()
+    got, ref = got.float(), ref.float()
+    name = f"stencil {variant} {tuple(x.shape)} x {reps} rounds"
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    diff = (got - ref).abs()
+    rtol = 0.0 if variant == "bf16" else STENCIL_RTOL
+    if bool((diff > rtol * ref.abs()).any()):
+        raise AssertionError(f"{name}: max-abs {float(diff.max()):.3e} beyond rtol {rtol}")
+    sees_x = float(((other - ref).abs() > STENCIL_RTOL * ref.abs()).float().mean())
+    if (reps <= 2 or (reps <= 8 and variant != "const")) and sees_x <= 0.5:
+        raise AssertionError(f"{name}: the output depends on x in only {sees_x:.1%} of the "
+                             "elements; the comparison would not see a kernel that ignores x")
+    return {"max_abs": float(diff.max()),
+            "max_rel": float((diff / ref.abs().clamp_min(1e-30)).max()), "sees_x": sees_x}
+
+
+def copy_rates(shape, fns: Dict[str, Callable]) -> Dict[str, Tuple[float, float]]:
+    """{name: (GB/s read + write, ms)} of each copy function on a bf16 batch."""
+    x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    nbytes = 2 * x.numel() * x.element_size()
+    out = {}
+    for name, fn in fns.items():
+        ms = cuda_ms(lambda: fn(x))
+        out[name] = (nbytes / (ms * 1e-3) / 1e9, ms)
+    return out
+
+
+def stencil_rate(variant: str, h: int, w: int, c: int, reps: int,
+                 images: int) -> Tuple[float, float]:
+    """(T-FMA/s, ms) of the stencil kernel: images x h x w x c elements,
+    reps x 9 multiply-adds each."""
+    x, wt = stencil_inputs(images, h, w, c, "cuda", variant)
+    ms = cuda_ms(lambda: stencil(x, wt, reps, variant), reps=5, warmup=1)
+    return reps * 9 * x.numel() / (ms * 1e-3) / 1e12, ms
+
+
+def implied_dw_rates() -> Dict[str, float]:
+    """The port's depthwise kernel's implied multiply-add rate, 9 x outputs
+    over its time (HBM and the bias + ReLU6 epilogue inside the window), at
+    two V1 1.0-224 layers, batch 256, bf16: T-FMA/s."""
+    from .ops.depthwise import depthwise
+
+    out = {}
+    for label, (n, h, c) in (("dw_14x512", (256, 14, 512)), ("dw_28x256", (256, 28, 256))):
+        x = torch.ones((n, h, h, c), dtype=torch.bfloat16, device="cuda")
+        w = torch.ones((3, 3, 1, c), dtype=torch.bfloat16, device="cuda")
+        b = torch.ones((c,), dtype=torch.bfloat16, device="cuda")
+        ms = cuda_ms(lambda: depthwise(x, w, 1, b, relu6=True))
+        out[label] = 9 * n * h * h * c / (ms * 1e-3) / 1e12
+    return out
+
+
+def mxu_rate(m: int = 8192, k: int = 8192, n: int = 8192) -> Tuple[float, float]:
+    """(TFLOP/s, ms) of one bf16 torch.matmul."""
+    a = torch.ones((m, k), dtype=torch.bfloat16, device="cuda")
+    b = torch.ones((k, n), dtype=torch.bfloat16, device="cuda")
+    ms = cuda_ms(lambda: a @ b, reps=5)
+    return 2 * m * k * n / (ms * 1e-3) / 1e12, ms
+
+
+def measure() -> Dict:
+    """Every probe once at the audit geometries."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the floor probes measure a CUDA card; torch.cuda.is_available() "
+                           "is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "hbm_copy_gbps": {}, "hbm_formulations": {}, "hbm_ms": {},
+           "stencil_formulations": {}, "stencil_ms": {}, "published": PUBLISHED,
+           "method": "the best probe kernel per unit; the library copy is a yardstick "
+                     "beside it, not a floor"}
+    fns = {"hbm_copy": hbm_copy, "hbm_copy_flat": hbm_copy_flat,
+           "library_copy": lambda x: torch.empty_like(x).copy_(x)}
+    for label, shape in AUDIT_SHAPES:
+        rates = copy_rates(shape, fns)
+        res["hbm_formulations"][label] = {k: v[0] for k, v in rates.items()}
+        res["hbm_ms"][label] = {k: v[1] for k, v in rates.items()}
+        res["hbm_copy_gbps"][label] = max(v[0] for k, v in rates.items()
+                                          if k != "library_copy")
+        torch.cuda.empty_cache()
+    for label, variant, h, w, c, reps, images in STENCIL_RUNS:
+        tfma, ms = stencil_rate(variant, h, w, c, reps, images)
+        res["stencil_formulations"][label] = tfma
+        res["stencil_ms"][label] = ms
+    res["stencil_tfmas"] = max(res["stencil_formulations"].values())
+    res["implied_dw_tfmas"] = implied_dw_rates()
+    res["mxu_tflops"], res["mxu_ms"] = mxu_rate()
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=str(OUT), help="where the JSON goes")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("mobilenet_tpu_torch.floors measures the card; "
+                         "torch.cuda.is_available() is False")
+    res = measure()
+    print(res["nvidia_smi"], flush=True)
+    for label, forms in res["hbm_formulations"].items():
+        print(f"copy {label}: " + ", ".join(f"{k} {v:.1f} GB/s" for k, v in forms.items()))
+    for label, tfma in res["stencil_formulations"].items():
+        print(f"stencil [{label}]: {tfma:.3f} T-FMA/s ({res['stencil_ms'][label]:.3f} ms)")
+    for label, tfma in res["implied_dw_tfmas"].items():
+        print(f"implied [{label}] depthwise kernel: {tfma:.3f} T-FMA/s")
+    print(f"bf16 matmul 8192^3: {res['mxu_tflops']:.1f} TFLOP/s")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

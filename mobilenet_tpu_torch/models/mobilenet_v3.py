@@ -15,19 +15,24 @@ Large). Backends per block:
             inside the kernel, the projection and the residual.
 Under a fused last block, conv_last -> pool -> head -> fc run as one
 fused_head kernel (ops/head.py). The stem convolution, normalize and softmax
-are plain ops on every route.
+are plain ops on every route. With the variant's chain knob on (`CHAIN_V3`,
+`CHAIN_V3_SMALL`; both off by default), runs of consecutive fused blocks go
+to the chain kernel (ops/v3_chain.py), one launch a run, bit-equal to the
+per-block kernel.
 
-The TPU's detours are not ported: the lane-packed block-0 and stride-2
-expand routes, `packed_expand`, the lane-packed SE kernel (`se_block_packed`,
-V3-Small's blocks 2 and 4-7 in the JAX package), the V3 chain kernel, and
-the `v3_fits` XLA fallback. The Hopper kernel takes the checkpoint's own
-widths on every block of Large and Small (V3-Small's block 0, which the JAX
-package runs on XLA ops, included); a block it cannot plan raises.
+The TPU's lane-packed layouts are not ported: the lane-packed block-0 and
+stride-2 expand routes, `packed_expand` and the lane-packed SE kernel
+(`se_block_packed`, V3-Small's blocks 2 and 4-7 in the JAX package) run on
+the V3 kernel, and the `v3_fits` XLA fallback is not needed. The Hopper
+kernel takes the checkpoint's own widths on every block of Large and Small
+(V3-Small's block 0, which the JAX package runs on XLA ops, included); a
+block it cannot plan raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -36,6 +41,7 @@ from ..ops import conv as ops
 from ..ops.head import fused_head
 from ..ops.preprocess import preprocess
 from ..ops.v3_block import v3_block
+from ..ops.v3_chain import v3_chain, v3_chain_fits
 from .mobilenet_v2 import make_divisible
 
 # Per-block rows: (exp_ratio, cout_base, kernel, stride, se, act) where kernel
@@ -76,6 +82,20 @@ V3_SMALL_ROWS: Tuple[Tuple[float, int, str, int, bool, str], ...] = (
 SE_RATIO = 0.25  # keras mobilenet_v3.py:311
 
 DW_BACKENDS = ("plain", "fused")
+
+# The chain kernel (ops/v3_chain.py): runs of consecutive fused bottlenecks
+# in one launch, bit-equal to the per-block kernel. The values mean what the
+# JAX package's CHAIN_V3 / CHAIN_V3_SMALL mean (models/mobilenet_v3.py):
+# True = greedy maximal runs; False = off; a collection of (start, stop)
+# block ranges = exactly those runs (each still subject to v3_chain_fits).
+# Large: False, the JAX value. Small: False, where the JAX package has True:
+# there PACKED_SE_SMALL = True ends its chain at every block, so the JAX
+# package's shipped V3-Small route never forms one, and False keeps the
+# port's default V3-Small route equal to what it runs. Turning either knob on
+# by default is a benchmark decision. The JAX package's CHAIN_V3_BN, a TPU
+# VMEM batch tile, is not ported: each stage's tile comes from v3_plan.
+CHAIN_V3 = False
+CHAIN_V3_SMALL = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,20 +293,98 @@ def forward_v3(params: Dict[str, Any], x: torch.Tensor, config: V3Config, *,
     return logits
 
 
+def _chain_stop(i: int, knob):
+    """None (greedy from i), a stop index (the explicit range starting at
+    i), or -1 (no chain starts at i) under a chain knob's value (the JAX
+    package's _chain_ranges)."""
+    if knob is True:
+        return None
+    if knob is False:
+        return -1
+    for start, stop in knob:
+        if start == i:
+            return stop
+    return -1
+
+
+def chain_runs(config: V3Config, routing, n: int, h: int, w: int,
+               itemsize: int) -> Dict[int, int]:
+    """{start: stop} of the block runs that the variant's chain knob forms
+    on an (n, h, w) input to block 0, from the shapes alone. At each block
+    outside a run: the longest eligible run from it (up to the knob's stop
+    for an explicit range), shortened from its end until v3_chain_fits takes
+    it; fewer than two blocks is no run. Eligible, as in the JAX package's
+    _try_chain_v3: routing "fused", an expansion, k 3 or 5, stride 1 or 2,
+    an even input at stride 2. Its two breaks for the lane-packed routes are
+    left out: those are TPU layouts that the port runs on v3_block. Kept
+    per (config, routing, shape, knob), since every forward asks."""
+    knob = CHAIN_V3_SMALL if config.variant == "small" else CHAIN_V3
+    if knob is False:
+        return {}
+    if knob is not True:
+        knob = tuple((int(start), int(stop)) for start, stop in knob)
+    return dict(_chain_runs(config, tuple(routing), n, h, w, itemsize, knob))
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_runs(config: V3Config, routing: Tuple[str, ...], n: int, h: int, w: int,
+                itemsize: int, knob) -> Dict[int, int]:
+    defs = config.block_defs
+    sizes = []
+    for bd in defs:
+        sizes.append((h, w))
+        h, w = -(-h // bd.stride), -(-w // bd.stride)
+    runs, i = {}, 0
+    while i < len(defs):
+        rng = _chain_stop(i, knob)
+        run = []
+        for j in range(i, len(defs) if rng is None else min(rng, len(defs))):
+            bd, (hh, ww) = defs[j], sizes[j]
+            if (routing[j] != "fused" or not bd.has_expand or bd.kernel not in (3, 5)
+                    or bd.stride not in (1, 2) or (bd.stride == 2 and (hh % 2 or ww % 2))):
+                break
+            run.append((bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid))
+        while len(run) >= 2 and not v3_chain_fits(n, *sizes[i], run, itemsize):
+            run.pop()
+        if len(run) >= 2:
+            runs[i] = i + len(run)
+            i += len(run)
+        else:
+            i += 1
+    return runs
+
+
+def _kernel_block(bd: V3BlockDef, blk: Dict[str, Any]) -> Dict[str, Any]:
+    """One block's tensors and options as v3_block / v3_chain take them."""
+    se = blk.get("se", {})
+    return dict(exp_w=blk["exp"]["w"] if bd.has_expand else None,
+                exp_b=blk["exp"]["b"] if bd.has_expand else None,
+                dw_w=blk["dw"]["w"], dw_b=blk["dw"]["b"], prj_w=blk["prj"]["w"],
+                prj_b=blk["prj"]["b"], se_w1=se.get("w1"), se_b1=se.get("b1"),
+                se_w2=se.get("w2"), se_b2=se.get("b2"), k=bd.kernel, stride=bd.stride,
+                act=bd.act, residual=bd.has_res)
+
+
 def run_blocks_v3(params, y, config: V3Config, routing,
                   acts: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """The bottlenecks, per-block backend routing. A fused block whose
-    shape the kernel cannot plan raises; nothing falls back to plain ops."""
+    """The bottlenecks, per-block backend routing; runs that the chain knob
+    forms (`chain_runs`; never under collect) go to one chain launch each. A
+    fused block whose shape the kernel cannot plan raises; nothing falls
+    back to plain ops."""
     collect = acts is not None
+    runs = {} if collect else chain_runs(config, routing, int(y.shape[0]), int(y.shape[1]),
+                                         int(y.shape[2]), y.element_size())
+    skip_until = 0
     for i, (bd, blk) in enumerate(zip(config.block_defs, params["blocks"])):
+        if i < skip_until:
+            continue
+        if i in runs:
+            skip_until = runs[i]
+            y = v3_chain(y, [_kernel_block(d, b) for d, b in zip(
+                config.block_defs[i:skip_until], params["blocks"][i:skip_until])])
+            continue
         if routing[i] == "fused" and not collect:
-            se = blk.get("se", {})
-            y = v3_block(y, blk["exp"]["w"] if bd.has_expand else None,
-                         blk["exp"]["b"] if bd.has_expand else None,
-                         blk["dw"]["w"], blk["dw"]["b"], blk["prj"]["w"], blk["prj"]["b"],
-                         k=bd.kernel, stride=bd.stride, act=bd.act,
-                         se_w1=se.get("w1"), se_b1=se.get("b1"), se_w2=se.get("w2"),
-                         se_b2=se.get("b2"), residual=bd.has_res)
+            y = v3_block(y, **_kernel_block(bd, blk))
             continue
         z = y
         if bd.has_expand:

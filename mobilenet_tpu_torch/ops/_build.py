@@ -36,7 +36,7 @@ _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 build_log: str = ""
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6, pw_act
 _BLOCK = [_P] * 6 + [_I] * 8
 # x, conv_w, conv_b, w0, b0, w1, b1, pooled, out | N, HW, C, E, conv_act,
@@ -73,12 +73,21 @@ _SIGNATURES = {
     "depthwise_f32": [_P] * 4 + [_I] * 6, "depthwise_bf16": [_P] * 4 + [_I] * 6,
     "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
     "v3_block_bf16": _V3, "v3_block_f32": _V3,
+    # x, out, scratch0, scratch1, partial | N, H, W, stages | ptrs (stages x
+    # 10 weight pointers), dims (stages x 12 ints): host arrays; grid: one
+    # host int the launch's block count is written to
+    "v3_chain_bf16": [_P] * 5 + [_I] * 4 + [_P] * 3,
+    "v3_chain_f32": [_P] * 5 + [_I] * 4 + [_P] * 3,
     "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
     # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
     # relu6 | normalize scale, offset
     "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0,
     # x, w, b, out | N, H, W, Cout, relu6
     "stem_conv_f32": [_P] * 4 + [_I] * 5, "stem_conv_bf16": [_P] * 4 + [_I] * 5,
+    # the floor probes: x, out | N, bytes per image; x, out | bytes;
+    # x, w, out | elements, C, reps, variant
+    "hbm_copy": [_P] * 2 + [_I, _L], "hbm_copy_flat": [_P] * 2 + [_L],
+    "stencil": [_P] * 3 + [_L] + [_I] * 3,
 }
 # C functions that launch nothing: (argument types, no stream; result type).
 _HOST_SIGNATURES = {

@@ -63,6 +63,51 @@ def v3_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int, stride:
                                                   itemsize), max_outputs=MAX_OUTPUTS_V3, k=k)
 
 
+def block_weights(name: str, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se) -> list:
+    """The block's weight tensors in kernel order, None left out; raises
+    unless exp_w comes with exp_b and the four SE tensors all or none."""
+    identity, has_se = exp_w is None, se[0] is not None
+    if (exp_b is None) != identity or any((t is None) == has_se for t in se):
+        raise ValueError(f"{name}: give exp_w with exp_b, and all four SE tensors or none")
+    weights = ([] if identity else [exp_w, exp_b]) + [dw_w, dw_b, prj_w, prj_b]
+    return weights + (list(se) if has_se else [])
+
+
+def check_block(name: str, n: int, h: int, w: int, cin: int, exp_w, exp_b, dw_w, dw_b,
+                prj_w, prj_b, se, *, k: int, stride: int, act: str, residual: bool,
+                itemsize: int) -> Tuple[int, int, int, Tuple[int, int]]:
+    """The kernel's checks of one bottleneck on an (n, h, w, cin) input
+    (weights as `block_weights` gives them): weight shapes, k, stride, act,
+    the residual, channel counts, and a tile plan. Returns (E, Cout, Se,
+    (TH, TW)); raises ValueError on what the kernel does not take."""
+    se_w1, se_b1, se_w2, se_b2 = se
+    e = cin if exp_w is None else int(exp_w.shape[-1])
+    cout = int(prj_w.shape[-1])
+    sem = 0 if se_w1 is None else int(se_w1.shape[-1])
+    shapes_ok = (tuple(dw_w.shape) == (k, k, 1, e) and tuple(dw_b.shape) == (e,)
+                 and tuple(prj_w.shape) == (e, cout) and tuple(prj_b.shape) == (cout,))
+    if exp_w is not None:
+        shapes_ok &= tuple(exp_w.shape) == (cin, e) and tuple(exp_b.shape) == (e,)
+    if se_w1 is not None:
+        shapes_ok &= (tuple(se_w1.shape) == (e, sem) and tuple(se_b1.shape) == (sem,)
+                      and tuple(se_w2.shape) == (sem, e) and tuple(se_b2.shape) == (e,))
+    if not shapes_ok:
+        raise ValueError(f"{name}: weight shapes do not fit Cin={cin}, E={e}, k={k}")
+    if k not in (3, 5) or stride not in (1, 2) or act not in BLOCK_ACTS:
+        raise ValueError(f"{name}: k={k} stride={stride} act={act!r}: the kernel takes "
+                         f"k 3 or 5, stride 1 or 2 and an act in {BLOCK_ACTS}")
+    if residual and (stride != 1 or cin != cout):
+        raise ValueError(f"{name}: a residual needs stride 1 and Cin == Cout")
+    check_channels(name, cin, e, cout)
+    if se_w1 is not None and sem <= 0:
+        raise ValueError(f"{name}: SE width {sem}")
+    plan = v3_plan(n, h, w, cin, e, cout, k, stride, sem, itemsize)
+    if plan is None:
+        raise ValueError(f"{name}: no tile of the kernel takes ({n},{h},{w},{cin})->{cout} "
+                         f"E{e} k{k} s{stride} SE{sem} (v3_plan)")
+    return e, cout, sem, plan
+
+
 @ieee_f32
 def v3_block_plain(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k: int, stride: int,
                    act: str, se_w1=None, se_b1=None, se_w2=None, se_b2=None,
@@ -107,39 +152,15 @@ def v3_block(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k: int, stride: int, 
     identity = exp_w is None
     se = (se_w1, se_b1, se_w2, se_b2)
     has_se = se_w1 is not None
-    if (exp_b is None) != identity or any((t is None) == has_se for t in se):
-        raise ValueError(f"{name}: give exp_w with exp_b, and all four SE tensors or none")
-    weights = ([] if identity else [exp_w, exp_b]) + [dw_w, dw_b, prj_w, prj_b]
-    weights += list(se) if has_se else []
+    weights = block_weights(name, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se)
     sfx = check_kernel_args(name, x, *weights)
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be NHWC, got {tuple(x.shape)}")
     n, h, w, cin = x.shape
-    e = cin if identity else int(exp_w.shape[-1])
-    cout = int(prj_w.shape[-1])
-    sem = int(se_w1.shape[-1]) if has_se else 0
-    shapes_ok = (tuple(dw_w.shape) == (k, k, 1, e) and tuple(dw_b.shape) == (e,)
-                 and tuple(prj_w.shape) == (e, cout) and tuple(prj_b.shape) == (cout,))
-    if not identity:
-        shapes_ok &= tuple(exp_w.shape) == (cin, e) and tuple(exp_b.shape) == (e,)
-    if has_se:
-        shapes_ok &= (tuple(se_w1.shape) == (e, sem) and tuple(se_b1.shape) == (sem,)
-                      and tuple(se_w2.shape) == (sem, e) and tuple(se_b2.shape) == (e,))
-    if not shapes_ok:
-        raise ValueError(f"{name}: weight shapes do not fit Cin={cin}, E={e}, k={k}")
-    if k not in (3, 5) or stride not in (1, 2) or act not in BLOCK_ACTS:
-        raise ValueError(f"{name}: k={k} stride={stride} act={act!r}: the kernel takes "
-                         f"k 3 or 5, stride 1 or 2 and an act in {BLOCK_ACTS}")
-    if residual and (stride != 1 or cin != cout):
-        raise ValueError(f"{name}: a residual needs stride 1 and Cin == Cout")
-    check_channels(name, cin, e, cout)
-    if has_se and sem <= 0:
-        raise ValueError(f"{name}: SE width {sem}")
+    e, cout, sem, plan = check_block(name, n, h, w, cin, exp_w, exp_b, dw_w, dw_b, prj_w,
+                                     prj_b, se, k=k, stride=stride, act=act,
+                                     residual=residual, itemsize=x.element_size())
     check_aligned(name, x, *weights)
-    plan = v3_plan(n, h, w, cin, e, cout, k, stride, sem, x.element_size())
-    if plan is None:
-        raise ValueError(f"{name}: no tile of the kernel takes ({n},{h},{w},{cin})->{cout} "
-                         f"E{e} k{k} s{stride} SE{sem} (v3_plan)")
     if x.device.type == "cpu":
         return v3_block_plain(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, k=k, stride=stride,
                               act=act, se_w1=se_w1, se_b1=se_b1, se_w2=se_w2, se_b2=se_b2,

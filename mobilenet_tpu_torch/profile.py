@@ -1,12 +1,13 @@
 """Where the device time of one pipeline forward goes, by kernel name.
 
     python -m mobilenet_tpu_torch.profile [--model v1|v2|v3|v3small] [--int8] \\
-        [--fuse-stem] [--batch 256 1] [--steps 10]
+        [--fuse-stem] [--chain] [--batch 256 1] [--steps 10]
 
 Builds the 1.0-224 pipeline of MobileNet-V1, -V2 (--model v2), -V3-Large
 (--model v3) or -V3-Small (--model v3small), bf16 or exact int8 (--int8),
 V1 bf16 with the fused normalize + stem + block-0 kernel (--fuse-stem),
-on the card, warms it on one device-resident uint8 batch, then records
+V3 bf16 with the chain kernel's greedy runs (--chain: the variant's chain
+knob on), on the card, warms it on one device-resident uint8 batch, then records
 `--steps` forwards under torch.profiler (CPU + CUDA).
 Prints one JSON line: the window's wall time (CUDA events), the device
 busy time (the sum of the device activities' durations: one stream, so they
@@ -67,11 +68,15 @@ def main(argv=None):
     p.add_argument("--int8", action="store_true", help="the model's exact int8 path")
     p.add_argument("--fuse-stem", action="store_true",
                    help="V1 float: InferencePipeline(fuse_stem=True)")
+    p.add_argument("--chain", action="store_true",
+                   help="V3 float: the variant's chain knob on (greedy runs)")
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--steps", type=int, default=10)
     args = p.parse_args(argv)
     if args.fuse_stem and (args.int8 or args.model != "v1"):
         p.error("--fuse-stem is the V1 float path's option")
+    if args.chain and (args.int8 or args.model not in ("v3", "v3small")):
+        p.error("--chain is the V3 float paths' option")
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.profile measures the card; "
                          "torch.cuda.is_available() is False")
@@ -81,7 +86,12 @@ def main(argv=None):
                 "v3small": Int8PipelineV3}[args.model](cfg, device="cuda")
     else:
         pipe = InferencePipeline(cfg, device="cuda", fuse_stem=args.fuse_stem)
+    if args.chain:
+        from .models import mobilenet_v3  # noqa: PLC0415
+
+        setattr(mobilenet_v3, "CHAIN_V3_SMALL" if args.model == "v3small" else "CHAIN_V3", True)
     path = "int8" if args.int8 else "bfloat16" + (" fuse_stem" if args.fuse_stem else "")
+    path += " chain" if args.chain else ""
     for batch in args.batch:
         print(json.dumps({"model": args.model, "path": path,
                           **profile(pipe, batch, args.steps)}), flush=True)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at the
 ragged and narrow shapes of the whole alpha grid (partial pixel and channel
 tiles, C = 8 .. 1024), the V1 and V2 kernel routes (float and int8), the
-V3-Large and -Small float and int8 routes against the plain routes, the
+V3-Large and -Small float and int8 routes against the plain routes, the V3
+chain against the per-block kernel bit for bit, the floor probes, the
 float32 stem and matmuls against float64 without any TF32 flag set or with
 the float32 matmul precision at "high", and `cli verify` on the card.
 Marked `cuda`: skipped without a card. Imports no JAX, so it runs where JAX
@@ -16,7 +17,7 @@ import torch
 
 from mobilenet_tpu_torch import (
     InferencePipeline, Int8Pipeline, Int8PipelineV2, Int8PipelineV3, ModelConfig, V2Config,
-    V3Config,
+    V3Config, floors,
 )
 from mobilenet_tpu_torch.checkpoints import (
     fold_bn, fold_bn_v2, fold_bn_v3, init_params, init_params_v2, init_params_v3,
@@ -45,6 +46,7 @@ from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, 
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
     v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
 )
+from mobilenet_tpu_torch.ops.v3_chain import v3_chain, v3_chain_plain
 from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
 from mobilenet_tpu_torch.quant import ops as qops
 from mobilenet_tpu_torch.quant.model import forward_i8
@@ -638,6 +640,81 @@ def test_v3_small_pipeline_routes_agree(dev, batch):
     assert rms(got - ref32) <= 1.5 * rms(ref - ref32) + 6e-2
 
 
+# (n, h, cin, blocks: (cin, e, cout, k, stride, se, act, residual))
+V3_CHAINS = [
+    (2, 16, 16, [(16, 64, 24, 3, 2, 0, "relu", False),        # V3-L b01-b04 classes
+                 (24, 72, 24, 3, 1, 0, "relu", True),
+                 (24, 72, 40, 5, 2, 24, "relu", False),
+                 (40, 120, 40, 5, 1, 32, "relu", True)]),
+    (1, 14, 80, [(80, 480, 112, 3, 1, 120, "hswish", False),  # b10-b13 classes
+                 (112, 672, 112, 3, 1, 168, "hswish", True),
+                 (112, 672, 160, 5, 2, 168, "hswish", False),
+                 (160, 960, 160, 5, 1, 240, "hswish", True)]),
+    (3, 9, 40, [(40, 240, 40, 5, 1, 64, "hswish", True),      # odd side: V3-S b04, b06
+                (40, 120, 48, 5, 1, 32, "hswish", False)]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,shapes", V3_CHAINS)
+def test_v3_chain(dev, dtype, n, h, cin, shapes):
+    """One chain launch, bit-equal to v3_block called per block in sequence
+    (the TPU kernel's contract), and within the kernel tolerance of its
+    plain version."""
+    rng = np.random.default_rng(n * h + cin)
+    x = _t(rng, (n, h, h, cin), dtype, dev, 0.7)
+    blocks = []
+    for ci, e, co, k, stride, se, act, residual in shapes:
+        kw = _v3_args(rng, dev, dtype, 1, 1, ci, e, co, k, se)
+        del kw["x"]
+        blocks.append(dict(kw, k=k, stride=stride, act=act, residual=residual))
+    ref = x
+    for b in blocks:
+        ref = v3_block(ref, **b)
+    before = v3_chain.launches
+    got = v3_chain(x, blocks)
+    assert v3_chain.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    _close(got, v3_chain_plain(x, blocks), dtype)
+    assert 0 < v3_chain.grid <= n * h * h
+    # a second call, on a new input of the same shape, gives the same (its
+    # checks and tables kept); a replaced weight and a weight changed in
+    # place are both seen
+    assert torch.equal(v3_chain(x.clone(), blocks), ref)
+    blocks[-1] = dict(blocks[-1], prj_b=blocks[-1]["prj_b"] + 1)
+    blocks[0]["dw_b"].add_(0.5)
+    ref = x
+    for b in blocks:
+        ref = v3_block(ref, **b)
+    got = v3_chain(x, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("variant", ["large", "small"])
+def test_v3_chained_route(dev, monkeypatch, variant):
+    """1.0-96, batch 2 and 1: with the variant's chain knob on, one chain
+    launch a forward (blocks 1 to the last) beside block 0's v3_block, and
+    logits equal to the per-block route's bit for bit, in float32 and bf16."""
+    knob = "CHAIN_V3_SMALL" if variant == "small" else "CHAIN_V3"
+    for dtype in ("float32", "bfloat16"):
+        cfg = V3Config(variant, 1.0, 96, compute_dtype=dtype)
+        pipe = InferencePipeline(cfg, device="cuda")
+        for batch in (2, 1):
+            x = torch.from_numpy(np.random.default_rng(batch).uniform(
+                -1, 1, (batch, 96, 96, 3)).astype(np.float32)).to(dev, pipe.dtype)
+            with torch.inference_mode():
+                monkeypatch.setattr(mobilenet_v3, knob, False)
+                base = mobilenet_v3.forward_v3(pipe.params, x, cfg, dw_backend="auto")
+                monkeypatch.setattr(mobilenet_v3, knob, True)
+                counts = (v3_chain.launches, v3_block.launches)
+                got = mobilenet_v3.forward_v3(pipe.params, x, cfg, dw_backend="auto")
+                torch.cuda.synchronize()
+            assert (v3_chain.launches - counts[0], v3_block.launches - counts[1]) == (1, 1)
+            assert torch.equal(got, base)
+
+
 # -- MobileNet-V3 int8 ---------------------------------------------------------
 
 
@@ -925,3 +1002,31 @@ def test_fused_stem_float32(dev, res, fuses):
     ref = base.run_batch(imgs)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-3)
 
+
+# -- the floor probes ------------------------------------------------------------
+
+
+def test_floor_copies(dev):
+    """Both copy probes equal their input, one launch each."""
+    for shape in ((3, 7, 7, 1024), (2, 112, 112, 64), (5, 3, 3, 8)):
+        x = torch.randn(shape, device=dev).to(torch.bfloat16)
+        for fn in (floors.hbm_copy, floors.hbm_copy_flat):
+            before = fn.launches
+            got = fn(x)
+            assert fn.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("variant", floors.VARIANTS)
+def test_floor_stencil(dev, variant):
+    """The stencil probe against its plain version (`floors.check_stencil`):
+    bf16 (every step rounded on both sides) bit for bit; the float32
+    variants within one bf16 step of the output (2^-7 relative, no absolute
+    term), since the kernel contracts each product and sum into one FMA
+    where the plain version rounds twice. At 2 and 8 rounds the output must
+    still depend on x (64 rounds: the weights set it); one launch a call."""
+    for reps in (2, 8, 64):
+        before = floors.stencil.launches
+        floors.check_stencil(variant, 2, 14, 14, 64, reps, dev)  # raises on a disagreement
+        assert floors.stencil.launches == before + 1

@@ -33,6 +33,9 @@ def test_import_builds_nothing():
     import mobilenet_tpu_torch.ops.inverted_residual_i8  # noqa: F401
     import mobilenet_tpu_torch.ops.v3_block  # noqa: F401
     import mobilenet_tpu_torch.ops.v3_block_i8  # noqa: F401
+    import mobilenet_tpu_torch.ops.v3_chain  # noqa: F401
+    import mobilenet_tpu_torch.floors  # noqa: F401
+    import mobilenet_tpu_torch.roofline  # noqa: F401
     import mobilenet_tpu_torch.quant.v2  # noqa: F401
     import mobilenet_tpu_torch.quant.v3  # noqa: F401
     from mobilenet_tpu_torch.ops import _build
