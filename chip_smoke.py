@@ -10,7 +10,11 @@ file; imports nothing of JAX. Phases, one JSON line each:
   2. each float kernel against its plain PyTorch version at the main-path
      shapes of MobileNet-V1 1.0-224: float32 at a tight tolerance (TF32
      off), then bfloat16 at the working tolerance; max-abs error,
-     CUDA-event times and the bound (below);
+     CUDA-event times and the bound (below); for the separable block also
+     the time of its unfused library sequence
+     (`block_times.separable_library`: cuDNN's grouped conv + bias, clamp,
+     matmul + bias, clamp; phase 10 the same for the linear block 0), a
+     yardstick the port never calls;
   3. the bf16 1.0-224 pipeline, kernel route against the plain route, at
      batch 256 and batch 1 (logits tolerance, top-1), and a float32
      full-network check at batch 2;
@@ -176,7 +180,9 @@ bound_ms is the least time the card could take for a kernel's work: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s, and its operations (multiply-adds count 2) over the
 peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32 outside the
-tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet. No TF32
+tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet. Depthwise
+and stem multiply-adds (one or three input channels: no matrix unit shape)
+count at the 67 TFLOP/s of the CUDA cores. No TF32
 flag is set anywhere: float32 products run in IEEE float32 by default, and
 the float32 stem turns cuDNN's TF32 off around its own call.
 """
@@ -195,6 +201,7 @@ import time
 import numpy as np
 import torch
 
+from mobilenet_tpu_torch.block_times import separable_library
 from mobilenet_tpu_torch.floors import cuda_ms
 
 # bf16 kernel vs plain: the depthwise result is rounded to bf16 before the
@@ -234,7 +241,8 @@ ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
 # No single PyTorch call computes the fused kernels' functions (fused dw+pw
 # with requant, pool+fc, K chained blocks, int8 dw+requant, fused expand +
 # dw + projection with or without requants). The standalone float depthwise
-# has a nearest library form (phase 31).
+# has a nearest library form (phase 31), the float separable block an unfused
+# library sequence (phase 2, `block_times.separable_library`).
 LIBRARY_MS = None
 
 
@@ -247,13 +255,18 @@ def bound(nbytes: float, ops: float, kind: str):
 
 def block_work(n, h, cin, cout, stride, kind, k=1):
     """(bytes, ops) of k depthwise-separable blocks on (n, h, h, cin): the
-    input and output once, the weights once."""
+    input and output once, the weights once. The depthwise multiply-adds
+    count at the CUDA cores' float32 rate (one input channel: no matrix unit
+    shape, as dw_work), so they enter `ops` scaled to the pointwise's rate:
+    bound(*block_work(..., kind), kind) takes pointwise / peak[kind] +
+    depthwise / peak["f32"]."""
     act, w, b, m = ELEM_BYTES[kind]
     ho = -(-h // stride)
     pix_out = n * ho * ho
     weights = k * (9 * cin * w + cin * (b + m) + cin * cout * w + cout * (b + m))
     nbytes = n * h * h * cin * act + weights + pix_out * cout * act
-    ops = k * (2 * 9 * pix_out * cin + 2 * pix_out * cin * cout)
+    dw_ops = 2 * 9 * pix_out * cin * PEAK_OPS_PER_S[kind] / PEAK_OPS_PER_S["f32"]
+    ops = k * (dw_ops + 2 * pix_out * cin * cout)
     return nbytes, ops
 
 
@@ -539,11 +552,15 @@ FLOAT_ROW = dict(max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0, bou
                  bytes_ms=0.0, ops_ms=0.0, library_ms=LIBRARY_MS)
 
 
-def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16, work):
+def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16, work,
+                lfn=None):
     """One float kernel at one shape: float32 then bfloat16 against its
-    plain version (tolerances above), CUDA-event times of both, the bound.
-    The bf16 numbers, times `count` (the shape's blocks per forward), add to
-    the kernel's row in `summary`."""
+    plain version (tolerances above), CUDA-event times of both, the bound,
+    and the time of `lfn`, a library sequence of the same function, where
+    given. The bf16 numbers, times `count` (the shape's blocks per forward),
+    add to the kernel's row in `summary`."""
+    from mobilenet_tpu_torch.ops.conv import no_tf32
+
     row = {}
     for tag, args, atol, rtol in (("f32", args_f32, F32_ATOL, F32_RTOL),
                                   ("bf16", args_bf16, BF16_ATOL, BF16_RTOL)):
@@ -553,7 +570,11 @@ def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16
         err = compare(f"{kname} {shape_name} {tag}", got, ref, atol, rtol)
         kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
         row[tag] = {"max_abs_err": err, "ms": kms, "plain_ms": pms,
-                    "atol": atol, "rtol": rtol}
+                    "atol": atol, "rtol": rtol, "library_ms": LIBRARY_MS}
+        if lfn is not None:
+            with no_tf32(args[0]):
+                lib_call = lfn(*args)
+                row[tag]["library_ms"] = cuda_ms(lib_call)
         b_ms, b_by, t_b, t_o = bound(*work(tag), tag)
         row[tag].update(bound_ms=b_ms, bound_by=b_by)
         s = summary[kname]
@@ -564,10 +585,15 @@ def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16
             s["bound_ms"] += count * b_ms
             s["bytes_ms"] += count * t_b
             s["ops_ms"] += count * t_o
+            if lfn is not None:
+                s["library_ms"] += count * row[tag]["library_ms"]
         else:
             s["max_abs_err_f32"] = max(s["max_abs_err_f32"], err)
-    emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count,
-         library_ms=LIBRARY_MS, **row)
+    emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count, **row)
+
+
+SEPARABLE_LIBRARY = ("F.conv2d(groups=C, channels-last, TF-SAME) + bias, clamp_, "
+                     "torch.matmul, add_, clamp_")
 
 
 def rand_head(gen, n, hw, c, conv, posts, dtype):
@@ -732,6 +758,7 @@ def v2_phases(smi, gen, kernels, launches):
     }
     for s in summary.values():
         s.update(FLOAT_ROW)
+    summary["separable_block[linear]"].update(library_ms=0.0, library=SEPARABLE_LIBRARY)
 
     # -- 10. V2 kernels vs plain ------------------------------------------------
     lib = _build.library()
@@ -744,7 +771,8 @@ def v2_phases(smi, gen, kernels, launches):
                         lambda *a: separable_block(*a, pw_act=False),
                         lambda *a: separable_block_plain(*a, pw_act=False),
                         mk(torch.float32), mk(torch.bfloat16),
-                        lambda kind: block_work(n, h, cin, cout, stride, kind))
+                        lambda kind: block_work(n, h, cin, cout, stride, kind),
+                        lambda *a: separable_library(*a, pw_act=False))
         else:
             e, res = t * cin, stride == 1 and cin == cout
             for b, item in ((256, 2), (1, 2), (256, 4)):
@@ -2136,12 +2164,14 @@ def main() -> int:
     }
     for s in summary.values():
         s.update(FLOAT_ROW)
+    summary["separable_block"].update(library_ms=0.0, library=SEPARABLE_LIBRARY)
 
     for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
         mk = lambda dt: rand_block(gen, n, h, cin, cout, dt) + (stride, True)  # noqa: E731
         check_float(summary, "separable_block", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}",
                     cnt, separable_block, separable_block_plain, mk(torch.float32),
-                    mk(torch.bfloat16), lambda kind: block_work(n, h, cin, cout, stride, kind))
+                    mk(torch.bfloat16), lambda kind: block_work(n, h, cin, cout, stride, kind),
+                    separable_library)
         torch.cuda.empty_cache()
     hw, c = cfg.final_spatial, cfg.feature_channels
     for n in (256, 1):

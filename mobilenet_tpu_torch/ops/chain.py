@@ -11,7 +11,7 @@ import torch
 
 from . import _build
 from .separable_block import (
-    check_channels, check_kernel_args, separable_block_plain,
+    check_aligned, check_channels, check_kernel_args, plan_for, separable_block_plain,
 )
 
 # The two inter-stage buffers are meant to stay in the H100's 50 MB L2; a
@@ -82,11 +82,14 @@ def chain(x, dw_ws, dw_bs, pw_ws, pw_bs, relu6: bool = True) -> torch.Tensor:
     lib = _build.library()
     out = torch.empty_like(x)
     scratch = torch.empty((2,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    args = [x.data_ptr(), dw_ws.data_ptr(), dw_bs.data_ptr(), pw_ws.data_ptr(),
+            pw_bs.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+            out.data_ptr(), n, hh, ww, c, k, int(relu6)]
+    if sfx == "bf16":  # the per-block kernel's plan: bit-equal stages
+        check_aligned(name, x, dw_ws, dw_bs, pw_ws, pw_bs)
+        args += plan_for(x, c, c, 1)
     code = getattr(lib, f"chain_{sfx}")(
-        x.data_ptr(), dw_ws.data_ptr(), dw_bs.data_ptr(), pw_ws.data_ptr(),
-        pw_bs.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        out.data_ptr(), n, hh, ww, c, k, int(relu6),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
     chain.launches += 1
     return out

@@ -13,7 +13,10 @@ from mobilenet_tpu.ops.pallas_block_packed import (
     pack, separable_block_packed, separable_block_packed_s2, unpack,
 )
 from mobilenet_tpu.ops.pallas_block_packed_mxu import separable_block_packed_mxu
-from mobilenet_tpu_torch.ops.separable_block import separable_block, separable_block_plain
+from mobilenet_tpu_torch.ops.separable_block import (
+    CHUNK, H100_SMS, SMEM_LIMIT, chunk_groups, separable_block, separable_block_plain,
+    separable_plan, separable_smem_bytes, slice_widths,
+)
 from mobilenet_tpu_torch.utils.golden import MM_TOL
 
 # float32: the JAX kernel tests' tolerance (tests/test_pallas_block.py).
@@ -141,3 +144,131 @@ def test_wrapper_rejects(case):
         x = x.transpose(1, 2)
     with pytest.raises(ValueError):
         separable_block(x, dw_w, dw_b, pw_w, pw_b, stride, True)
+
+
+# -- the bf16 kernel's plan (csrc/separable_wgmma.cuh), mirrored on the CPU --
+
+
+def _v1_shapes(alpha, res, batch):
+    from mobilenet_tpu_torch import ModelConfig
+    cfg = ModelConfig(alpha, res)
+    hw, cin, out = res // 2, cfg.stem_channels, []
+    for stride, cout in zip(cfg.block_strides, cfg.block_channels):
+        out.append((batch, hw, hw, cin, cout, stride))
+        hw, cin = -(-hw // stride), cout
+    return out
+
+
+PLAN_GRID = ([s for a in (0.25, 0.5, 0.75, 1.0) for r in (128, 160, 224) for b in (1, 8, 256)
+              for s in _v1_shapes(a, r, b)]
+             + [(256, 112, 112, 32, 16, 1), (1, 112, 112, 32, 16, 1),  # V2 block 0
+                (2, 9, 9, 40, 136, 1), (3, 18, 18, 24, 40, 2), (2, 7, 7, 2048, 200, 1),
+                (1, 3, 1000, 8, 8, 1), (1, 4, 2000, 8, 16, 2), (4, 1, 1, 64, 64, 1),
+                (2, 5, 11, 3072, 24, 1), (7, 30, 2, 16, 8, 2)])
+
+
+@pytest.mark.parametrize("shape", PLAN_GRID[::7] + PLAN_GRID[-12:])
+def test_plan_fits_the_card(shape):
+    """Every plan fits 227 KB of shared memory, a tile at most 64 pixels a
+    warpgroup, window sides within a TMA box, a panel of whole 64-channel
+    atoms no wider than Cin needs, parts covering Cout."""
+    n, h, w, cin, cout, stride = shape
+    p = separable_plan(*shape)
+    assert separable_smem_bytes(p.nwg, p.th, p.tw, p.kp, p.ws, p.bs, stride) <= SMEM_LIMIT
+    assert p.nwg in (1, 2) and 1 <= p.th * p.tw <= 64 * p.nwg
+    assert (p.th - 1) * stride + 3 <= 256 and (p.tw - 1) * stride + 3 <= 256
+    assert p.kp % CHUNK == 0 and CHUNK <= p.kp <= -(-cin // CHUNK) * CHUNK
+    assert p.cw % 8 == 0 and p.split * p.cw >= cout > (p.split - 1) * p.cw
+    assert 1 <= p.ws <= 2 and 2 <= p.bs <= 4
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 9, 40, 136, 1), (3, 18, 18, 24, 40, 2),
+                                   (1, 14, 14, 512, 512, 1), (5, 14, 14, 64, 72, 2),
+                                   (2, 7, 7, 2048, 200, 1), (1, 4, 2000, 8, 16, 2),
+                                   (3, 28, 28, 256, 512, 2), (7, 30, 2, 16, 8, 2)])
+def test_plan_covers_every_output_once(shape):
+    """The kernel's unit decode (unit_of) and slices (slice_width): every
+    output pixel and channel written exactly once, each slice a wgmma width
+    (a multiple of 8 up to 128), and the depthwise of a unit's pixels over
+    all of Cin in whole chunks."""
+    n, h, w, cin, cout, stride = shape
+    p = separable_plan(*shape)
+    ho, wo = -(-h // stride), -(-w // stride)
+    rows = n * ho
+    tiles_c = -(-wo // p.tw)
+    units = -(-rows // p.th) * tiles_c * p.split
+    seen = np.zeros((rows, wo, cout), np.int32)
+    for u in range(units):
+        t, part = divmod(u, p.split)
+        r0, w0 = (t // tiles_c) * p.th, (t % tiles_c) * p.tw
+        c0, c1 = part * p.cw, min(cout, part * p.cw + p.cw)
+        widths = slice_widths(c1 - c0)
+        assert all(wd in (8, 16, 32, 64, 128) for wd in widths) and sum(widths) == c1 - c0
+        for m in range(64 * p.nwg):
+            ih, iw = divmod(m, p.tw)
+            if m < p.th * p.tw and r0 + ih < rows and w0 + iw < wo:
+                seen[r0 + ih, w0 + iw, c0:c1] += 1
+    assert (seen == 1).all()
+    assert sum(chunk_groups(cin)) * 8 == cin
+
+
+def test_plan_cout_split():
+    """Parts of Cout only where pixel tiles are too few for the SMs: every
+    V1 1.0-224 block at batch 256 whole, blocks 1-12 split at batch 1, b11
+    and b12 split at batch 64 (3,136 pixels in 64-pixel tiles)."""
+    big = [separable_plan(*s) for s in _v1_shapes(1.0, 224, 256)]
+    one = [separable_plan(*s) for s in _v1_shapes(1.0, 224, 1)]
+    mid = [separable_plan(*s) for s in _v1_shapes(1.0, 224, 64)]
+    assert all(p.split == 1 for p in big)
+    assert all(p.split > 1 for p in one[1:])
+    assert mid[11].split > 1 and mid[12].split > 1
+    for shape, p in zip(_v1_shapes(1.0, 224, 1), one):
+        n, h, w, cin, cout, stride = shape
+        ho = -(-h // stride)
+        tiles = -(-n * ho // p.th) * -(-ho // p.tw)
+        assert tiles * p.split <= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("cin,groups", [(8, [1]), (24, [3]), (40, [5]), (64, [8]),
+                                        (72, [8, 1]), (1000, [8] * 15 + [5])])
+def test_plan_k_padding(cin, groups):
+    """K is padded with zeros to the 64-channel chunk: Cin 8, 24 and 40 fill
+    1, 3 and 5 of a chunk's 8 groups (their threads spread over the live
+    groups only); the rest of the chunk's columns are zeros, so its four
+    16-wide wgmma steps add nothing past Cin."""
+    assert chunk_groups(cin) == groups
+    p = separable_plan(2, 16, 16, cin, 16, 1)
+    assert p.kp == -(-cin // CHUNK) * CHUNK
+
+
+def test_plan_slices_are_wgmma_widths():
+    """Every Cout on the alpha grid (a multiple of 8 up to 1024) splits into
+    slices of 128, 64, 32, 16 and 8 columns with none padded, V1 b00's 64 and
+    V2 b00's 16 as one slice each."""
+    for cout in range(8, 1025, 8):
+        widths = slice_widths(cout)
+        assert sum(widths) == cout and all(wd % 8 == 0 and wd <= 128 for wd in widths)
+        tail = [wd for wd in widths if wd < 128]
+        assert widths == sorted(widths, reverse=True) and len(set(tail)) == len(tail)
+    assert slice_widths(64) == [64] and slice_widths(16) == [16]
+
+
+def test_plan_holds_cin_in_ranges():
+    """A Cin whose panel does not fit at 64 pixels is taken in ranges of KP
+    channels (the depthwise recomputed for each slice); V1's widest, 1024,
+    fits whole."""
+    assert separable_plan(2, 7, 7, 2048, 200, 1).kp < 2048
+    assert separable_plan(256, 7, 7, 1024, 1024, 1).kp == 1024
+
+
+@pytest.mark.parametrize("stride,cout,pw_act", [(1, 24, True), (2, 16, True), (1, 16, False)])
+def test_library_yardstick_is_the_block(stride, cout, pw_act):
+    """The unfused library sequence that `chip_smoke.py` and `block_times`
+    time beside the kernel (cuDNN's grouped conv with TF-SAME padding, then
+    matmul) computes the separable block's function: float32, against the
+    plain version."""
+    from mobilenet_tpu_torch.block_times import separable_library
+    t = [torch.from_numpy(a) for a in _inputs(stride + cout, 2, 8, 16, cout)]
+    ref = separable_block_plain(*t, stride, True, pw_act)
+    got = separable_library(*t, stride, True, pw_act)().reshape(ref.shape)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **F32_TOL)

@@ -36,7 +36,7 @@ from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
     inverted_residual_i8, inverted_residual_i8_plain, ir_i8_plan, ir_i8_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.separable_block import (
-    separable_block, separable_block_plain,
+    separable_block, separable_block_plain, separable_plan, separable_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.separable_block_i8 import (
     separable_block_i8, separable_block_i8_plain,
@@ -101,6 +101,42 @@ def test_separable_block(dev, dtype, n, h, cin, cout, stride):
     assert separable_block.launches == before + 1
     assert got.is_cuda and got.dtype == dtype
     _close(got, separable_block_plain(*args), dtype)
+
+
+# Shapes that reach each branch of the bf16 kernel's plan (separable_plan):
+# K padded to 16 (Cin 8, 24, 40), Cin in ranges (2048), slices of 128 + 8
+# and 32 + 8 columns, the Cout split at batch 1 (14^2, 7^2), one warpgroup
+# (b12 at batch 256), a ragged pixel tile at stride 2.
+PLAN_SHAPES = [
+    (2, 20, 8, 24, 1),        # Cin 8: one 16-wide K step; slices 16 + 8
+    (3, 18, 24, 40, 2),       # Cin 24, stride 2, ragged tile; slices 32 + 8
+    (2, 9, 40, 136, 1),       # Cin 40; slices 128 + 8
+    (1, 14, 512, 512, 1),     # batch 1, 14^2: Cout split
+    (1, 7, 1024, 1024, 1),    # batch 1, 7^2: Cout split, one warpgroup
+    (256, 7, 1024, 1024, 1),  # b12 at batch 256
+    (2, 7, 2048, 200, 1),     # Cin 2048: the panel holds Cin in ranges; 128 + 64 + 8
+    (5, 14, 64, 72, 2),       # stride 2, 7^2 outputs in 64-pixel tiles; slices 64 + 8
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,cout,stride", PLAN_SHAPES)
+def test_separable_block_plan_shapes(dev, dtype, n, h, cin, cout, stride):
+    rng = np.random.default_rng(n * cin + cout)
+    args = (_t(rng, (n, h, h, cin), dtype, dev, lo=-1), _t(rng, (3, 3, 1, cin), dtype, dev, 0.5),
+            _t(rng, (cin,), dtype, dev, 0.2), _t(rng, (cin, cout), dtype, dev, cin ** -0.5),
+            _t(rng, (cout,), dtype, dev, 0.2), stride, True)
+    _close(separable_block(*args), separable_block_plain(*args), dtype)
+
+
+def test_separable_plan_smem_mirror(dev):
+    """The kernel's shared-memory arithmetic equals separable_smem_bytes."""
+    lib = _build.library()
+    for n, h, cin, cout, stride in PLAN_SHAPES + [(256, 112, 32, 64, 1), (256, 112, 64, 128, 2),
+                                                 (256, 14, 512, 1024, 2)]:
+        p = separable_plan(n, h, h, cin, cout, stride)
+        assert lib.separable_bf16_smem_bytes(p.nwg, p.th, p.tw, p.kp, p.ws, p.bs, stride) == \
+            separable_smem_bytes(p.nwg, p.th, p.tw, p.kp, p.ws, p.bs, stride)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -236,7 +272,8 @@ def test_ir_smem_plan_matches_kernel(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 16, 32, 16, 1), (3, 10, 8, 24, 2)])
+@pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 16, 32, 16, 1), (3, 10, 8, 24, 2),
+                                                 (4, 56, 32, 16, 1)])
 def test_separable_block_linear(dev, dtype, n, h, cin, cout, stride):
     rng = np.random.default_rng(cin + cout + 1)
     args = (_t(rng, (n, h, h, cin), dtype, dev, lo=-1), _t(rng, (3, 3, 1, cin), dtype, dev, 0.5),
