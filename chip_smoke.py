@@ -24,9 +24,11 @@ file; imports nothing of JAX. Phases, one JSON line each:
      of every stream, one lone request (bucket 1); counters read; 0 errors
      and every float kernel of the path launched (the stem kernel, the
      block kernel, the head kernel, the chain at batch 1) are required;
-  6. the int8 kernels against their plain versions at every 1.0-224 int8
-     block and depthwise shape at batch 256, exactly (torch.equal), and the
-     input quantization over all 256 uint8 values against the host twin;
+  6. the int8 kernels against their plain versions, exactly (torch.equal):
+     the fused block at every 1.0-224 block shape at batch 256 and 1, given
+     the stored K-major weight copy as the int8 route gives it, the
+     depthwise at every depthwise shape at batch 256; and the input
+     quantization over all 256 uint8 values against the host twin;
   7. the int8 pipeline: kernel route against plain route, logits equal bit
      for bit at batch 256 and batch 1; the per-layer gate verify_int8 at
      batch 2 through the depthwise kernel (counters set to 0 before, read
@@ -244,6 +246,9 @@ ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
 # has a nearest library form (phase 31), the float separable block an unfused
 # library sequence (phase 2, `block_times.separable_library`).
 LIBRARY_MS = None
+# Where the int8 separable block's Hopper tile lives (its kernel line names it).
+I8_BLOCK_DESIGN = ["mobilenet_tpu_torch/csrc/separable_i8_wgmma.cuh",
+                   "mobilenet_tpu_torch/csrc/hopper.cuh"]
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -469,6 +474,7 @@ def int8_phases(smi, kernels, launches):
     summary = {
         "separable_block_i8": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block_i8.cu",
+            "design": I8_BLOCK_DESIGN,
             "replaces": "mobilenet_tpu/quant/pallas_block_i8.py:201",
             "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:222",
                               "mobilenet_tpu/ops/pallas_block_packed_mxu.py:391"]},
@@ -483,15 +489,21 @@ def int8_phases(smi, kernels, launches):
     # -- 6. int8 kernels vs plain, exact ----------------------------------------
     rng = np.random.default_rng(0)
     dw_shapes = {}
-    for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
-        args = int8_block_args(rng, n, h, cin, cout)
-        check_i8(summary, "separable_block_i8", f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}",
-                 cnt, block_i8, separable_block_i8_plain, args + (stride, 127.0, 127.0, True),
-                 block_work(n, h, cin, cout, stride, "int8"), smi)
-        key = (n, h, cin, stride)
-        dw_shapes[key] = (nm, args[:4], dw_shapes.get(key, (nm, None, 0))[2] + cnt)
-        del args
-        torch.cuda.empty_cache()
+    for batch in (256, 1):
+        for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, batch):
+            args = int8_block_args(rng, n, h, cin, cout)
+            wt = args[4].t().contiguous()  # the K-major copy, as Int8Pipeline stores it
+            # the row sums one batch-256 forward; batch 1 is printed per shape
+            check_i8(summary, "separable_block_i8",
+                     f"{nm} ({n},{h},{h},{cin})->{cout} s{stride}", cnt if batch == 256 else 0,
+                     lambda *a, wt=wt: block_i8(*a, pw_wt=wt), separable_block_i8_plain,
+                     args + (stride, 127.0, 127.0, True),
+                     block_work(n, h, cin, cout, stride, "int8"), smi)
+            if batch == 256:
+                key = (n, h, cin, stride)
+                dw_shapes[key] = (nm, args[:4], dw_shapes.get(key, (nm, None, 0))[2] + cnt)
+            del args, wt
+            torch.cuda.empty_cache()
     for (n, h, c, stride), (nm, args, cnt) in dw_shapes.items():
         check_i8(summary, "depthwise_i8", f"{nm}_dw ({n},{h},{h},{c}) s{stride}", cnt, dw_i8,
                  depthwise_i8_plain, args + (127.0, stride, True), dw_work(n, h, c, stride), smi)
@@ -891,6 +903,7 @@ def v2_int8_phases(smi, kernels, launches):
                               "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290 (V2 bridge form)"]},
         "separable_block_i8[linear]": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block_i8.cu",
+            "design": I8_BLOCK_DESIGN,
             "replaces": "mobilenet_tpu/quant/pallas_block_packed_i8.py:222 (pw_linear=True)"},
     }
     for s in summary.values():

@@ -5,12 +5,13 @@
 // through the runtime's driver entry point, so the library links without
 // -lcuda.
 //
-// Shared-memory operand layouts used with wgmma here (bf16, 16-byte core
-// matrices of 8 rows x 8 elements):
-//   - A, K-major, 128-byte swizzle: rows of 64 K-elements (128 bytes), the
-//     16-byte chunk j of row r stored at chunk j ^ (r % 8), 8-row groups 1024
-//     bytes apart; an atom of R rows x 64 K is R * 128 bytes, 1024-aligned.
-//     A K step of 16 inside the atom advances the start address by 32 bytes.
+// Shared-memory operand layouts used with wgmma here (16-byte core matrices
+// of 8 rows x 16 bytes: 8 bf16 or 16 int8 elements):
+//   - A (and int8 B), K-major, 128-byte swizzle: rows of 128 bytes (64 bf16
+//     or 128 int8 K-elements), the 16-byte chunk j of row r stored at chunk
+//     j ^ (r % 8), 8-row groups 1024 bytes apart; an atom of R rows is R *
+//     128 bytes, 1024-aligned. A K step (16 bf16, 32 int8: 32 bytes) inside
+//     the atom advances the start address by 32 bytes.
 //   - B, MN-major (N contiguous, as a row-major Cin x Cout weight), either
 //     128-byte swizzled (64 columns x K rows of 128 bytes, as a TMA box with
 //     CU_TENSOR_MAP_SWIZZLE_128B writes it; 64-column blocks LBO apart, 8-row
@@ -205,6 +206,67 @@ template <> struct Wgmma<128> {
   }
 };
 
+// d (64 x N s32, N / 2 registers a thread, the f32 layout of Wgmma) +=
+// A (64 x 32 s8, K-major) x B (32 x N s8, K-major): wgmma.mma_async
+// m64nNk32.s32.s8.s8, scale-d 1. Integer operands have no transpose
+// immediates: both are read K-major, B as N rows of K bytes.
+template <int N> struct WgmmaS8;
+
+template <> struct WgmmaS8<8> {
+  static __device__ __forceinline__ void mma(int (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {%0, %1, %2, %3},"
+        " %4, %5, p;\n}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p;\n}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p;\n}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p;\n}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <> struct WgmmaS8<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+        " %64, %65, p;\n}"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
 // ---- host: TMA tensor maps -------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -230,15 +292,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A rank-3 bf16 tensor map: dims and boxes innermost first, strides of dims
-// 1 and 2 in bytes; out-of-range elements load as zeros.
-inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3],
-                               const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
-                               CUtensorMapSwizzle swizzle) {
+// A rank-3 tensor map of elements of `type` (BFLOAT16; UINT8 for int8 bytes):
+// dims and boxes innermost first, strides of dims 1 and 2 in bytes (multiples
+// of 16); out-of-range elements load as zeros.
+inline cudaError_t make_map_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                               const cuuint64_t (&dims)[3], const cuuint64_t (&strides)[2],
+                               const cuuint32_t (&box)[3], CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  CUresult r = fn(map, type, 3, const_cast<void*>(base), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

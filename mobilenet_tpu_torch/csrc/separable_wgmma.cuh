@@ -600,7 +600,8 @@ inline cudaError_t make_x_map(CUtensorMap* map, const void* x, const Geo& g) {
   const cuuint64_t dims[3] = {(cuuint64_t)g.Cin, (cuuint64_t)g.W, (cuuint64_t)g.N * g.H};
   const cuuint64_t strides[2] = {(cuuint64_t)g.Cin * 2, (cuuint64_t)g.W * g.Cin * 2};
   const cuuint32_t box[3] = {(cuuint32_t)KCH, (cuuint32_t)g.ww, (cuuint32_t)g.wh};
-  return hop::make_map_3d(map, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  return hop::make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // The weight maps over K stacked (Cin, Cout) weights: dims (Cout, Cin, K),
@@ -609,10 +610,12 @@ inline cudaError_t make_w_maps(Maps& m, const void* w, const Geo& g, int K) {
   const cuuint64_t dims[3] = {(cuuint64_t)g.Cout, (cuuint64_t)g.Cin, (cuuint64_t)K};
   const cuuint64_t strides[2] = {(cuuint64_t)g.Cout * 2, (cuuint64_t)g.Cin * g.Cout * 2};
   const cuuint32_t box8[3] = {8, (cuuint32_t)KCH, 1};
-  cudaError_t e = hop::make_map_3d(&m.w8, w, dims, strides, box8, CU_TENSOR_MAP_SWIZZLE_NONE);
+  cudaError_t e = hop::make_map_3d(&m.w8, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, dims, strides,
+                                   box8, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess || g.Cout < 64) return e;
   const cuuint32_t box128[3] = {64, (cuuint32_t)KCH, 1};
-  return hop::make_map_3d(&m.w128, w, dims, strides, box128, CU_TENSOR_MAP_SWIZZLE_128B);
+  return hop::make_map_3d(&m.w128, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w,
+                          dims, strides, box128, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Checks a plan against the shape; cudaErrorInvalidValue if it breaks a rule

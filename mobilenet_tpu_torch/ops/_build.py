@@ -50,17 +50,17 @@ _IR = [_P] * 8 + [_I] * 10
 # identity, TH, TW
 _V3 = [_P] * 13 + [_I] * 15
 _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
-# the bf16 separable plan: nwg, th, tw, kp, split, cw, ws, bs
+# the bf16 and int8 separable plans: nwg, th, tw, kp, split, cw, ws, bs
 _PLAN = [_I] * 8
 _STEM_B0 = [_P] * 8 + [_I] * 5 + [_F] * 2
 # C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
     "separable_block_bf16": _BLOCK + _PLAN, "separable_block_f32": _BLOCK,
     "chain_bf16": _CHAIN + _PLAN, "chain_f32": _CHAIN,
-    # x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, out | N, H, W, Cin, Cout, stride,
-    # relu6 | dw_six_q, pw_six_q
-    "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2,
-    "separable_block_i8_linear": [_P] * 8 + [_I] * 7 + [_F] * 2,
+    # x, dw_w, dw_b, dw_m, pw_wt (K-major), pw_b, pw_m, out | N, H, W, Cin,
+    # Cout, stride, relu6 | dw_six_q, pw_six_q | the int8 plan (as _PLAN)
+    "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2 + _PLAN,
+    "separable_block_i8_linear": [_P] * 8 + [_I] * 7 + [_F] * 2 + _PLAN,
     # x, exp_w, exp_b, exp_m, dw_w, dw_b, dw_m, prj_w, prj_b, prj_m, out | N, H,
     # W, Cin, E, Cout, stride, residual, TH, TW | exp_six_q, dw_six_q
     "inverted_residual_i8": [_P] * 11 + [_I] * 10 + [_F] * 2,
@@ -95,6 +95,8 @@ _SIGNATURES = {
 _HOST_SIGNATURES = {
     # nwg, th, tw, kp, ws, bs, stride -> bytes of dynamic shared memory
     "separable_bf16_smem_bytes": ([_I] * 7, ctypes.c_int),
+    # nwg, th, tw, kp, ws, bs, stride, cin -> bytes of dynamic shared memory
+    "separable_i8_smem_bytes": ([_I] * 8, ctypes.c_int),
     # Cin, Cout, stride, TH, TW, itemsize -> bytes of dynamic shared memory
     "inverted_residual_smem_bytes": ([_I] * 6, ctypes.c_int),
     # Cin, Cout, stride, TH, TW -> bytes of dynamic shared memory

@@ -89,12 +89,13 @@ def separable_smem_bytes(nwg: int, th: int, tw: int, kp: int, ws: int, bs: int,
     return 1024 + 64 * nwg * kp * 2 + bs * B_STAGE_BYTES + ws * win + 128 + 3 * CHUNK * 2
 
 
-def slice_widths(cols: int) -> list:
-    """The kernel's output slices of a part of `cols` channels: 128 while it
-    lasts, then the binary digits of the rest (wgmma N, no padded column)."""
+def slice_widths(cols: int, top: int = 128) -> list:
+    """The kernel's output slices of a part of `cols` channels: `top` (128,
+    or 64 in the int8 kernel's four-warpgroup form) while it lasts, then the
+    binary digits of the rest (wgmma N, no padded column)."""
     out = []
     while cols > 0:
-        n = next(w for w in (128, 64, 32, 16, 8) if cols >= w)
+        n = next(w for w in (128, 64, 32, 16, 8) if w <= top and cols >= w)
         out.append(n)
         cols -= n
     return out

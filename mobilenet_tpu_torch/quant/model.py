@@ -22,7 +22,7 @@ from ..config import ModelConfig
 from ..ops.conv import softmax
 from ..ops.depthwise_i8 import depthwise_i8
 from ..ops.preprocess import preprocess
-from ..ops.separable_block_i8 import separable_block_i8
+from ..ops.separable_block_i8 import kmajor, separable_block_i8
 from ..runtime.pipeline import PipelineBase, resolve_device
 from . import ops as qops
 from .quantize import ACT_HIDDEN_SCALE, ACT_IN_SCALE, QuantizedParams, quantize
@@ -77,7 +77,7 @@ def forward_i8(dev: Dict[str, Any], x_i8: torch.Tensor, config: ModelConfig, *,
         d, p = blk["dw"], blk["pw"]
         if routing[i] == "fused" and not collect:
             y = separable_block_i8(y, d["w"], d["b"], d["m"], p["w"], p["b"], p["m"],
-                                   stride, d["six_q"], p["six_q"], relu6)
+                                   stride, d["six_q"], p["six_q"], relu6, pw_wt=p["wt"])
             continue
         y = dw_op(y, d["w"], d["b"], d["m"], d["six_q"], stride, relu6)
         if collect:
@@ -118,18 +118,28 @@ def device_layer(ql, device) -> Dict[str, Any]:
             "m": _put(ql.m, device), "six_q": float(ql.six_q)}
 
 
+def device_pw_layer(ql, device) -> Dict[str, Any]:
+    """A pointwise QuantLayer that the fused block kernel reads: `device_layer`
+    plus "wt", the K-major (Cout, Cin) copy of its weight, made once here."""
+    layer = device_layer(ql, device)
+    layer["wt"] = kmajor(layer["w"])
+    return layer
+
+
 def device_fc(q, device) -> Dict[str, Any]:
     return {"w": _put(q.fc_w_i8, device), "s_w": _put(q.fc_s_w, device),
             "b": _put(q.fc_b_f32, device)}
 
 
 def to_device_i8(q, device) -> Dict[str, Any]:
-    """Quantized constants onto `device`, once (`device_layer`). `q` is a
+    """Quantized constants onto `device`, once (`device_layer`; the pointwise
+    layers with their K-major copy, `device_pw_layer`). `q` is a
     QuantizedParams of this package or of the JAX package (both hold only
     numpy fields)."""
     return {
         "conv1": device_layer(q.conv1, device),
-        "blocks": [{k: device_layer(b[k], device) for k in ("dw", "pw")} for b in q.blocks],
+        "blocks": [{"dw": device_layer(b["dw"], device), "pw": device_pw_layer(b["pw"], device)}
+                   for b in q.blocks],
         "fc": device_fc(q, device),
     }
 

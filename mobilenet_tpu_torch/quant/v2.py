@@ -58,7 +58,7 @@ from ..oracle import numpy_ref
 from ..runtime.pipeline import resolve_device
 from . import ops as qops
 from . import oracle as qoracle
-from .model import Int8Pipeline, device_fc, device_layer, resolve_i8_routing
+from .model import Int8Pipeline, device_fc, device_layer, device_pw_layer, resolve_i8_routing
 from .quantize import ACT_HIDDEN_SCALE, ACT_IN_SCALE, QuantLayer, _quant_layer, _quant_weight
 
 # ---------------------------------------------------------------------------
@@ -202,12 +202,18 @@ def forward_all_v2_i8(q: V2QuantizedParams, x_i8: np.ndarray, config: V2Config):
 # ---------------------------------------------------------------------------
 
 def to_device_i8_v2(q, device) -> Dict[str, Any]:
-    """Quantized constants onto `device`, once (`quant.model.device_layer`).
-    `q` is a V2QuantizedParams of this package or of the JAX package (both
-    hold only numpy fields)."""
+    """Quantized constants onto `device`, once (`quant.model.device_layer`;
+    the projection of block 0, which the fused separable block runs, with its
+    K-major copy, `device_pw_layer`). `q` is a V2QuantizedParams of this
+    package or of the JAX package (both hold only numpy fields)."""
+    def block(blk):
+        kmaj = "exp" not in blk  # t == 1: the separable block's projection
+        return {k: (device_pw_layer if kmaj and k == "prj" else device_layer)(v, device)
+                for k, v in blk.items()}
+
     return {
         "conv1": device_layer(q.conv1, device),
-        "blocks": [{k: device_layer(v, device) for k, v in blk.items()} for blk in q.blocks],
+        "blocks": [block(blk) for blk in q.blocks],
         "conv_last": device_layer(q.conv_last, device),
         "fc": device_fc(q, device),
     }
@@ -248,7 +254,8 @@ def forward_v2_i8(dev: Dict[str, Any], x_i8: torch.Tensor, config: V2Config, *,
                                          d["m"], d["six_q"], p["w"], p["b"], p["m"], stride, res)
             else:  # t == 1: block 0, never a residual block
                 y = separable_block_i8(y, d["w"], d["b"], d["m"], p["w"], p["b"], p["m"],
-                                       stride, d["six_q"], 0.0, relu6, pw_linear=True)
+                                       stride, d["six_q"], 0.0, relu6, pw_linear=True,
+                                       pw_wt=p["wt"])
             continue
         z = y
         if "exp" in blk:

@@ -39,7 +39,8 @@ from mobilenet_tpu_torch.ops.separable_block import (
     separable_block, separable_block_plain, separable_plan, separable_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.separable_block_i8 import (
-    separable_block_i8, separable_block_i8_plain,
+    padded_cin, separable_block_i8, separable_block_i8_plain, separable_i8_plan,
+    separable_i8_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.stem import stem_block0, stem_block0_plain, stem_conv, stem_conv_plain
 from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
@@ -379,6 +380,96 @@ def test_separable_block_i8(dev, n, h, cin, cout, stride, relu6):
     assert got.dtype == torch.int8 and got.shape == ref.shape
     assert torch.equal(got, ref)
     assert 0 < int((ref > 0).sum()) < ref.numel() - int((ref == 127).sum())
+
+
+def _v1_i8_block_shapes(batch):
+    cfg = ModelConfig(1.0, 224)
+    hw, cin, out = 112, cfg.stem_channels, []
+    for stride, cout in zip(cfg.block_strides, cfg.block_channels):
+        out.append((batch, hw, cin, cout, stride))
+        hw, cin = -(-hw // stride), cout
+    return out
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride", _v1_i8_block_shapes(1))
+def test_separable_block_i8_v1_batch1(dev, n, h, cin, cout, stride):
+    """The 13 V1 1.0-224 block shapes at batch 1 (the plan's Cout split), with
+    the K-major copy passed as the int8 route passes it."""
+    rng = np.random.default_rng(h * cin + cout)
+    x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m = _i8_block(rng, dev, n, h, cin, cout)
+    args = (x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, stride, 127.0, 127.0, True)
+    ref = separable_block_i8_plain(*args)
+    _equal_i8(separable_block_i8(*args, pw_wt=pw_w.t().contiguous()), ref)
+    assert 0 < int((ref > 0).sum()) < ref.numel()
+
+
+@pytest.mark.parametrize("n", [1, 8])
+def test_separable_block_i8_v2_b00_linear(dev, n):
+    """V2 1.0-224 block 0 (112^2 x 32 -> 16, the linear mode)."""
+    rng = np.random.default_rng(n)
+    args = _i8_block(rng, dev, n, 112, 32, 16) + (1, 127.0, 0.0, True)
+    ref = separable_block_i8_plain(*args, pw_linear=True)
+    _equal_i8(separable_block_i8(*args, pw_linear=True, pw_wt=args[4].t().contiguous()), ref)
+    assert (ref < 0).any() and (ref > 0).any()
+
+
+@pytest.mark.parametrize("linear", [False, True])
+def test_separable_block_i8_large_bias(dev, linear):
+    """Depthwise biases beyond 2^21 on some 16-channel groups: those groups
+    convert their sums with __int2float_rn (|acc| past 2^22), the others with
+    the magic-number conversion; both exact. The pointwise bias too."""
+    rng = np.random.default_rng(7)
+    x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m = _i8_block(rng, dev, 2, 14, 256, 64)
+    big = torch.from_numpy(rng.integers(-(1 << 27), 1 << 27, (256,)).astype(np.int32)).to(dev)
+    group = torch.arange(256, device=dev) // 16
+    dw_b = torch.where(group % 3 == 0, big, dw_b).contiguous()
+    dw_m = torch.where(group % 3 == 0, dw_m / 2 ** 15, dw_m).contiguous()
+    pw_b = (pw_b * 3000).contiguous()
+    args = (x, dw_w, dw_b, dw_m, pw_w, pw_b, pw_m, 1, 100.0, 50.0, True)
+    ref = separable_block_i8_plain(*args, pw_linear=linear)
+    _equal_i8(separable_block_i8(*args, pw_linear=linear), ref)
+    dw = qops.depthwise_i8(x, dw_w, dw_b, dw_m, 100.0, 1, True)
+    assert 0 < int((dw[..., group % 3 == 0] > 0).sum()) < dw[..., group % 3 == 0].numel()
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 14, 96, 192, 2), (3, 10, 24, 48, 2)])
+def test_separable_block_i8_pw_wt(dev, n, h, cin, cout, stride):
+    """The stored K-major copy (pw_wt) and the wrapper's own transpose give
+    the same output; a Cin not a multiple of 16 pads both."""
+    rng = np.random.default_rng(cin)
+    args = _i8_block(rng, dev, n, h, cin, cout) + (stride, 100.0, 50.0, True)
+    ref = separable_block_i8_plain(*args)
+    _equal_i8(separable_block_i8(*args), ref)
+    _equal_i8(separable_block_i8(*args, pw_wt=args[4].t().contiguous()), ref)
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride,linear", [
+    (4, 112, 32, 136, 2, False),  # slices 64 + 64 + 8, Cout not a multiple of 16
+    (2, 56, 32, 64, 1, True),     # the linear mode
+    (3, 33, 24, 40, 2, False),    # odd input at stride 2, Cin padded to 32
+])
+def test_separable_block_i8_four_warpgroups(dev, n, h, cin, cout, stride, linear):
+    """Narrow blocks (Cin <= 32) run four consumer warpgroups with the lean
+    depthwise and slices of at most 64 columns."""
+    assert separable_i8_plan(n, h, h, padded_cin(cin), cout, stride).nwg == 4
+    rng = np.random.default_rng(n + cin)
+    args = _i8_block(rng, dev, n, h, cin, cout) + (stride, 100.0, 50.0, True)
+    ref = separable_block_i8_plain(*args, pw_linear=linear)
+    _equal_i8(separable_block_i8(*args, pw_linear=linear), ref)
+    assert 0 < int((ref > 0).sum()) < ref.numel()
+
+
+def test_separable_i8_plan_smem_mirror(dev):
+    """The int8 kernel's shared-memory arithmetic equals
+    separable_i8_smem_bytes."""
+    lib = _build.library()
+    for n, h, cin, cout, stride in _v1_i8_block_shapes(256) + _v1_i8_block_shapes(1) + [
+            (2, 7, 2048, 200, 1), (3, 10, 24, 48, 2), (256, 112, 32, 16, 1)]:
+        cin16 = padded_cin(cin)
+        p = separable_i8_plan(n, h, h, cin16, cout, stride)
+        assert lib.separable_i8_smem_bytes(p.nwg, p.th, p.tw, p.kp, p.ws, p.bs, stride,
+                                           cin16) == \
+            separable_i8_smem_bytes(p.nwg, p.th, p.tw, p.kp, p.ws, p.bs, stride, cin16)
 
 
 @pytest.mark.parametrize("n,h,c,stride", [(2, 64, 8, 1), (3, 10, 24, 2), (1, 7, 1024, 1),
