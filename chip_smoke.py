@@ -62,8 +62,12 @@ file; imports nothing of JAX. Phases, one JSON line each:
      and one lone request; 0 errors and both V2 int8 kernels launched;
  18. the MobileNet-V3 bottleneck kernel against its plain version at the 12
      distinct block shapes of V3-Large 1.0-224 at batch 256, with non-zero
-     SE biases: float32 then bfloat16, no TF32 flag set; its tile plans and
-     the shared-memory mirror;
+     SE biases: float32 then bfloat16, no TF32 flag set, and the time of the
+     unfused library sequence (`block_times.v3_library`: matmul + act,
+     cuDNN's grouped k x k conv TF-SAME + act, the SE in torch ops, matmul
+     + bias + residual), a yardstick the port never calls; bfloat16 also
+     at batch 1; the plans (bf16: `v3_wgmma_plan` at batch 256 and 1,
+     float32: `v3_plan`) and both shared-memory mirrors;
  19. the V3-Large bf16 pipeline (seeded weights with non-zero SE, head and
      fc biases), kernel route against plain route at batch 256 and 1 (the
      anchored routing gate, as V2), a float32 full-network check at batch 2
@@ -249,6 +253,10 @@ LIBRARY_MS = None
 # Where the int8 separable block's Hopper tile lives (its kernel line names it).
 I8_BLOCK_DESIGN = ["mobilenet_tpu_torch/csrc/separable_i8_wgmma.cuh",
                    "mobilenet_tpu_torch/csrc/hopper.cuh"]
+V3_DESIGN = ["mobilenet_tpu_torch/csrc/v3_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+V3_LIBRARY = ("torch.matmul + bias + act, F.conv2d(groups=E, channels-last, TF-SAME) + act, "
+              "SE (mean, matmul, relu, matmul, hardsigmoid, mul), torch.matmul + bias "
+              "(+ residual)")
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -1059,11 +1067,16 @@ def v3_folded(cfg, seed):
 
 def v3_kernel_checks(summary, row, cfg, gen):
     """The V3 kernel against its plain version at each distinct block shape
-    of `cfg` at batch 256 (float32 then bfloat16, `check_float`; non-zero SE
-    biases), adding to `summary[row]`; the tile plans at batch 256 and 1 and
-    the kernel's shared memory against its Python mirror."""
+    of `cfg` at batch 256 (float32 then bfloat16, `check_float`, with the
+    library sequence `v3_library` timed beside it; non-zero SE biases) and,
+    bfloat16 only, at batch 1, adding to `summary[row]`; the plans (bf16
+    `v3_wgmma_plan` at batch 256 and 1, float32 `v3_plan` at batch 256) and
+    each tile's shared memory against its Python mirror."""
+    from mobilenet_tpu_torch.block_times import v3_library
     from mobilenet_tpu_torch.ops import _build
-    from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
+    from mobilenet_tpu_torch.ops.v3_block import (
+        v3_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
+    )
 
     lib = _build.library()
     plans = {}
@@ -1071,15 +1084,23 @@ def v3_kernel_checks(summary, row, cfg, gen):
         name = (f"{nm} ({n},{h},{h},{bd.cin})->{bd.cout} E{bd.cexp} k{bd.kernel} "
                 f"s{bd.stride} se{bd.se_mid} {bd.act}{' res' if bd.has_res else ''}"
                 f"{'' if bd.has_expand else ' identity'}")
-        for b, item in ((256, 2), (1, 2), (256, 4)):
-            th, tw = plans[f"{nm} batch {b} itemsize {item}"] = v3_plan(
-                b, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, item)
-            c_bytes = lib.v3_block_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
-                                              bd.stride, th, tw, item)
-            if c_bytes != v3_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
-                                        bd.stride, item):
-                raise AssertionError(f"{name}: the kernel plans {c_bytes} B of shared "
-                                     "memory, v3_smem_bytes another")
+        identity = not bd.has_expand
+        for b in (256, 1):
+            p = plans[f"{nm} batch {b} bf16"] = v3_wgmma_plan(
+                b, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, identity)
+            args = (p.th, p.tw, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, p.cw, p.ws, p.bs,
+                    int(identity))
+            if lib.v3_wgmma_smem_bytes(*args) != v3_wgmma_smem_bytes(*args):
+                raise AssertionError(f"{name}: the bf16 tile plans another shared memory "
+                                     "than v3_wgmma_smem_bytes")
+        th, tw = plans[f"{nm} batch 256 f32"] = v3_plan(
+            256, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, 4)
+        if lib.v3_block_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride,
+                                   th, tw, 4) != v3_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout,
+                                                               bd.se_mid, bd.kernel, bd.stride,
+                                                               4):
+            raise AssertionError(f"{name}: the float32 tile plans another shared memory than "
+                                 "v3_smem_bytes")
         kw = dict(k=bd.kernel, stride=bd.stride, act=bd.act, residual=bd.has_res)
 
         def call(fn, kw=kw):
@@ -1088,10 +1109,18 @@ def v3_kernel_checks(summary, row, cfg, gen):
         check_float(summary, row, name, cnt, call(v3_block), call(v3_block_plain),
                     rand_v3(gen, n, h, bd, torch.float32), rand_v3(gen, n, h, bd, torch.bfloat16),
                     lambda kind: ir_work(n, h, bd.cin, bd.cexp, bd.cout, bd.stride, kind,
-                                         k=bd.kernel, se=bd.se_mid,
-                                         identity=not bd.has_expand))
+                                         k=bd.kernel, se=bd.se_mid, identity=identity),
+                    call(v3_library))
+        a1 = rand_v3(gen, 1, h, bd, torch.bfloat16)
+        got, ref = call(v3_block)(*a1), call(v3_block_plain)(*a1)
+        torch.cuda.synchronize()
+        err = compare(f"{row} {name} batch 1 bf16", got, ref, BF16_ATOL, BF16_RTOL)
+        summary[row]["max_abs_err"] = max(summary[row]["max_abs_err"], err)
+        emit("kernel_b1", kernel=row, shape=name.replace(f"({n},", "(1,"), max_abs_err=err,
+             atol=BF16_ATOL, rtol=BF16_RTOL)
+        del a1, got, ref
         torch.cuda.empty_cache()
-    emit("v3_plans", model=cfg.variant_name(), plans=plans)
+    emit("v3_plans", model=cfg.variant_name(), plans={k: list(v) for k, v in plans.items()})
 
 
 V3_ROWS = {
@@ -1117,8 +1146,9 @@ def v3_phases(smi, gen, kernels, launches, variant="large"):
     row, replaces, also = V3_ROWS[variant]
     kernels["v3_chain"].launches = 0  # the default routes must launch none (checked below)
     summary = {row: {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block.cu",
-                     "replaces": replaces, "also_runs": also}}
+                     "design": V3_DESIGN, "replaces": replaces, "also_runs": also}}
     summary[row].update(FLOAT_ROW)
+    summary[row].update(library_ms=0.0, library=V3_LIBRARY)
 
     # -- 18 / 22. the V3 kernel vs plain -------------------------------------------
     v3_kernel_checks(summary, row, cfg, gen)
@@ -1990,6 +2020,7 @@ def v3_chain_phases(smi, gen, kernels, launches):
 
     v3_chain = kernels["v3_chain"]
     summary = {"v3_chain": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_chain.cu",
+                            "design": V3_DESIGN,
                             "replaces": "mobilenet_tpu/ops/pallas_chain_v3.py:239",
                             **FLOAT_ROW, "per_block_ms": 0.0}}
 

@@ -1,6 +1,6 @@
-"""Times of the separable-block kernels and the V1 chain on the card.
+"""Times of the fused block kernels and the chains on the card.
 
-    python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] [--int8]
+    python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] [--int8 | --v3]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -11,7 +11,13 @@ unfused library sequence (`separable_library`, which the port never
 calls). With --int8, instead the int8 `separable_block_i8` at the same V1
 shapes and V2's linear block 0 (batch 256), given the K-major weight copy
 where the wrapper takes one (`pw_wt`), and with --yardsticks its plain
-version. Prints one JSON line: the card and {"b00 256": {"ms": ...}, ...}.
+version. With --v3, instead the bf16 `v3_block` at every distinct block
+shape of MobileNet-V3-Large and -Small 1.0-224 ("v3l b03 256": its first
+block of that shape, with "count", the blocks of one forward that have it)
+and the two chains (`v3_chain` over V3-Small b1-b10 and V3-Large b1-b14),
+with --yardsticks also the plain versions and the unfused library sequence
+`v3_library` (never called by the port). Prints one JSON line: the card and
+{"b00 256": {"ms": ...}, ...}.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
 parent, change, change, parent in one card call). Refuses to run without a
@@ -48,6 +54,43 @@ def separable_library(x, dw_w, dw_b, pw_w, pw_b, stride, relu6=True, pw_act=True
         y = y.clamp_(0, hi).permute(0, 2, 3, 1).reshape(-1, c)
         z = torch.matmul(y, pw_w).add_(pw_b)
         return z.clamp_(0, hi) if pw_act else z
+
+    return run
+
+
+def v3_library(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k, stride, act, se_w1=None,
+               se_b1=None, se_w2=None, se_b2=None, residual=False):
+    """The unfused library sequence of a V3 bottleneck, a yardstick the port
+    never calls: returns a function that runs torch.matmul + bias + act for
+    the expansion (none for the identity), cuDNN's grouped k x k conv on the
+    channels-last view with TF-SAME padding (stride 2 on an even input:
+    F.pad (k-2)//2 low and the rest high) + bias + act, the SE in torch ops
+    (mean, matmul + bias, relu, matmul + bias, hardsigmoid, multiply), then
+    torch.matmul + bias for the projection, + the residual."""
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    acts = {"relu": F.relu_, "relu6": lambda t: t.clamp_(0, 6), "hswish": F.hardswish}
+    fn = acts[act]
+    n, h, w, cin = x.shape
+    e = dw_w.shape[-1]
+    wl = dw_w.reshape(k, k, e).permute(2, 0, 1).unsqueeze(1).contiguous()
+    lo = (k - 1) // 2 if stride == 1 else (k - 2) // 2
+    hi = k - 1 - lo if stride == 1 else k - 2 - lo
+
+    def run():
+        z = x.reshape(-1, cin)
+        if exp_w is not None:
+            z = fn(torch.matmul(z, exp_w).add_(exp_b))
+        z = z.reshape(n, h, w, e).permute(0, 3, 1, 2)
+        y = fn(F.conv2d(F.pad(z, (lo, hi, lo, hi)), wl, dw_b, stride, 0, 1, e))
+        if se_w1 is not None:
+            g = F.relu_(torch.matmul(y.mean((2, 3)), se_w1).add_(se_b1))
+            g = F.hardsigmoid(torch.matmul(g, se_w2).add_(se_b2))
+            y = y * g[:, :, None, None]
+        ho, wo = y.shape[2], y.shape[3]
+        y = y.permute(0, 2, 3, 1).reshape(-1, e)
+        out = torch.matmul(y, prj_w).add_(prj_b).reshape(n, ho, wo, -1)
+        return out.add_(x) if residual else out
 
     return run
 
@@ -158,13 +201,76 @@ def bf16_times(cfg, args, gen, times) -> dict:
     return out
 
 
+def v3_times(args, gen, times) -> dict:
+    """The bf16 `v3_block` at each distinct block shape of V3-Large and
+    V3-Small 1.0-224 and `v3_chain` over V3-Small b1-b10 and V3-Large b1-b14,
+    through the public wrappers only: x in [-2, 2), weights scaled so that
+    the activations stay O(1), SE biases non-zero."""
+    from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
+    from .ops.v3_block import v3_block, v3_block_plain  # noqa: PLC0415
+    from .ops.v3_chain import v3_chain, v3_chain_plain  # noqa: PLC0415
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    def weights(bd):
+        e, k, se = bd.cexp, bd.kernel, bd.se_mid
+        kw = dict(exp_w=r(bd.cin, e, scale=1.5 / bd.cin ** 0.5) if bd.has_expand else None,
+                  exp_b=r(e, scale=0.3) if bd.has_expand else None,
+                  dw_w=r(k, k, 1, e, scale=0.3), dw_b=r(e, scale=0.2),
+                  prj_w=r(e, bd.cout, scale=e ** -0.5), prj_b=r(bd.cout, scale=0.2),
+                  k=k, stride=bd.stride, act=bd.act, residual=bd.has_res)
+        if se:
+            kw.update(se_w1=r(e, se, scale=e ** -0.5), se_b1=r(se, scale=0.3),
+                      se_w2=r(se, e, scale=se ** -0.5), se_b2=r(e, scale=0.3))
+        return kw
+
+    def inputs(n, h, c):
+        return (torch.rand(n, h, h, c, generator=gen, device="cuda") * 4 - 2).bfloat16()
+
+    out = {}
+    for tag, variant in (("v3l", "large"), ("v3s", "small")):
+        cfg = V3Config(variant, 1.0, 224, compute_dtype="bfloat16")
+        for batch in args.batch:
+            shapes, h = {}, cfg.resolution // 2
+            for i, bd in enumerate(cfg.block_defs):
+                key = (h, bd)
+                if key in shapes:
+                    out[shapes[key]]["count"] += 1
+                else:
+                    name = shapes[key] = f"{tag} b{i:02d} {batch}"
+                    x, kw = inputs(batch, h, bd.cin), weights(bd)
+                    calls = {"ms": lambda x=x, kw=kw: v3_block(x, **kw)}
+                    if args.yardsticks:
+                        calls["plain_ms"] = lambda x=x, kw=kw: v3_block_plain(x, **kw)
+                        calls["library_ms"] = v3_library(x, **kw)
+                    out[name] = {**times(batch, calls), "count": 1}
+                    del x, kw, calls
+                    torch.cuda.empty_cache()
+                h = -(-h // bd.stride)
+            stop = len(cfg.block_defs)
+            blocks = [weights(bd) for bd in cfg.block_defs[1:stop]]
+            x = inputs(batch, cfg.resolution // 2 // cfg.block_defs[0].stride,
+                       cfg.block_defs[1].cin)
+            calls = {"ms": lambda x=x, b=blocks: v3_chain(x, b)}
+            if args.yardsticks:
+                calls["plain_ms"] = lambda x=x, b=blocks: v3_chain_plain(x, b)
+            out[f"{tag} chain b01-b{stop - 1:02d} {batch}"] = times(batch, calls)
+            del x, blocks, calls
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--yardsticks", action="store_true",
                    help="also the plain versions and the library sequence")
-    p.add_argument("--int8", action="store_true",
-                   help="the int8 separable block instead of the bf16 one and the chain")
+    kind = p.add_mutually_exclusive_group()
+    kind.add_argument("--int8", action="store_true",
+                      help="the int8 separable block instead of the bf16 one and the chain")
+    kind.add_argument("--v3", action="store_true",
+                      help="the bf16 V3 bottleneck and the V3 chains instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("block_times: needs a CUDA card")
@@ -176,7 +282,10 @@ def main(argv=None) -> None:
         return {k: timer(f) for k, f in calls.items()}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
+    if args.v3:
+        out = v3_times(args, gen, times)
+    else:
+        out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, **out}),

@@ -118,6 +118,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a rank-4 map at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------------
 
 // Layout types of a descriptor (bits 62-63): no swizzle, or the 128-byte one.
@@ -302,6 +312,19 @@ inline cudaError_t make_map_3d(CUtensorMap* map, CUtensorMapDataType type, const
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = fn(map, type, 3, const_cast<void*>(base), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same for a rank-4 map: strides of dims 1 to 3 in bytes.
+inline cudaError_t make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                               const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                               const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, type, 4, const_cast<void*>(base), dims,
                   strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -23,45 +23,55 @@
 // with zeros: (k-1)/2 on each side at stride 1, (k-2)/2 low and the rest high
 // at stride 2 on an even input ((0, 1) at k 3, (1, 2) at k 5).
 //
-// Design. The tile loop of inverted_residual.cu: a block owns one output tile
-// of TH x TW pixels of one image and every output channel; it loads the
-// tile's input window ((TH-1)s+k by (TW-1)s+k pixels, every input channel)
-// into shared memory once, then walks the expanded channels in chunks of
-// KE = 32 (expand the window for the chunk into an f32 tile, the depthwise of
-// the tile's outputs, the chunk's share of the projection into accumulators
-// that live across chunks). The expanded tensor never reaches device memory.
-// Channels past E in the last chunk are zero in the expansion and the
-// depthwise, so they add nothing to the projection and are never pooled.
+// bf16 (v3_wgmma.cuh, the plan of ops/v3_block.v3_wgmma_plan): a
+// persistent grid over units of an output tile of one image x a part of
+// Cout. The tile's input window arrives by TMA (a ring of whole windows);
+// the expanded channels are walked in chunks of 64 whose expand and
+// projection weights stream through a TMA ring; the expansion and the
+// projection run on wgmma with f32 accumulators in registers (the
+// projection's live across the chunks), the expansion's epilogue rounds
+// into a bf16 expanded tile in shared memory, the depthwise reads it and
+// rounds into the projection's A panel. Two consumer warpgroups and a
+// producer warpgroup (its warps run the two rings). The expanded tensor
+// never reaches device memory. Channels past E in the last chunk are zero
+// in the expansion and the depthwise, add nothing to the projection and
+// are never pooled.
+//
+// float32 (v3_tile.cuh): exact IEEE float32 by FMA on the CUDA cores, one
+// tile a block: the input window loaded once, the expanded channels in
+// chunks of KE = 32 (an f32 expanded tile, the depthwise, the chunk's share
+// of the projection); a synchronous loop (five barriers a chunk, no load
+// pipelining) whose time is its latency. It runs only on the verify and
+// float32 paths.
 //
 // The squeeze-excite gate is a reduction over the whole image in the middle
-// of the block, which one tile cannot see. A block with SE runs two launches
-// of the same loop (design (a); one block an image, design (b), needs the
-// whole input image and an f32 output accumulator in shared memory: 275 KB at
-// V3-Large's block 3, over the 227 KB limit):
-//   pass 1 (POOL): expand -> depthwise -> act per tile, and each tile's
-//     per-channel f32 sums of its outputs (in pixel order per thread, then the
-//     eight row groups in order) into a scratch `partial` (N x tiles x E f32);
-//     nothing else is written;
-//   pass 2: each block sums its image's partials over the tiles in order, runs
-//     the two SE products and the hard sigmoid into a gate in shared memory,
-//     then runs the tile loop again with the gate applied before the
-//     projection.
+// of the block, which one tile cannot see. A block with SE runs two passes
+// of its tile loop (design (a); one block an image, design (b), needs the
+// whole input image and an f32 output accumulator in shared memory: 275 KB
+// at V3-Large's block 3, over the 227 KB limit):
+//   pass 1: expand -> depthwise -> act per tile, and each tile's
+//     per-channel f32 sums of its outputs in a fixed order into a scratch
+//     `partial` (N x tiles x E f32); nothing else is written;
+//   then the image's gate: its tiles' sums in tile order, the two SE
+//     products and the hard sigmoid (bf16: once an image, by a launch of
+//     its own into N x E f32; float32: by every tile of pass 2 into shared
+//     memory);
+//   pass 2: the tile loop again with the gate applied before the
+//     projection (bf16: pass 2 alone splits Cout).
 // The pooled sum is deterministic (no atomics) and the expanded tensor still
 // never reaches device memory; SE blocks pay the expansion and depthwise
-// twice, and every tile of an image computes the image's gate.
+// twice.
 //
 // What bounds it on an H100: V3-Large 1.0-224 at batch 256 does ~100 GFLOP
 // of products over its 15 blocks; the blocks at 112-28 squared are bound by
 // their bytes (inputs and outputs once at 3.35 TB/s), those at 14 and 7
 // squared by their operations (989 TFLOP/s bf16): 0.24 ms the sum of the
-// blocks' bounds. Like inverted_residual.cu, this first version is a
-// synchronous loop (five barriers a chunk, no load pipelining) whose time is
-// its latency.
+// blocks' bounds.
 //
-// The tile loop itself lives in v3_tile.cuh, which the chain kernel
-// (v3_chain.cu) shares; here each block computes the tile its blockIdx.x
-// names.
+// The tile loops live in v3_wgmma.cuh and v3_tile.cuh, which the chain
+// kernel (v3_chain.cu) shares.
 #include "v3_tile.cuh"
+#include "v3_wgmma.cuh"
 
 namespace {
 
@@ -140,19 +150,83 @@ int launch(const void* x, const void* ew, const void* eb, const void* dw, const 
                 : launch_k<T, 5>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2, part, out, s, stream);
 }
 
+namespace w = mnk::v3w;
+
+__global__ void __launch_bounds__(w::THREADS, 1)
+    v3_wgmma_kernel(const __grid_constant__ w::Maps maps, const w::Ptrs p, const w::Geo g,
+                    int pool) {
+  extern __shared__ unsigned char smem_raw[];
+  const w::Rings r = w::rings_of(g, w::setup_smem(smem_raw));
+  w::by_role([&](auto consumer) {
+    w::Ring wring, bring;
+    w::run_pass<decltype(consumer)::value>(g, r, &maps, p, pool != 0, wring, bring);
+  });
+}
+
+// Each image's SE gate from pass 1's sums: one block an image.
+constexpr int GATE_THREADS = 512;
+__global__ void __launch_bounds__(GATE_THREADS) v3_gate_kernel(const w::Ptrs p, const w::Geo g) {
+  extern __shared__ float gate_smem[];
+  w::se_gate(g, p, blockIdx.x, gate_smem, threadIdx.x, GATE_THREADS, [] { __syncthreads(); });
+}
+
+int launch_bf16(const void* x, const void* ew, const void* eb, const void* dw, const void* db,
+                const void* pw, const void* pb, const w::Ptrs& p, const w::Geo& g, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(v3_wgmma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v3_wgmma_kernel, w::THREADS,
+                                                    g.smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  w::Maps maps;
+  if ((e = w::make_maps(maps, x, ew, eb, dw, db, pw, pb, p.gate, g)) != cudaSuccess)
+    return (int)e;
+  const long long cap = (long long)per_sm * sms;
+  const auto grid = [&](bool pool) {
+    const long long units = w::units_of(g, pool);
+    return (unsigned)(units < cap ? units : cap);
+  };
+  cudaStream_t st = (cudaStream_t)stream;
+  if (g.Se > 0) {
+    v3_wgmma_kernel<<<grid(true), w::THREADS, g.smem_bytes, st>>>(maps, p, g, 1);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    v3_gate_kernel<<<g.N, GATE_THREADS, w::gate_floats(g.E, g.Se) * sizeof(float), st>>>(p, g);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  v3_wgmma_kernel<<<grid(false), w::THREADS, g.smem_bytes, st>>>(maps, p, g, 0);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// partial: pass 1's sums (N x tiles x E f32) then the gates (N x E f32),
+// SE blocks only; plan: th, tw, split, cw, ws, bs (ops/v3_block.v3_wgmma_plan).
 int v3_block_bf16(const void* x, const void* ew, const void* eb, const void* dw,
                   const void* db, const void* pw, const void* pb, const void* w1,
                   const void* b1, const void* w2, const void* b2, void* partial, void* out,
                   int N, int H, int W, int Cin, int E, int Cout, int Se, int K, int stride,
-                  int act_exp, int act, int residual, int identity, int TH, int TW,
-                  void* stream) {
-  return launch<__nv_bfloat16>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2, partial, out, N, H,
-                               W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
-                               identity, TH, TW, stream);
+                  int act_exp, int act, int residual, int identity, int th, int tw, int split,
+                  int cw, int ws, int bs, void* stream) {
+  const w::Geo g = w::make_geo(N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+                               identity, w::Plan{th, tw, split, cw, ws, bs});
+  if (!w::geo_ok(g)) return (int)cudaErrorInvalidValue;
+  if ((!identity && (ew == nullptr || eb == nullptr)) ||
+      (Se > 0 && (w1 == nullptr || b1 == nullptr || w2 == nullptr || b2 == nullptr ||
+                  partial == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  using bf16 = w::bf16;
+  float* part = static_cast<float*>(partial);
+  const w::Ptrs p{(const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
+                  (bf16*)out, part,
+                  part == nullptr ? nullptr : part + (long long)N * g.tiles_img * E};
+  return launch_bf16(x, ew, eb, dw, db, pw, pb, p, g, stream);
 }
 
 int v3_block_f32(const void* x, const void* ew, const void* eb, const void* dw,
@@ -172,6 +246,15 @@ int v3_block_smem_bytes(int Cin, int E, int Cout, int Se, int K, int stride, int
   make_shape(&s, 1, 2 * 16, 2 * 16, Cin, E, Cout, Se, K, stride, mnk::kRelu, mnk::kRelu, 0, 0,
              TH, TW, item);
   return s.smem;
+}
+
+// Dynamic shared memory of a bf16 plan (ops/v3_block.v3_wgmma_smem_bytes
+// mirrors it).
+int v3_wgmma_smem_bytes(int th, int tw, int Cin, int E, int Cout, int K, int stride, int cw,
+                        int ws, int bs, int identity) {
+  return w::make_geo(1, 16, 16, Cin, E, Cout, 0, K, stride, mnk::kRelu, mnk::kRelu, 0, identity,
+                     w::Plan{th, tw, Cout / cw, cw, ws, bs})
+      .smem_bytes;
 }
 
 }  // extern "C"

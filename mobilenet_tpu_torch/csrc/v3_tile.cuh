@@ -1,8 +1,8 @@
-// One output tile of the fused MobileNet-V3 bottleneck, shared by the
+// One output tile of the float32 MobileNet-V3 bottleneck, shared by the
 // per-block kernel (v3_block.cu) and the chain kernel (v3_chain.cu), so that
 // a chain stage computes bit for bit what one per-block launch does. The
 // numerics, the tile design and the two-pass squeeze-excite are described in
-// v3_block.cu's header.
+// v3_block.cu's header. bf16 runs v3_wgmma.cuh.
 //
 // A tile is TH x TW output pixels of image n (tile t of the image's
 // tiles_h x tiles_w, row-major) and every output channel. The caller hands
@@ -18,8 +18,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
 #include <type_traits>
 
 #include "ir_tile.cuh"
@@ -30,8 +28,7 @@ namespace mnk::v3 {
 constexpr int V3_THREADS = 256;        // 8 warps
 constexpr int ROWG = V3_THREADS / 32;  // row groups of the per-channel loops
 constexpr int KE = 32;                 // expanded channels per chunk
-constexpr int FPW = 5;                 // projection fragments (16x16) per warp
-constexpr int MAX_FRAGS = 8 * FPW;     // TMp/16 * CoutP/16 <= 40
+constexpr int MAX_FRAGS = 40;          // TMp/16 * CoutP/16: the accumulators' bound
 constexpr int PACC = MAX_FRAGS * 256 / V3_THREADS;  // f32 accumulators / thread
 constexpr int LDZ = KE + 4;            // f32 expanded tile row stride
 constexpr int LDE = KE + 8;            // expand weight slice row stride
@@ -131,6 +128,7 @@ __device__ __forceinline__ void v3_tile(
     const T* __restrict__ pb, const T* __restrict__ w1, const T* __restrict__ b1,
     const T* __restrict__ w2, const T* __restrict__ b2, float* __restrict__ partial,
     T* __restrict__ out, Shape s, int n, int t, unsigned char* smem) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs v3_wgmma.cuh");
   T* Xs = reinterpret_cast<T*>(smem);
   float* Zf = reinterpret_cast<float*>(smem + s.off_z);
   T* Es = reinterpret_cast<T*>(smem + s.off_e);
@@ -186,18 +184,10 @@ __device__ __forceinline__ void v3_tile(
     }
   }
 
-  const int mt = s.TMp / 16;
-  const int total = mt * (s.CoutP / 16);
   float acc[PACC];
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> cf[FPW];
   if constexpr (!POOL) {
-    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-      for (int j = 0; j < PACC; ++j) acc[j] = 0.0f;
-    } else {
-#pragma unroll
-      for (int j = 0; j < FPW; ++j) nvcuda::wmma::fill_fragment(cf[j], 0.0f);
-    }
+    for (int j = 0; j < PACC; ++j) acc[j] = 0.0f;
   }
 
   for (int e0 = 0; e0 < s.E; e0 += KE) {
@@ -282,7 +272,7 @@ __device__ __forceinline__ void v3_tile(
       continue;  // the next chunk's first barrier protects Red
     }
     // projection of the chunk: acc += As (TMp x KE) @ Bs (KE x CoutP)
-    if constexpr (std::is_same<T, float>::value) {
+    if constexpr (!POOL) {
 #pragma unroll
       for (int j = 0; j < PACC; ++j) {
         const int q = tid + V3_THREADS * j;
@@ -295,41 +285,14 @@ __device__ __forceinline__ void v3_tile(
           acc[j] = v;
         }
       }
-    } else {
-      using namespace nvcuda;
-#pragma unroll
-      for (int j = 0; j < FPW; ++j) {
-        const int f = warp + 8 * j;
-        if (f < total) {
-          const int mi = f % mt, ni = f / mt;
-#pragma unroll
-          for (int kk = 0; kk < KE; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-            wmma::load_matrix_sync(af, As + mi * 16 * LDA + kk, LDA);
-            wmma::load_matrix_sync(bf, Bs + kk * s.ldb + ni * 16, s.ldb);
-            wmma::mma_sync(cf[j], af, bf, cf[j]);
-          }
-        }
-      }
     }
   }
   if constexpr (!POOL) {
     __syncthreads();  // every product done before Cs overwrites the chunk buffers
-    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-      for (int j = 0; j < PACC; ++j) {
-        const int q = tid + V3_THREADS * j;
-        if (q < s.TMp * s.CoutP) Cs[(q / s.CoutP) * s.ldc + q % s.CoutP] = acc[j];
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < FPW; ++j) {
-        const int f = warp + 8 * j;
-        if (f < total)
-          nvcuda::wmma::store_matrix_sync(Cs + (f % mt) * 16 * s.ldc + (f / mt) * 16, cf[j],
-                                          s.ldc, nvcuda::wmma::mem_row_major);
-      }
+    for (int j = 0; j < PACC; ++j) {
+      const int q = tid + V3_THREADS * j;
+      if (q < s.TMp * s.CoutP) Cs[(q / s.CoutP) * s.ldc + q % s.CoutP] = acc[j];
     }
     __syncthreads();
     // + bias in f32, rounded; then the residual in T; VEC channels a thread

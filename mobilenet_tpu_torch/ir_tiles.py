@@ -9,12 +9,13 @@ events, random operands) at the tile that `ops.inverted_residual.ir_plan`
 (`ops.inverted_residual_i8.ir_i8_plan`) picks and at a few others, and
 prints one JSON line per block and batch: the shape, the plan, and the ms
 of each tile. With --model v3 (v3small), the same for every block of
-MobileNet-V3-Large (-Small) and the bf16 V3 bottleneck kernel
-(`ops.v3_block.v3_plan`), or with --int8 the int8 V3 bottleneck kernel
-(`ops.v3_block_i8.v3_i8_plan`); SE blocks with both of their launches.
-These are the timings behind the plans' time model (CHUNK_OVERHEAD,
-SLOTS_TWO_PER_SM, and the int8 and V3 plans' output caps). Refuses to run
-without a card.
+MobileNet-V3-Large (-Small) and the bf16 V3 bottleneck kernel (its Hopper
+tile at `ops.v3_block.v3_wgmma_plan`'s plan and at other tiles with the
+plan's Cout parts and the first ring slots that fit), or with --int8 the
+int8 V3 bottleneck kernel (`ops.v3_block_i8.v3_i8_plan`); SE blocks with
+all of their launches. These are the timings behind the plans' time model
+(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, the int8 plan's output cap, the bf16 V3
+plan's unit-time constants). Refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -54,7 +55,9 @@ def v3_rows(lib, args, gen):
     from .ops.head import ACTS  # noqa: PLC0415
     from .ops.inverted_residual import MAX_FRAGS, SMEM_MAX  # noqa: PLC0415
     from .ops.inverted_residual_i8 import MAX_OUTPUTS_I8  # noqa: PLC0415
-    from .ops.v3_block import MAX_OUTPUTS_V3, v3_plan, v3_smem_bytes  # noqa: PLC0415
+    from .ops.v3_block import (  # noqa: PLC0415
+        V3W_RINGS, V3W_SMEM_LIMIT, V3W_TM, v3_wgmma_plan, v3_wgmma_smem_bytes,
+    )
     from .ops.v3_block_i8 import v3_i8_plan, v3_i8_smem_bytes  # noqa: PLC0415
 
     def rand(*shape, scale):
@@ -90,30 +93,38 @@ def v3_rows(lib, args, gen):
                 tail = (1e-3, 1e-3, 1.0 / (ho * ho), 1.0 / 6)  # m6 exp, m6 dw, 1/hw, 1/6
                 plan = v3_i8_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, identity)
 
-                def smem(th, tw):
-                    return v3_i8_smem_bytes(th, tw, bd.cin, e, cout, se, k, bd.stride, identity)
+                def full(th, tw):  # the C entry's tile arguments, or None: no fit
+                    ok = (-(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
+                          and v3_i8_smem_bytes(th, tw, bd.cin, e, cout, se, k, bd.stride,
+                                               identity) <= SMEM_MAX)
+                    return (th, tw) if ok else None
             else:
-                part = torch.empty(n * ho * ho * e if se else 1, device="cuda")  # the 1x1 tile's
+                # the 1x1 tile's sums, then the gates
+                part = torch.empty(n * ho * ho * e + n * e if se else 1, device="cuda")
                 ptrs = [x.data_ptr(), *((t.data_ptr() for t in exp) if exp else (0, 0)),
                         *(t.data_ptr() for t in dw + prj),
                         *((t.data_ptr() for t in ses) if ses else (0,) * 4), part.data_ptr(),
                         out.data_ptr()]
-                fn, tail, cap = lib.v3_block_bf16, (), MAX_OUTPUTS_V3
-                plan = v3_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, 2)
+                fn, tail, cap = lib.v3_block_bf16, (), V3W_TM
+                wplan = v3_wgmma_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, identity)
+                plan = wplan[:2]
 
-                def smem(th, tw):
-                    return v3_smem_bytes(th, tw, bd.cin, e, cout, se, k, bd.stride, 2)
+                def full(th, tw, wplan=wplan):
+                    ring = next((r for r in V3W_RINGS if v3_wgmma_smem_bytes(
+                        th, tw, bd.cin, e, cout, k, bd.stride, wplan.cw, *r,
+                        identity) <= V3W_SMEM_LIMIT), None)
+                    return None if ring is None else (th, tw, wplan.split, wplan.cw, *ring)
             call = (*ptrs, n, h, h, bd.cin, e, cout, se, k, bd.stride,
                     ACTS["linear" if identity else bd.act], ACTS[bd.act], int(bd.has_res),
                     int(identity))
             tiles = {plan, (1, 1), (1, min(ho, 7)), (2, min(ho, 14)), (4, min(ho, 14)),
                      (4, min(ho, 16)), (min(ho, 7), min(ho, 7)), (min(ho, 8), min(ho, 8)),
                      (min(ho, 8), min(ho, 16)), (min(ho, 16), min(ho, 16)),
-                     (min(ho, 7), min(ho, 14)), (min(ho, 14), min(ho, 14))}
-            ms = {f"{th}x{tw}": tile_ms(fn, call, (th, tw), 20 if n == 1 else 5, tail)
-                  for th, tw in sorted(tiles)
-                  if (th * tw <= cap and -(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
-                      and smem(th, tw) <= SMEM_MAX)}
+                     (min(ho, 7), min(ho, 14)), (min(ho, 14), min(ho, 14)),
+                     (min(ho, 2), min(ho, 56)), (min(ho, 4), min(ho, 28)),
+                     (min(ho, 4), min(ho, 32)), (min(ho, 9), min(ho, 14))}
+            ms = {f"{th}x{tw}": tile_ms(fn, call, full(th, tw), 20 if n == 1 else 5, tail)
+                  for th, tw in sorted(tiles) if th * tw <= cap and full(th, tw) is not None}
             print(json.dumps({"device": torch.cuda.get_device_name(0), "model": args.model,
                               "int8": args.int8, "block": i, "batch": n, "h": h,
                               "cin": bd.cin, "e": e, "cout": cout, "k": k,

@@ -49,6 +49,9 @@ _IR = [_P] * 8 + [_I] * 10
 # partial, out | N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
 # identity, TH, TW
 _V3 = [_P] * 13 + [_I] * 15
+# ... then th, tw, split, cw, ws, bs (ops/v3_block.v3_wgmma_plan) for bf16;
+# partial: N x tiles x E f32 sums then N x E f32 gates (SE blocks)
+_V3_BF16 = [_P] * 13 + [_I] * 19
 _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
 # the bf16 and int8 separable plans: nwg, th, tw, kp, split, cw, ws, bs
 _PLAN = [_I] * 8
@@ -74,12 +77,14 @@ _SIGNATURES = {
     # x, w, b (or 0), out | N, H, W, C, stride, relu6
     "depthwise_f32": [_P] * 4 + [_I] * 6, "depthwise_bf16": [_P] * 4 + [_I] * 6,
     "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
-    "v3_block_bf16": _V3, "v3_block_f32": _V3,
+    "v3_block_bf16": _V3_BF16, "v3_block_f32": _V3,
     # x, out, scratch0, scratch1, partial | N, H, W, stages | ptrs (stages x
     # 10 weight pointers), dims (stages x 12 ints): host arrays; grid: one
     # host int the launch's block count is written to
-    "v3_chain_bf16": [_P] * 5 + [_I] * 4 + [_P] * 3,
     "v3_chain_f32": [_P] * 5 + [_I] * 4 + [_P] * 3,
+    # the same with gate (N x E f32) and maps (the device copy of
+    # v3_chain_bf16_maps' output) after partial; dims: stages x 16 ints
+    "v3_chain_bf16": [_P] * 7 + [_I] * 4 + [_P] * 3,
     "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
     # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
     # relu6 | normalize scale, offset
@@ -105,6 +110,11 @@ _HOST_SIGNATURES = {
     "v3_block_smem_bytes": ([_I] * 9, ctypes.c_int),
     # Cin, E, Cout, Se, K, stride, identity, TH, TW -> bytes of dynamic shared memory
     "v3_block_i8_smem_bytes": ([_I] * 9, ctypes.c_int),
+    # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity -> bytes of dynamic shared memory
+    "v3_wgmma_smem_bytes": ([_I] * 11, ctypes.c_int),
+    # host (stages x 1152 bytes), x, scratch0, scratch1, gate | N, H, W, stages |
+    # ptrs, dims (as v3_chain_bf16): the bf16 chain's TMA tensor maps -> cudaError_t
+    "v3_chain_bf16_maps": ([_P] * 5 + [_I] * 4 + [_P] * 2, ctypes.c_int),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

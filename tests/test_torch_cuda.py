@@ -43,7 +43,9 @@ from mobilenet_tpu_torch.ops.separable_block_i8 import (
     separable_i8_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.stem import stem_block0, stem_block0_plain, stem_conv, stem_conv_plain
-from mobilenet_tpu_torch.ops.v3_block import v3_block, v3_block_plain, v3_plan, v3_smem_bytes
+from mobilenet_tpu_torch.ops.v3_block import (
+    v3_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
+)
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
     v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
 )
@@ -691,6 +693,58 @@ def test_v3_smem_plan_matches_kernel(dev):
                                                bd.stride, th, tw, item) == v3_smem_bytes(
                     th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride, item)
             h //= bd.stride
+
+
+def test_v3_wgmma_smem_mirror(dev):
+    """The bf16 tile's shared-memory arithmetic (csrc/v3_wgmma.cuh make_geo)
+    equals its Python mirror, v3_wgmma_smem_bytes, on the plan of every
+    V3-Large, -minimalistic and -Small 1.0-224 block at batch 256 and 1."""
+    lib = _build.library()
+    for variant, mini in (("large", False), ("large", True), ("small", False)):
+        h = 112
+        for bd in V3Config(variant, 1.0, 224, minimalistic=mini).block_defs:
+            for n in (256, 1):
+                p = v3_wgmma_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                  bd.se_mid, not bd.has_expand)
+                args = (p.th, p.tw, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, p.cw, p.ws,
+                        p.bs, int(not bd.has_expand))
+                assert lib.v3_wgmma_smem_bytes(*args) == v3_wgmma_smem_bytes(*args)
+            h //= bd.stride
+
+
+@pytest.mark.parametrize("variant", ["large", "small"])
+def test_v3_block_batch1(dev, variant):
+    """The bf16 kernel at every distinct V3-Large and V3-Small 1.0-224 block
+    shape at batch 1, where the plans split Cout into parts and take small
+    tiles, against its plain version."""
+    h, seen = 112, set()
+    for bd in V3Config(variant, 1.0, 224).block_defs:
+        if (h, bd) not in seen:
+            seen.add((h, bd))
+            rng = np.random.default_rng(h + bd.cexp)
+            kw = _v3_args(rng, dev, torch.bfloat16, 1, h, bd.cin, bd.cexp, bd.cout, bd.kernel,
+                          bd.se_mid, not bd.has_expand)
+            kw.update(k=bd.kernel, stride=bd.stride, act=bd.act, residual=bd.has_res)
+            _close(v3_block(**kw), v3_block_plain(**kw), torch.bfloat16)
+        h //= bd.stride
+
+
+@pytest.mark.parametrize("batch", [256, 1])
+def test_v3_block_minimalistic(dev, batch):
+    """The bf16 kernel at every distinct V3-Large-minimalistic 1.0-224 block
+    shape (k 3, relu, no SE) against its plain version."""
+    h, seen = 112, set()
+    for bd in V3Config("large", 1.0, 224, minimalistic=True).block_defs:
+        if (h, bd) not in seen:
+            seen.add((h, bd))
+            rng = np.random.default_rng(h + bd.cexp + batch)
+            kw = _v3_args(rng, dev, torch.bfloat16, batch, h, bd.cin, bd.cexp, bd.cout,
+                          bd.kernel, bd.se_mid, not bd.has_expand)
+            kw.update(k=bd.kernel, stride=bd.stride, act=bd.act, residual=bd.has_res)
+            _close(v3_block(**kw), v3_block_plain(**kw), torch.bfloat16)
+            del kw
+            torch.cuda.empty_cache()
+        h //= bd.stride
 
 
 @pytest.mark.parametrize("mini,batch", [(False, 1), (False, 4), (True, 2)])
