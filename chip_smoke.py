@@ -87,7 +87,8 @@ file; imports nothing of JAX. Phases, one JSON line each:
  27. the int8 V3 kernel against its plain version, exactly, at the 12
      distinct block shapes of V3-Large 1.0-224 at batch 256 and 1 (non-zero
      SE biases, the identity block 0, block 1's expansion at stride 2) and a
-     saturating residual; its tile plans and the shared-memory mirror;
+     saturating residual; its plans (`v3_i8_wgmma_plan`, printed) and the
+     shared-memory mirror of every pass;
  28. the V3-Large int8 pipeline on the calibrated tree: kernel route
      against plain route, logits equal bit for bit at batch 256 and 1; the
      per-layer gate verify_int8_v3 at batch 2, every int8 tap exact;
@@ -254,6 +255,8 @@ LIBRARY_MS = None
 I8_BLOCK_DESIGN = ["mobilenet_tpu_torch/csrc/separable_i8_wgmma.cuh",
                    "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_DESIGN = ["mobilenet_tpu_torch/csrc/v3_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+V3_I8_DESIGN = ["mobilenet_tpu_torch/csrc/v3_i8_wgmma.cuh",
+                "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_LIBRARY = ("torch.matmul + bias + act, F.conv2d(groups=E, channels-last, TF-SAME) + act, "
               "SE (mean, matmul, relu, matmul, hardsigmoid, mul), torch.matmul + bias "
               "(+ residual)")
@@ -1197,7 +1200,9 @@ def v3_int8_layers(rng, cin, e, cout, k, se, identity, prj_gain=1.0):
     from random float weights by quant/v3's _quant_named at fixed scales
     (input 0.05, expansion and depthwise 0.06, SE mid 0.03, the projection
     back at the input's scale / prj_gain): non-zero biases everywhere, the
-    SE's included; exp None for the identity, the SE pair None without SE."""
+    SE's included; exp None for the identity, the SE pair None without SE. The
+    layers hold the kernel's weight forms, made once as at upload."""
+    from mobilenet_tpu_torch.ops.v3_block_i8 import v3_i8_kernel_weights
     from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3
 
     def lay(shape, axis, s_in, s_out, scale, b_scale, **kw):
@@ -1211,6 +1216,7 @@ def v3_int8_layers(rng, cin, e, cout, k, se, identity, prj_gain=1.0):
     se1 = lay((e, se), 1, s_d, s_g, e ** -0.5, 0.3) if se else None
     se2 = lay((se, e), 1, s_g, 1.0, se ** -0.5, 0.3) if se else None
     prj = lay((e, cout), 1, s_d, s_x / prj_gain, e ** -0.5, 0.2)
+    v3_i8_kernel_weights({"dw": dw, "prj": prj, **({} if identity else {"exp": exp})})
     return exp, dw, prj, se1, se2
 
 
@@ -1218,10 +1224,12 @@ def v3_i8_kernel_checks(summary, row, cfg, rng, smi):
     """The int8 V3 kernel against its plain version, exactly, at each
     distinct block shape of `cfg` at batch 256 and 1 (random layers with
     non-zero SE biases), adding the batch-256 numbers to `summary[row]`; the
-    tile plans and the kernel's shared memory against its Python mirror."""
+    plans (`v3_i8_wgmma_plan`) and the kernel's shared memory of each pass
+    against its Python mirror."""
     from mobilenet_tpu_torch.ops import _build
     from mobilenet_tpu_torch.ops.v3_block_i8 import (
-        v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
+        FULL, GATED, POOL, v3_block_i8, v3_block_i8_plain, v3_i8_wgmma_plan,
+        v3_i8_wgmma_smem_bytes,
     )
 
     lib = _build.library()
@@ -1235,14 +1243,16 @@ def v3_i8_kernel_checks(summary, row, cfg, rng, smi):
         kw = dict(k=bd.kernel, stride=bd.stride, act=bd.act, se1=layers[3], se2=layers[4],
                   residual=bd.has_res)
         for n in (256, 1):
-            th, tw = plans[f"{nm} batch {n}"] = v3_i8_plan(
-                n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, ident)
-            c_bytes = lib.v3_block_i8_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid,
-                                                 bd.kernel, bd.stride, int(ident), th, tw)
-            if c_bytes != v3_i8_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid,
-                                           bd.kernel, bd.stride, ident):
-                raise AssertionError(f"{nm}: the int8 V3 kernel plans {c_bytes} B of shared "
-                                     "memory, v3_i8_smem_bytes another")
+            p = v3_i8_wgmma_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                 bd.se_mid, ident)
+            plans[f"{nm} batch {n}"] = p._asdict()
+            for mode in ((POOL, GATED) if bd.se_mid else (FULL,)):
+                args = (p.th, p.tw, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, p.cw, p.ws,
+                        p.bs, ident, mode)
+                c_bytes = lib.v3_i8_wgmma_smem_bytes(*args)
+                if c_bytes != v3_i8_wgmma_smem_bytes(*args):
+                    raise AssertionError(f"{nm} pass {mode}: the int8 V3 kernel plans {c_bytes} "
+                                         "B of shared memory, v3_i8_wgmma_smem_bytes another")
             x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, bd.cin)).astype(
                 np.int8)).cuda()
             ref = check_i8(summary, row, name.format(n=n), cnt if n == 256 else 0,
@@ -1273,7 +1283,7 @@ def v3_int8_phases(smi, kernels, launches):
     cfg = V3Config("large", ALPHA, RES)
     summary = {"v3_block_i8": {
         "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block_i8.cu",
-        "replaces": "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290",
+        "design": V3_I8_DESIGN, "replaces": "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290",
         "also_replaces": ["mobilenet_tpu/quant/pallas_block_packed_i8.py:436 (V3-L b00)",
                           "mobilenet_tpu/quant/pallas_block_packed_i8.py:632 (V3-L b01)",
                           "mobilenet_tpu/quant/pallas_block_packed_i8.py:821 (V3-S b00, "
@@ -1536,7 +1546,7 @@ def v3small_int8_phases(smi, kernels, launches):
     row = "v3_block_i8[v3small]"
     summary = {row: {
         "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block_i8.cu",
-        "replaces": "mobilenet_tpu/quant/pallas_block_packed_i8.py:821",
+        "design": V3_I8_DESIGN, "replaces": "mobilenet_tpu/quant/pallas_block_packed_i8.py:821",
         "also_runs": ["V3-S b01-b10 (JAX: mobilenet_tpu/quant/pallas_ir_v3_i8.py:290)"],
         "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
         "ops_ms": 0.0, "library_ms": LIBRARY_MS}}

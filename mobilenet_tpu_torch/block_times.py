@@ -1,6 +1,7 @@
 """Times of the fused block kernels and the chains on the card.
 
-    python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] [--int8 | --v3]
+    python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
+        [--int8 | --v3 | --v3-int8 | --v2]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -16,7 +17,14 @@ shape of MobileNet-V3-Large and -Small 1.0-224 ("v3l b03 256": its first
 block of that shape, with "count", the blocks of one forward that have it)
 and the two chains (`v3_chain` over V3-Small b1-b10 and V3-Large b1-b14),
 with --yardsticks also the plain versions and the unfused library sequence
-`v3_library` (never called by the port). Prints one JSON line: the card and
+`v3_library` (never called by the port). With --v3-int8, instead the int8
+`v3_block_i8` at every distinct block shape of MobileNet-V3-Large and -Small
+1.0-224 (names and counts as --v3), with "passes": torch.profiler's device
+ms a call of each kernel it launches (an SE block's pool pass, gate and
+gated pass), and with --yardsticks its plain version. With --v2, instead the
+bf16 `inverted_residual` at every distinct expanded block shape of
+MobileNet-V2 1.0-224 (blocks 1-16), with --yardsticks also its plain version
+and `v3_library` (relu6, k 3, no SE). Prints one JSON line: the card and
 {"b00 256": {"ms": ...}, ...}.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
@@ -95,9 +103,9 @@ def v3_library(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k, stride, act, se_
     return run
 
 
-def device_ms(fn, reps: int = 30) -> float:
-    """torch.profiler's device ms a call of fn (all its kernels), after
-    warm-up."""
+def kernel_ms(fn, reps: int = 30) -> dict:
+    """torch.profiler's device ms a call of fn, by kernel (the name up to
+    its arguments), after warm-up."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     for _ in range(3):
@@ -107,7 +115,19 @@ def device_ms(fn, reps: int = 30) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].strip()
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
+
+
+def device_ms(fn, reps: int = 30) -> float:
+    """torch.profiler's device ms a call of fn (all its kernels), after
+    warm-up."""
+    return sum(kernel_ms(fn, reps).values())
 
 
 def int8_times(cfg, args, gen, times) -> dict:
@@ -261,6 +281,112 @@ def v3_times(args, gen, times) -> dict:
     return out
 
 
+def v3_int8_times(args, rng_seed, times) -> dict:
+    """The int8 `v3_block_i8` at each distinct block shape of V3-Large and
+    V3-Small 1.0-224, through the public wrapper only: layers quantized from
+    random float weights by quant/v3's `_quant_named` with non-zero biases
+    (SE included), given the kernel's weight forms where the module makes
+    them (`v3_i8_kernel_weights`), x uniform in [-128, 127]."""
+    import numpy as np  # noqa: PLC0415
+
+    from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
+    from .ops import v3_block_i8 as mod  # noqa: PLC0415
+    from .quant.v3 import _quant_named, device_layer_v3  # noqa: PLC0415
+
+    rng = np.random.default_rng(rng_seed)
+
+    def layers(bd):
+        e, k, se, ident = bd.cexp, bd.kernel, bd.se_mid, not bd.has_expand
+
+        def lay(shape, axis, s_in, s_out, scale, b_scale, **kw):
+            w = rng.normal(0, scale, shape).astype(np.float32)
+            b = rng.normal(0, b_scale, (shape[axis],)).astype(np.float32)
+            return device_layer_v3(_quant_named(w, b, axis, s_in, s_out, **kw), "cuda")
+
+        blk = {"dw": lay((k, k, 1, e), 3, 0.05 if ident else 0.06, 0.06, 0.3, 0.2,
+                         k_taps=k * k),
+               "prj": lay((e, bd.cout), 1, 0.06, 0.05, e ** -0.5, 0.2)}
+        if not ident:
+            blk["exp"] = lay((bd.cin, e), 1, 0.05, 0.06, 1.5 * bd.cin ** -0.5, 0.3)
+        if se:
+            blk["se1"] = lay((e, se), 1, 0.06, 0.03, e ** -0.5, 0.3)
+            blk["se2"] = lay((se, e), 1, 0.03, 1.0, se ** -0.5, 0.3)
+        if hasattr(mod, "v3_i8_kernel_weights"):
+            mod.v3_i8_kernel_weights(blk)
+        return dict(exp=blk.get("exp"), dw=blk["dw"], prj=blk["prj"], se1=blk.get("se1"),
+                    se2=blk.get("se2"), k=k, stride=bd.stride, act=bd.act,
+                    residual=bd.has_res)
+
+    out = {}
+    for tag, variant in (("v3l", "large"), ("v3s", "small")):
+        cfg = V3Config(variant, 1.0, 224)
+        for batch in args.batch:
+            shapes, h = {}, cfg.resolution // 2
+            for i, bd in enumerate(cfg.block_defs):
+                key = (h, bd)
+                if key in shapes:
+                    out[shapes[key]]["count"] += 1
+                else:
+                    name = shapes[key] = f"{tag} b{i:02d} {batch}"
+                    x = torch.from_numpy(rng.integers(-128, 128, (batch, h, h, bd.cin))
+                                         .astype(np.int8)).cuda()
+                    kw = layers(bd)
+                    calls = {"ms": lambda x=x, kw=kw: mod.v3_block_i8(x, **kw)}
+                    if args.yardsticks:
+                        calls["plain_ms"] = lambda x=x, kw=kw: mod.v3_block_i8_plain(x, **kw)
+                    out[name] = {**times(batch, calls), "count": 1,
+                                 "passes": kernel_ms(calls["ms"])}
+                    del x, kw, calls
+                    torch.cuda.empty_cache()
+                h = -(-h // bd.stride)
+    return out
+
+
+def v2_times(args, gen, times) -> dict:
+    """The bf16 `inverted_residual` at each distinct expanded block shape of
+    V2 1.0-224 (blocks 1-16), and with --yardsticks its plain version and the
+    unfused library sequence `v3_library` (relu6, k 3, no SE), through the
+    public wrappers only."""
+    from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
+    from .ops.inverted_residual import (  # noqa: PLC0415
+        inverted_residual, inverted_residual_plain,
+    )
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+
+    cfg = V2Config(1.0, 224)
+    out = {}
+    for batch in args.batch:
+        shapes, h = {}, cfg.resolution // 2
+        for i, (t, cin, cout, stride) in enumerate(cfg.block_defs):
+            key = (h, t, cin, cout, stride)
+            if t == 1:
+                pass
+            elif key in shapes:
+                out[shapes[key]]["count"] += 1
+            else:
+                name = shapes[key] = f"v2 b{i:02d} {batch}"
+                e = cin * t
+                x = (torch.rand(batch, h, h, cin, generator=gen, device="cuda") * 4 - 2).bfloat16()
+                w = dict(exp_w=r(cin, e, scale=1.5 / cin ** 0.5), exp_b=r(e, scale=0.3),
+                         dw_w=r(3, 3, 1, e, scale=0.3), dw_b=r(e, scale=0.2),
+                         prj_w=r(e, cout, scale=e ** -0.5), prj_b=r(cout, scale=0.2))
+                res = stride == 1 and cin == cout
+                calls = {"ms": lambda x=x, w=w, s=stride, rs=res: inverted_residual(
+                    x, *w.values(), s, rs)}
+                if args.yardsticks:
+                    calls["plain_ms"] = lambda x=x, w=w, s=stride, rs=res: (
+                        inverted_residual_plain(x, *w.values(), s, rs))
+                    calls["library_ms"] = v3_library(x, **w, k=3, stride=stride, act="relu6",
+                                                     residual=res)
+                out[name] = {**times(batch, calls), "count": 1}
+                del x, w, calls
+                torch.cuda.empty_cache()
+            h = -(-h // stride)
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
@@ -271,6 +397,10 @@ def main(argv=None) -> None:
                       help="the int8 separable block instead of the bf16 one and the chain")
     kind.add_argument("--v3", action="store_true",
                       help="the bf16 V3 bottleneck and the V3 chains instead")
+    kind.add_argument("--v3-int8", action="store_true",
+                      help="the int8 V3 bottleneck instead, with each launch's device time")
+    kind.add_argument("--v2", action="store_true",
+                      help="the bf16 V2 inverted-residual block instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("block_times: needs a CUDA card")
@@ -284,6 +414,10 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.v3:
         out = v3_times(args, gen, times)
+    elif args.v3_int8:
+        out = v3_int8_times(args, 0, times)
+    elif args.v2:
+        out = v2_times(args, gen, times)
     else:
         out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -12,10 +12,11 @@ of each tile. With --model v3 (v3small), the same for every block of
 MobileNet-V3-Large (-Small) and the bf16 V3 bottleneck kernel (its Hopper
 tile at `ops.v3_block.v3_wgmma_plan`'s plan and at other tiles with the
 plan's Cout parts and the first ring slots that fit), or with --int8 the
-int8 V3 bottleneck kernel (`ops.v3_block_i8.v3_i8_plan`); SE blocks with
-all of their launches. These are the timings behind the plans' time model
-(CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, the int8 plan's output cap, the bf16 V3
-plan's unit-time constants). Refuses to run without a card.
+int8 V3 bottleneck kernel (its Hopper tile at
+`ops.v3_block_i8.v3_i8_wgmma_plan`'s plan and at other tiles, likewise);
+SE blocks with all of their launches. These are the timings behind the
+plans' time model (CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, the int8 plan's output
+cap, the V3 plans' unit-time constants). Refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -53,12 +54,13 @@ def v3_rows(lib, args, gen):
     of up to the plan's output cap."""
     from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
     from .ops.head import ACTS  # noqa: PLC0415
-    from .ops.inverted_residual import MAX_FRAGS, SMEM_MAX  # noqa: PLC0415
-    from .ops.inverted_residual_i8 import MAX_OUTPUTS_I8  # noqa: PLC0415
     from .ops.v3_block import (  # noqa: PLC0415
         V3W_RINGS, V3W_SMEM_LIMIT, V3W_TM, v3_wgmma_plan, v3_wgmma_smem_bytes,
     )
-    from .ops.v3_block_i8 import v3_i8_plan, v3_i8_smem_bytes  # noqa: PLC0415
+    from .ops.v3_block_i8 import (  # noqa: PLC0415
+        FULL, GATED, I8W_RINGS, I8W_SMEM_LIMIT, I8W_TM, K_ALIGN, POOL, kernel_weights,
+        v3_i8_wgmma_plan, v3_i8_wgmma_smem_bytes,
+    )
 
     def rand(*shape, scale):
         if args.int8:
@@ -78,26 +80,37 @@ def v3_rows(lib, args, gen):
         e, ho, se, k, cout = bd.cexp, -(-h // bd.stride), bd.se_mid, bd.kernel, bd.cout
         identity = not bd.has_expand
         for n in args.batch:
-            x = rand(n, h, h, bd.cin, scale=1.0)
+            cx = -(-bd.cin // K_ALIGN) * K_ALIGN if args.int8 else bd.cin
+            x = rand(n, h, h, cx, scale=1.0)
             exp = () if identity else layer((bd.cin, e), e, bd.cin ** -0.5)
             dw, prj = layer((k, k, 1, e), e, 0.3), layer((e, cout), cout, e ** -0.5)
             ses = (layer((e, se), se, e ** -0.5) + layer((se, e), e, se ** -0.5)) if se else ()
             out = torch.empty(n, ho, ho, cout, dtype=x.dtype, device="cuda")
             if args.int8:
-                part = torch.empty(n * e if se else 1, dtype=torch.int32, device="cuda")
-                ptrs = [x.data_ptr(), *((t.data_ptr() for t in exp) if exp else (0,) * 3),
-                        *(t.data_ptr() for t in dw + prj),
+                kw = kernel_weights(None if identity else {"w": exp[0]}, {"w": dw[0]},
+                                    {"w": prj[0]})
+                ep = -(-e // K_ALIGN) * K_ALIGN
+                scratch = [torch.empty(n * e if se else 1, dtype=dt, device="cuda")
+                           for dt in (torch.int32, torch.float32)]
+                scratch.append(torch.empty(n * ho * ho * ep if se else 1, dtype=torch.int8,
+                                           device="cuda"))
+                ptrs = [x.data_ptr(), *((kw["exp"].data_ptr(), exp[1].data_ptr(),
+                                         exp[2].data_ptr()) if exp else (0,) * 3),
+                        kw["dw"].data_ptr(), dw[1].data_ptr(), dw[2].data_ptr(),
+                        kw["prj"].data_ptr(), prj[1].data_ptr(), prj[2].data_ptr(),
                         *((t.data_ptr() for t in ses) if ses else (0,) * 6),
-                        part.data_ptr(), out.data_ptr()]
-                fn, cap = lib.v3_block_i8, MAX_OUTPUTS_I8
+                        *(t.data_ptr() for t in scratch), out.data_ptr()]
+                fn, cap = lib.v3_block_i8, I8W_TM
                 tail = (1e-3, 1e-3, 1.0 / (ho * ho), 1.0 / 6)  # m6 exp, m6 dw, 1/hw, 1/6
-                plan = v3_i8_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, identity)
+                iplan = v3_i8_wgmma_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, identity)
+                plan = iplan[:2]
 
-                def full(th, tw):  # the C entry's tile arguments, or None: no fit
-                    ok = (-(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
-                          and v3_i8_smem_bytes(th, tw, bd.cin, e, cout, se, k, bd.stride,
-                                               identity) <= SMEM_MAX)
-                    return (th, tw) if ok else None
+                def full(th, tw, iplan=iplan):  # the C entry's plan arguments, or None
+                    modes = (POOL, GATED) if se else (FULL,)
+                    ring = next((r for r in I8W_RINGS if all(v3_i8_wgmma_smem_bytes(
+                        th, tw, bd.cin, e, cout, k, bd.stride, iplan.cw, *r, identity, m)
+                        <= I8W_SMEM_LIMIT for m in modes)), None)
+                    return None if ring is None else (th, tw, iplan.split, iplan.cw, *ring)
             else:
                 # the 1x1 tile's sums, then the gates
                 part = torch.empty(n * ho * ho * e + n * e if se else 1, device="cuda")

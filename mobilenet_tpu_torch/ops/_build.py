@@ -67,11 +67,12 @@ _SIGNATURES = {
     # x, exp_w, exp_b, exp_m, dw_w, dw_b, dw_m, prj_w, prj_b, prj_m, out | N, H,
     # W, Cin, E, Cout, stride, residual, TH, TW | exp_six_q, dw_six_q
     "inverted_residual_i8": [_P] * 11 + [_I] * 10 + [_F] * 2,
-    # x, exp_w, exp_b, exp_mult, dw_w, dw_b, dw_mult, prj_w, prj_b, prj_m,
-    # se1_w, se1_b, se1_m, se2_w, se2_b, se2_a, pooled, out | N, H, W, Cin, E,
-    # Cout, Se, K, stride, act_exp, act, residual, identity, TH, TW | exp_m6,
+    # x, exp_wt, exp_b, exp_mult, dw_table, dw_b, dw_mult, prj_wt, prj_b,
+    # prj_m, se1_w, se1_b, se1_m, se2_w, se2_b, se2_a, pooled, gate, z, out |
+    # N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual, identity |
+    # th, tw, split, cw, ws, bs (ops/v3_block_i8.v3_i8_wgmma_plan) | exp_m6,
     # dw_m6, hw_inv, sixth
-    "v3_block_i8": [_P] * 18 + [_I] * 15 + [_F] * 4,
+    "v3_block_i8": [_P] * 20 + [_I] * 19 + [_F] * 4,
     # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
     "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
     # x, w, b (or 0), out | N, H, W, C, stride, relu6
@@ -108,8 +109,9 @@ _HOST_SIGNATURES = {
     "inverted_residual_i8_smem_bytes": ([_I] * 5, ctypes.c_int),
     # Cin, E, Cout, Se, K, stride, TH, TW, itemsize -> bytes of dynamic shared memory
     "v3_block_smem_bytes": ([_I] * 9, ctypes.c_int),
-    # Cin, E, Cout, Se, K, stride, identity, TH, TW -> bytes of dynamic shared memory
-    "v3_block_i8_smem_bytes": ([_I] * 9, ctypes.c_int),
+    # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity, pass (0 full, 1
+    # pool, 2 gated) -> bytes of dynamic shared memory
+    "v3_i8_wgmma_smem_bytes": ([_I] * 12, ctypes.c_int),
     # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity -> bytes of dynamic shared memory
     "v3_wgmma_smem_bytes": ([_I] * 11, ctypes.c_int),
     # host (stages x 1152 bytes), x, scratch0, scratch1, gate | N, H, W, stages |

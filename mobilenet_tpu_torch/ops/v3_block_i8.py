@@ -4,65 +4,212 @@ and its plain PyTorch version.
 Replaces the TPU kernels `mobilenet_tpu/quant/pallas_ir_v3_i8.py`
 `v3_block_pallas_i8` (V3 blocks with an expansion: hswish, k 5, the
 quantized squeeze-excite), `quant/pallas_block_packed_i8.py`
-`packed_block_i8_named` (block 0: the identity expansion at stride 1) and
+`packed_block_i8_named` (block 0: the identity expansion at stride 1),
 `packed_block_i8_named_s2` (block 1, whose expansion the JAX package runs
-as XLA ops before it). Exact: equal, bit for bit, to the plain version and
-to `quant/v3.py`'s oracle. What bounds it on the card and what the design
-does about it is in the CUDA source's header. A layer is a dict of device
-tensors (`quant/v3.device_layer_v3`): "w" int8, "b" int32, "a" and "m"
-float32 per output channel, and the float32 value "m6". `v3_i8_plan` picks
-the output tile and is the fits-function: a shape with no plan raises at
-the call.
+as XLA ops before it) and `packed_block_i8_named_s2_se` (V3-Small's block 0:
+the identity at stride 2 with the SE). Exact: equal, bit for bit, to the
+plain version and to `quant/v3.py`'s oracle. What bounds it on the card and
+what the design does about it is in the CUDA source's header; the kernel
+runs the Hopper tile of `csrc/v3_i8_wgmma.cuh` on the plan of
+`v3_i8_wgmma_plan`, which is the fits-function: a shape with no plan raises
+at the call. A layer is a dict of device tensors
+(`quant/v3.device_layer_v3`): "w" int8, "b" int32, "a" and "m" float32 per
+output channel, and the float32 value "m6"; the kernel reads the weights in
+its own forms ("wt", `v3_i8_kernel_weights`, made once at upload).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..quant import ops as qops
 from . import _build
 from .depthwise_i8 import check_i8_args
 from .head import ACTS
-from .inverted_residual import plan_tile
-from .inverted_residual_i8 import KE, LDK, LDZ, MAX_OUTPUTS_I8, _rup
-from .separable_block import check_channels
+from .separable_block import H100_SMS, _sms, check_aligned, check_channels
 
 NAMED_ACTS = ("relu", "hswish")
 
+# -- the kernel's plan (csrc/v3_i8_wgmma.cuh) ----------------------------------
+I8W_TM = 128            # output pixels a unit at most (64 a consumer warpgroup)
+I8W_CHUNK = 128         # channels a window box, an E chunk, a swizzled row
+I8W_ZROW = 144          # a pixel of the expanded tile Z (128 channels, padded)
+I8W_VEC = 512           # a chunk of an int32 or f32 vector
+I8W_PART = 1024         # a part's projection bias, then its multiplier (cw x 4 bytes each)
+I8W_MAX_CW = 184        # a part's columns: 128 or 64, then 32 + 16 + 8
+I8W_MAX_ROW_BLOCKS = 32  # the window's 64-row blocks (the expansion's pixel mask)
+I8W_GATED_SLOTS = 4     # pass 2's ring
+I8W_SMEM_LIMIT = 232448
+K_ALIGN = 16            # TMA strides are multiples of 16 bytes: x's Cin and z's E padded to 16
+# (window slots, weight slots) in the order the plan takes the first that fits
+I8W_RINGS = ((4, 4), (4, 3), (3, 3), (4, 2), (3, 2), (2, 4), (2, 3), (2, 2), (1, 4), (1, 3),
+             (1, 2))
+FULL, POOL, GATED = 0, 1, 2  # the passes: no SE; SE pass 1; SE pass 2
+# A unit's time model, in SM cycles (from thread 0's clock64 shares of the
+# first tile, PERF.md §6): a 64-row block's k32 expansion step, its 64
+# x 64 epilogue, one tap of a thread's 8-channel depthwise item, a chunk's
+# barriers and waits, a unit's set-up and epilogue, one projection column a
+# k32 step, a thread's 16-channel gated item of pass 2.
+MM_STEP, EPI_HALF, DW_TAP, CHUNK_FIXED, UNIT_FIXED, PRJ_COL, GATE_ITEM = (
+    300, 1500, 100, 600, 5000, 5.0, 600)
 
-def v3_i8_smem_bytes(th: int, tw: int, cin: int, e: int, cout: int, se: int, k: int,
-                     stride: int, identity: bool) -> int:
-    """Dynamic shared memory of one tile (v3_block_i8.cu make_shape): the
-    int8 input window ((TH-1)s+k by (TW-1)s+k pixels), then the chunk
-    buffers (expanded window tile, expand slice unless the identity,
-    depthwise tile, projection slice, depthwise taps) or the int8 result
-    tile, then with SE
-    the gate (E) and the hidden row (Se), 4 bytes each."""
-    pp = _rup(((th - 1) * stride + k) * ((tw - 1) * stride + k), 16)
-    cinp, coutp, tmp = _rup(cin, 32), _rup(cout, 16), _rup(th * tw, 16)
-    xs = _rup(pp * (cinp + 16), 128)
-    work = (_rup(pp * LDZ, 128) + (0 if identity else _rup(KE * (cinp + 16), 128))
-            + _rup(tmp * LDK, 128) + _rup(coutp * LDK, 128) + _rup(k * k * KE, 128))
-    gate = _rup(e * 4, 128) + _rup(se * 4, 128) if se else 0
-    return xs + max(work, _rup(tmp * (coutp + 16), 128)) + gate
+
+class V3I8Plan(NamedTuple):
+    th: int     # output tile rows of one image
+    tw: int     # output tile columns
+    split: int  # output-channel parts a tile (Cout = split * cw; pass 1 does not split)
+    cw: int     # columns a part
+    ws: int     # window ring slots (whole windows) of the full pass and pass 1
+    bs: int     # weight ring slots (a chunk of E's weights) of the full pass and pass 1
+
+
+def _rup(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _window(th: int, tw: int, k: int, stride: int):
+    """(ph, pw, MP): the window's sides and its pixels rounded up to 64."""
+    ph, pw = (th - 1) * stride + k, (tw - 1) * stride + k
+    return ph, pw, _rup(ph * pw, 64)
+
+
+def v3_i8_wgmma_smem_bytes(th: int, tw: int, cin: int, e: int, cout: int, k: int, stride: int,
+                           cw: int, ws: int, bs: int, identity: bool, mode: int) -> int:
+    """Dynamic shared memory of one pass of a plan (v3_i8_wgmma.cuh
+    make_geo): 1 KB of alignment, 1 KB of barriers; the full pass and pass 1:
+    the A panel (128 x 128 int8), Z (MP rows of 144 bytes, MP the window's
+    (th-1)s+k x (tw-1)s+k pixels rounded up to 64; none for the identity), bs
+    weight stages (a 16 KB expand box a 128-chunk of Cin, full only an 8 KB
+    64-row and 1 KB 8-row projection box, the depthwise table's k*k/4 + 1
+    rows and four vectors of 512 bytes, rounded up to 1 KB) and ws windows
+    (MP x 128 bytes a 128-chunk of Cin; full: then 2 KB for the part's
+    projection bias and multiplier); pass 2: four stages of a 16 KB z tile,
+    the projection boxes, the gate and the part's 2 KB, rounded up to 1 KB."""
+    nbig = 2 if cw >= 128 else 1 if cw >= 64 else 0
+    prj = nbig * 8192 + (cw - 64 * nbig) // 8 * 1024
+    if mode == GATED:
+        return 1024 + 1024 + I8W_GATED_SLOTS * _rup(16384 + prj + I8W_VEC + 2 * I8W_PART,
+                                                    1024)
+    _, _, mp = _window(th, tw, k, stride)
+    nci = -(-_rup(cin, K_ALIGN) // I8W_CHUNK)
+    stage = ((0 if identity else nci * 16384) + (prj if mode == FULL else 0)
+             + (k * k // 4 + 1) * I8W_VEC + 4 * I8W_VEC)
+    z = 0 if identity else mp * I8W_ZROW
+    part = 2 * I8W_PART if mode == FULL else 0
+    return 1024 + 1024 + 16384 + z + bs * _rup(stage, 1024) + ws * (nci * mp * 128 + part)
+
+
+def _unit_cycles(th, tw, cin, e, k, stride, identity):
+    """The time model's cycles of one unit: (those of the expansion and the
+    depthwise, those of pass 2's gating, k32 steps of the projection a
+    column)."""
+    _, _, mp = _window(th, tw, k, stride)
+    cx = _rup(cin, K_ALIGN)
+    ks = sum(-(-min(I8W_CHUNK, cx - I8W_CHUNK * c) // 32) for c in range(-(-cx // I8W_CHUNK)))
+    blocks = -(-mp // 128)  # a warpgroup's 64-row blocks
+    cyc, gate, steps = UNIT_FIXED, UNIT_FIXED, 0
+    for c in range(-(-e // I8W_CHUNK)):
+        live = min(I8W_CHUNK, e - I8W_CHUNK * c)
+        expand = 0 if identity else blocks * -(-live // 64) * (ks * MM_STEP + EPI_HALF)
+        items = -(-th * tw * (live // 8) // 256)
+        cyc += expand + items * k * k * DW_TAP + CHUNK_FIXED
+        gate += -(-min(64, th * tw) * -(-live // 16) // 128) * GATE_ITEM + CHUNK_FIXED
+        steps += -(-live // 32)
+    return cyc, gate, steps
 
 
 @functools.lru_cache(maxsize=None)
-def v3_i8_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int, stride: int,
-               se: int, identity: bool) -> Optional[Tuple[int, int]]:
-    """The output tile (TH, TW) of a block on (n, h, w, cin) -> cout, or
-    None when no tile fits: `ir_plan`'s search and time model
-    (ops/inverted_residual.plan_tile) with this kernel's k x k window,
-    shared memory and the int8 plan's output cap."""
-    if k not in (3, 5):
+def v3_i8_wgmma_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int, stride: int,
+                     se: int, identity: bool, sms: int = H100_SMS) -> Optional[V3I8Plan]:
+    """The kernel's plan for a block on (n, h, w, cin) -> cout on a card of
+    `sms` SMs, or None when the kernel takes no plan of it. Candidates: every
+    tile of th x tw <= 128 outputs of one image (window sides within a TMA
+    box, 256; at most 32 64-row blocks), every part width cw that divides
+    Cout (a multiple of 8, at most I8W_MAX_CW); ring slots the first of
+    I8W_RINGS that fits the full pass (SE blocks: pass 1; pass 2's four
+    stages always fit). The choice minimises waves (one block an SM) x the
+    unit time model, summed over an SE block's two passes (pass 1 does not
+    split Cout), a single window slot counting 1.1x; ties go to fewer units,
+    then to fewer padded pixels past the image."""
+    ok = (k in (3, 5) and stride in (1, 2) and min(n, h, w, cin, e, cout) > 0
+          and cin % 8 == 0 and e % 8 == 0 and cout % 8 == 0 and se % 4 == 0
+          and (not identity or (e == cin and cin <= I8W_CHUNK))
+          and (stride == 1 or (h % 2 == 0 and w % 2 == 0)))
+    if not ok:
         return None
-    return plan_tile(n, h, w, cin, cout, stride,
-                     lambda th, tw: v3_i8_smem_bytes(th, tw, cin, e, cout, se, k, stride,
-                                                     identity),
-                     max_outputs=MAX_OUTPUTS_I8, k=k)
+    ho, wo = -(-h // stride), -(-w // stride)
+    cws = [c for c in range(8, min(cout, I8W_MAX_CW) + 1, 8) if cout % c == 0]
+    mode = POOL if se else FULL
+    best = None
+    for th in range(1, min(ho, I8W_TM) + 1):
+        for tw in range(1, min(wo, I8W_TM // th) + 1):
+            ph, pw, mp = _window(th, tw, k, stride)
+            if ph > 256 or pw > 256 or mp > 64 * I8W_MAX_ROW_BLOCKS:
+                continue
+            tiles = n * -(-ho // th) * -(-wo // tw)
+            cyc, gate, steps = _unit_cycles(th, tw, cin, e, k, stride, identity)
+            for cw in cws:
+                fit = next((f for f in I8W_RINGS if v3_i8_wgmma_smem_bytes(
+                    th, tw, cin, e, cout, k, stride, cw, *f, identity, mode)
+                    <= I8W_SMEM_LIMIT), None)
+                if fit is None:
+                    continue
+                ws, bs = fit
+                units = tiles * (cout // cw)
+                if se:
+                    cost = (-(-tiles // sms) * cyc * (1.1 if ws == 1 else 1.0)
+                            + -(-units // sms) * (gate + cw * steps * PRJ_COL))
+                else:
+                    cost = -(-units // sms) * (cyc + cw * steps * PRJ_COL)
+                    cost *= 1.1 if ws == 1 else 1.0
+                key = (cost, units, tiles * th * tw - n * ho * wo, -th * tw)
+                if best is None or key < best[0]:
+                    best = (key, V3I8Plan(th, tw, cout // cw, cw, ws, bs))
+    return None if best is None else best[1]
+
+
+def dw_table(dw_w: torch.Tensor) -> torch.Tensor:
+    """The depthwise weight (k, k, 1, E) int8 as the kernel's dp4a table:
+    (k*k//4 + 1, E) int32; row q < k*k//4 holds taps 4q..4q+3 of each channel
+    in its bytes (tap 4q in the low byte), the last row the last tap in byte
+    e % 4 of channel e's word (the other bytes zero)."""
+    k, e = dw_w.shape[0], dw_w.shape[-1]
+    taps = dw_w.reshape(k * k, e).to(torch.int64) & 0xFF
+    rows = [sum(taps[4 * q + b] << (8 * b) for b in range(4)) for q in range(k * k // 4)]
+    rows.append(taps[k * k - 1] << (torch.arange(e, device=dw_w.device) % 4 * 8))
+    t = torch.stack(rows)
+    return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32).contiguous()
+
+
+def kernel_weights(exp, dw, prj) -> dict:
+    """The weights in the forms the kernel reads: "exp" the K-major (E, Cx)
+    copy of the expansion (Cx = Cin rounded up to 16, zero columns), "prj"
+    the K-major (Cout, Ep) copy of the projection (Ep = E rounded up to 16),
+    "dw" the depthwise table (`dw_table`); the layers' own "wt" where they
+    hold one."""
+    def pad_t(w, cols):  # w.t() with zero columns up to `cols`
+        return F.pad(w.t(), (0, cols - w.shape[0])).contiguous()
+
+    out = {"dw": dw["wt"] if "wt" in dw else dw_table(dw["w"])}
+    e = int(dw["w"].shape[-1])
+    out["prj"] = prj["wt"] if "wt" in prj else pad_t(prj["w"], _rup(e, K_ALIGN))
+    if exp is not None:
+        out["exp"] = (exp["wt"] if "wt" in exp
+                      else pad_t(exp["w"], _rup(int(exp["w"].shape[0]), K_ALIGN)))
+    return out
+
+
+def v3_i8_kernel_weights(block: dict) -> dict:
+    """Adds the kernel's weight forms (`kernel_weights`) to a block's layers
+    as "wt", once, when the block goes to its device (quant/v3.to_device_i8_v3);
+    returns the block."""
+    for name, t in kernel_weights(block.get("exp"), block["dw"], block["prj"]).items():
+        block[name]["wt"] = t
+    return block
 
 
 def v3_block_i8_plain(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None,
@@ -90,7 +237,11 @@ def v3_block_i8(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None, se2
     (Se,E)) the SE layers, both or neither; act relu or hswish ->
     (N,Ho,Wo,Cout) int8. A residual needs stride 1 and Cin == Cout. On CPU
     tensors this is the plain version; on CUDA tensors it launches the
-    kernel or raises."""
+    kernel or raises. The kernel reads the layers' "wt" forms where they hold
+    them, else makes them here (`kernel_weights`); a Cin that is not a
+    multiple of 16 is padded with zero channels (a copy of x) for TMA's
+    strides. An SE block's scratch (its pre-gate tensor, channel sums and
+    gates) lives for the call."""
     name = "v3_block_i8"
     identity, has_se = exp is None, se1 is not None
     if (se2 is None) == has_se:
@@ -120,32 +271,50 @@ def v3_block_i8(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None, se2
     check_channels(name, cin, e, cout)
     if has_se and sem <= 0:
         raise ValueError(f"{name}: SE width {sem}")
-    plan = v3_i8_plan(n, h, w, cin, e, cout, k, stride, sem, identity)
+    sms = _sms(x.device.index or 0) if x.device.type == "cuda" else H100_SMS
+    plan = v3_i8_wgmma_plan(n, h, w, cin, e, cout, k, stride, sem, identity, sms)
     if plan is None:
         raise ValueError(f"{name}: no tile of the kernel takes ({n},{h},{w},{cin})->{cout} "
-                         f"E{e} k{k} s{stride} SE{sem} (v3_i8_plan)")
+                         f"E{e} k{k} s{stride} SE{sem} (v3_i8_wgmma_plan)")
     if x.device.type == "cpu":
         return v3_block_i8_plain(x, exp, dw, prj, k=k, stride=stride, act=act, se1=se1,
                                  se2=se2, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    kw = kernel_weights(exp, dw, prj)
+    cx, ep = _rup(cin, K_ALIGN), _rup(e, K_ALIGN)
+    want = {"dw": (k * k // 4 + 1, e), "prj": (cout, ep), "exp": (e, cx)}
+    for key, t in kw.items():
+        if tuple(t.shape) != want[key] or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: the {key} layer's kernel form {tuple(t.shape)} is not "
+                             f"{want[key]} (v3_i8_kernel_weights)")
+    if cx != cin:
+        x = F.pad(x, (0, cx - cin)).contiguous()
+    check_aligned(name, x, *kw.values())
     lib = _build.library()
     ho, wo = -(-h // stride), -(-w // stride)
     out = torch.empty((n, ho, wo, cout), dtype=torch.int8, device=x.device)
-    pooled = torch.empty((n * e,), dtype=torch.int32, device=x.device) if has_se else None
+    pooled = gate = zs = None
+    if has_se:
+        pooled = torch.empty((n * e,), dtype=torch.int32, device=x.device)
+        gate = torch.empty((n * e,), dtype=torch.float32, device=x.device)
+        zs = torch.empty((n * ho * wo * ep,), dtype=torch.int8, device=x.device)
 
-    def ptr(layer, key):  # 0 for a layer the block does not have
+    def ptr(t):  # 0 for a tensor the block does not have
+        return 0 if t is None else t.data_ptr()
+
+    def lay(layer, key):
         return 0 if layer is None else layer[key].data_ptr()
 
     mult = "a" if act == "hswish" else "m"  # the named requant's per-channel factor
     code = lib.v3_block_i8(
-        x.data_ptr(), ptr(exp, "w"), ptr(exp, "b"), ptr(exp, mult), ptr(dw, "w"), ptr(dw, "b"),
-        ptr(dw, mult), ptr(prj, "w"), ptr(prj, "b"), ptr(prj, "m"), ptr(se1, "w"),
-        ptr(se1, "b"), ptr(se1, "m"), ptr(se2, "w"), ptr(se2, "b"), ptr(se2, "a"),
-        0 if pooled is None else pooled.data_ptr(), out.data_ptr(), n, h, w, cin, e, cout, sem,
-        k, stride, ACTS["linear" if identity else act], ACTS[act], int(residual),
-        int(identity), plan[0], plan[1], 0.0 if identity else float(exp["m6"]),
-        float(dw["m6"]), qops._f32(1.0 / (ho * wo)), qops._f32(1.0 / 6.0),
+        x.data_ptr(), ptr(kw.get("exp")), lay(exp, "b"), lay(exp, mult), kw["dw"].data_ptr(),
+        lay(dw, "b"), lay(dw, mult), kw["prj"].data_ptr(), lay(prj, "b"), lay(prj, "m"),
+        lay(se1, "w"), lay(se1, "b"), lay(se1, "m"), lay(se2, "w"), lay(se2, "b"),
+        lay(se2, "a"), ptr(pooled), ptr(gate), ptr(zs), out.data_ptr(), n, h, w, cin, e, cout,
+        sem, k, stride, ACTS["linear" if identity else act], ACTS[act], int(residual),
+        int(identity), *plan, 0.0 if identity else float(exp["m6"]), float(dw["m6"]),
+        qops._f32(1.0 / (ho * wo)), qops._f32(1.0 / 6.0),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
     v3_block_i8.launches += 1

@@ -1,7 +1,7 @@
 """Where the device time of one pipeline forward goes, by kernel name.
 
     python -m mobilenet_tpu_torch.profile [--model v1|v2|v3|v3small] [--int8] \\
-        [--fuse-stem] [--chain] [--batch 256 1] [--steps 10]
+        [--fuse-stem] [--chain] [--batch 256 1] [--steps 10] [--benchmark]
 
 Builds the 1.0-224 pipeline of MobileNet-V1, -V2 (--model v2), -V3-Large
 (--model v3) or -V3-Small (--model v3small), bf16 or exact int8 (--int8),
@@ -12,7 +12,10 @@ knob on), on the card, warms it on one device-resident uint8 batch, then records
 Prints one JSON line: the window's wall time (CUDA events), the device
 busy time (the sum of the device activities' durations: one stream, so they
 do not overlap), the idle share, and the device time per kernel name, most
-first. Refuses to run without a card.
+first. With --benchmark, then one more line: the pipeline's `benchmark()`
+at batch 256 (img/s and the batch-1 latency). It calls only the pipelines'
+public entries, so this file copied into an archive of an earlier commit
+measures that commit in the same call. Refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -72,6 +75,8 @@ def main(argv=None):
                    help="V3 float: the variant's chain knob on (greedy runs)")
     p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--benchmark", action="store_true",
+                   help="then the pipeline's benchmark() at batch 256")
     args = p.parse_args(argv)
     if args.fuse_stem and (args.int8 or args.model != "v1"):
         p.error("--fuse-stem is the V1 float path's option")
@@ -95,6 +100,9 @@ def main(argv=None):
     for batch in args.batch:
         print(json.dumps({"model": args.model, "path": path,
                           **profile(pipe, batch, args.steps)}), flush=True)
+    if args.benchmark:
+        print(json.dumps({"model": args.model, "path": path,
+                          "benchmark": pipe.benchmark(batch_size=256, steps=40)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -58,7 +58,7 @@ import torch
 
 from ..checkpoints import fold_bn_v3, init_params_v3
 from ..models.mobilenet_v3 import V3Config
-from ..ops.v3_block_i8 import v3_block_i8
+from ..ops.v3_block_i8 import v3_block_i8, v3_i8_kernel_weights
 from ..oracle import numpy_ref
 from ..runtime.pipeline import resolve_device
 from . import ops as qops
@@ -346,10 +346,13 @@ def device_layer_v3(layer, device) -> Dict[str, Any]:
 
 def to_device_i8_v3(q, device) -> Dict[str, Any]:
     """Quantized constants onto `device`, once. `q` is a V3QuantizedParams
-    of this package or of the JAX package (both hold only numpy fields)."""
+    of this package or of the JAX package (both hold only numpy fields). The
+    blocks' layers also hold the int8 V3 kernel's weight forms ("wt",
+    ops/v3_block_i8.v3_i8_kernel_weights)."""
     return {
         "conv1": device_layer_v3(q.conv1, device),
-        "blocks": [{k: device_layer_v3(v, device) for k, v in blk.items()} for blk in q.blocks],
+        "blocks": [v3_i8_kernel_weights({k: device_layer_v3(v, device) for k, v in blk.items()})
+                   for blk in q.blocks],
         "conv_last": device_layer_v3(q.conv_last, device),
         "head": device_layer_v3(q.head, device),
         "fc": device_fc(q, device),

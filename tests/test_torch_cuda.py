@@ -47,7 +47,7 @@ from mobilenet_tpu_torch.ops.v3_block import (
     v3_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
-    v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
+    FULL, GATED, POOL, v3_block_i8, v3_block_i8_plain, v3_i8_wgmma_plan, v3_i8_wgmma_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.v3_chain import v3_chain, v3_chain_plain
 from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
@@ -959,21 +959,21 @@ def test_v3_block_i8_saturation(dev):
 
 
 def test_v3_i8_smem_plan_matches_kernel(dev):
-    """The Python mirror of the int8 V3 kernel's shared-memory plan equals
-    the kernel's own for every V3-Large and -Small block's tile at batch 1
-    and 256."""
+    """The Python mirror of the int8 V3 kernel's shared-memory plan
+    (`v3_i8_wgmma_smem_bytes`) equals the kernel's own for every pass of
+    every V3-Large and -Small block's plan at batch 1 and 256."""
     lib = _build.library()
     for variant in ("large", "small"):
         h = 112
         for bd in V3Config(variant, 1.0, 224).block_defs:
             ident = not bd.has_expand
             for n in (1, 256):
-                th, tw = v3_i8_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
-                                    bd.se_mid, ident)
-                assert lib.v3_block_i8_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid,
-                                                  bd.kernel, bd.stride, int(ident), th,
-                                                  tw) == v3_i8_smem_bytes(
-                    th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride, ident)
+                p = v3_i8_wgmma_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                     bd.se_mid, ident)
+                for mode in ((POOL, GATED) if bd.se_mid else (FULL,)):
+                    args = (p.th, p.tw, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, p.cw,
+                            p.ws, p.bs, ident, mode)
+                    assert lib.v3_i8_wgmma_smem_bytes(*args) == v3_i8_wgmma_smem_bytes(*args)
             h //= bd.stride
 
 

@@ -10,8 +10,8 @@ blocks 0 and 1, `packed_block_i8_named` and `packed_block_i8_named_s2`
 the port's kernel also takes. Every JAX kernel gets `fold=` explicitly:
 True (the folded requant order, the only one the port has), and for
 V3-Small's block 0 also False, whose relu and linear requants the port's
-folded order matches there. Also the tile plan (`v3_i8_plan`), which is the
-kernel's fits-function."""
+folded order matches there. Also the kernel's plan (`v3_i8_wgmma_plan`),
+which is its fits-function."""
 
 import functools
 
@@ -28,9 +28,10 @@ from mobilenet_tpu.quant.pallas_block_packed_i8 import (
 from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
 from mobilenet_tpu_torch import V3Config
 from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
-from mobilenet_tpu_torch.ops.inverted_residual import MAX_FRAGS, SMEM_MAX
+from mobilenet_tpu_torch.ops.inverted_residual import SMEM_MAX
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
-    v3_block_i8, v3_block_i8_plain, v3_i8_plan, v3_i8_smem_bytes,
+    FULL, GATED, I8W_TM, POOL, v3_block_i8, v3_block_i8_plain, v3_i8_wgmma_plan,
+    v3_i8_wgmma_smem_bytes,
 )
 from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3, quantize_v3
 
@@ -195,23 +196,25 @@ def test_small_block0_vs_packed_block_i8_named_s2_se(shape, layers, fold):
     np.testing.assert_array_equal(got, want)
     assert (got < 0).any() and (got > 0).any()
     for n in (256, 1):
-        assert v3_i8_plan(n, 112, 112, 16, 16, 16, 3, 2, 8, True) is not None
+        assert v3_i8_wgmma_plan(n, 112, 112, 16, 16, 16, 3, 2, 8, True) is not None
 
 
 @pytest.mark.parametrize("variant", ["large", "small"])
 def test_every_v3_block_has_an_int8_tile(variant):
-    """Every V3 block at 1.0-224 has a tile of the int8 kernel at batch 1
-    and 256 within the shared-memory limit, the output cap and the
-    projection accumulators."""
+    """Every V3 block at 1.0-224 has a plan of the int8 kernel at batch 1
+    and 256: every pass it launches within the shared-memory limit, a tile
+    of at most 128 outputs, whole parts of Cout."""
     h = 112
     for bd in V3Config(variant, 1.0, 224).block_defs:
         ident = not bd.has_expand
         for n in (1, 256):
-            th, tw = v3_i8_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
-                                bd.se_mid, ident)
-            assert v3_i8_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
-                                    bd.stride, ident) <= SMEM_MAX
-            assert th * tw <= 256 and -(-th * tw // 16) * -(-bd.cout // 16) <= MAX_FRAGS
+            p = v3_i8_wgmma_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                 bd.se_mid, ident)
+            for mode in ((POOL, GATED) if bd.se_mid else (FULL,)):
+                assert v3_i8_wgmma_smem_bytes(p.th, p.tw, bd.cin, bd.cexp, bd.cout, bd.kernel,
+                                              bd.stride, p.cw, p.ws, p.bs, ident,
+                                              mode) <= SMEM_MAX
+            assert p.th * p.tw <= I8W_TM and p.split * p.cw == bd.cout
         h //= bd.stride
 
 
@@ -233,6 +236,6 @@ def test_wrapper_rejects_what_no_kernel_takes():
         v3_block_i8(x.float(), *args[1:], k=3, stride=1, act="relu", **se)
     with pytest.raises(ValueError):  # odd input at stride 2
         v3_block_i8(x[:, :7].contiguous(), *args[1:], k=3, stride=2, act="relu", **se)
-    assert v3_i8_plan(1, 8, 8, 16, 64, 16, 7, 1, 0, False) is None  # no k 7
+    assert v3_i8_wgmma_plan(1, 8, 8, 16, 64, 16, 7, 1, 0, False) is None  # no k 7
     want = v3_block_i8_plain(x, dev["exp"], dev["dw"], dev["prj"], k=3, stride=1, act="relu")
     assert torch.equal(v3_block_i8(*args, k=3, stride=1, act="relu"), want)

@@ -1,0 +1,567 @@
+"""The int8 MobileNet-V3 bottleneck's Hopper tile (`csrc/v3_i8_wgmma.cuh`) on
+the CPU: its plan (`v3_i8_wgmma_plan`, the fits-function of every int8 call)
+at every block of V3-Large, V3-Large-minimalistic and V3-Small 1.0-224, and
+a mirror of the tile's unit walk in torch on the plan's geometry (units of
+an output tile x a part of Cout; the input window, padded to 16 channels,
+with zeros outside the image; 128-channel chunks of E expanded in 64-column
+halves with a ragged tail, zeroed outside the image; the depthwise from the
+kernel's dp4a table; the requants by the magic number with their 2^22
+guards; the stored pre-gate tensor, the image's gate once, the gated pass
+2; the saturating residual), held EXACTLY against `v3_block_i8_plain` and
+against the JAX package's `v3_block_pallas_i8`, `packed_block_i8_named`,
+`packed_block_i8_named_s2` and `packed_block_i8_named_s2_se` in interpret
+mode. The card tests (tests/test_torch_cuda.py) hold the kernel itself and
+its shared-memory arithmetic against this module's plan."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobilenet_tpu.ops.pallas_block_packed import pack
+from mobilenet_tpu.quant.pallas_block_packed_i8 import (
+    packed_block_i8_named, packed_block_i8_named_s2, packed_block_i8_named_s2_se,
+    packed_expand_i8_named,
+)
+from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
+from mobilenet_tpu_torch import V3Config
+from mobilenet_tpu_torch.ops.v3_block_i8 import (
+    FULL, GATED, I8W_SMEM_LIMIT, I8W_TM, POOL, V3I8Plan, dw_table, kernel_weights,
+    v3_block_i8, v3_block_i8_plain, v3_i8_kernel_weights, v3_i8_wgmma_plan,
+    v3_i8_wgmma_smem_bytes,
+)
+from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3
+
+WGMMA_N = (8, 16, 32, 64, 128)
+MAGIC_I, MAGIC_F = 0x4B400000, 12582912.0  # the bits of 1.5 * 2^23, and its value
+CONFIGS = {"large": V3Config("large", 1.0, 224), "large_min": V3Config("large", 1.0, 224,
+                                                                        minimalistic=True),
+           "small": V3Config("small", 1.0, 224)}
+
+
+def _blocks(cfg):
+    """(index, input side, block def) of every block at 1.0-224."""
+    out, h = [], cfg.resolution // 2
+    for i, bd in enumerate(cfg.block_defs):
+        out.append((i, h, bd))
+        h = -(-h // bd.stride)
+    return out
+
+
+BLOCK_CASES = [(name, batch, i) for name, cfg in CONFIGS.items() for batch in (256, 1)
+               for i in range(len(cfg.block_defs))]
+
+
+def _plan_of(name, batch, i):
+    _, h, bd = _blocks(CONFIGS[name])[i]
+    return h, bd, v3_i8_wgmma_plan(batch, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                   bd.se_mid, not bd.has_expand)
+
+
+def _slices(cw):
+    """The kernel's output slices of a part (make_geo's nbig and nsmall)."""
+    nbig = 2 if cw >= 128 else 1 if cw >= 64 else 0
+    small = (cw - 64 * nbig) // 8
+    return ([64 * nbig] if nbig else []) + [8 * b for b in (4, 2, 1) if small & b]
+
+
+@pytest.mark.parametrize("name,batch,i", BLOCK_CASES,
+                         ids=[f"{n}-{b}-b{i:02d}" for n, b, i in BLOCK_CASES])
+def test_plan_fits_the_card(name, batch, i):
+    """Every int8 block of the three 1.0-224 variants has a plan at batch 256
+    and 1: a tile of at most 128 outputs of one image, window sides within a
+    TMA box, each pass it launches within 227 KB, whole parts of Cout, ring
+    slots the kernel takes; its slices are s8 wgmma widths with no padded
+    column."""
+    h, bd, p = _plan_of(name, batch, i)
+    assert p is not None
+    ho = -(-h // bd.stride)
+    assert 1 <= p.th <= ho and 1 <= p.tw <= ho and p.th * p.tw <= I8W_TM
+    assert (p.th - 1) * bd.stride + bd.kernel <= 256 and (p.tw - 1) * bd.stride + bd.kernel <= 256
+    assert p.split * p.cw == bd.cout and p.cw % 8 == 0
+    assert 1 <= p.ws <= 4 and 2 <= p.bs <= 4
+    for mode in ((POOL, GATED) if bd.se_mid else (FULL,)):
+        assert v3_i8_wgmma_smem_bytes(p.th, p.tw, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                      p.cw, p.ws, p.bs, not bd.has_expand,
+                                      mode) <= I8W_SMEM_LIMIT
+    widths = _slices(p.cw)
+    assert sum(widths) == p.cw and all(w in WGMMA_N for w in widths)
+    assert len(widths) == len(set(widths)) and widths == sorted(widths, reverse=True)
+
+
+def _units(n, ho, wo, plan, pool):
+    """The kernel's unit walk (v3_i8_wgmma.cuh unit_of): (image, tile origin,
+    first column) of every unit of a pass; pass 1 does not split Cout."""
+    tiles_w, tiles_h = -(-wo // plan.tw), -(-ho // plan.th)
+    split = 1 if pool else plan.split
+    for u in range(n * tiles_h * tiles_w * split):
+        t, part = divmod(u, split)
+        img, ti = divmod(t, tiles_h * tiles_w)
+        tr, tc = divmod(ti, tiles_w)
+        yield img, tr * plan.th, tc * plan.tw, part * plan.cw
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("batch", [2, 1])
+def test_units_cover_every_output_once(name, batch):
+    """The full pass's and pass 2's units cover every output pixel and
+    channel exactly once; pass 1's (SE blocks) every output pixel of every
+    image once."""
+    for i, h, bd in _blocks(CONFIGS[name]):
+        p = v3_i8_wgmma_plan(batch, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                             bd.se_mid, not bd.has_expand)
+        ho = -(-h // bd.stride)
+        seen = np.zeros((batch, ho, ho, bd.cout), np.int32)
+        for img, oy, ox, c0 in _units(batch, ho, ho, p, False):
+            seen[img, oy:oy + p.th, ox:ox + p.tw, c0:c0 + p.cw] += 1
+        assert (seen == 1).all(), f"b{i:02d}"
+        pooled = np.zeros((batch, ho, ho), np.int32)
+        for img, oy, ox, c0 in _units(batch, ho, ho, p, True):
+            assert c0 == 0
+            pooled[img, oy:oy + p.th, ox:ox + p.tw] += 1
+        assert (pooled == 1).all(), f"b{i:02d}"
+
+
+def test_smem_mirror_by_hand():
+    """v3_i8_wgmma_smem_bytes at V3-L b13's 7x7 tile (SE: pass 1 and pass
+    2) and b00's identity 8x16 tile: 1 KB alignment, 1 KB of barriers, the
+    16 KB A panel, Z (MP x 144), weight stages (expand boxes, projection
+    boxes in the full pass only, the depthwise table, four 512-byte vectors,
+    rounded up to 1 KB), windows (MP x 128 a 128-chunk of Cin; the full pass:
+    + 2 KB, the part's projection bias and multiplier); pass 2: four stages
+    of a 16 KB z tile, the projection boxes, the gate and the part's 2 KB."""
+    # b13 pass 1: Cin 160 -> two 16 KB expand boxes, 7 table rows at k5; MP 128
+    stage = -(-(2 * 16384 + 7 * 512 + 4 * 512) // 1024) * 1024
+    want = 2048 + 16384 + 128 * 144 + 2 * stage + 3 * (2 * 128 * 128)
+    assert v3_i8_wgmma_smem_bytes(7, 7, 160, 960, 160, 5, 1, 160, 3, 2, False, POOL) == want
+    # b13 pass 2: 160 columns = two 64-row boxes + four 8-row boxes
+    gated = -(-(16384 + 2 * 8192 + 4 * 1024 + 512 + 2048) // 1024) * 1024
+    assert v3_i8_wgmma_smem_bytes(7, 7, 160, 960, 160, 5, 1, 160, 3, 2, False,
+                                  GATED) == 2048 + 4 * gated
+    # b00 (identity, full): no Z, no expand boxes; a 10 x 18 window -> MP 192
+    stage = -(-(2 * 1024 + 3 * 512 + 4 * 512) // 1024) * 1024
+    assert v3_i8_wgmma_smem_bytes(8, 16, 16, 16, 16, 3, 1, 16, 4, 4, True,
+                                  FULL) == 2048 + 16384 + 4 * stage + 4 * (192 * 128 + 2048)
+
+
+def test_no_plan_raises():
+    """A shape that no plan takes raises at the call (naming the plan), on
+    the CPU as on the card: the wrapper never falls back to another tile."""
+    assert v3_i8_wgmma_plan(1, 7, 7, 16, 64, 24, 3, 2, 0, False) is None  # odd input at s2
+    assert v3_i8_wgmma_plan(1, 8, 8, 256, 256, 24, 3, 1, 0, True) is None  # identity past 128
+    q = _layers(5, 16, 64, 24, 3, 0, False)
+    dev = {name: device_layer_v3(layer, "cpu") for name, layer in q.items()}
+    x = torch.zeros((1, 7, 7, 16), dtype=torch.int8)
+    with pytest.raises(ValueError, match="v3_i8_wgmma_plan"):
+        v3_block_i8(x, dev["exp"], dev["dw"], dev["prj"], k=3, stride=2, act="relu")
+
+
+def test_plan_spreads_batch_1():
+    """At batch 1 the 14^2 and 7^2 blocks have one to four whole-image tiles;
+    the plan gives them at least as many units as at batch 256, and more
+    than the SMs' worth of one image's tiles where Cout splits."""
+    for i, h, bd in _blocks(CONFIGS["large"]):
+        if h > 14:
+            continue
+        units = {}
+        for batch in (1, 256):
+            p = v3_i8_wgmma_plan(batch, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                 bd.se_mid, False)
+            ho = -(-h // bd.stride)
+            units[batch] = -(-ho // p.th) * -(-ho // p.tw) * p.split
+        assert units[1] >= units[256] and units[1] >= 4, f"b{i:02d}"
+
+
+# -- the kernel's weight forms --------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_table_holds_the_taps(k):
+    """Row q of the depthwise table holds taps 4q..4q+3 of each channel in
+    its bytes (tap 4q low); the last row the last tap in byte e % 4."""
+    w = torch.from_numpy(np.random.default_rng(k).integers(-128, 128, (k, k, 1, 40))
+                         .astype(np.int8))
+    t = dw_table(w)
+    assert t.shape == (k * k // 4 + 1, 40) and t.dtype == torch.int32
+    b = t.view(torch.int8).reshape(t.shape[0], 40, 4)
+    taps = w.reshape(k * k, 40)
+    for q in range(k * k // 4):
+        assert torch.equal(b[q].t(), taps[4 * q:4 * q + 4])
+    lane = torch.arange(40) % 4
+    assert torch.equal(b[-1][torch.arange(40), lane], taps[-1])
+    assert int(b[-1].abs().sum()) == int(taps[-1].abs().sum())
+
+
+def test_kernel_weights_are_made_once():
+    """`v3_i8_kernel_weights` adds the K-major copies (zero columns up to 16)
+    and the table as "wt"; `kernel_weights` then returns those very
+    tensors."""
+    q = _layers(9, 40, 72, 24, 5, 0, False)
+    blk = {name: device_layer_v3(layer, "cpu") for name, layer in q.items()}
+    v3_i8_kernel_weights(blk)
+    assert blk["exp"]["wt"].shape == (72, 48) and blk["prj"]["wt"].shape == (24, 80)
+    assert torch.equal(blk["exp"]["wt"][:, :40], blk["exp"]["w"].t())
+    assert not blk["exp"]["wt"][:, 40:].any() and not blk["prj"]["wt"][:, 72:].any()
+    kw = kernel_weights(blk["exp"], blk["dw"], blk["prj"])
+    assert all(kw[n] is blk[n]["wt"] for n in ("exp", "dw", "prj"))
+
+
+# -- the unit walk in torch ------------------------------------------------------
+
+
+def _i8(bits: torch.Tensor) -> torch.Tensor:
+    """The low byte of int32 words, as int8."""
+    return (((bits & 0xFF) ^ 0x80) - 0x80).to(torch.int8)
+
+
+def f32_of(v: torch.Tensor, magic) -> torch.Tensor:
+    """float32 of int32 sums: the magic-number conversion where `magic`
+    (exact while |v| < 2^22), else the correctly rounded one."""
+    fast = (v.to(torch.int32) + MAGIC_I).view(torch.float32) - MAGIC_F
+    return torch.where(torch.as_tensor(magic), fast, v.to(torch.int32).float())
+
+
+def requant(v, mult, m6, act, magic) -> torch.Tensor:
+    """The kernel's requant of int32 sums (bias included), in float32: the
+    named act in the folded order, clamped to [0 or -128, 127] before the
+    rounding, rounded by adding 1.5 * 2^23; the low byte of its bits."""
+    f = f32_of(v, magic)
+    if act == "hswish":
+        a = f * mult
+        y = (a * (a + 3.0).clamp(0.0, 6.0)) * m6
+    else:
+        y = f * mult
+    y = y.clamp(0.0 if act == "relu" else -128.0, 127.0)
+    return _i8((y + MAGIC_F).view(torch.int32))
+
+
+def _table_taps(table, k):
+    """The (k*k, E) taps back out of the kernel's dp4a table."""
+    b = table.view(torch.int8).reshape(table.shape[0], -1, 4)
+    e = b.shape[1]
+    rows = [b[q].t() for q in range(k * k // 4)]
+    return torch.cat(rows + [b[-1][torch.arange(e), torch.arange(e) % 4][None]])[:k * k]
+
+
+def unit_walk_i8(x, exp, dw, prj, *, k, stride, act, se1=None, se2=None, residual=False,
+                 plan):
+    """The tile's computation, unit by unit on `plan`'s geometry, in torch:
+    the kernel's weight forms (`kernel_weights`); each unit stages its
+    (th-1)s+k x (tw-1)s+k window of x padded to 16 channels (zeros outside
+    the image), expands it in 128-channel chunks of E, 64 columns at a time
+    (int32 sums + bias, the requant, zero outside the image and past E), runs
+    the depthwise of its outputs from the table (+ bias, the requant), and
+    either projects its part (int32 sums over the chunks, + bias, the
+    linear requant, the saturating residual from the window) or, with SE,
+    stores the pre-gate tensor and adds its sums to the image's; pass 2 gates
+    that tensor per unit and projects it (the residual from x). Every output
+    element is written by exactly one unit."""
+    n, h, w, cin = x.shape
+    identity = exp is None
+    e, cout = int(dw["w"].shape[-1]), int(prj["w"].shape[-1])
+    cx, ep = -(-cin // 16) * 16, -(-e // 16) * 16
+    kw = kernel_weights(exp, dw, prj)
+    pad = (k - 1) // 2 if stride == 1 else (k - 2) // 2
+    ho, wo = -(-h // stride), -(-w // stride)
+    ph, pw = (plan.th - 1) * stride + k, (plan.tw - 1) * stride + k
+    xin = torch.nn.functional.pad(x, (0, cx - cin)).to(torch.int32)
+    big = torch.zeros((n, h + ph + 2 * k, w + pw + 2 * k, cx), dtype=torch.int32)
+    big[:, k:k + h, k:k + w] = xin
+    taps = _table_taps(kw["dw"], k).to(torch.int32)
+    mult = "a" if act == "hswish" else "m"
+    dbias = dw["b"].to(torch.int32)
+    dmagic = (dbias.abs() <= 2 ** 21).reshape(-1, 8).all(1).repeat_interleave(8)
+    chunks = -(-e // 128)
+
+    def tile_z(img, oy0, ox0):
+        iy0, ix0 = oy0 * stride - pad, ox0 * stride - pad
+        win = big[img, k + iy0:k + iy0 + ph, k + ix0:k + ix0 + pw]
+        if identity:
+            return win[..., :e], win
+        inside = (((torch.arange(ph) + iy0 >= 0) & (torch.arange(ph) + iy0 < h))[:, None]
+                  & ((torch.arange(pw) + ix0 >= 0) & (torch.arange(pw) + ix0 < w))[None, :])
+        z = torch.zeros((ph, pw, chunks * 128), dtype=torch.int8)
+        room = 2 ** 22 - cx * 2 ** 14
+        for c0 in range(0, chunks * 128, 64):  # a chunk's 64-column halves
+            if c0 >= e:
+                continue
+            cols = slice(c0, min(c0 + 64, e))
+            acc = (win.reshape(-1, cx).long() @ kw["exp"][cols].long().t()).to(torch.int32)
+            b = exp["b"][cols]
+            magic = bool((b.abs() < room).all())
+            q = requant(acc + b, exp[mult][cols], exp["m6"], act, magic)
+            z[..., cols] = torch.where(inside[..., None], q.reshape(ph, pw, -1),
+                                       torch.zeros((), dtype=torch.int8))
+        return z[..., :e], win
+
+    def tile_dw(z):
+        acc = dbias.expand(plan.th, plan.tw, e).clone()
+        for t in range(k * k):
+            dy, dx = divmod(t, k)
+            tap = z[dy:dy + (plan.th - 1) * stride + 1:stride,
+                    dx:dx + (plan.tw - 1) * stride + 1:stride].to(torch.int32)
+            acc = acc + tap * taps[t]
+        return requant(acc, dw[mult], dw["m6"], act, dmagic)
+
+    def extent(oy0, ox0):
+        return min(plan.th, ho - oy0), min(plan.tw, wo - ox0)
+
+    def project(a, c0, win, xres):
+        """a (th, tw, E) int8 -> the part's (th, tw, cw) int8 outputs."""
+        cols = slice(c0, c0 + plan.cw)
+        acc = torch.zeros((plan.th * plan.tw, plan.cw), dtype=torch.int64)
+        for c in range(chunks):  # int32 sums over the chunks (exact in any order)
+            ch = slice(128 * c, min(128 * (c + 1), e))
+            acc += a.reshape(-1, e)[:, ch].long() @ kw["prj"][cols, ch].long().t()
+        b = prj["b"][cols]
+        magic = bool((b.abs().long() < 2 ** 22 - e * 2 ** 14).all())
+        o = requant(acc.to(torch.int32) + b, prj["m"][cols], 0.0, "linear", magic)
+        o = o.reshape(plan.th, plan.tw, -1)
+        if residual:
+            r = xres[..., cols] if xres is not None else \
+                win[pad:pad + plan.th, pad:pad + plan.tw, cols]
+            o = (o.to(torch.int32) + r).clamp(-128, 127).to(torch.int8)
+        return o
+
+    out = torch.full((n, ho, wo, cout), -999, dtype=torch.int16)
+
+    def put(img, oy0, ox0, c0, o):
+        th, tw = extent(oy0, ox0)
+        dst = out[img, oy0:oy0 + th, ox0:ox0 + tw, c0:c0 + plan.cw]
+        assert (dst == -999).all(), "an output element written twice"
+        dst.copy_(o[:th, :tw])
+
+    if se1 is None:
+        for img, oy0, ox0, c0 in _units(n, ho, wo, plan, False):
+            z, win = tile_z(img, oy0, ox0)
+            put(img, oy0, ox0, c0, project(tile_dw(z), c0, win, None))
+    else:
+        zs = torch.zeros((n, ho, wo, ep), dtype=torch.int8)  # pass 1's pre-gate tensor
+        sums = torch.zeros((n, e), dtype=torch.int64)
+        for img, oy0, ox0, _ in _units(n, ho, wo, plan, True):
+            z, _ = tile_z(img, oy0, ox0)
+            y = tile_dw(z)
+            th, tw = extent(oy0, ox0)
+            zs[img, oy0:oy0 + th, ox0:ox0 + tw, :e] = y[:th, :tw]
+            sums[img] += y[:th, :tw].long().sum((0, 1))
+        # the gate step, once an image (integer products exact in any order)
+        pq = (sums.to(torch.int32).float() * np.float32(1.0 / (ho * wo))).round()
+        pq = pq.clamp(-128, 127)
+        g1 = pq.long() @ se1["w"].long() + se1["b"]
+        g1 = (g1.to(torch.int32).float() * se1["m"]).round().clamp(0, 127)
+        a2 = (g1.long() @ se2["w"].long() + se2["b"]).to(torch.int32).float() * se2["a"]
+        gate = (a2 + 3.0).clamp(0.0, 6.0) * np.float32(1.0 / 6.0)
+        zpad = torch.zeros((n, ho + plan.th, wo + plan.tw, ep), dtype=torch.int8)
+        zpad[:, :ho, :wo] = zs
+        xpad = torch.zeros((n, h + plan.th, w + plan.tw, cx), dtype=torch.int32)
+        xpad[:, :h, :w] = xin  # the residual (stride 1: x at the output pixel)
+        for img, oy0, ox0, c0 in _units(n, ho, wo, plan, False):  # pass 2
+            zt = zpad[img, oy0:oy0 + plan.th, ox0:ox0 + plan.tw, :e]
+            a = _i8(((zt.float() * gate[img]).clamp(-128.0, 127.0) + MAGIC_F)
+                    .view(torch.int32))
+            xr = xpad[img, oy0:oy0 + plan.th, ox0:ox0 + plan.tw] if residual else None
+            put(img, oy0, ox0, c0, project(a, c0, None, xr))
+    assert not (out == -999).any(), "an output element never written"
+    return out.to(torch.int8)
+
+
+def _layers(seed, cin, e, cout, k, se, identity, prj_gain=1.0):
+    """QLayerN's of one block, quantized from random float weights with
+    non-zero biases at fixed scales (input 0.05, expansion and depthwise
+    0.06, SE mid 0.03, the projection at the input's scale / prj_gain)."""
+    rng = np.random.default_rng(seed)
+
+    def lay(shape, axis, s_in, s_out, scale, b_scale, **kw):
+        wt = rng.normal(0, scale, shape).astype(np.float32)
+        b = rng.normal(0, b_scale, (shape[axis],)).astype(np.float32)
+        return _quant_named(wt, b, axis, s_in, s_out, **kw)
+
+    s_x, s_e, s_d, s_g = 0.05, 0.06, 0.06, 0.03
+    q = {"dw": lay((k, k, 1, e), 3, s_x if identity else s_e, s_d, 0.3, 0.2, k_taps=k * k),
+         "prj": lay((e, cout), 1, s_d, s_x / prj_gain, e ** -0.5, 0.2)}
+    if not identity:
+        q["exp"] = lay((cin, e), 1, s_x, s_e, 1.5 * cin ** -0.5, 0.3)
+    if se:
+        q["se1"] = lay((e, se), 1, s_d, s_g, e ** -0.5, 0.3)
+        q["se2"] = lay((se, e), 1, s_g, 1.0, se ** -0.5, 0.3)
+    return q
+
+
+def _jax(layer):
+    return {"w": jnp.asarray(layer.w_i8), "b": jnp.asarray(layer.bias_i32),
+            "a": jnp.asarray(layer.a), "inv_s": float(layer.inv_s)}
+
+
+def _dev(q):
+    return {name: device_layer_v3(layer, "cpu") for name, layer in q.items()}
+
+
+def _walk(x, dev, plan, **kw):
+    return unit_walk_i8(torch.from_numpy(x), dev.get("exp"), dev["dw"], dev["prj"],
+                        se1=dev.get("se1"), se2=dev.get("se2"), plan=plan, **kw).numpy()
+
+
+# (n, h, cin, e, cout, k, stride, se, act, residual, identity, forced plan or None)
+WALKS = [
+    (2, 8, 16, 16, 16, 3, 1, 0, "relu", True, True, None),         # V3-L b00: identity
+    (2, 8, 16, 64, 24, 3, 2, 0, "relu", False, False, None),       # b01: expansion at s2
+    (2, 8, 24, 72, 24, 3, 1, 0, "relu", True, False, None),        # b02: Cin 24, E tail
+    (2, 8, 24, 72, 40, 5, 2, 24, "relu", False, False, None),      # b03: k5 s2 SE
+    (1, 6, 40, 120, 40, 5, 1, 32, "relu", True, False, None),      # b04: Cin 40, SE + res
+    (2, 8, 40, 240, 80, 3, 2, 0, "hswish", False, False, None),    # b06: two chunks
+    (1, 5, 80, 200, 80, 3, 1, 0, "hswish", True, False, None),     # b07: odd side
+    (1, 4, 160, 960, 160, 5, 1, 240, "hswish", True, False, None),  # b13: Cin 160, 8 chunks
+    (2, 8, 16, 16, 16, 3, 2, 8, "relu", False, True, None),        # V3-S b00: identity s2 SE
+    (1, 6, 48, 144, 48, 5, 1, 40, "hswish", True, False, None),    # V3-S b07
+    # forced plans: ragged tiles at both edges, Cout parts off 16 columns
+    (2, 9, 40, 120, 40, 5, 1, 32, "hswish", True, False, V3I8Plan(2, 4, 5, 8, 2, 2)),
+    (1, 10, 24, 72, 40, 5, 2, 24, "relu", False, False, V3I8Plan(3, 2, 5, 8, 1, 2)),
+    (2, 7, 80, 200, 80, 3, 1, 0, "hswish", True, False, V3I8Plan(4, 3, 2, 40, 1, 2)),
+    (1, 11, 16, 16, 16, 3, 1, 0, "relu", True, True, V3I8Plan(4, 5, 2, 8, 2, 2)),
+]
+
+
+def _plan(n, h, cin, e, cout, k, stride, se, identity, forced):
+    return forced or v3_i8_wgmma_plan(n, h, h, cin, e, cout, k, stride, se, identity)
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,k,stride,se,act,residual,identity,forced", WALKS)
+def test_unit_walk_is_the_block(n, h, cin, e, cout, k, stride, se, act, residual, identity,
+                                forced):
+    """The unit walk equals `v3_block_i8_plain` (the wrapper's CPU version)
+    bit for bit: windows, the padding of the expanded tensor, the chunks and
+    their tails, the tile edges, the Cout parts, the stored pre-gate tensor
+    and the gate cover the block exactly."""
+    q = _layers(n * h + cin + e + k, cin, e, cout, k, se, identity)
+    dev = _dev(q)
+    x = np.random.default_rng(e + h).integers(-128, 128, (n, h, h, cin)).astype(np.int8)
+    kw = dict(k=k, stride=stride, act=act, residual=residual)
+    got = _walk(x, dev, _plan(n, h, cin, e, cout, k, stride, se, identity, forced), **kw)
+    want = v3_block_i8(torch.from_numpy(x), dev.get("exp"), dev["dw"], dev["prj"],
+                       se1=dev.get("se1"), se2=dev.get("se2"), **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got < 0).any() and (got > 0).any()
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,k,stride,se,act,residual,identity,forced",
+                         [w for w in WALKS if not w[10]])
+def test_unit_walk_vs_v3_block_pallas_i8(n, h, cin, e, cout, k, stride, se, act, residual,
+                                         identity, forced):
+    """The unit walk against the JAX package's `v3_block_pallas_i8` in
+    interpret mode (the folded requant), exactly."""
+    q = _layers(n + h + e, cin, e, cout, k, se, identity)
+    x = np.random.default_rng(cin + k).integers(-128, 128, (n, h, h, cin)).astype(np.int8)
+    kw = dict(k=k, stride=stride, act=act, residual=residual)
+    want = v3_block_pallas_i8(jnp.asarray(x), _jax(q["exp"]), _jax(q["dw"]), _jax(q["prj"]),
+                              se1=_jax(q["se1"]) if se else None,
+                              se2=_jax(q["se2"]) if se else None, interpret=True, fold=True,
+                              **kw)
+    got = _walk(x, _dev(q), _plan(n, h, cin, e, cout, k, stride, se, identity, forced), **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_unit_walk_saturating_residual():
+    """Inputs at the rails and a projection driven past the int8 range: the
+    walk's residual saturates at both rails, equal to the JAX kernel."""
+    q = _layers(3, 40, 120, 40, 5, 32, False, prj_gain=8.0)
+    x = np.where(np.random.default_rng(4).random((1, 6, 6, 40)) < 0.5, 120, -120).astype(np.int8)
+    kw = dict(k=5, stride=1, act="hswish", residual=True)
+    want = v3_block_pallas_i8(jnp.asarray(x), _jax(q["exp"]), _jax(q["dw"]), _jax(q["prj"]),
+                              se1=_jax(q["se1"]), se2=_jax(q["se2"]), interpret=True,
+                              fold=True, **kw)
+    got = _walk(x, _dev(q), v3_i8_wgmma_plan(1, 6, 6, 40, 120, 40, 5, 1, 32, False), **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert (got == 127).any() and (got == -128).any()
+
+
+def test_unit_walk_vs_packed_block_i8_named():
+    """V3-Large block 0 (identity, stride 1, residual): the JAX package's
+    lane-packed named-act kernel with the residual added as quant/v3.py adds
+    it, against the walk."""
+    q = _layers(11, 16, 16, 16, 3, 0, True)
+    x = np.random.default_rng(12).integers(-128, 128, (2, 8, 16, 16)).astype(np.int8)
+    xp = pack(jnp.asarray(x, jnp.bfloat16), 16)
+    d, p = q["dw"], q["prj"]
+    yp = packed_block_i8_named(xp, jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
+                               jnp.asarray(d.a), jnp.asarray(p.w_i8), jnp.asarray(p.bias_i32),
+                               jnp.asarray(p.a), 16, 16, "relu", float(d.inv_s),
+                               float(p.inv_s), out_dtype="bfloat16", interpret=True, fold=True)
+    yp = jnp.clip(yp.astype(jnp.float32) + xp.astype(jnp.float32), -128, 127)
+    want = np.asarray(yp.astype(jnp.float32)).reshape(2, 8, 16, 16).astype(np.int8)
+    got = _walk(x, _dev(q), V3I8Plan(3, 5, 2, 8, 2, 2), k=3, stride=1, act="relu",
+                residual=True)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unit_walk_vs_packed_block_i8_named_s2():
+    """V3-Large block 1 (112^2 x 16 -> E64 -> 24 at stride 2; 8 x 16 here):
+    the JAX package's XLA expansion, then its lane-packed stride-2 kernel,
+    against the walk's own expansion."""
+    q = _layers(13, 16, 64, 24, 3, 0, False)
+    x = np.random.default_rng(14).integers(-128, 128, (2, 8, 16, 16)).astype(np.int8)
+    ex, d, p = q["exp"], q["dw"], q["prj"]
+    ye = packed_expand_i8_named(jnp.asarray(x, jnp.bfloat16), jnp.asarray(ex.w_i8),
+                                jnp.asarray(ex.bias_i32), jnp.asarray(ex.a), ex.inv_s, "relu")
+    pad = ((0, 0), (0, 128 - 24))
+    yp = packed_block_i8_named_s2(
+        pack(ye, 64), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32), jnp.asarray(d.a),
+        jnp.pad(jnp.asarray(p.w_i8), pad), jnp.pad(jnp.asarray(p.bias_i32), pad[1]),
+        jnp.pad(jnp.asarray(p.a), pad[1]), 64, 128, "relu", float(d.inv_s), float(p.inv_s),
+        out_dtype="int8", interpret=True, fold=True)
+    want = np.asarray(yp).reshape(2, 4, 8, 128)[..., :24]
+    got = _walk(x, _dev(q), V3I8Plan(3, 3, 3, 8, 2, 2), k=3, stride=2, act="relu")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_unit_walk_vs_packed_block_i8_named_s2_se(fold):
+    """V3-Small block 0 (identity, k 3, stride 2, SE 8, relu): the JAX
+    package's lane-packed kernel with the in-kernel quantized SE against the
+    walk's stored pre-gate tensor and gated pass 2."""
+    q = _layers(21, 16, 16, 16, 3, 8, True)
+    x = np.random.default_rng(22).integers(-128, 128, (2, 16, 16, 16)).astype(np.int8)
+    d, p, s1, s2 = q["dw"], q["prj"], q["se1"], q["se2"]
+    r2 = (128 // 16) // 2
+    cout_p = -(-16 // (128 // r2)) * (128 // r2)
+    pad = (0, cout_p - 16)
+    yp = packed_block_i8_named_s2_se(
+        pack(jnp.asarray(x, jnp.bfloat16), 16), jnp.asarray(d.w_i8), jnp.asarray(d.bias_i32),
+        jnp.asarray(d.a), jnp.asarray(s1.w_i8), jnp.asarray(s1.bias_i32), jnp.asarray(s1.a),
+        jnp.asarray(s2.w_i8), jnp.asarray(s2.bias_i32), jnp.asarray(s2.a),
+        jnp.pad(jnp.asarray(p.w_i8), ((0, 0), pad)), jnp.pad(jnp.asarray(p.bias_i32), pad),
+        jnp.pad(jnp.asarray(p.a), pad), 16, cout_p, "relu", float(d.inv_s), float(s1.inv_s),
+        float(p.inv_s), out_dtype="int8", interpret=True, fold=fold)
+    yp = np.asarray(yp)
+    want = yp.reshape(yp.shape[0], yp.shape[1], -1, cout_p)[..., :16]
+    got = _walk(x, _dev(q), V3I8Plan(4, 3, 2, 8, 2, 2), k=3, stride=2, act="relu")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_magic_conversion_and_its_guard():
+    """f32 by the magic number is exact below 2^22 and wrong beyond; with
+    biases large enough to break it the walk's guards (expansion: |b| <
+    2^22 - Cx * 2^14 a 64-column half; depthwise: |b| <= 2^21 a group of 8;
+    projection: |b| < 2^22 - E * 2^14 a part) take the exact conversion and
+    the walk still equals the plain version; clamping before the rounding
+    equals clamping after."""
+    v = torch.tensor([0, 1, -1, 2 ** 22 - 1, -(2 ** 22) + 1, 3, -7], dtype=torch.int32)
+    assert torch.equal(f32_of(v, True), v.float())
+    big = torch.tensor([2 ** 22 + 1, 2 ** 23 + 3], dtype=torch.int32)
+    assert not torch.equal(f32_of(big, True), big.float())
+    y = torch.linspace(-300.0, 300.0, 2401)
+    after = y.round().clamp(-128, 127)
+    before = _i8((y.clamp(-128.0, 127.0) + MAGIC_F).view(torch.int32)).float()
+    assert torch.equal(before, after)
+    dev = _dev(_layers(31, 24, 72, 24, 3, 0, False))
+    for name, big, room in (("exp", 3_700_000, 2 ** 22 - 32 * 2 ** 14),
+                            ("dw", 2_200_000, 2 ** 21), ("prj", 3_100_000, 2 ** 22 - 72 * 2 ** 14)):
+        dev[name]["b"][::5] = big  # past the guard: the exact conversion there
+        dev[name]["b"][1::5] = -big
+        dev[name]["m"][::5] /= 1000.0
+        dev[name]["a"][::5] /= 1000.0
+        assert big > room
+    x = np.random.default_rng(32).integers(-128, 128, (1, 6, 6, 24)).astype(np.int8)
+    kw = dict(k=3, stride=1, act="relu", residual=True)
+    got = _walk(x, dev, v3_i8_wgmma_plan(1, 6, 6, 24, 72, 24, 3, 1, 0, False), **kw)
+    want = v3_block_i8_plain(torch.from_numpy(x), dev["exp"], dev["dw"], dev["prj"], **kw)
+    np.testing.assert_array_equal(got, want.numpy())
