@@ -37,11 +37,15 @@ file; imports nothing of JAX. Phases, one JSON line each:
   9. the int8 main path: counters set to 0, a 64-stream int8 server and one
      lone request; 0 errors and the int8 block kernel launched;
  10. each MobileNet-V2 kernel against its plain version at the 12 distinct
-     block shapes of V2 1.0-224 at batch 256 (the inverted-residual kernel,
-     the block-0 linear-projection mode of the separable block) and the
-     conv_last head at batch 256 and 1, plus the V3-Large- and
-     V3-Small-shaped heads (two hswish stages) at batch 256: float32 then
-     bfloat16, no TF32 flag set;
+     block shapes of V2 1.0-224 at batch 256 (the inverted-residual block on
+     the V3 bottleneck's tiles with ReLU6: bf16 the Hopper tile, float32
+     the CUDA-core tile, with the time of the unfused library sequence
+     `block_times.v3_library`; the block-0 linear-projection mode of the
+     separable block) and the conv_last head at batch 256 and 1, plus the
+     V3-Large- and V3-Small-shaped heads (two hswish stages) at batch 256:
+     float32 then bfloat16, no TF32 flag set; the inverted-residual block in
+     bf16 also at batch 1; its plans (bf16 `v3_wgmma_plan` at batch 256 and
+     1, float32 `v3_plan`) and both shared-memory mirrors;
  11. the V2 bf16 pipeline, kernel route against plain route, at batch 256
      and 1 (the routing gate with the JAX package's V2 extreme-value term
      and float32 anchor, below), and a float32 full-network check at batch 2;
@@ -50,10 +54,13 @@ file; imports nothing of JAX. Phases, one JSON line each:
  13. the V2 float main path: counters set to 0, a 64-stream V2 server and
      one lone request; 0 errors, and the inverted-residual kernel, the
      conv_last head and the block-0 kernel launched;
- 14. the V2 int8 kernels against their plain versions at batch 256, exactly:
-     the int8 inverted-residual kernel at the 11 distinct expanded block
-     shapes of V2 1.0-224 and a saturation case, the int8 separable block's
-     linear mode at block 0's shape;
+ 14. the V2 int8 kernels against their plain versions, exactly: the int8
+     inverted-residual block (the int8 V3 bottleneck's Hopper tile with the
+     ReLU6 requant) at the 11 distinct expanded block shapes of V2 1.0-224
+     at batch 256 and 1, with its plans (`v3_i8_wgmma_plan`) and the
+     shared-memory mirror, a saturation case and a ReLU6 bound below 127
+     (six_q 100.37, reached); the int8 separable block's linear mode at
+     block 0's shape at batch 256;
  15. the V2 int8 pipeline on one calibrated tree (calibration seconds
      printed): kernel route against plain route, logits equal bit for bit at
      batch 256 and 1; the per-layer gate verify_int8_v2 at batch 2, exact;
@@ -760,16 +767,22 @@ def v2_phases(smi, gen, kernels, launches):
     from mobilenet_tpu_torch import InferencePipeline, V2Config
     from mobilenet_tpu_torch.models import mobilenet_v2
     from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.block_times import v3_library
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
     from mobilenet_tpu_torch.ops.inverted_residual import (
-        inverted_residual, inverted_residual_plain, ir_plan, ir_smem_bytes,
+        inverted_residual, inverted_residual_plain,
     )
     from mobilenet_tpu_torch.ops.separable_block import separable_block, separable_block_plain
+    from mobilenet_tpu_torch.ops.v3_block import (
+        v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
+    )
 
     cfg = V2Config(ALPHA, RES, compute_dtype="bfloat16")
     summary = {
         "inverted_residual": {
-            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/inverted_residual.cu",
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_wgmma.cuh",
+            "design": V3_DESIGN + ["mobilenet_tpu_torch/csrc/v3_block.cu"],
+            "float32_source": "mobilenet_tpu_torch/csrc/v3_tile.cuh",
             "replaces": "mobilenet_tpu/ops/pallas_ir_block.py:364",
             "also_replaces": ["mobilenet_tpu/ops/pallas_expand_s2.py:238"]},
         "separable_block[linear]": {
@@ -782,6 +795,10 @@ def v2_phases(smi, gen, kernels, launches):
     for s in summary.values():
         s.update(FLOAT_ROW)
     summary["separable_block[linear]"].update(library_ms=0.0, library=SEPARABLE_LIBRARY)
+    summary["inverted_residual"].update(library_ms=0.0, library=V3_LIBRARY)
+
+    def ir_library(*a):  # the unfused sequence of one V2 block (relu6, k 3, no SE)
+        return v3_library(*a[:7], k=3, stride=a[7], act="relu6", residual=a[8])
 
     # -- 10. V2 kernels vs plain ------------------------------------------------
     lib = _build.library()
@@ -798,17 +815,33 @@ def v2_phases(smi, gen, kernels, launches):
                         lambda *a: separable_library(*a, pw_act=False))
         else:
             e, res = t * cin, stride == 1 and cin == cout
-            for b, item in ((256, 2), (1, 2), (256, 4)):
-                th, tw = plans[f"{nm} batch {b} itemsize {item}"] = ir_plan(
-                    b, h, h, cin, cout, stride, item)
-                c_bytes = lib.inverted_residual_smem_bytes(cin, cout, stride, th, tw, item)
-                if c_bytes != ir_smem_bytes(th, tw, cin, cout, stride, item):
-                    raise AssertionError(f"{name}: the kernel plans {c_bytes} B of shared "
-                                         "memory, ir_smem_bytes another")
-            mk = lambda dt: rand_ir(gen, n, h, cin, e, cout, dt) + (stride, res)  # noqa: E731
+            for b in (256, 1):
+                p = plans[f"{nm} batch {b} bf16"] = v3_wgmma_plan(b, h, h, cin, e, cout, 3,
+                                                                  stride, 0, False)
+                args = (p.th, p.tw, cin, e, cout, 3, stride, p.cw, p.ws, p.bs, 0)
+                if lib.v3_wgmma_smem_bytes(*args) != v3_wgmma_smem_bytes(*args):
+                    raise AssertionError(f"{name}: the bf16 tile plans another shared memory "
+                                         "than v3_wgmma_smem_bytes")
+            th, tw = plans[f"{nm} batch 256 f32"] = v3_plan(256, h, h, cin, e, cout, 3, stride,
+                                                            0, 4)
+            c_bytes = lib.v3_block_smem_bytes(cin, e, cout, 0, 3, stride, th, tw, 4)
+            if c_bytes != v3_smem_bytes(th, tw, cin, e, cout, 0, 3, stride, 4):
+                raise AssertionError(f"{name}: the float32 tile plans {c_bytes} B of shared "
+                                     "memory, v3_smem_bytes another")
+            mk = lambda dt, b=256: rand_ir(gen, b, h, cin, e, cout, dt) + (stride, res)  # noqa: E731
             check_float(summary, "inverted_residual", name, cnt, inverted_residual,
                         inverted_residual_plain, mk(torch.float32), mk(torch.bfloat16),
-                        lambda kind: ir_work(n, h, cin, e, cout, stride, kind))
+                        lambda kind: ir_work(n, h, cin, e, cout, stride, kind), ir_library)
+            a1 = mk(torch.bfloat16, 1)
+            got, ref = inverted_residual(*a1), inverted_residual_plain(*a1)
+            torch.cuda.synchronize()
+            err = compare(f"inverted_residual {name} batch 1 bf16", got, ref, BF16_ATOL,
+                          BF16_RTOL)
+            summary["inverted_residual"]["max_abs_err"] = max(
+                summary["inverted_residual"]["max_abs_err"], err)
+            emit("kernel_b1", kernel="inverted_residual", shape=name.replace(f"({n},", "(1,"),
+                 max_abs_err=err, atol=BF16_ATOL, rtol=BF16_RTOL)
+            del a1, got, ref
         torch.cuda.empty_cache()
     emit("ir_plans", plans=plans)
     hw, c, cl = cfg.final_spatial, cfg.block_defs[-1][2], cfg.last_channels
@@ -894,11 +927,14 @@ def v2_int8_phases(smi, kernels, launches):
     from mobilenet_tpu_torch.checkpoints import fold_bn_v2, init_params_v2
     from mobilenet_tpu_torch.ops import _build
     from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
-        inverted_residual_i8, inverted_residual_i8_plain, ir_i8_plan, ir_i8_smem_bytes,
+        inverted_residual_i8, inverted_residual_i8_plain,
     )
     from mobilenet_tpu_torch.ops.preprocess import preprocess
     from mobilenet_tpu_torch.ops.separable_block_i8 import (
         separable_block_i8, separable_block_i8_plain,
+    )
+    from mobilenet_tpu_torch.ops.v3_block_i8 import (
+        FULL, kernel_weights, v3_i8_wgmma_plan, v3_i8_wgmma_smem_bytes,
     )
     from mobilenet_tpu_torch.quant import ACT_IN_SCALE
     from mobilenet_tpu_torch.quant import ops as qops
@@ -908,7 +944,8 @@ def v2_int8_phases(smi, kernels, launches):
     cfg = V2Config(ALPHA, RES)
     summary = {
         "inverted_residual_i8": {
-            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/inverted_residual_i8.cu",
+            "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_i8_wgmma.cuh",
+            "design": V3_I8_DESIGN + ["mobilenet_tpu_torch/csrc/v3_block_i8.cu"],
             "replaces": "mobilenet_tpu/quant/pallas_ir_i8.py:237",
             "also_replaces": ["mobilenet_tpu/quant/pallas_expand_s2_i8.py:163",
                               "mobilenet_tpu/quant/pallas_ir_v3_i8.py:290 (V2 bridge form)"]},
@@ -923,43 +960,65 @@ def v2_int8_phases(smi, kernels, launches):
     linear = (lambda *a: separable_block_i8(*a, pw_linear=True),
               lambda *a: separable_block_i8_plain(*a, pw_linear=True))
 
-    # -- 14. V2 int8 kernels vs plain, exact, at batch 256 ------------------------
+    def ir_i8(*a):  # with the kernel's weight forms, as the V2 route passes them (made once)
+        return inverted_residual_i8(*a, wt=forms)
+
+    # -- 14. V2 int8 kernels vs plain, exact, at batch 256 and 1 -------------------
     lib = _build.library()
     rng = np.random.default_rng(4)
     plans = {}
     for nm, n, h, t, cin, cout, stride, cnt in v2_block_shapes(cfg, 256):
-        name = f"{nm} ({n},{h},{h},{cin})->{cout} t{t} s{stride}"
         if t == 1:
+            name = f"{nm} ({n},{h},{h},{cin})->{cout} t{t} s{stride}"
             args = int8_block_args(rng, n, h, cin, cout) + (stride, 127.0, 0.0, True)
             ref = check_i8(summary, "separable_block_i8[linear]", name, cnt, *linear, args,
                            block_work(n, h, cin, cout, stride, "int8"), smi)
             if not (ref < 0).any():
                 raise AssertionError(f"{name}: the linear mode gave no negative output")
-        else:
-            e, res = t * cin, stride == 1 and cin == cout
-            for b in (256, 1):
-                th, tw = plans[f"{nm} batch {b}"] = ir_i8_plan(b, h, h, cin, cout, stride)
-                c_bytes = lib.inverted_residual_i8_smem_bytes(cin, cout, stride, th, tw)
-                if c_bytes != ir_i8_smem_bytes(th, tw, cin, cout, stride):
-                    raise AssertionError(f"{name}: the int8 kernel plans {c_bytes} B of "
-                                         "shared memory, ir_i8_smem_bytes another")
-            args = int8_ir_args(rng, n, h, cin, e, cout) + (stride, res)
-            check_i8(summary, "inverted_residual_i8", name, cnt, inverted_residual_i8,
-                     inverted_residual_i8_plain, args,
-                     ir_work(n, h, cin, e, cout, stride, "int8"), smi)
-        del args
+            del args, ref
+            continue
+        e, res = t * cin, stride == 1 and cin == cout
+        for b in (256, 1):
+            name = f"{nm} ({b},{h},{h},{cin})->{cout} t{t} s{stride}"
+            p = v3_i8_wgmma_plan(b, h, h, cin, e, cout, 3, stride, 0, False)
+            plans[f"{nm} batch {b}"] = p._asdict()
+            pargs = (p.th, p.tw, cin, e, cout, 3, stride, p.cw, p.ws, p.bs, False, FULL)
+            c_bytes = lib.v3_i8_wgmma_smem_bytes(*pargs)
+            if c_bytes != v3_i8_wgmma_smem_bytes(*pargs):
+                raise AssertionError(f"{name}: the int8 tile plans {c_bytes} B of shared "
+                                     "memory, v3_i8_wgmma_smem_bytes another")
+            args = int8_ir_args(rng, b, h, cin, e, cout) + (stride, res)
+            forms = kernel_weights({"w": args[1]}, {"w": args[5]}, {"w": args[9]})
+            ref = check_i8(summary, "inverted_residual_i8", name, cnt if b == 256 else 0,
+                           ir_i8, inverted_residual_i8_plain, args,
+                           ir_work(b, h, cin, e, cout, stride, "int8"), smi)
+            if not ((ref < 0).any() and (ref > 0).any()):
+                raise AssertionError(f"{name}: a one-signed int8 output")
+            del args, ref
         torch.cuda.empty_cache()
-    emit("ir_i8_plans", plans=plans)
+    emit("v2_i8_plans", plans=plans)
     # saturation: inputs at the rails, the projection driven past the int8 range
     args = list(int8_ir_args(rng, 256, 56, 24, 144, 24, prj_gain=8.0)) + [1, True]
     args[0] = torch.where(torch.rand(args[0].shape, device=args[0].device) < 0.5, 120,
                           -120).to(torch.int8)
+    forms = kernel_weights({"w": args[1]}, {"w": args[5]}, {"w": args[9]})
     ref = check_i8(summary, "inverted_residual_i8", "saturation (256,56,56,24)->24 t6 s1 res",
-                   0, inverted_residual_i8, inverted_residual_i8_plain, args,
+                   0, ir_i8, inverted_residual_i8_plain, args,
                    ir_work(256, 56, 24, 144, 24, 1, "int8"), smi)
     if not ((ref == 127).any() and (ref == -128).any()):
         raise AssertionError("saturation case: the output did not reach both int8 rails")
-    del args, ref
+    # the ReLU6 bound below 127 (a recalibrated six_q): the expansion's and the
+    # depthwise's requants clip at 100 where 127 would not
+    args = list(int8_ir_args(rng, 256, 28, 32, 192, 32)) + [1, True]
+    args[4] = args[8] = 100.37
+    forms = kernel_weights({"w": args[1]}, {"w": args[5]}, {"w": args[9]})
+    ref = check_i8(summary, "inverted_residual_i8", "relu6 six_q 100.37 (256,28,28,32)->32 t6 "
+                   "s1 res", 0, ir_i8, inverted_residual_i8_plain, args,
+                   ir_work(256, 28, 32, 192, 32, 1, "int8"), smi)
+    z = qops.pointwise_i8(args[0], *args[1:5])
+    if int(z.max()) != 100:
+        raise AssertionError(f"six_q 100.37: the expansion's maximum is {int(z.max())}, not 100")
+    del args, ref, z, forms
     torch.cuda.empty_cache()
 
     # -- 15. V2 int8 routes on one calibrated tree; the per-layer gate -------------

@@ -1,7 +1,7 @@
 """Times of the fused block kernels and the chains on the card.
 
     python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
-        [--int8 | --v3 | --v3-int8 | --v2]
+        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -23,8 +23,12 @@ with --yardsticks also the plain versions and the unfused library sequence
 ms a call of each kernel it launches (an SE block's pool pass, gate and
 gated pass), and with --yardsticks its plain version. With --v2, instead the
 bf16 `inverted_residual` at every distinct expanded block shape of
-MobileNet-V2 1.0-224 (blocks 1-16), with --yardsticks also its plain version
-and `v3_library` (relu6, k 3, no SE). Prints one JSON line: the card and
+MobileNet-V2 1.0-224 (blocks 1-16), with "passes" (as --v3-int8), and with
+--yardsticks also its plain version and `v3_library` (relu6, k 3, no SE);
+with --float32 the float32 block instead of bf16. With --v2-int8, instead the int8
+`inverted_residual_i8` at the same V2 shapes, with "passes" (as --v3-int8:
+the device ms of each kernel a call launches, x's pad copy included) and
+with --yardsticks its plain version. Prints one JSON line: the card and
 {"b00 256": {"ms": ...}, ...}.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
@@ -342,48 +346,106 @@ def v3_int8_times(args, rng_seed, times) -> dict:
     return out
 
 
-def v2_times(args, gen, times) -> dict:
-    """The bf16 `inverted_residual` at each distinct expanded block shape of
-    V2 1.0-224 (blocks 1-16), and with --yardsticks its plain version and the
-    unfused library sequence `v3_library` (relu6, k 3, no SE), through the
-    public wrappers only."""
+def v2_shapes(batch):
+    """(name, N, H, Cin, E, Cout, stride, residual) of each distinct expanded
+    block shape of V2 1.0-224 (blocks 1-16) at `batch`, and the blocks of one
+    forward that have it ({name: count})."""
     from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
+
+    shapes, counts, h = {}, {}, 112
+    for i, (t, cin, cout, stride) in enumerate(V2Config(1.0, 224).block_defs):
+        key = (h, t, cin, cout, stride)
+        if t > 1 and key in shapes:
+            counts[shapes[key][0]] += 1
+        elif t > 1:
+            name = f"v2 b{i:02d} {batch}"
+            shapes[key] = (name, batch, h, cin, t * cin, cout, stride,
+                           stride == 1 and cin == cout)
+            counts[name] = 1
+        h = -(-h // stride)
+    return list(shapes.values()), counts
+
+
+def v2_times(args, gen, times) -> dict:
+    """The bf16 (--float32: float32) `inverted_residual` at each distinct
+    expanded block shape of V2 1.0-224 (blocks 1-16), and with --yardsticks
+    its plain version and the unfused library sequence `v3_library` (relu6,
+    k 3, no SE), through the public wrappers only."""
     from .ops.inverted_residual import (  # noqa: PLC0415
         inverted_residual, inverted_residual_plain,
     )
 
-    def r(*shape, scale):
-        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+    dtype = torch.float32 if args.float32 else torch.bfloat16
 
-    cfg = V2Config(1.0, 224)
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
     out = {}
     for batch in args.batch:
-        shapes, h = {}, cfg.resolution // 2
-        for i, (t, cin, cout, stride) in enumerate(cfg.block_defs):
-            key = (h, t, cin, cout, stride)
-            if t == 1:
-                pass
-            elif key in shapes:
-                out[shapes[key]]["count"] += 1
-            else:
-                name = shapes[key] = f"v2 b{i:02d} {batch}"
-                e = cin * t
-                x = (torch.rand(batch, h, h, cin, generator=gen, device="cuda") * 4 - 2).bfloat16()
-                w = dict(exp_w=r(cin, e, scale=1.5 / cin ** 0.5), exp_b=r(e, scale=0.3),
-                         dw_w=r(3, 3, 1, e, scale=0.3), dw_b=r(e, scale=0.2),
-                         prj_w=r(e, cout, scale=e ** -0.5), prj_b=r(cout, scale=0.2))
-                res = stride == 1 and cin == cout
-                calls = {"ms": lambda x=x, w=w, s=stride, rs=res: inverted_residual(
-                    x, *w.values(), s, rs)}
-                if args.yardsticks:
-                    calls["plain_ms"] = lambda x=x, w=w, s=stride, rs=res: (
-                        inverted_residual_plain(x, *w.values(), s, rs))
-                    calls["library_ms"] = v3_library(x, **w, k=3, stride=stride, act="relu6",
-                                                     residual=res)
-                out[name] = {**times(batch, calls), "count": 1}
-                del x, w, calls
-                torch.cuda.empty_cache()
-            h = -(-h // stride)
+        shapes, counts = v2_shapes(batch)
+        for name, n, h, cin, e, cout, stride, res in shapes:
+            x = (torch.rand(n, h, h, cin, generator=gen, device="cuda") * 4 - 2).to(dtype)
+            w = dict(exp_w=r(cin, e, scale=1.5 / cin ** 0.5), exp_b=r(e, scale=0.3),
+                     dw_w=r(3, 3, 1, e, scale=0.3), dw_b=r(e, scale=0.2),
+                     prj_w=r(e, cout, scale=e ** -0.5), prj_b=r(cout, scale=0.2))
+            calls = {"ms": lambda x=x, w=w, s=stride, rs=res: inverted_residual(
+                x, *w.values(), s, rs)}
+            if args.yardsticks:
+                calls["plain_ms"] = lambda x=x, w=w, s=stride, rs=res: (
+                    inverted_residual_plain(x, *w.values(), s, rs))
+                calls["library_ms"] = v3_library(x, **w, k=3, stride=stride, act="relu6",
+                                                 residual=res)
+            out[name] = {**times(batch, calls), "count": counts[name],
+                         "passes": kernel_ms(calls["ms"])}
+            del x, w, calls
+            torch.cuda.empty_cache()
+    return out
+
+def v2_int8_times(args, rng_seed, times) -> dict:
+    """The int8 `inverted_residual_i8` at each distinct expanded block shape
+    of V2 1.0-224, through the public wrapper only: layers quantized from
+    random float weights by quant/quantize's `_quant_layer` (the expansion and
+    depthwise at the fixed 6/127 scale: six_q 127; the projection into a
+    bottleneck scale of 0.05), given the kernel's weight forms (`wt`) where
+    the wrapper takes them, x uniform in [-128, 127]."""
+    import inspect  # noqa: PLC0415
+
+    import numpy as np  # noqa: PLC0415
+
+    from .ops import inverted_residual_i8 as mod  # noqa: PLC0415
+    from .ops.v3_block_i8 import kernel_weights  # noqa: PLC0415
+    from .quant.quantize import ACT_HIDDEN_SCALE, _quant_layer  # noqa: PLC0415
+
+    rng = np.random.default_rng(rng_seed)
+    takes_wt = "wt" in inspect.signature(mod.inverted_residual_i8).parameters
+
+    def layer(shape, axis, s_in, s_out, scale, **kw):
+        q = _quant_layer(rng.normal(0, scale, shape).astype(np.float32),
+                         rng.normal(0, 0.1, (shape[axis],)).astype(np.float32), axis, s_in,
+                         s_out, **kw)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+        return t(q.w_i8), t(q.bias_i32), t(q.m), float(q.six_q)
+
+    out = {}
+    for batch in args.batch:
+        shapes, counts = v2_shapes(batch)
+        for name, n, h, cin, e, cout, stride, res in shapes:
+            s_x = np.float32(0.05)
+            ew, eb, em, es = layer((cin, e), 1, s_x, ACT_HIDDEN_SCALE, cin ** -0.5)
+            dw, db, dm, ds = layer((3, 3, 1, e), 3, ACT_HIDDEN_SCALE, ACT_HIDDEN_SCALE, 0.3,
+                                   dw_bias_bound=True)
+            pw, pb, pm, _ = layer((e, cout), 1, ACT_HIDDEN_SCALE, s_x, e ** -0.5)
+            x = torch.from_numpy(rng.integers(-128, 128, (n, h, h, cin)).astype(
+                np.int8)).cuda()
+            a = (x, ew, eb, em, es, dw, db, dm, ds, pw, pb, pm, stride, res)
+            kw = {"wt": kernel_weights({"w": ew}, {"w": dw}, {"w": pw})} if takes_wt else {}
+            calls = {"ms": lambda a=a, kw=kw: mod.inverted_residual_i8(*a, **kw)}
+            if args.yardsticks:
+                calls["plain_ms"] = lambda a=a: mod.inverted_residual_i8_plain(*a)
+            out[name] = {**times(batch, calls), "count": counts[name],
+                         "passes": kernel_ms(calls["ms"])}
+            del x, a, kw, calls
+            torch.cuda.empty_cache()
     return out
 
 
@@ -401,6 +463,11 @@ def main(argv=None) -> None:
                       help="the int8 V3 bottleneck instead, with each launch's device time")
     kind.add_argument("--v2", action="store_true",
                       help="the bf16 V2 inverted-residual block instead")
+    kind.add_argument("--v2-int8", action="store_true",
+                      help="the int8 V2 inverted-residual block instead, with each launch's "
+                           "device time")
+    p.add_argument("--float32", action="store_true",
+                   help="with --v2: the float32 block instead of the bf16 one")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("block_times: needs a CUDA card")
@@ -418,6 +485,8 @@ def main(argv=None) -> None:
         out = v3_int8_times(args, 0, times)
     elif args.v2:
         out = v2_times(args, gen, times)
+    elif args.v2_int8:
+        out = v2_int8_times(args, 0, times)
     else:
         out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, the Tensor Memory
 // Accelerator's tensor copies, the proxy fences, named barriers and the
-// warpgroup matrix multiply (wgmma) with its shared-memory descriptors, as
-// mma_i8.cuh holds the mma.sync pieces. The host side encodes TMA tensor maps
+// warpgroup matrix multiply (wgmma) with its shared-memory descriptors. The
+// host side encodes TMA tensor maps
 // through the runtime's driver entry point, so the library links without
 // -lcuda.
 //

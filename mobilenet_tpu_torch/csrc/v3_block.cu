@@ -8,7 +8,11 @@
 // also takes blocks 0 and 1, which the JAX package sends to the lane-packed
 // separable_block_packed (linear mode + a residual add) and
 // expand_block_packed_s2: every block of V3-Large is one call of this kernel.
-// Activations (numerics.cuh act_named): relu, relu6, hswish.
+// MobileNet-V2's blocks 1-16 (ops/inverted_residual.py: ReLU6, k 3, no SE)
+// run it too, in both dtypes, in place of pallas_ir_block.py
+// inverted_residual_pallas (:364) and pallas_expand_s2.py
+// expand_block_packed_s2 (:238). Activations (numerics.cuh act_named): relu,
+// relu6, hswish.
 //
 // Numerics (pallas_ir_v3.py _v3_kernel :244-312, _se_gate :206-219): the
 // expansion accumulates in f32, adds its bias in f32, applies its activation

@@ -1,7 +1,7 @@
 // Fused int8 MobileNet-V3 bottleneck, one call, int8 in and int8 out, exact
 // (equal, bit for bit, to quant/v3.py's oracle sequence):
-//   expand 1x1 s8 x s8 -> s32 + int32 bias -> named requant (relu or
-//     hswish), or the identity with no activation (block 0: no expansion)
+//   expand 1x1 s8 x s8 -> s32 + int32 bias -> named requant (relu, relu6
+//     or hswish), or the identity with no activation (block 0: no expansion)
 //   -> depthwise k x k (k = 3 or 5, stride 1 or 2, TF-SAME) in exact int32
 //      taps + int32 bias -> named requant
 //   -> [quantized squeeze-excite: the int32 sum of the requantized depthwise
@@ -14,13 +14,22 @@
 // The named requant, folded order (quant/v3.py FOLDED_REQUANT):
 //   relu, linear: clamp(rint(f32(acc) * m), 0 or -128, 127), m = f32(a) * f32(inv_s);
 //   hswish: v = f32(acc) * a; t = clip(v + 3, 0, 6);
-//           clamp(rint((v * t) * m6), -128, 127), m6 = f32(inv_s) * f32(1/6).
+//           clamp(rint((v * t) * m6), -128, 127), m6 = f32(inv_s) * f32(1/6);
+// and MobileNet-V2's ReLU6 (quant/ops.requantize): v = f32(acc) * m;
+//   clamp(rint(clamp(v, 0, six_q)), -128, 127), six_q = f32(6) / f32(s_out)
+//   per layer: the relu requant with the upper bound f32(min(six_q, 127))
+//   in place of 127 (rint is monotone and leaves integers fixed).
 // Every f32 step is __fmul_rn / __fadd_rn, so no multiply-add contraction
 // can round once where numpy rounds twice; the rounding adds 1.5 x 2^23
 // (half to even); the library is built without --use_fast_math. The host
 // computes m, m6, the gate's f32(1/6) and the pool's f32(1/(Ho*Wo)) in numpy
 // float32 and passes them in; the kernel never recomputes a constant.
 //
+// Runs MobileNet-V2's int8 inverted-residual blocks 1-16 (ReLU6, k 3, no
+// SE; ops/inverted_residual_i8.py), which replace the TPU kernels
+// mobilenet_tpu/quant/pallas_ir_i8.py inverted_residual_pallas_i8 (:237),
+// quant/pallas_expand_s2_i8.py expand_block_packed_s2_i8 (:163, block 1) and
+// the V2 bridge form of pallas_ir_v3_i8.py v3_block_pallas_i8 (block 13).
 // Replaces four TPU kernels of MobileNet-V3's int8 paths:
 //   mobilenet_tpu/quant/pallas_ir_v3_i8.py v3_block_pallas_i8 (:290), its V3
 //     forms (hswish, k 5, the quantized SE; V3-L blocks 2-14, V3-S 1-10);
@@ -184,13 +193,64 @@ int sm_count(int* sms) {
   return 0;
 }
 
-// One pass: its maps, the opt-in to its shared memory (once an
-// instantiation), a persistent grid of one block an SM (384 threads of 168
-// registers fill an SM's 64 K) for each unit.
+// What a launch keeps between calls (ops/v3_block_i8.py keeps one per
+// argument key): each pass's geometry and its maps of the weights, the
+// weights' pointers, the gate's arguments and the requant operands. The maps
+// of x, the gates and the pre-gate tensor, which name a call's buffers, are
+// made at each launch.
+struct Prepared {
+  v::Maps maps[3];  // by pass: kFull, kPool, kGated
+  v::Geo geo[3];
+  v::Tensors t;     // x, gate and zs null
+  Gate gate;        // pooled and gate null
+  float m6_exp, m6_dw;
+  int K;
+};
+
+// A Prepared in a caller's buffer of v3_block_i8_prepared_bytes() bytes.
+Prepared* prepared_in(const void* buf) {
+  const uintptr_t a = alignof(Prepared);
+  return reinterpret_cast<Prepared*>((reinterpret_cast<uintptr_t>(buf) + a - 1) & ~(a - 1));
+}
+
+int prepare(Prepared* P, const void* ewt, const void* eb, const void* em, const void* dwt,
+            const void* db, const void* dm, const void* pwt, const void* pb, const void* pm,
+            const void* sw1, const void* sb1, const void* sm1, const void* sw2,
+            const void* sb2, const void* sa2, int N, int H, int W, int Cin, int E, int Cout,
+            int Se, int K, int stride, int act_exp, int act, int residual, int identity, int th,
+            int tw, int split, int cw, int ws, int bs, float m6_exp, float m6_dw, float hw_inv,
+            float sixth) {
+  const v::Plan plan{th, tw, split, cw, ws, bs};
+  for (int mode : {v::kFull, v::kPool, v::kGated})
+    P->geo[mode] = v::make_geo(N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+                               identity, mode, plan);
+  if ((!identity && (ewt == nullptr || eb == nullptr || em == nullptr)) || Se % 4 != 0 ||
+      (Se > 0 && (sw1 == nullptr || sb1 == nullptr || sm1 == nullptr || sw2 == nullptr ||
+                  sb2 == nullptr || sa2 == nullptr)) ||
+      (K != 3 && K != 5) || (long long)N * P->geo[v::kFull].tiles_img * split > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  P->t = v::Tensors{nullptr, ewt, eb, em, dwt, db, dm, pwt, pb, pm, nullptr, nullptr};
+  P->gate = Gate{nullptr, (const int8_t*)sw1, (const int*)sb1, (const float*)sm1,
+                 (const int8_t*)sw2, (const int*)sb2, (const float*)sa2, nullptr, N, E, Se,
+                 hw_inv, sixth};
+  P->m6_exp = m6_exp;
+  P->m6_dw = m6_dw;
+  P->K = K;
+  for (int mode : {v::kFull, v::kPool, v::kGated}) {
+    if ((mode == v::kFull) != (Se == 0)) continue;  // SE blocks: pass 1 and pass 2
+    if (!v::geo_ok(P->geo[mode])) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = v::make_weight_maps(P->maps[mode], P->t, P->geo[mode]);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// One pass: the call's maps beside the kept ones, the opt-in to its shared
+// memory (once an instantiation), a persistent grid of one block an SM (384
+// threads of 168 registers fill an SM's 64 K) for each unit.
 template <int K, int MODE>
-int launch_pass(const v::Tensors& t, const v::Ptrs& p, const v::Geo& g, float m6_exp,
-                float m6_dw, cudaStream_t st) {
-  if (!v::geo_ok(g)) return (int)cudaErrorInvalidValue;
+int launch_pass(const Prepared& P, const v::Tensors& t, const v::Ptrs& p, cudaStream_t st) {
+  const v::Geo& g = P.geo[MODE];
   const auto kernel = v3_i8_kernel<K, MODE>;
   static bool opted_in = false;
   cudaError_t e = cudaSuccess;
@@ -202,22 +262,22 @@ int launch_pass(const v::Tensors& t, const v::Ptrs& p, const v::Geo& g, float m6
   }
   int sms = 0;
   if (const int code = sm_count(&sms)) return code;
-  v::Maps maps;
-  if ((e = v::make_maps(maps, t, g)) != cudaSuccess) return (int)e;
+  v::Maps maps = P.maps[MODE];
+  if ((e = v::make_call_maps(maps, t, g)) != cudaSuccess) return (int)e;
   const long long units = v::units_of(g), cap = sms;
   kernel<<<(unsigned)(units < cap ? units : cap), v::THREADS, g.smem_bytes, st>>>(
-      maps, p, g, (const int*)t.pb, m6_exp, m6_dw);
+      maps, p, g, (const int*)P.t.pb, P.m6_exp, P.m6_dw);
   return (int)cudaGetLastError();
 }
 
 template <int K>
-int launch_k(const v::Tensors& t, const v::Ptrs& p, const Gate& gate, const v::Geo& full,
-             const v::Geo& pool, const v::Geo& gated, float m6_exp, float m6_dw,
+int launch_k(const Prepared& P, const v::Tensors& t, const v::Ptrs& p, const Gate& gate,
              cudaStream_t st) {
-  if (full.Se == 0) return launch_pass<K, v::kFull>(t, p, full, m6_exp, m6_dw, st);
+  if (gate.Se == 0) return launch_pass<K, v::kFull>(P, t, p, st);
+  const v::Geo& pool = P.geo[v::kPool];
   cudaError_t e = cudaMemsetAsync(p.pooled, 0, sizeof(int) * (size_t)pool.N * pool.E, st);
   if (e != cudaSuccess) return (int)e;
-  int code = launch_pass<K, v::kPool>(t, p, pool, m6_exp, m6_dw, st);
+  int code = launch_pass<K, v::kPool>(P, t, p, st);
   if (code != 0) return code;
   const int bytes = gate_bytes(gate.E, gate.Se);
   static bool gate_opted_in = false;
@@ -229,7 +289,23 @@ int launch_k(const v::Tensors& t, const v::Ptrs& p, const Gate& gate, const v::G
   }
   v3_i8_gate_kernel<<<(pool.N + GATE_IMGS - 1) / GATE_IMGS, GATE_THREADS, bytes, st>>>(gate);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return launch_pass<3, v::kGated>(t, p, gated, m6_exp, m6_dw, st);
+  return launch_pass<3, v::kGated>(P, t, p, st);
+}
+
+// A prepared launch on a call's input, SE scratch and output.
+int run(const Prepared& P, const void* x, void* pooled, void* gate, void* zs, void* out,
+        cudaStream_t st) {
+  if (P.gate.Se > 0 && (pooled == nullptr || gate == nullptr || zs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  v::Tensors t = P.t;
+  t.x = x;
+  t.gate = gate;
+  t.zs = zs;
+  const v::Ptrs p{(const int8_t*)x, (int8_t*)out, (int8_t*)zs, (int*)pooled};
+  Gate gt = P.gate;
+  gt.pooled = (const int*)pooled;
+  gt.gate = (float*)gate;
+  return P.K == 3 ? launch_k<3>(P, t, p, gt, st) : launch_k<5>(P, t, p, gt, st);
 }
 
 }  // namespace
@@ -240,9 +316,11 @@ extern "C" {
 // (Cout, Ep) the K-major weight copies, Ep = E rounded up to 16; dwt (k*k/4
 // + 1, E) int32 the depthwise table (ops/v3_block_i8.v3_i8_kernel_weights);
 // eb, db, pb int32 and em, dm, pm f32 (the named requant's factor: "a" for
-// hswish, else "m") per channel; the SE layers' w, b and m (se1) or a (se2);
+// hswish, else "m") per channel; m6_exp, m6_dw: hswish's m6, or relu's and
+// relu6's upper bound (127, or f32(min(six_q, 127))); the SE layers' w, b and m (se1) or a (se2);
 // SE scratch: pooled (N x E int32), gate (N x E f32), zs (N x Ho x Wo x Ep
 // int8); plan: th, tw, split, cw, ws, bs (ops/v3_block_i8.v3_i8_wgmma_plan).
+// One call: v3_block_i8_prepare, then v3_block_i8_run.
 int v3_block_i8(const void* x, const void* ewt, const void* eb, const void* em, const void* dwt,
                 const void* db, const void* dm, const void* pwt, const void* pb, const void* pm,
                 const void* sw1, const void* sb1, const void* sm1, const void* sw2,
@@ -251,26 +329,37 @@ int v3_block_i8(const void* x, const void* ewt, const void* eb, const void* em, 
                 int act_exp, int act, int residual, int identity, int th, int tw, int split,
                 int cw, int ws, int bs, float m6_exp, float m6_dw, float hw_inv, float sixth,
                 void* stream) {
-  const v::Plan plan{th, tw, split, cw, ws, bs};
-  const auto geo = [&](int mode) {
-    return v::make_geo(N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual, identity,
-                       mode, plan);
-  };
-  const v::Geo full = geo(v::kFull), pool = geo(v::kPool), gated = geo(v::kGated);
-  if ((!identity && (ewt == nullptr || eb == nullptr || em == nullptr)) || Se % 4 != 0 ||
-      (Se > 0 && (sw1 == nullptr || sb1 == nullptr || sm1 == nullptr || sw2 == nullptr ||
-                  sb2 == nullptr || sa2 == nullptr || pooled == nullptr || gate == nullptr ||
-                  zs == nullptr)) ||
-      (K != 3 && K != 5) || (long long)N * full.tiles_img * split > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const v::Tensors t{x, ewt, eb, em, dwt, db, dm, pwt, pb, pm, gate, zs};
-  const v::Ptrs p{(const int8_t*)x, (int8_t*)out, (int8_t*)zs, (int*)pooled};
-  const Gate gt{(const int*)pooled, (const int8_t*)sw1, (const int*)sb1, (const float*)sm1,
-                (const int8_t*)sw2, (const int*)sb2, (const float*)sa2, (float*)gate, N, E, Se,
-                hw_inv, sixth};
-  cudaStream_t st = (cudaStream_t)stream;
-  return K == 3 ? launch_k<3>(t, p, gt, full, pool, gated, m6_exp, m6_dw, st)
-                : launch_k<5>(t, p, gt, full, pool, gated, m6_exp, m6_dw, st);
+  Prepared P;
+  const int code = prepare(&P, ewt, eb, em, dwt, db, dm, pwt, pb, pm, sw1, sb1, sm1, sw2, sb2,
+                           sa2, N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+                           identity, th, tw, split, cw, ws, bs, m6_exp, m6_dw, hw_inv, sixth);
+  return code != 0 ? code : run(P, x, pooled, gate, zs, out, (cudaStream_t)stream);
+}
+
+// Bytes of a caller's buffer for a prepared launch.
+int v3_block_i8_prepared_bytes() { return (int)(sizeof(Prepared) + alignof(Prepared)); }
+
+// v3_block_i8's checks, geometry and weight maps into buf (the arguments of
+// v3_block_i8 but x, the SE scratch, out and the stream), once for every
+// launch with these weights and this input shape; 0 or a cudaError_t.
+int v3_block_i8_prepare(void* buf, const void* ewt, const void* eb, const void* em,
+                        const void* dwt, const void* db, const void* dm, const void* pwt,
+                        const void* pb, const void* pm, const void* sw1, const void* sb1,
+                        const void* sm1, const void* sw2, const void* sb2, const void* sa2,
+                        int N, int H, int W, int Cin, int E, int Cout, int Se, int K, int stride,
+                        int act_exp, int act, int residual, int identity, int th, int tw,
+                        int split, int cw, int ws, int bs, float m6_exp, float m6_dw,
+                        float hw_inv, float sixth) {
+  return prepare(prepared_in(buf), ewt, eb, em, dwt, db, dm, pwt, pb, pm, sw1, sb1, sm1, sw2,
+                 sb2, sa2, N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+                 identity, th, tw, split, cw, ws, bs, m6_exp, m6_dw, hw_inv, sixth);
+}
+
+// A launch prepared by v3_block_i8_prepare in buf, on x, the SE scratch
+// (null without SE) and out.
+int v3_block_i8_run(const void* buf, const void* x, void* pooled, void* gate, void* zs,
+                    void* out, void* stream) {
+  return run(*prepared_in(buf), x, pooled, gate, zs, out, (cudaStream_t)stream);
 }
 
 // Dynamic shared memory of a plan's pass (mode 0 full, 1 pool, 2 gated;

@@ -2,7 +2,9 @@
 // tile's unit walk, rings and roles (v3_wgmma.cuh) with the int8 operands of
 // the separable tile (separable_i8_wgmma.cuh): s8 wgmma on K-major operands,
 // the dp4a depthwise over byte-transposed taps, and the exact requant by
-// additions of 1.5 x 2^23. Equal, bit for bit, to quant/v3.py's sequence.
+// additions of 1.5 x 2^23. Equal, bit for bit, to quant/v3.py's sequence,
+// and with the ReLU6 requant (a per-layer upper bound, `requant`) to the
+// MobileNet-V2 int8 block's (quant/v2.py, ops/inverted_residual_i8.py).
 //
 // Work is split into units: an output tile of th x tw pixels of one image
 // times a part of the output channels (the plan's Cout split, for the shapes
@@ -200,9 +202,10 @@ __host__ __device__ inline Geo make_geo(int N, int H, int W, int Cin, int E, int
 // Checks a shape, plan and pass; false if they break a rule of the kernel
 // (the Python plan never gives such a plan).
 __host__ __device__ inline bool geo_ok(const Geo& g) {
-  const bool named = g.act == kRelu || g.act == kHswish;
+  const bool named = g.act == kRelu || g.act == kRelu6 || g.act == kHswish;
   const bool exp_ok = g.identity ? (g.act_exp == kLinear && g.E == g.Cin && g.Cin <= KCH)
-                                 : (g.act_exp == kRelu || g.act_exp == kHswish);
+                                 : (g.act_exp == kRelu || g.act_exp == kRelu6 ||
+                                    g.act_exp == kHswish);
   const bool pass_ok =
       g.mode == kFull ? g.Se == 0 : (g.mode == kPool || g.mode == kGated) && g.Se > 0;
   return g.N > 0 && g.H > 0 && g.W > 0 && g.Cin > 0 && g.E > 0 && g.Cout > 0 &&
@@ -373,11 +376,16 @@ __device__ __forceinline__ float to_f32(int v) {
     return __int2float_rn(v);
 }
 
-// quant/v3.py's named requant of a sum v (bias included), in the folded
-// order: relu / linear clamp(rint(f32(v) * mult)), hswish with a = mult:
-// x = f32(v) * a, clamp(rint((x * clip(x + 3, 0, 6)) * m6)); clamped to
-// [0 or -128, 127] before the rounding (integer bounds: the same result);
-// the int8 value is the low byte.
+// The named requant of a sum v (bias included): quant/v3.py's folded
+// order, relu / linear clamp(rint(f32(v) * mult)), hswish with a = mult:
+// x = f32(v) * a, clamp(rint((x * clip(x + 3, 0, 6)) * m6)); and V2's
+// ReLU6 (quant/ops.requantize): clamp(rint(clamp(f32(v) * m, 0, six_q))).
+// A == kRelu takes relu and relu6 alike, with m6 the upper bound: 127 for
+// relu, f32(min(six_q, 127)) for relu6, so one warp-uniform operand and no
+// branch tell them apart; the others clamp to [-128, 127]. Clamped before
+// the rounding: rint is monotone and leaves integers fixed, so a clamp to
+// 0, 127 or six_q there gives the same int8 as numpy's clamp, rint, clamp.
+// The int8 value is the low byte.
 template <int A, bool kMagic>
 __device__ __forceinline__ uint32_t requant(int v, float mult, float m6) {
   const float f = to_f32<kMagic>(v);
@@ -389,7 +397,10 @@ __device__ __forceinline__ uint32_t requant(int v, float mult, float m6) {
   } else {
     y = __fmul_rn(f, mult);
   }
-  y = fminf(fmaxf(y, A == kRelu ? 0.0f : -128.0f), 127.0f);
+  if constexpr (A == kRelu)
+    y = fminf(fmaxf(y, 0.0f), m6);
+  else
+    y = fminf(fmaxf(y, -128.0f), 127.0f);
   return __float_as_uint(__fadd_rn(y, MAGIC_F));
 }
 
@@ -1090,8 +1101,11 @@ struct Tensors {
 // The maps of one pass: x (N, H, W, Cx) windows, the K-major expand weight
 // (E, Cx), the K-major projection weight (Cout, Ep) in 64- and 8-row boxes,
 // the depthwise table (nq, E) int32, the chunk vectors (E), the gates (N, E)
-// f32 and the pre-gate tensor (N, Ho, Wo, Ep).
-inline cudaError_t make_maps(Maps& m, const Tensors& t, const Geo& g) {
+// f32 and the pre-gate tensor (N, Ho, Wo, Ep). The weights' maps are made
+// once for a prepared launch (make_weight_maps); those of x, the gates and
+// the pre-gate tensor, which name a call's buffers, at each launch
+// (make_call_maps).
+inline cudaError_t make_weight_maps(Maps& m, const Tensors& t, const Geo& g) {
   const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
   cudaError_t e = cudaSuccess;
@@ -1111,12 +1125,6 @@ inline cudaError_t make_maps(Maps& m, const Tensors& t, const Geo& g) {
     return hop::make_map_3d(map, u8, w, d, s, b, sw);
   };
   if (g.mode != kGated) {
-    const cuuint64_t xd[4] = {(cuuint64_t)g.Cx, (cuuint64_t)g.W, (cuuint64_t)g.H,
-                              (cuuint64_t)g.N};
-    const cuuint64_t xs[3] = {(cuuint64_t)g.Cx, (cuuint64_t)g.W * g.Cx,
-                              (cuuint64_t)g.H * g.W * g.Cx};
-    const cuuint32_t xb[4] = {(cuuint32_t)KCH, (cuuint32_t)g.pw, (cuuint32_t)g.ph, 1};
-    if ((e = hop::make_map_4d(&m.x, u8, t.x, xd, xs, xb, sw)) != cudaSuccess) return e;
     if (!g.identity) {
       if ((e = rows(&m.ew, t.ewt, g.Cx, g.E, KCH)) != cudaSuccess) return e;
       if ((e = vec(&m.eb, CU_TENSOR_MAP_DATA_TYPE_INT32, t.eb, g.E, 1)) != cudaSuccess) return e;
@@ -1133,17 +1141,32 @@ inline cudaError_t make_maps(Maps& m, const Tensors& t, const Geo& g) {
     if ((e = vec(&m.pm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, t.pm, g.Cout, 1)) != cudaSuccess)
       return e;
   }
-  if (g.mode == kGated) {
-    if ((e = vec(&m.gate, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, t.gate, g.E, g.N)) != cudaSuccess)
-      return e;
-    const cuuint64_t zd[4] = {(cuuint64_t)g.Ep, (cuuint64_t)g.Wo, (cuuint64_t)g.Ho,
-                              (cuuint64_t)g.N};
-    const cuuint64_t zs[3] = {(cuuint64_t)g.Ep, (cuuint64_t)g.Wo * g.Ep,
-                              (cuuint64_t)g.Ho * g.Wo * g.Ep};
-    const cuuint32_t zb[4] = {(cuuint32_t)KCH, (cuuint32_t)g.tw, (cuuint32_t)g.th, 1};
-    if ((e = hop::make_map_4d(&m.z, u8, t.zs, zd, zs, zb, sw)) != cudaSuccess) return e;
-  }
   return cudaSuccess;
+}
+
+inline cudaError_t make_call_maps(Maps& m, const Tensors& t, const Geo& g) {
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (g.mode != kGated) {
+    const cuuint64_t xd[4] = {(cuuint64_t)g.Cx, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                              (cuuint64_t)g.N};
+    const cuuint64_t xs[3] = {(cuuint64_t)g.Cx, (cuuint64_t)g.W * g.Cx,
+                              (cuuint64_t)g.H * g.W * g.Cx};
+    const cuuint32_t xb[4] = {(cuuint32_t)KCH, (cuuint32_t)g.pw, (cuuint32_t)g.ph, 1};
+    return hop::make_map_4d(&m.x, u8, t.x, xd, xs, xb, sw);
+  }
+  const cuuint64_t gd[3] = {(cuuint64_t)g.E, (cuuint64_t)g.N, 1};
+  const cuuint64_t gs[2] = {(cuuint64_t)g.E * 4, (cuuint64_t)g.E * g.N * 4};
+  const cuuint32_t gb[3] = {(cuuint32_t)KCH, 1, 1};
+  cudaError_t e = hop::make_map_3d(&m.gate, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, t.gate, gd, gs, gb,
+                                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t zd[4] = {(cuuint64_t)g.Ep, (cuuint64_t)g.Wo, (cuuint64_t)g.Ho,
+                            (cuuint64_t)g.N};
+  const cuuint64_t zs[3] = {(cuuint64_t)g.Ep, (cuuint64_t)g.Wo * g.Ep,
+                            (cuuint64_t)g.Ho * g.Wo * g.Ep};
+  const cuuint32_t zb[4] = {(cuuint32_t)KCH, (cuuint32_t)g.tw, (cuuint32_t)g.th, 1};
+  return hop::make_map_4d(&m.z, u8, t.zs, zd, zs, zb, sw);
 }
 
 }  // namespace v3i8

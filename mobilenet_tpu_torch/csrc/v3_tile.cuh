@@ -20,8 +20,51 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
-#include "ir_tile.cuh"
 #include "numerics.cuh"
+
+namespace mnk {
+
+// Loads and stores of 16 bytes (kVec<T> elements of T): every channel count
+// is a multiple of 8 and every tensor 16-byte aligned (the wrappers check
+// both), so a row of channels moves as whole vectors, and a thread's loads of
+// one loop are few and independent instead of a chain of dependent L2 trips.
+template <typename T> constexpr int kVec = 16 / int(sizeof(T));
+
+template <typename T> union Vec16 {
+  uint4 u;
+  T t[kVec<T>];
+};
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void st16(void* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
+
+// Zf (Pp x KE, f32, row stride LDZ) = Xs (Pp x CinP, row stride s.ldx) @
+// Es (CinP x KE, row stride LDE), by THREADS threads; Pp and CinP are
+// multiples of 16. FMA on the CUDA cores (exact float32), a thread owning
+// one column and the rows p, p + THREADS / KE.
+template <int THREADS, int KE, int LDZ, int LDE, typename Shape>
+__device__ __forceinline__ void expand_product(const float* Xs, const float* Es, float* Zf,
+                                               const Shape& s) {
+  const int tid = threadIdx.x;
+  const int k = tid % KE;
+  for (int p = tid / KE; p < s.Pp; p += 2 * (THREADS / KE)) {
+    const float* x0 = Xs + p * s.ldx;
+    const float* x1 = x0 + (THREADS / KE) * s.ldx;  // row p + 8 (Pp % 16 == 0)
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < s.CinP; ++c) {
+      const float w = Es[c * LDE + k];
+      a0 = fmaf(x0[c], w, a0);
+      a1 = fmaf(x1[c], w, a1);
+    }
+    Zf[p * LDZ + k] = a0;
+    Zf[(p + THREADS / KE) * LDZ + k] = a1;
+  }
+}
+
+}  // namespace mnk
 
 namespace mnk::v3 {
 
@@ -209,7 +252,7 @@ __device__ __forceinline__ void v3_tile(
     }
     __syncthreads();
     if (!s.identity) {
-      mnk::expand_product<T, V3_THREADS, KE, LDZ, LDE>(Xs, Es, Zf, s);
+      mnk::expand_product<V3_THREADS, KE, LDZ, LDE>(Xs, Es, Zf, s);
       __syncthreads();
     }
     // + bias, act, rounded to T (the identity: the input itself); 0 outside

@@ -1,28 +1,26 @@
-"""Per-block times of the inverted-residual kernels at candidate tiles.
+"""Per-block times of the bottleneck kernels' Hopper tiles at candidate tiles.
 
     python -m mobilenet_tpu_torch.ir_tiles [--batch 1 256] [--alpha 1.0] [--res 224] \
         [--model v2|v3|v3small] [--int8]
 
-For each expanded block of MobileNet-V2 at the given width and size, and
-each batch, times the bf16 kernel (or with --int8 the int8 kernel; CUDA
-events, random operands) at the tile that `ops.inverted_residual.ir_plan`
-(`ops.inverted_residual_i8.ir_i8_plan`) picks and at a few others, and
-prints one JSON line per block and batch: the shape, the plan, and the ms
-of each tile. With --model v3 (v3small), the same for every block of
-MobileNet-V3-Large (-Small) and the bf16 V3 bottleneck kernel (its Hopper
-tile at `ops.v3_block.v3_wgmma_plan`'s plan and at other tiles with the
-plan's Cout parts and the first ring slots that fit), or with --int8 the
-int8 V3 bottleneck kernel (its Hopper tile at
-`ops.v3_block_i8.v3_i8_wgmma_plan`'s plan and at other tiles, likewise);
-SE blocks with all of their launches. These are the timings behind the
-plans' time model (CHUNK_OVERHEAD, SLOTS_TWO_PER_SM, the int8 plan's output
-cap, the V3 plans' unit-time constants). Refuses to run without a card.
+For every expanded block of MobileNet-V2 (--model v2, the default: blocks
+1-16, ReLU6, k 3, no SE), or every block of MobileNet-V3-Large (v3) or
+-Small (v3small), at the given width and size and each batch, times the
+bf16 V3 bottleneck kernel (its Hopper tile, `csrc/v3_wgmma.cuh`) at
+`ops.v3_block.v3_wgmma_plan`'s plan and at other tiles with the plan's Cout
+parts and the first ring slots that fit, or with --int8 the int8 bottleneck
+kernel (`csrc/v3_i8_wgmma.cuh`) at `ops.v3_block_i8.v3_i8_wgmma_plan`'s
+plan and at other tiles, likewise; SE blocks with all of their launches
+(CUDA events, random operands). Prints one JSON line per block and batch:
+the shape, the plan, and the ms of each tile. These are the timings behind
+the plans' unit-time constants and ties. Refuses to run without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+from typing import NamedTuple
 
 import torch
 
@@ -48,11 +46,40 @@ def tile_ms(fn, args, tile, reps: int, tail=()) -> float:
     return start.elapsed_time(end) / reps
 
 
-def v3_rows(lib, args, gen):
-    """One JSON line per V3 block and batch: the V3 kernel's ms (bf16, or
-    the int8 kernel with --int8) at the plan's tile and at candidate tiles
-    of up to the plan's output cap."""
+class Block(NamedTuple):
+    """A block's shape in the fields of mobilenet_v3's block definitions."""
+    cin: int
+    cexp: int
+    cout: int
+    kernel: int
+    stride: int
+    se_mid: int
+    act: str
+    has_res: bool
+    has_expand: bool
+
+
+def block_defs(args) -> list:
+    """The blocks of --model at --alpha and --res, with their indices: V2's
+    expanded blocks as ReLU6 bottlenecks (k 3, no SE; block 0, t == 1 at
+    stride 1, runs the separable block), or V3-Large's / V3-Small's own."""
+    if args.model == "v2":
+        from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
+
+        defs = V2Config(args.alpha, args.res).block_defs
+        return [(i, Block(cin, t * cin, cout, 3, stride, 0, "relu6",
+                          stride == 1 and cin == cout, True))
+                for i, (t, cin, cout, stride) in enumerate(defs) if t > 1]
     from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
+
+    variant = "small" if args.model == "v3small" else "large"
+    return list(enumerate(V3Config(variant, args.alpha, args.res).block_defs))
+
+
+def v3_rows(lib, args, gen):
+    """One JSON line per block and batch: the bottleneck kernel's ms (bf16,
+    or the int8 kernel with --int8) at the plan's tile and at candidate
+    tiles of up to the plan's output cap."""
     from .ops.head import ACTS  # noqa: PLC0415
     from .ops.v3_block import (  # noqa: PLC0415
         V3W_RINGS, V3W_SMEM_LIMIT, V3W_TM, v3_wgmma_plan, v3_wgmma_smem_bytes,
@@ -74,9 +101,8 @@ def v3_rows(lib, args, gen):
                     torch.full((c,), 1e-3, device="cuda"))
         return rand(*w_shape, scale=scale), rand(c, scale=0.1)
 
-    variant = "small" if args.model == "v3small" else "large"
     h = args.res // 2
-    for i, bd in enumerate(V3Config(variant, args.alpha, args.res).block_defs):
+    for i, bd in block_defs(args):
         e, ho, se, k, cout = bd.cexp, -(-h // bd.stride), bd.se_mid, bd.kernel, bd.cout
         identity = not bd.has_expand
         for n in args.batch:
@@ -101,7 +127,8 @@ def v3_rows(lib, args, gen):
                         *((t.data_ptr() for t in ses) if ses else (0,) * 6),
                         *(t.data_ptr() for t in scratch), out.data_ptr()]
                 fn, cap = lib.v3_block_i8, I8W_TM
-                tail = (1e-3, 1e-3, 1.0 / (ho * ho), 1.0 / 6)  # m6 exp, m6 dw, 1/hw, 1/6
+                m6 = 1e-3 if bd.act == "hswish" else 127.0  # hswish's m6, else the bound
+                tail = (m6, m6, 1.0 / (ho * ho), 1.0 / 6)  # exp, dw, 1/hw, 1/6
                 iplan = v3_i8_wgmma_plan(n, h, h, bd.cin, e, cout, k, bd.stride, se, identity)
                 plan = iplan[:2]
 
@@ -147,14 +174,7 @@ def v3_rows(lib, args, gen):
 
 
 def main(argv=None):
-    from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
     from .ops import _build  # noqa: PLC0415
-    from .ops.inverted_residual import (  # noqa: PLC0415
-        MAX_FRAGS, SMEM_MAX, ir_plan, ir_smem_bytes,
-    )
-    from .ops.inverted_residual_i8 import (  # noqa: PLC0415
-        MAX_OUTPUTS_I8, ir_i8_plan, ir_i8_smem_bytes,
-    )
 
     p = argparse.ArgumentParser(prog="mobilenet_tpu_torch.ir_tiles")
     p.add_argument("--batch", type=int, nargs="+", default=[1, 256])
@@ -162,61 +182,13 @@ def main(argv=None):
     p.add_argument("--res", type=int, default=224)
     p.add_argument("--int8", action="store_true", help="time the int8 kernel")
     p.add_argument("--model", default="v2", choices=["v2", "v3", "v3small"],
-                   help="v2 (default): the inverted-residual kernels; v3 (v3small): "
-                        "the V3 bottleneck kernels over MobileNet-V3-Large (-Small)")
+                   help="v2 (default): MobileNet-V2's expanded blocks; v3 (v3small): "
+                        "MobileNet-V3-Large's (-Small's) blocks")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.ir_tiles measures the card; "
                          "torch.cuda.is_available() is False")
-    lib = _build.library()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.model != "v2":
-        v3_rows(lib, args, gen)
-        return
-
-    def rand(*shape, scale=1.0):
-        if args.int8:
-            return torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                                 dtype=torch.int8)
-        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
-
-    def layer(w_shape, c):  # (w, b[, m]) of one layer
-        if args.int8:
-            return (rand(*w_shape), torch.zeros(c, dtype=torch.int32, device="cuda"),
-                    torch.full((c,), 1e-3, device="cuda"))
-        return (rand(*w_shape, scale=w_shape[0] ** -0.5), rand(c, scale=0.1))
-
-    max_out = MAX_OUTPUTS_I8 if args.int8 else 64
-    h = args.res // 2
-    for i, (t, cin, cout, stride) in enumerate(V2Config(args.alpha, args.res).block_defs):
-        e, ho = t * cin, -(-h // stride)
-        for n in args.batch if t > 1 else ():
-            x = rand(n, h, h, cin)
-            weights = (*layer((cin, e), e), *layer((3, 3, 1, e), e), *layer((e, cout), cout))
-            out = torch.empty(n, ho, ho, cout, dtype=x.dtype, device="cuda")
-            call = (x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(), n, h, h,
-                    cin, e, cout, stride, int(stride == 1 and cin == cout))
-            if args.int8:
-                fn, tail = lib.inverted_residual_i8, (127.0, 127.0)
-                plan = ir_i8_plan(n, h, h, cin, cout, stride)
-                smem = lambda th, tw: ir_i8_smem_bytes(th, tw, cin, cout, stride)  # noqa: E731
-            else:
-                fn, tail = lib.inverted_residual_bf16, ()
-                plan = ir_plan(n, h, h, cin, cout, stride, 2)
-                smem = lambda th, tw: ir_smem_bytes(th, tw, cin, cout, stride, 2)  # noqa: E731
-            tiles = {plan, (1, 1), (1, min(ho, 7)), (2, min(ho, 14)), (4, min(ho, 14)),
-                     (min(ho, 7), min(ho, 7)), (min(ho, 8), min(ho, 8)),
-                     (min(ho, 8), min(ho, 16)), (min(ho, 16), min(ho, 16)),
-                     (min(ho, 14), min(ho, 14)), (min(ho, 7), min(ho, 28))}
-            ms = {f"{th}x{tw}": tile_ms(fn, call, (th, tw), 20 if n == 1 else 5, tail)
-                  for th, tw in sorted(tiles)
-                  if (th * tw <= max_out and -(-th * tw // 16) * -(-cout // 16) <= MAX_FRAGS
-                      and smem(th, tw) <= SMEM_MAX)}
-            print(json.dumps({"device": torch.cuda.get_device_name(0), "block": i,
-                              "batch": n, "h": h, "cin": cin, "e": e, "cout": cout,
-                              "stride": stride, "int8": args.int8, "plan": plan, "ms": ms}),
-                  flush=True)
-        h = ho
+    v3_rows(_build.library(), args, torch.Generator(device="cuda").manual_seed(0))
 
 
 if __name__ == "__main__":

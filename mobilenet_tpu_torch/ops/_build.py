@@ -42,9 +42,6 @@ _BLOCK = [_P] * 6 + [_I] * 8
 # x, conv_w, conv_b, w0, b0, w1, b1, pooled, out | N, HW, C, E, conv_act,
 # n_post, n0, act0, n1, act1 (acts: -1 none, 0 linear, 1 relu, 2 relu6, 3 hswish)
 _HEAD = [_P] * 9 + [_I] * 10
-# x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, out | N, H, W, Cin, E, Cout,
-# stride, residual, TH, TW
-_IR = [_P] * 8 + [_I] * 10
 # x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se_w1, se_b1, se_w2, se_b2,
 # partial, out | N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
 # identity, TH, TW
@@ -64,20 +61,19 @@ _SIGNATURES = {
     # Cout, stride, relu6 | dw_six_q, pw_six_q | the int8 plan (as _PLAN)
     "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2 + _PLAN,
     "separable_block_i8_linear": [_P] * 8 + [_I] * 7 + [_F] * 2 + _PLAN,
-    # x, exp_w, exp_b, exp_m, dw_w, dw_b, dw_m, prj_w, prj_b, prj_m, out | N, H,
-    # W, Cin, E, Cout, stride, residual, TH, TW | exp_six_q, dw_six_q
-    "inverted_residual_i8": [_P] * 11 + [_I] * 10 + [_F] * 2,
     # x, exp_wt, exp_b, exp_mult, dw_table, dw_b, dw_mult, prj_wt, prj_b,
     # prj_m, se1_w, se1_b, se1_m, se2_w, se2_b, se2_a, pooled, gate, z, out |
     # N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual, identity |
     # th, tw, split, cw, ws, bs (ops/v3_block_i8.v3_i8_wgmma_plan) | exp_m6,
-    # dw_m6, hw_inv, sixth
+    # dw_m6 (hswish's m6, or the relu/relu6 upper bound), hw_inv, sixth
     "v3_block_i8": [_P] * 20 + [_I] * 19 + [_F] * 4,
+    # a launch prepared by v3_block_i8_prepare (below) in buf: buf, x, pooled,
+    # gate, z, out
+    "v3_block_i8_run": [_P] * 6,
     # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
     "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
     # x, w, b (or 0), out | N, H, W, C, stride, relu6
     "depthwise_f32": [_P] * 4 + [_I] * 6, "depthwise_bf16": [_P] * 4 + [_I] * 6,
-    "inverted_residual_bf16": _IR, "inverted_residual_f32": _IR,
     "v3_block_bf16": _V3_BF16, "v3_block_f32": _V3,
     # x, out, scratch0, scratch1, partial | N, H, W, stages | ptrs (stages x
     # 10 weight pointers), dims (stages x 12 ints): host arrays; grid: one
@@ -103,10 +99,6 @@ _HOST_SIGNATURES = {
     "separable_bf16_smem_bytes": ([_I] * 7, ctypes.c_int),
     # nwg, th, tw, kp, ws, bs, stride, cin -> bytes of dynamic shared memory
     "separable_i8_smem_bytes": ([_I] * 8, ctypes.c_int),
-    # Cin, Cout, stride, TH, TW, itemsize -> bytes of dynamic shared memory
-    "inverted_residual_smem_bytes": ([_I] * 6, ctypes.c_int),
-    # Cin, Cout, stride, TH, TW -> bytes of dynamic shared memory
-    "inverted_residual_i8_smem_bytes": ([_I] * 5, ctypes.c_int),
     # Cin, E, Cout, Se, K, stride, TH, TW, itemsize -> bytes of dynamic shared memory
     "v3_block_smem_bytes": ([_I] * 9, ctypes.c_int),
     # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity, pass (0 full, 1
@@ -114,6 +106,11 @@ _HOST_SIGNATURES = {
     "v3_i8_wgmma_smem_bytes": ([_I] * 12, ctypes.c_int),
     # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity -> bytes of dynamic shared memory
     "v3_wgmma_smem_bytes": ([_I] * 11, ctypes.c_int),
+    # the bytes of v3_block_i8_prepare's buffer
+    "v3_block_i8_prepared_bytes": ([], ctypes.c_int),
+    # buf, then v3_block_i8's arguments but x, the SE scratch, out and the
+    # stream: its checks, geometry and weight maps into buf -> cudaError_t
+    "v3_block_i8_prepare": ([_P] * 16 + [_I] * 19 + [_F] * 4, ctypes.c_int),
     # host (stages x 1152 bytes), x, scratch0, scratch1, gate | N, H, W, stages |
     # ptrs, dims (as v3_chain_bf16): the bf16 chain's TMA tensor maps -> cudaError_t
     "v3_chain_bf16_maps": ([_P] * 5 + [_I] * 4 + [_P] * 2, ctypes.c_int),

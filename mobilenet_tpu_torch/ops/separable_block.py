@@ -14,7 +14,7 @@ runs the tile plan of `separable_plan`, which this module's CPU tests check.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,6 +46,13 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")
+
+
+def tensor_key(t) -> Optional[tuple]:
+    """A tensor's part of a wrapper's cache key: its address (which also
+    names the device: CUDA's unified addressing gives host and device memory
+    disjoint ranges), shape, strides and dtype; None for None."""
+    return None if t is None else (t.data_ptr(), t.shape, t.stride(), t.dtype)
 
 
 def check_channels(name: str, *channels: int) -> None:

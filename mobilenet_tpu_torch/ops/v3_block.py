@@ -5,10 +5,11 @@ Replaces the TPU kernel `mobilenet_tpu/ops/pallas_ir_v3.py`
 `v3_block_pallas`: expand (or the identity) + act -> depthwise k x k (k = 3
 or 5, stride 1 or 2) + act -> [squeeze-excite gate] -> linear projection
 [+ residual], in one call. On V3-Large it also runs blocks 0 and 1, which
-the JAX package sends to its lane-packed kernels. What bounds it on the card
-and what the design does about it (a block with SE runs two launches: the
-per-tile channel sums of the gate's pool, then the gated block) is in the
-CUDA source's header. bf16 runs the Hopper tile of `csrc/v3_wgmma.cuh` on
+the JAX package sends to its lane-packed kernels; MobileNet-V2's blocks
+1-16 run it too (`ops/inverted_residual.py`: ReLU6, k 3, no SE). What
+bounds it on the card and what the design does about it (a block with SE
+runs two launches: the per-tile channel sums of the gate's pool, then the
+gated block) is in the CUDA source's header. bf16 runs the Hopper tile of `csrc/v3_wgmma.cuh` on
 the plan of `v3_wgmma_plan`, float32 the tile of `csrc/v3_tile.cuh` on
 `v3_plan`; each picks the tile from the shapes alone and is the
 fits-function: a shape with no plan raises at the call.
@@ -24,16 +25,34 @@ import torch
 from . import _build
 from .conv import apply_act_named, dw_taps_f32, ieee_f32
 from .head import ACTS
-from .inverted_residual import KE, _rup, plan_tile
 from .separable_block import H100_SMS, _sms, check_aligned, check_channels, check_kernel_args
 
 BLOCK_ACTS = ("relu", "relu6", "hswish")
-# The largest tile the float32 plan takes, in outputs. The float32 tile's
-# projection accumulators bound TM x Cout (MAX_FRAGS), not TM alone; V3's narrow
-# blocks (Cout 16-40 at 112-28 squared) fit 256-output tiles, which load
-# 4x fewer windows and weight slices than the V2 plan's 64 (`ir_tiles
-# --model v3`, PERF.md).
+
+# -- the float32 kernel's plan (csrc/v3_tile.cuh) ----------------------------
+KE = 32                 # expanded channels per chunk
+MAX_FRAGS = 40          # (TMp / 16) * (CoutP / 16): projection accumulators
+SMEM_MAX = 232448       # the per-block shared-memory opt-in limit (227 KB)
+# Tiles whose shared memory fits this budget keep two blocks on an SM.
+SMEM_PREFERRED = 113 * 1024
+# The largest tile the float32 plan takes, in outputs. The projection
+# accumulators bound TM x Cout (MAX_FRAGS), not TM alone; V3's narrow blocks
+# (Cout 16-40 at 112-28 squared) fit 256-output tiles, which load 4x fewer
+# windows and weight slices than 64-output ones (`ir_tiles --model v3`,
+# PERF.md).
 MAX_OUTPUTS_V3 = 256
+# The tile plan's time model, fitted to per-tile timings of the V2 1.0-224
+# blocks on an H100 at batch 1 and 256: a tile costs, per expanded-channel
+# chunk, CHUNK_OVERHEAD plus its work (expanded window pixels x (Cin + 16)
+# + output rows x (Cout + 16)), in one unit; the card runs about
+# SLOTS_TWO_PER_SM of them at once when two fit on an SM (2 x 132 SMs at
+# ~1.3x the latency of one), 132 when one does.
+CHUNK_OVERHEAD = 33000
+SLOTS_TWO_PER_SM, SLOTS_ONE_PER_SM = 200, 132
+
+
+def _rup(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def v3_smem_bytes(th: int, tw: int, cin: int, e: int, cout: int, se: int, k: int,
@@ -56,14 +75,33 @@ def v3_smem_bytes(th: int, tw: int, cin: int, e: int, cout: int, se: int, k: int
 def v3_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int, stride: int,
             se: int, itemsize: int) -> Optional[Tuple[int, int]]:
     """The float32 kernel's output tile (TH, TW) of a block on (n, h, w,
-    cin) -> cout, or None when no tile fits: `ir_plan`'s search and time model
-    (ops/inverted_residual.plan_tile) with this kernel's k x k window,
-    shared memory and output cap."""
-    if k not in (3, 5):
+    cin) -> cout, or None when no tile fits. Among tiles of at most
+    MAX_OUTPUTS_V3 outputs (TH, TW <= 16) whose projection accumulators and
+    shared memory fit, the one the time model above rates fastest: few
+    large tiles when the batch fills the card (less halo recompute), many
+    small ones when it does not (batch 1)."""
+    if k not in (3, 5) or (stride == 2 and (h % 2 or w % 2)):
         return None
-    return plan_tile(n, h, w, cin, cout, stride,
-                     lambda th, tw: v3_smem_bytes(th, tw, cin, e, cout, se, k, stride,
-                                                  itemsize), max_outputs=MAX_OUTPUTS_V3, k=k)
+    ho, wo = -(-h // stride), -(-w // stride)
+    cinp, coutp = _rup(cin, 16), _rup(cout, 16)
+    best = None
+    for th in range(1, min(ho, 16) + 1):
+        for tw in range(1, min(wo, 16) + 1):
+            tmp = _rup(th * tw, 16)
+            if th * tw > MAX_OUTPUTS_V3 or (tmp // 16) * (coutp // 16) > MAX_FRAGS:
+                continue
+            smem = v3_smem_bytes(th, tw, cin, e, cout, se, k, stride, itemsize)
+            if smem > SMEM_MAX:
+                continue
+            pp = _rup(((th - 1) * stride + k) * ((tw - 1) * stride + k), 16)
+            blocks = n * -(-ho // th) * -(-wo // tw)
+            slots = SLOTS_TWO_PER_SM if smem <= SMEM_PREFERRED else SLOTS_ONE_PER_SM
+            cost = (max(1.0, blocks / slots)
+                    * (CHUNK_OVERHEAD + pp * (cinp + 16) + tmp * (coutp + 16)))
+            key = (cost, -th * tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw))
+    return None if best is None else best[1]
 
 
 # -- the bf16 kernel's plan (csrc/v3_wgmma.cuh) ------------------------------
@@ -267,9 +305,7 @@ def v3_block(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k: int, stride: int, 
     stride 1 and Cin == Cout. On CPU tensors this is the plain version; on
     CUDA tensors it launches the kernel or raises."""
     name = "v3_block"
-    identity = exp_w is None
     se = (se_w1, se_b1, se_w2, se_b2)
-    has_se = se_w1 is not None
     weights = block_weights(name, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se)
     sfx = check_kernel_args(name, x, *weights)
     if x.dim() != 4:
@@ -284,13 +320,27 @@ def v3_block(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k: int, stride: int, 
         return v3_block_plain(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, k=k, stride=stride,
                               act=act, se_w1=se_w1, se_b1=se_b1, se_w2=se_w2, se_b2=se_b2,
                               residual=residual)
+    out = launch(name, sfx, x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se, k=k, stride=stride,
+                 act=act, residual=residual, e=e, cout=cout, sem=sem, plan=plan)
+    v3_block.launches += 1
+    return out
+
+
+def launch(name: str, sfx: str, x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se, *, k: int,
+           stride: int, act: str, residual: bool, e: int, cout: int, sem: int,
+           plan) -> torch.Tensor:
+    """One launch of the kernel (`sfx` "bf16" or "f32") on a CUDA x, checked
+    by `check_block` (which gave E, Cout, Se and `plan`) and `check_aligned`:
+    the output, an SE block's scratch, the call. Counts nothing: each public
+    wrapper counts its own launches."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.library()
+    n, h, w, _ = x.shape
     ho, wo = -(-h // stride), -(-w // stride)
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     partial = None
-    if has_se:  # pass 1's per-tile channel sums (bf16: then the images' gates)
+    if se[0] is not None:  # pass 1's per-tile channel sums (bf16: then the images' gates)
         tiles = -(-ho // plan[0]) * -(-wo // plan[1])
         partial = torch.empty((n * (tiles + (sfx == "bf16")) * e,), dtype=torch.float32,
                               device=x.device)
@@ -298,13 +348,14 @@ def v3_block(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k: int, stride: int, 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
+    identity = exp_w is None
     code = getattr(lib, f"v3_block_{sfx}")(
         x.data_ptr(), ptr(exp_w), ptr(exp_b), dw_w.data_ptr(), dw_b.data_ptr(),
         prj_w.data_ptr(), prj_b.data_ptr(), *map(ptr, se), ptr(partial), out.data_ptr(),
-        n, h, w, cin, e, cout, sem, k, stride, ACTS["linear" if identity else act], ACTS[act],
-        int(residual), int(identity), *plan, torch.cuda.current_stream(x.device).cuda_stream)
+        n, h, w, x.shape[-1], e, cout, sem, k, stride, ACTS["linear" if identity else act],
+        ACTS[act], int(residual), int(identity), *plan,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
-    v3_block.launches += 1
     return out
 
 

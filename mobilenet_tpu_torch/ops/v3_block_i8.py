@@ -15,13 +15,19 @@ runs the Hopper tile of `csrc/v3_i8_wgmma.cuh` on the plan of
 at the call. A layer is a dict of device tensors
 (`quant/v3.device_layer_v3`): "w" int8, "b" int32, "a" and "m" float32 per
 output channel, and the float32 value "m6"; the kernel reads the weights in
-its own forms ("wt", `v3_i8_kernel_weights`, made once at upload).
+its own forms ("wt", `v3_i8_kernel_weights`, made once at upload). The act
+"relu6" is MobileNet-V2's ReLU6 requant (`quant/ops.requantize`) on V2's
+layers (`quant/model.device_layer`: "m" and the float32 value "six_q", no
+"a"): `ops/inverted_residual_i8.py` runs V2's blocks 1-16 on this kernel.
+On the card the checks and the launch's arguments are made once per
+distinct key of `_call_key` and kept (`launch_i8`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,9 +36,9 @@ from ..quant import ops as qops
 from . import _build
 from .depthwise_i8 import check_i8_args
 from .head import ACTS
-from .separable_block import H100_SMS, _sms, check_aligned, check_channels
+from .separable_block import H100_SMS, _sms, check_aligned, check_channels, tensor_key
 
-NAMED_ACTS = ("relu", "hswish")
+NAMED_ACTS = ("relu", "relu6", "hswish")
 
 # -- the kernel's plan (csrc/v3_i8_wgmma.cuh) ----------------------------------
 I8W_TM = 128            # output pixels a unit at most (64 a consumer warpgroup)
@@ -53,9 +59,14 @@ FULL, POOL, GATED = 0, 1, 2  # the passes: no SE; SE pass 1; SE pass 2
 # first tile, PERF.md §6): a 64-row block's k32 expansion step, its 64
 # x 64 epilogue, one tap of a thread's 8-channel depthwise item, a chunk's
 # barriers and waits, a unit's set-up and epilogue, one projection column a
-# k32 step, a thread's 16-channel gated item of pass 2.
+# k32 step, a thread's 16-channel gated item of pass 2. Costs within TIE of
+# the lowest tie with it (measured: at V2 1.0-224 b11, 14^2 x 96 E576, 7x14
+# ran in 0.146 ms against 5x14's 0.183 at a model gap of 0.26%; `ir_tiles
+# --model v2 --int8`), and ties go to fewer units; no V3 plan moves
+# (tests/test_torch_v3_i8_wgmma.py pins them).
 MM_STEP, EPI_HALF, DW_TAP, CHUNK_FIXED, UNIT_FIXED, PRJ_COL, GATE_ITEM = (
     300, 1500, 100, 600, 5000, 5.0, 600)
+TIE = 0.003
 
 
 class V3I8Plan(NamedTuple):
@@ -133,8 +144,9 @@ def v3_i8_wgmma_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int
     I8W_RINGS that fits the full pass (SE blocks: pass 1; pass 2's four
     stages always fit). The choice minimises waves (one block an SM) x the
     unit time model, summed over an SE block's two passes (pass 1 does not
-    split Cout), a single window slot counting 1.1x; ties go to fewer units,
-    then to fewer padded pixels past the image."""
+    split Cout), a single window slot counting 1.1x; ties (costs within TIE
+    of the lowest) go to fewer units, then to fewer padded pixels past the
+    image, then to larger tiles."""
     ok = (k in (3, 5) and stride in (1, 2) and min(n, h, w, cin, e, cout) > 0
           and cin % 8 == 0 and e % 8 == 0 and cout % 8 == 0 and se % 4 == 0
           and (not identity or (e == cin and cin <= I8W_CHUNK))
@@ -144,7 +156,7 @@ def v3_i8_wgmma_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int
     ho, wo = -(-h // stride), -(-w // stride)
     cws = [c for c in range(8, min(cout, I8W_MAX_CW) + 1, 8) if cout % c == 0]
     mode = POOL if se else FULL
-    best = None
+    cands = []
     for th in range(1, min(ho, I8W_TM) + 1):
         for tw in range(1, min(wo, I8W_TM // th) + 1):
             ph, pw, mp = _window(th, tw, k, stride)
@@ -166,10 +178,15 @@ def v3_i8_wgmma_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int
                 else:
                     cost = -(-units // sms) * (cyc + cw * steps * PRJ_COL)
                     cost *= 1.1 if ws == 1 else 1.0
-                key = (cost, units, tiles * th * tw - n * ho * wo, -th * tw)
-                if best is None or key < best[0]:
-                    best = (key, V3I8Plan(th, tw, cout // cw, cw, ws, bs))
-    return None if best is None else best[1]
+                cands.append(((units, tiles * th * tw - n * ho * wo, -th * tw, cost),
+                              V3I8Plan(th, tw, cout // cw, cw, ws, bs)))
+    if not cands:
+        return None
+    # the model resolves no finer than TIE: every candidate within TIE of the
+    # lowest cost ties with it (a band around that one cost, so ties cannot
+    # chain upward), and ties go by the rest of the key
+    low = min(key[-1] for key, _ in cands)
+    return min((c for c in cands if c[0][-1] <= low * (1 + TIE)), key=lambda c: c[0])[1]
 
 
 def dw_table(dw_w: torch.Tensor) -> torch.Tensor:
@@ -212,6 +229,16 @@ def v3_i8_kernel_weights(block: dict) -> dict:
     return block
 
 
+def requant_bound(layer: dict, act: str) -> float:
+    """The kernel's per-layer requant operand (v3_i8_wgmma.cuh `requant`'s
+    m6): hswish's m6; the upper bound of relu (127) and of relu6, float32
+    min(six_q, 127), which gives V2's clamp(rint(clamp(v, 0, six_q)),
+    -128, 127) bit for bit for any six_q."""
+    if act == "hswish":
+        return float(layer["m6"])
+    return qops._f32(min(qops._f32(layer["six_q"]), 127.0)) if act == "relu6" else 127.0
+
+
 def v3_block_i8_plain(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None,
                       se2=None, residual: bool = False) -> torch.Tensor:
     """The plain int8 ops in quant/v3.py's order: the expansion's named
@@ -234,21 +261,33 @@ def v3_block_i8(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None, se2
     x (N,H,W,Cin) int8; exp the expansion layer (w (Cin,E)) or None for
     the identity with no activation (E == Cin); dw the depthwise layer (w
     (k,k,1,E)); prj the projection (w (E,Cout)); se1 (w (E,Se)) and se2 (w
-    (Se,E)) the SE layers, both or neither; act relu or hswish ->
+    (Se,E)) the SE layers, both or neither; act relu, relu6 or hswish ->
     (N,Ho,Wo,Cout) int8. A residual needs stride 1 and Cin == Cout. On CPU
     tensors this is the plain version; on CUDA tensors it launches the
-    kernel or raises. The kernel reads the layers' "wt" forms where they hold
-    them, else makes them here (`kernel_weights`); a Cin that is not a
-    multiple of 16 is padded with zero channels (a copy of x) for TMA's
-    strides. An SE block's scratch (its pre-gate tensor, channel sums and
-    gates) lives for the call."""
+    kernel (`launch_i8`) or raises."""
     name = "v3_block_i8"
+    opts = dict(k=k, stride=stride, act=act, residual=residual)
+    if x.device.type == "cpu":
+        check_block_i8(name, x, exp, dw, prj, se1, se2, **opts)
+        return v3_block_i8_plain(x, exp, dw, prj, se1=se1, se2=se2, **opts)
+    out = launch_i8(name, x, exp, dw, prj, se1, se2, **opts)
+    v3_block_i8.launches += 1
+    return out
+
+
+def check_block_i8(name: str, x, exp, dw, prj, se1, se2, *, k: int, stride: int, act: str,
+                   residual: bool) -> V3I8Plan:
+    """The kernel's checks of one block (dtypes, devices, layer shapes, k,
+    stride, act, the residual, channel counts) and its plan
+    (`v3_i8_wgmma_plan`); raises ValueError on what the kernel does not
+    take."""
     identity, has_se = exp is None, se1 is not None
     if (se2 is None) == has_se:
         raise ValueError(f"{name}: give both SE layers or neither")
     layers = ([] if identity else [exp]) + [dw, prj] + ([se1, se2] if has_se else [])
+    factors = [(l[f], l["b"]) for l in layers for f in ("a", "m") if f in l]
     check_i8_args(name, x, [l["w"] for l in layers], [l["b"] for l in layers],
-                  [l[f] for l in layers for f in ("a", "m")])
+                  [f for f, _ in factors])
     n, h, w, cin = x.shape
     e = cin if identity else int(exp["w"].shape[-1])
     cout = int(prj["w"].shape[-1])
@@ -260,12 +299,15 @@ def v3_block_i8(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None, se2
     if has_se:
         shapes += [(se1["w"], (e, sem)), (se1["b"], (sem,)), (se2["w"], (sem, e)),
                    (se2["b"], (e,))]
-    shapes += [(l[f], tuple(l["b"].shape)) for l in layers for f in ("a", "m")]
+    shapes += [(f, tuple(b.shape)) for f, b in factors]
     if any(tuple(t.shape) != want for t, want in shapes):
         raise ValueError(f"{name}: layer shapes do not fit Cin={cin}, E={e}, k={k}")
     if k not in (3, 5) or stride not in (1, 2) or act not in NAMED_ACTS:
         raise ValueError(f"{name}: k={k} stride={stride} act={act!r}: the kernel takes "
                          f"k 3 or 5, stride 1 or 2 and an act in {NAMED_ACTS}")
+    need = {"hswish": ("a", "m6"), "relu6": ("m", "six_q")}.get(act, ("m",))
+    if any(f not in l for l in layers[:2 - identity] for f in need):
+        raise ValueError(f"{name}: the {act} requant reads each layer's {need}")
     if residual and (stride != 1 or cin != cout):
         raise ValueError(f"{name}: a residual needs stride 1 and Cin == Cout")
     check_channels(name, cin, e, cout)
@@ -276,48 +318,120 @@ def v3_block_i8(x, exp, dw, prj, *, k: int, stride: int, act: str, se1=None, se2
     if plan is None:
         raise ValueError(f"{name}: no tile of the kernel takes ({n},{h},{w},{cin})->{cout} "
                          f"E{e} k{k} s{stride} SE{sem} (v3_i8_wgmma_plan)")
-    if x.device.type == "cpu":
-        return v3_block_i8_plain(x, exp, dw, prj, k=k, stride=stride, act=act, se1=se1,
-                                 se2=se2, residual=residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    kw = kernel_weights(exp, dw, prj)
+    return plan
+
+
+class _I8Call(NamedTuple):
+    """What one launch needs beyond x's address and the buffers it makes,
+    checked (`_prepare_i8`)."""
+    cx: int                                # x's channels as the kernel reads them
+    out_shape: Tuple[int, int, int, int]
+    scratch: Tuple[int, int, int]          # SE: pooled, gate and z elements (0: none)
+    weights: Tuple[int, ...]               # the 15 layer pointers after x, in the C order
+    dims: tuple                            # N .. identity, the plan, the two bounds, 1/hw, 1/6
+    prepared: Any = None                   # v3_block_i8_prepare's buffer (the card)
+
+
+_CALLS: Dict[tuple, _I8Call] = {}
+CALLS_KEPT = 256  # distinct (layers, input) pairs remembered; past it, start over
+LAYER_KEYS = ("w", "b", "a", "m", "wt", "six_q", "m6")  # what the checks and launch read
+
+
+def _call_key(x, layers, opts: tuple) -> tuple:
+    """Everything `_prepare_i8` reads of x and the layers, values aside: the
+    layers' tensors' addresses (the launch passes them), shapes, strides and
+    dtypes and their scalars; x's shape, strides, dtype, device and 16-byte
+    alignment (its address is an argument of each launch, so a new input of
+    the same shape shares the key); the options. Two calls with equal keys
+    launch with the same arguments but x's."""
+    return (x.shape, x.stride(), x.dtype, x.device, x.data_ptr() % 16, opts, tuple(
+        None if layer is None else tuple(
+            tensor_key(v) if isinstance(v, torch.Tensor) else v
+            for v in map(layer.get, LAYER_KEYS)) for layer in layers))
+
+
+def _prepare_i8(name: str, x, exp, dw, prj, se1, se2, *, k: int, stride: int, act: str,
+                residual: bool) -> _I8Call:
+    """Every check of a launch (`check_block_i8`, then the layers' weight
+    forms, which the kernel reads and which must be there: raises
+    ValueError), then its arguments and buffer sizes."""
+    plan = check_block_i8(name, x, exp, dw, prj, se1, se2, k=k, stride=stride, act=act,
+                          residual=residual)
+    identity, has_se = exp is None, se1 is not None
+    n, h, w, cin = x.shape
+    e = cin if identity else int(exp["w"].shape[-1])
+    cout = int(prj["w"].shape[-1])
+    sem = int(se1["w"].shape[-1]) if has_se else 0
     cx, ep = _rup(cin, K_ALIGN), _rup(e, K_ALIGN)
     want = {"dw": (k * k // 4 + 1, e), "prj": (cout, ep), "exp": (e, cx)}
-    for key, t in kw.items():
+    forms = {}
+    for key, layer in (("exp", exp), ("dw", dw), ("prj", prj)):
+        if layer is None:
+            continue
+        t = layer.get("wt")
+        if t is None:
+            raise ValueError(f"{name}: the {key} layer holds no kernel form \"wt\": the "
+                             "kernel reads the forms made once at upload "
+                             "(v3_i8_kernel_weights)")
         if tuple(t.shape) != want[key] or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: the {key} layer's kernel form {tuple(t.shape)} is not "
                              f"{want[key]} (v3_i8_kernel_weights)")
-    if cx != cin:
-        x = F.pad(x, (0, cx - cin)).contiguous()
-    check_aligned(name, x, *kw.values())
-    lib = _build.library()
+        forms[key] = t
+    check_aligned(name, *forms.values())
     ho, wo = -(-h // stride), -(-w // stride)
-    out = torch.empty((n, ho, wo, cout), dtype=torch.int8, device=x.device)
-    pooled = gate = zs = None
-    if has_se:
-        pooled = torch.empty((n * e,), dtype=torch.int32, device=x.device)
-        gate = torch.empty((n * e,), dtype=torch.float32, device=x.device)
-        zs = torch.empty((n * ho * wo * ep,), dtype=torch.int8, device=x.device)
 
-    def ptr(t):  # 0 for a tensor the block does not have
-        return 0 if t is None else t.data_ptr()
-
-    def lay(layer, key):
+    def lay(layer, key):  # 0 for a layer the block does not have
         return 0 if layer is None else layer[key].data_ptr()
 
     mult = "a" if act == "hswish" else "m"  # the named requant's per-channel factor
-    code = lib.v3_block_i8(
-        x.data_ptr(), ptr(kw.get("exp")), lay(exp, "b"), lay(exp, mult), kw["dw"].data_ptr(),
-        lay(dw, "b"), lay(dw, mult), kw["prj"].data_ptr(), lay(prj, "b"), lay(prj, "m"),
-        lay(se1, "w"), lay(se1, "b"), lay(se1, "m"), lay(se2, "w"), lay(se2, "b"),
-        lay(se2, "a"), ptr(pooled), ptr(gate), ptr(zs), out.data_ptr(), n, h, w, cin, e, cout,
-        sem, k, stride, ACTS["linear" if identity else act], ACTS[act], int(residual),
-        int(identity), *plan, 0.0 if identity else float(exp["m6"]), float(dw["m6"]),
-        qops._f32(1.0 / (ho * wo)), qops._f32(1.0 / 6.0),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    weights = (0 if identity else forms["exp"].data_ptr(), lay(exp, "b"), lay(exp, mult),
+               forms["dw"].data_ptr(), lay(dw, "b"), lay(dw, mult), forms["prj"].data_ptr(),
+               lay(prj, "b"), lay(prj, "m"), lay(se1, "w"), lay(se1, "b"), lay(se1, "m"),
+               lay(se2, "w"), lay(se2, "b"), lay(se2, "a"))
+    dims = (n, h, w, cin, e, cout, sem, k, stride, ACTS["linear" if identity else act],
+            ACTS[act], int(residual), int(identity), *plan,
+            0.0 if identity else requant_bound(exp, act), requant_bound(dw, act),
+            qops._f32(1.0 / (ho * wo)), qops._f32(1.0 / 6.0))
+    scratch = (n * e, n * e, n * ho * wo * ep) if has_se else (0, 0, 0)
+    return _I8Call(cx, (n, ho, wo, cout), scratch, weights, dims)
+
+
+def launch_i8(name: str, x, exp, dw, prj, se1, se2, *, k: int, stride: int, act: str,
+              residual: bool) -> torch.Tensor:
+    """One launch of the kernel on a CUDA x: the checks and arguments of
+    `_prepare_i8` and the kernel's own (`v3_block_i8_prepare`: each pass's
+    geometry and weight maps), made once per distinct `_call_key` and kept
+    (at most CALLS_KEPT), so that a forward that calls the kernel again on
+    the same layers and input shape pays a key's worth of host work ahead of
+    its launch; x's pad copy where Cin is not a multiple of 16; the SE
+    scratch (its pre-gate tensor, channel sums and gates, living for the
+    call); the call. Counts nothing: each public wrapper counts its own
+    launches."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    lib = _build.library()
+    key = _call_key(x, (exp, dw, prj, se1, se2), (k, stride, act, residual))
+    call = _CALLS.get(key)
+    if call is None:
+        call = _prepare_i8(name, x, exp, dw, prj, se1, se2, k=k, stride=stride, act=act,
+                           residual=residual)
+        buf = ctypes.create_string_buffer(lib.v3_block_i8_prepared_bytes())
+        _build.check(lib, lib.v3_block_i8_prepare(buf, *call.weights, *call.dims), name)
+        call = call._replace(prepared=buf)
+        if len(_CALLS) >= CALLS_KEPT:
+            _CALLS.clear()
+        _CALLS[key] = call
+    if call.cx != x.shape[-1]:
+        x = F.pad(x, (0, call.cx - x.shape[-1])).contiguous()
+    out = torch.empty(call.out_shape, dtype=torch.int8, device=x.device)
+    scratch = [0, 0, 0]
+    if call.scratch[0]:
+        bufs = [torch.empty((m,), dtype=dt, device=x.device) for m, dt in zip(
+            call.scratch, (torch.int32, torch.float32, torch.int8))]
+        scratch = [t.data_ptr() for t in bufs]
+    code = lib.v3_block_i8_run(call.prepared, x.data_ptr(), *scratch, out.data_ptr(),
+                               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
-    v3_block_i8.launches += 1
     return out
 
 

@@ -21,10 +21,9 @@ import torch
 
 from . import _build
 from .head import ACTS
-from .inverted_residual import SMEM_MAX
-from .separable_block import H100_SMS, _sms, check_aligned, check_kernel_args
+from .separable_block import H100_SMS, _sms, check_aligned, check_kernel_args, tensor_key
 from .v3_block import (
-    block_weights, check_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan,
+    SMEM_MAX, block_weights, check_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan,
     v3_wgmma_smem_bytes,
 )
 
@@ -95,12 +94,6 @@ _PLANS: Dict[tuple, _Plan] = {}
 PLANS_KEPT = 64  # distinct (weights, input) pairs remembered; past it, start over
 
 
-def _tensor_key(t) -> Optional[tuple]:
-    # the address also names the device: CUDA's unified addressing gives
-    # host and device memory disjoint ranges
-    return None if t is None else (t.data_ptr(), t.shape, t.stride(), t.dtype)
-
-
 def _plan_key(x, blocks: Sequence[Dict[str, Any]]) -> tuple:
     """Everything that `_plan` reads of x and the blocks, values aside: the
     weights' addresses (the table holds them), shapes, strides and dtypes;
@@ -110,7 +103,7 @@ def _plan_key(x, blocks: Sequence[Dict[str, Any]]) -> tuple:
     table."""
     return (x.shape, x.stride(), x.dtype, x.device, x.data_ptr() % 16, tuple(
         (b["k"], b["stride"], b["act"], b["residual"],
-         *(_tensor_key(b.get(key)) for key in TENSOR_KEYS)) for b in blocks))
+         *(tensor_key(b.get(key)) for key in TENSOR_KEYS)) for b in blocks))
 
 
 def _plan(x, blocks: Sequence[Dict[str, Any]]) -> _Plan:

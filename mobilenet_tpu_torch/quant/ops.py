@@ -171,7 +171,11 @@ def requantize_named(acc_i32: torch.Tensor, layer, act: str) -> torch.Tensor:
     float32(a) * float32(inv_s); hswish: v = float32(acc) * a, clamp(rint((v
     * clip(v + 3, 0, 6)) * m6), -128, 127) with m6 = float32(inv_s) *
     float32(1/6). `layer` holds "a" and "m" (float32 tensors) and "m6" (a
-    float32 value), computed on the host (quant/v3.device_layer_v3)."""
+    float32 value), computed on the host (quant/v3.device_layer_v3). relu6:
+    MobileNet-V2's ReLU6 requant (`requantize`) on a V2 layer's "m" and
+    "six_q" (quant/model.device_layer)."""
+    if act == "relu6":
+        return requantize(acc_i32, layer["m"], layer["six_q"], True)
     if act == "hswish":
         v = acc_i32.float() * layer["a"]
         t = (v + 3.0).clamp(0.0, 6.0)

@@ -21,8 +21,9 @@ move an absmax in its last bit, and with it every multiplier of a group.
 
 Routes per block (`forward_v2_i8`): "plain" runs the plain int8 ops (the
 reference route; the JAX package's default XLA route); "fused" runs one
-kernel per block: the int8 inverted-residual kernel
-(ops/inverted_residual_i8.py) on blocks 1-16 at either stride, and the int8
+kernel per block: the int8 inverted-residual block
+(ops/inverted_residual_i8.py, on the int8 bottleneck's Hopper tile with the
+ReLU6 requant) on blocks 1-16 at either stride, and the int8
 separable block in its linear mode (ops/separable_block_i8.py,
 pw_linear=True) on the t == 1 block 0. The JAX package's `use_fused=True`
 is "fused". The stem, input quantization, conv_last, pool, fc and softmax
@@ -36,7 +37,7 @@ Not ported, because each is a TPU layout or a TPU workaround:
   products are int32 (kernels) or float64 (plain ops), exact at any bias;
 - the `FUSED_EXPAND_S2_I8*` knobs and the named-act kernels behind them
   (block 1 and the block-13 bridge run the one int8 inverted-residual
-  kernel here, `_six_ok` with them);
+  block here; `_six_ok` with them: the tile's ReLU6 bound takes any six_q);
 - block 0's Cout padding 16 -> 32 and the widened-input padding of the next
   block (lane packing);
 - the `mesh` argument of the pipeline (data parallelism is later work).
@@ -54,6 +55,7 @@ from ..checkpoints import fold_bn_v2, init_params_v2
 from ..models.mobilenet_v2 import V2Config
 from ..ops.inverted_residual_i8 import inverted_residual_i8
 from ..ops.separable_block_i8 import separable_block_i8
+from ..ops.v3_block_i8 import v3_i8_kernel_weights
 from ..oracle import numpy_ref
 from ..runtime.pipeline import resolve_device
 from . import ops as qops
@@ -204,11 +206,15 @@ def forward_all_v2_i8(q: V2QuantizedParams, x_i8: np.ndarray, config: V2Config):
 def to_device_i8_v2(q, device) -> Dict[str, Any]:
     """Quantized constants onto `device`, once (`quant.model.device_layer`;
     the projection of block 0, which the fused separable block runs, with its
-    K-major copy, `device_pw_layer`). `q` is a V2QuantizedParams of this
-    package or of the JAX package (both hold only numpy fields)."""
+    K-major copy, `device_pw_layer`; the layers of blocks 1-16 with the int8
+    bottleneck tile's weight forms as "wt", `v3_i8_kernel_weights`). `q` is a
+    V2QuantizedParams of this package or of the JAX package (both hold only
+    numpy fields)."""
     def block(blk):
-        kmaj = "exp" not in blk  # t == 1: the separable block's projection
-        return {k: (device_pw_layer if kmaj and k == "prj" else device_layer)(v, device)
+        if "exp" in blk:
+            return v3_i8_kernel_weights({k: device_layer(v, device) for k, v in blk.items()})
+        # t == 1: the separable block's projection
+        return {k: (device_pw_layer if k == "prj" else device_layer)(v, device)
                 for k, v in blk.items()}
 
     return {
@@ -251,7 +257,8 @@ def forward_v2_i8(dev: Dict[str, Any], x_i8: torch.Tensor, config: V2Config, *,
             if "exp" in blk:
                 e = blk["exp"]
                 y = inverted_residual_i8(y, e["w"], e["b"], e["m"], e["six_q"], d["w"], d["b"],
-                                         d["m"], d["six_q"], p["w"], p["b"], p["m"], stride, res)
+                                         d["m"], d["six_q"], p["w"], p["b"], p["m"], stride, res,
+                                         wt={"exp": e["wt"], "dw": d["wt"], "prj": p["wt"]})
             else:  # t == 1: block 0, never a residual block
                 y = separable_block_i8(y, d["w"], d["b"], d["m"], p["w"], p["b"], p["m"],
                                        stride, d["six_q"], 0.0, relu6, pw_linear=True,

@@ -140,6 +140,7 @@ from mobilenet_tpu_torch.ops.separable_block_i8 import (  # noqa: E402
     CHUNK_I8, _pad_cin, chunk_groups_i8, kmajor, max_slice, padded_cin,
     separable_block_i8_plain, separable_i8_plan, separable_i8_smem_bytes,
 )
+from mobilenet_tpu_torch.ops.v3_block_i8 import kernel_weights  # noqa: E402
 from mobilenet_tpu_torch.quant import ops as qops  # noqa: E402
 from mobilenet_tpu_torch.quant.model import to_device_i8  # noqa: E402
 from mobilenet_tpu_torch.quant.quantize import quantize  # noqa: E402
@@ -276,7 +277,9 @@ def test_cin_padding_is_exact(cin, stride, linear):
 def test_kmajor_copy_uploaded():
     """The int8 device trees carry the K-major (Cout, Cin) copy of every
     weight the fused block kernel reads, made once at upload: V1's pointwise
-    layers and V2 block 0's projection (no other V2 layer); equal to w.T."""
+    layers and V2 block 0's projection; equal to w.T. V2's blocks 1-16 carry
+    the int8 bottleneck tile's forms instead (`v3_i8_kernel_weights`: the
+    K-major copies padded to 16 channels and the depthwise table)."""
     cfg = ModelConfig(0.25, 128)
     dev = to_device_i8(quantize(fold_bn(init_params(cfg, seed=0), eps=cfg.bn_eps), cfg), "cpu")
     for blk in dev["blocks"]:
@@ -290,7 +293,10 @@ def test_kmajor_copy_uploaded():
     b0 = dev["blocks"][0]
     assert "exp" not in b0 and torch.equal(b0["prj"]["wt"], b0["prj"]["w"].t())
     assert b0["prj"]["wt"].is_contiguous()
-    assert all("wt" not in layer for blk in dev["blocks"][1:] for layer in blk.values())
+    for blk in dev["blocks"][1:]:
+        want = kernel_weights({"w": blk["exp"]["w"]}, {"w": blk["dw"]["w"]},
+                              {"w": blk["prj"]["w"]})
+        assert all(torch.equal(blk[name]["wt"], want[name]) for name in ("exp", "dw", "prj"))
 
 
 @pytest.mark.parametrize("case", ["shape", "dtype", "noncontig", "misaligned", "device"])

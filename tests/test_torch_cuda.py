@@ -29,11 +29,9 @@ from mobilenet_tpu_torch.ops.chain import chain, chain_plain
 from mobilenet_tpu_torch.ops.depthwise import depthwise, depthwise_plain
 from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8, depthwise_i8_plain
 from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
-from mobilenet_tpu_torch.ops.inverted_residual import (
-    inverted_residual, inverted_residual_plain, ir_plan, ir_smem_bytes,
-)
+from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual, inverted_residual_plain
 from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
-    inverted_residual_i8, inverted_residual_i8_plain, ir_i8_plan, ir_i8_smem_bytes,
+    inverted_residual_i8, inverted_residual_i8_plain,
 )
 from mobilenet_tpu_torch.ops.separable_block import (
     separable_block, separable_block_plain, separable_plan, separable_smem_bytes,
@@ -47,7 +45,8 @@ from mobilenet_tpu_torch.ops.v3_block import (
     v3_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
-    FULL, GATED, POOL, v3_block_i8, v3_block_i8_plain, v3_i8_wgmma_plan, v3_i8_wgmma_smem_bytes,
+    FULL, GATED, POOL, kernel_weights, v3_block_i8, v3_block_i8_plain, v3_i8_kernel_weights,
+    v3_i8_wgmma_plan, v3_i8_wgmma_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.v3_chain import v3_chain, v3_chain_plain
 from mobilenet_tpu_torch.quant import ACT_IN_SCALE, quantize_input
@@ -251,26 +250,33 @@ def _ir_args(rng, dev, dtype, n, h, cin, e, cout):
     (2, 9, 8, 48, 8, 1, True),        # alpha 0.35's narrowest, odd side
 ])
 def test_inverted_residual(dev, dtype, n, h, cin, e, cout, stride, residual):
+    """The V3 bottleneck's tiles with ReLU6 and k 3 (bf16 the Hopper tile,
+    float32 the CUDA-core tile); either counts on `inverted_residual`
+    alone."""
     rng = np.random.default_rng(cin + e)
     args = _ir_args(rng, dev, dtype, n, h, cin, e, cout) + (stride, residual)
-    before = inverted_residual.launches
+    before = (inverted_residual.launches, v3_block.launches)
     got = inverted_residual(*args)
-    assert inverted_residual.launches == before + 1
+    assert (inverted_residual.launches, v3_block.launches) == (before[0] + 1, before[1])
     _close(got, inverted_residual_plain(*args), dtype)
 
 
 def test_ir_smem_plan_matches_kernel(dev):
-    """The Python mirror of the kernel's shared-memory plan equals the
-    kernel's own, for every V2 block's tile at batch 1 and 256 and both
-    itemsizes."""
+    """The Python mirrors of the kernels' shared-memory plans equal the
+    kernels' own for every expanded V2 block at alpha 0.35, 1.0 and 1.4,
+    batch 1 and 256: bf16's Hopper tile (`v3_wgmma_plan`) and float32's
+    CUDA-core tile (`v3_plan`)."""
     lib = _build.library()
     for alpha in (0.35, 1.0, 1.4):
         h = 112
         for t, cin, cout, stride in V2Config(alpha, 224).block_defs:
-            for n, item in ((1, 2), (256, 2), (1, 4), (256, 4)):
-                th, tw = ir_plan(n, h, h, cin, cout, stride, item)
-                assert lib.inverted_residual_smem_bytes(cin, cout, stride, th, tw, item) == \
-                    ir_smem_bytes(th, tw, cin, cout, stride, item)
+            for n in ((1, 256) if t > 1 else ()):
+                p = v3_wgmma_plan(n, h, h, cin, t * cin, cout, 3, stride, 0, False)
+                args = (p.th, p.tw, cin, t * cin, cout, 3, stride, p.cw, p.ws, p.bs, 0)
+                assert lib.v3_wgmma_smem_bytes(*args) == v3_wgmma_smem_bytes(*args)
+                th, tw = v3_plan(n, h, h, cin, t * cin, cout, 3, stride, 0, 4)
+                assert lib.v3_block_smem_bytes(cin, t * cin, cout, 0, 3, stride, th, tw, 4) == \
+                    v3_smem_bytes(th, tw, cin, t * cin, cout, 0, 3, stride, 4)
             h //= stride
 
 
@@ -538,6 +544,12 @@ def _i8_ir(rng, dev, n, h, cin, e, cout, prj_gain=1.0):
     return (x, ew, eb, em, 127.0, dw, db, dm, 127.0, pw, pb, pm)
 
 
+def _forms(args):
+    """The kernel's weight forms of `_i8_ir`'s layers, as the V2 route's
+    upload makes them."""
+    return kernel_weights({"w": args[1]}, {"w": args[5]}, {"w": args[9]})
+
+
 def _equal_i8(got, ref):
     torch.cuda.synchronize()
     assert got.dtype == torch.int8 and got.shape == ref.shape
@@ -555,9 +567,10 @@ def _equal_i8(got, ref):
 def test_inverted_residual_i8(dev, n, h, cin, e, cout, stride, residual):
     rng = np.random.default_rng(cin + e + stride)
     args = _i8_ir(rng, dev, n, h, cin, e, cout) + (stride, residual)
-    before = inverted_residual_i8.launches
-    got = inverted_residual_i8(*args)
-    assert inverted_residual_i8.launches == before + 1
+    wt = _forms(args)
+    before = (inverted_residual_i8.launches, v3_block_i8.launches)
+    got = inverted_residual_i8(*args, wt=wt)
+    assert (inverted_residual_i8.launches, v3_block_i8.launches) == (before[0] + 1, before[1])
     ref = inverted_residual_i8_plain(*args)
     _equal_i8(got, ref)
     assert (ref < 0).any() and len(torch.unique(ref)) > 64  # a spread, not a constant
@@ -572,22 +585,47 @@ def test_inverted_residual_i8_saturation(dev):
     args[0] = torch.where(torch.rand(args[0].shape, device=dev) < 0.5, 120, -120).to(
         torch.int8)
     ref = inverted_residual_i8_plain(*args)
-    _equal_i8(inverted_residual_i8(*args), ref)
+    _equal_i8(inverted_residual_i8(*args, wt=_forms(args)), ref)
     assert (ref == 127).any() and (ref == -128).any()
 
 
 def test_ir_i8_smem_plan_matches_kernel(dev):
-    """The Python mirror of the int8 kernel's shared-memory plan equals the
-    kernel's own for every V2 block's tile at batch 1 and 256."""
+    """The Python mirror of the int8 Hopper tile's shared-memory plan equals
+    the kernel's own for every expanded V2 block's plan (`v3_i8_wgmma_plan`)
+    at alpha 0.35, 1.0 and 1.4, batch 1 and 256."""
     lib = _build.library()
     for alpha in (0.35, 1.0, 1.4):
         h = 112
         for t, cin, cout, stride in V2Config(alpha, 224).block_defs:
-            for n in (1, 256):
-                th, tw = ir_i8_plan(n, h, h, cin, cout, stride)
-                assert lib.inverted_residual_i8_smem_bytes(cin, cout, stride, th, tw) == \
-                    ir_i8_smem_bytes(th, tw, cin, cout, stride)
+            for n in ((1, 256) if t > 1 else ()):
+                p = v3_i8_wgmma_plan(n, h, h, cin, t * cin, cout, 3, stride, 0, False)
+                args = (p.th, p.tw, cin, t * cin, cout, 3, stride, p.cw, p.ws, p.bs, False,
+                        FULL)
+                assert lib.v3_i8_wgmma_smem_bytes(*args) == v3_i8_wgmma_smem_bytes(*args)
             h //= stride
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual", [
+    (2, 112, 16, 96, 24, 2, False),   # b01
+    (2, 28, 32, 192, 32, 1, True),    # b04
+    (1, 7, 160, 960, 320, 1, False),  # b16 at batch 1
+])
+def test_inverted_residual_i8_relu6_bound(dev, n, h, cin, e, cout, stride, residual):
+    """A recalibrated six_q below 127 (100.37) on the expansion and the
+    depthwise: the tile's ReLU6 bound clips there, equal to the plain
+    version bit for bit, given the weight forms as the V2 route gives them
+    (`wt`); without them the wrapper raises on the card."""
+    rng = np.random.default_rng(cin + e + 3)
+    args = list(_i8_ir(rng, dev, n, h, cin, e, cout)) + [stride, residual]
+    args[4] = args[8] = 100.37
+    ref = inverted_residual_i8_plain(*args)
+    _equal_i8(inverted_residual_i8(*args, wt=_forms(args)), ref)
+    with pytest.raises(ValueError, match="wt"):
+        inverted_residual_i8(*args)
+    z = qops.pointwise_i8(*args[:5])
+    assert int(z.max()) == 100
+    args[4] = args[8] = 127.0
+    assert not torch.equal(inverted_residual_i8_plain(*args), ref)
 
 
 @pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 112, 32, 16, 1), (3, 10, 8, 24, 2),
@@ -631,10 +669,11 @@ def test_v2_int8_routes_verify_and_server(dev):
         finally:
             await server.close()
 
-    before = (inverted_residual_i8.launches, separable_block_i8.launches)
+    before = (inverted_residual_i8.launches, separable_block_i8.launches, v3_block_i8.launches)
     stats = asyncio.run(serve())
     assert stats["errors"] == 0
     assert inverted_residual_i8.launches > before[0] and separable_block_i8.launches > before[1]
+    assert v3_block_i8.launches == before[2]  # V2's blocks count on their own wrapper
 
 
 # -- MobileNet-V3 ------------------------------------------------------------
@@ -904,7 +943,8 @@ def _v3_i8_layers(rng, dev, cin, e, cout, k, se, identity, prj_gain=1.0):
     """(exp, dw, prj, se1, se2) of one int8 V3 block, quantized from random
     float weights with quant/v3's _quant_named at fixed scales (input 0.05,
     expansion and depthwise 0.06, SE mid 0.03; the projection back at the
-    input's scale, / prj_gain): non-zero biases everywhere, SE included."""
+    input's scale, / prj_gain): non-zero biases everywhere, SE included; the
+    layers hold the kernel's weight forms, made once as at upload."""
     def lay(shape, axis, s_in, s_out, scale, b_scale, **kw):
         w = rng.normal(0, scale, shape).astype(np.float32)
         b = rng.normal(0, b_scale, (shape[axis],)).astype(np.float32)
@@ -916,6 +956,7 @@ def _v3_i8_layers(rng, dev, cin, e, cout, k, se, identity, prj_gain=1.0):
     se1 = lay((e, se), 1, s_d, s_g, e ** -0.5, 0.3) if se else None
     se2 = lay((se, e), 1, s_g, 1.0, se ** -0.5, 0.3) if se else None
     prj = lay((e, cout), 1, s_d, s_x / prj_gain, e ** -0.5, 0.2)
+    v3_i8_kernel_weights({"dw": dw, "prj": prj, **({} if identity else {"exp": exp})})
     return exp, dw, prj, se1, se2
 
 
@@ -956,6 +997,26 @@ def test_v3_block_i8_saturation(dev):
     ref = v3_block_i8_plain(x, exp, dw, prj, **kw)
     _equal_i8(v3_block_i8(x, exp, dw, prj, **kw), ref)
     assert (ref == 127).any() and (ref == -128).any()
+
+
+def test_v3_block_i8_kept_launch_follows_its_layers(dev):
+    """The launch's checks and arguments are kept per key: a second input of
+    the same shape reuses them, a layer given another bias tensor gets new
+    ones; each result equals the plain version's. A layer without its
+    uploaded weight form raises on the card."""
+    rng = np.random.default_rng(23)
+    exp, dw, prj, se1, se2 = _v3_i8_layers(rng, dev, 40, 120, 40, 5, 32, False)
+    kw = dict(k=5, stride=1, act="hswish", se1=se1, se2=se2, residual=True)
+
+    def x():
+        return torch.from_numpy(rng.integers(-128, 128, (2, 14, 14, 40)).astype(
+            np.int8)).to(dev)
+
+    for layers in ((exp, dw, prj), (exp, dw, prj), (exp, dw, dict(prj, b=prj["b"] + 3000))):
+        xi = x()
+        _equal_i8(v3_block_i8(xi, *layers, **kw), v3_block_i8_plain(xi, *layers, **kw))
+    with pytest.raises(ValueError, match="v3_i8_kernel_weights"):
+        v3_block_i8(x(), exp, {k: v for k, v in dw.items() if k != "wt"}, prj, **kw)
 
 
 def test_v3_i8_smem_plan_matches_kernel(dev):

@@ -3,8 +3,11 @@ wrappers run on CPU tensors) against the JAX package's Pallas kernels in
 interpret mode: the inverted-residual block at both strides, the same
 function at stride 2 against the lane-packed `expand_block_packed_s2` it
 replaces, and the separable block's linear-projection mode against the
-packed kernel's `pw_epilogue=False`. Also the tile plan (`ir_plan`), which
-is the kernel's fits-function."""
+packed kernel's `pw_epilogue=False`. Also the plans of the V3 bottleneck's
+tiles, which the block runs on the card (bf16: the Hopper tile's
+`v3_wgmma_plan`; float32: the CUDA-core tile's `v3_plan`), each its tile's
+fits-function, and their plain version with ReLU6
+(`v3_block_plain(act="relu6")`) against the V2 block's, bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +19,12 @@ from mobilenet_tpu.ops.pallas_expand_s2 import expand_block_packed_s2
 from mobilenet_tpu.ops.pallas_ir_block import inverted_residual_pallas
 from mobilenet_tpu.utils import golden
 from mobilenet_tpu_torch import V2Config
-from mobilenet_tpu_torch.ops.inverted_residual import (
-    SMEM_MAX, inverted_residual, inverted_residual_plain, ir_plan, ir_smem_bytes,
-)
+from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual, inverted_residual_plain
 from mobilenet_tpu_torch.ops.separable_block import separable_block
+from mobilenet_tpu_torch.ops.v3_block import (
+    MAX_OUTPUTS_V3, SMEM_MAX, V3W_SMEM_LIMIT, V3W_TM, v3_block_plain, v3_plan, v3_smem_bytes,
+    v3_wgmma_plan, v3_wgmma_smem_bytes,
+)
 
 MM_TOL = dict(atol=golden.MM_TOL[0], rtol=golden.MM_TOL[1])
 # bfloat16: three roundings to bf16 inside the block (expansion, depthwise,
@@ -117,20 +122,53 @@ def test_plain_pads_the_expanded_activation():
 @pytest.mark.parametrize("alpha", [0.35, 1.0, 1.4])
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_every_v2_block_has_a_tile(alpha, itemsize):
-    """Every expanded block of V2 at 224 fits a tile at batch 1 and 256,
-    within the shared-memory limit; the batch-1 tiles are no larger than
-    the batch-256 ones (more blocks where the batch does not fill the card)."""
+    """Every expanded block of V2 at 224 has a plan at batch 1 and 256 within
+    the shared-memory limit: bf16 (itemsize 2) of the V3 bottleneck's Hopper
+    tile (`v3_wgmma_plan`, ReLU6, k 3, no SE), whose units at batch 1 are at
+    least as many as at batch 256 divided by the batch; float32 of the
+    CUDA-core tile (`v3_plan`), whose batch-1 tiles are no larger than the
+    batch-256 ones (more blocks where the batch does not fill the card)."""
     cfg = V2Config(alpha, 224)
     h = 112
     for t, cin, cout, stride in cfg.block_defs:
-        if t > 1:
-            plans = [ir_plan(n, h, h, cin, cout, stride, itemsize) for n in (1, 256)]
+        e, ho = t * cin, -(-h // stride)
+        if t > 1 and itemsize == 2:
+            units = []
+            for n in (1, 256):
+                p = v3_wgmma_plan(n, h, h, cin, e, cout, 3, stride, 0, False)
+                assert p is not None and p.th * p.tw <= V3W_TM, (n, h, cin, cout, stride)
+                assert v3_wgmma_smem_bytes(p.th, p.tw, cin, e, cout, 3, stride, p.cw, p.ws,
+                                           p.bs, False) <= V3W_SMEM_LIMIT
+                units.append(-(-ho // p.th) * -(-ho // p.tw) * p.split)
+            assert units[0] * 256 >= units[1]
+        elif t > 1:
+            plans = [v3_plan(n, h, h, cin, e, cout, 3, stride, 0, itemsize) for n in (1, 256)]
             for plan in plans:
                 assert plan is not None, (h, cin, cout, stride)
-                assert ir_smem_bytes(*plan, cin, cout, stride, itemsize) <= SMEM_MAX
-                assert plan[0] * plan[1] <= 64
+                assert v3_smem_bytes(*plan, cin, e, cout, 0, 3, stride, itemsize) <= SMEM_MAX
+                assert plan[0] * plan[1] <= MAX_OUTPUTS_V3
             assert plans[0][0] * plans[0][1] <= plans[1][0] * plans[1][1]
         h //= stride
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual", [
+    (2, 8, 16, 96, 24, 2, False),     # b01's widths at stride 2
+    (2, 7, 24, 144, 24, 1, True),     # b02: residual, odd side
+    (1, 9, 32, 192, 32, 1, True),     # b04: E 192 = three 64-channel chunks
+    (1, 6, 64, 384, 96, 1, False),    # b10
+    (1, 4, 160, 960, 320, 1, False),  # b16: E tail past 15 chunks
+    (2, 6, 8, 48, 8, 2, False),       # alpha 0.35's narrowest at stride 2
+])
+def test_v3_block_relu6_is_the_v2_block(dtype, n, h, cin, e, cout, stride, residual):
+    """The V3 tile's plain version with ReLU6, k 3 and no SE, the function
+    the V2 block runs on the card in both dtypes, equals the V2 block's plain version
+    bit for bit: the same roundings in the same places."""
+    t = [torch.from_numpy(a).to(_DT[dtype][1]) for a in _block(h + e, n, h, cin, e, cout)]
+    want = inverted_residual_plain(*t, stride, residual)
+    got = v3_block_plain(*t, k=3, stride=stride, act="relu6", residual=residual)
+    assert torch.equal(got, want)
+    assert (want < 0).any() and (want > 0).any()
 
 
 def test_wrapper_rejects_what_no_kernel_takes():
@@ -141,4 +179,10 @@ def test_wrapper_rejects_what_no_kernel_takes():
         inverted_residual(*t, 2, True)  # residual at stride 2
     with pytest.raises(ValueError):
         inverted_residual(t[0], *t[1:5], t[5][:, :12].contiguous(), t[6][:12], 1, False)
-    assert ir_plan(1, 6, 5, 16, 16, 2, 2) is None
+    assert v3_plan(1, 6, 5, 16, 96, 16, 3, 2, 0, 4) is None
+    assert v3_wgmma_plan(1, 6, 5, 16, 96, 16, 3, 2, 0, False) is None
+    with pytest.raises(ValueError, match="v3_plan"):  # float32: the CUDA-core tile's plan
+        inverted_residual(t[0][:, :, :5].contiguous(), *t[1:], 2, False)
+    with pytest.raises(ValueError, match="v3_wgmma_plan"):  # bf16: the Hopper tile's plan
+        inverted_residual(t[0][:, :, :5].contiguous().bfloat16(),
+                          *[w.bfloat16() for w in t[1:]], 2, False)

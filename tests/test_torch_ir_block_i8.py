@@ -6,7 +6,11 @@ residual saturation); at stride 2 the lane-packed named-act expand block it
 replaces on V2 block 1, and the V3 int8 kernel in the bridge form the JAX
 package sends V2 block 13 through at batch 256; and the int8 separable
 block's linear mode against the packed kernel's pw_linear=True (V2 block 0).
-Also the tile plan (`ir_i8_plan`), which is the kernel's fits-function."""
+Also the plans of the Hopper tiles that V2's expanded blocks run on the card
+(`v3_wgmma_plan` for bf16, `v3_i8_wgmma_plan` for int8, each its kernel's
+fits-function), and the int8 tile's plain version with the ReLU6 requant
+(`v3_block_i8_plain(act="relu6")`) against the V2 block's, at six_q 127 and
+at a recalibrated bound below it."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +26,17 @@ from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
 from mobilenet_tpu.quant.quantize import ACT_HIDDEN_SCALE, _quant_layer
 from mobilenet_tpu.quant.v2 import pw_i8_linear
 from mobilenet_tpu_torch import V2Config
-from mobilenet_tpu_torch.ops.inverted_residual import SMEM_MAX
 from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
-    MAX_OUTPUTS_I8, inverted_residual_i8, ir_i8_plan, ir_i8_smem_bytes,
+    inverted_residual_i8, inverted_residual_i8_plain,
 )
 from mobilenet_tpu_torch.ops.separable_block_i8 import separable_block_i8
+from mobilenet_tpu_torch.ops.v3_block import (
+    V3W_SMEM_LIMIT, V3W_TM, v3_wgmma_plan, v3_wgmma_smem_bytes,
+)
+from mobilenet_tpu_torch.ops.v3_block_i8 import (
+    FULL, I8W_SMEM_LIMIT, I8W_TM, v3_block_i8_plain, v3_i8_wgmma_plan, v3_i8_wgmma_smem_bytes,
+)
+from mobilenet_tpu_torch.quant.model import device_layer
 
 
 def _qcase(rng, cin, e, cout, s_out=np.float32(0.05)):
@@ -192,17 +202,54 @@ def test_plain_pads_the_expanded_activation():
 
 @pytest.mark.parametrize("alpha", [0.35, 1.0, 1.4])
 def test_every_v2_block_has_a_tile(alpha):
-    """Every expanded block of V2 at 224 fits a tile at batch 1 and 256
-    within the shared-memory limit: the port has no bridge for block 13."""
+    """Every expanded block of V2 at 224 has a plan of both Hopper tiles at
+    batch 1 and 256 (bf16: `v3_wgmma_plan`; int8: `v3_i8_wgmma_plan`, block
+    13 included, which the JAX package bridges onto its V3 kernel), each
+    within the shared-memory limit: the port has no fallback."""
     h = 112
     for t, cin, cout, stride in V2Config(alpha, 224).block_defs:
         if t > 1:
+            e = t * cin
             for n in (1, 256):
-                plan = ir_i8_plan(n, h, h, cin, cout, stride)
-                assert plan is not None, (n, h, cin, cout, stride)
-                assert ir_i8_smem_bytes(*plan, cin, cout, stride) <= SMEM_MAX
-                assert plan[0] * plan[1] <= MAX_OUTPUTS_I8
+                p = v3_wgmma_plan(n, h, h, cin, e, cout, 3, stride, 0, False)
+                assert p is not None and p.th * p.tw <= V3W_TM, (n, h, cin, cout, stride)
+                assert v3_wgmma_smem_bytes(p.th, p.tw, cin, e, cout, 3, stride, p.cw, p.ws,
+                                           p.bs, False) <= V3W_SMEM_LIMIT
+                q = v3_i8_wgmma_plan(n, h, h, cin, e, cout, 3, stride, 0, False)
+                assert q is not None and q.th * q.tw <= I8W_TM, (n, h, cin, cout, stride)
+                assert v3_i8_wgmma_smem_bytes(q.th, q.tw, cin, e, cout, 3, stride, q.cw, q.ws,
+                                              q.bs, False, FULL) <= I8W_SMEM_LIMIT
         h //= stride
+
+
+@pytest.mark.parametrize("six_q", [127.0, 100.37])
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual", [
+    (2, 8, 16, 96, 24, 2, False),     # b01's widths at stride 2
+    (2, 7, 24, 144, 24, 1, True),     # b02: Cin 24, residual, odd side
+    (1, 6, 64, 384, 96, 1, False),    # b10: E 384 = three 128-channel chunks
+    (1, 4, 160, 960, 320, 1, False),  # b16: E tail of 64 past 7 chunks
+    (2, 9, 8, 48, 8, 1, True),        # alpha 0.35's narrowest: Cin 8
+])
+def test_v3_block_i8_relu6_is_the_v2_block(six_q, n, h, cin, e, cout, stride, residual):
+    """The int8 tile's plain version with the ReLU6 requant on V2's layers
+    (`quant/model.device_layer`) equals the V2 block's plain version bit for
+    bit, with six_q at the fixed 127 and at a recalibrated 100.37, where the
+    bound clips."""
+    rng = np.random.default_rng(n + h + e + int(six_q))
+    qe, qd, qp = _qcase(rng, cin, e, cout)
+    qe.six_q = qd.six_q = np.float32(six_q)
+    x_i8 = rng.integers(-128, 128, (n, h, h, cin)).astype(np.int8)
+    exp, dw, prj = (device_layer(q, "cpu") for q in (qe, qd, qp))
+    t = torch.from_numpy
+    want = inverted_residual_i8_plain(
+        t(x_i8), exp["w"], exp["b"], exp["m"], exp["six_q"], dw["w"], dw["b"], dw["m"],
+        dw["six_q"], prj["w"], prj["b"], prj["m"], stride, residual)
+    got = v3_block_i8_plain(t(x_i8), exp, dw, prj, k=3, stride=stride, act="relu6",
+                            residual=residual)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert np.array_equal(want.numpy(), _ours(x_i8, qe, qd, qp, stride, residual))
+    z = jax_oracle.pw_i8(x_i8, qe.w_i8, qe.bias_i32, qe.m, qe.six_q)
+    assert int(z.max()) == min(round(six_q), 127)  # the bound is reached
 
 
 @pytest.mark.parametrize("case", ["dtype_x", "dtype_m", "shape", "stride", "residual_s2",
@@ -236,3 +283,11 @@ def test_wrapper_rejects(case):
         args[0] = torch.empty(x.numel() + 1, dtype=torch.int8)[1:].view(x.shape)
     with pytest.raises(ValueError):
         inverted_residual_i8(*args)
+
+
+def test_int8_plan_tie_goes_to_fewer_units():
+    """V2 1.0-224 b11-b12 (14^2 x 96, E 576): the int8 plan's time model puts
+    5x14 and 7x14 within its tie band (0.26% apart); the tie goes to 7x14's
+    fewer units, the tile the card ran 20% faster."""
+    p = v3_i8_wgmma_plan(256, 14, 14, 96, 576, 96, 3, 1, 0, False)
+    assert (p.th, p.tw, p.split) == (7, 14, 1)

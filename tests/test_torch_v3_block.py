@@ -19,9 +19,8 @@ from mobilenet_tpu.ops.pallas_ir_v3 import v3_block_pallas
 from mobilenet_tpu.ops.pallas_se_packed import se_block_packed, se_packed_geometry
 from mobilenet_tpu.utils import golden
 from mobilenet_tpu_torch import V3Config
-from mobilenet_tpu_torch.ops.inverted_residual import MAX_FRAGS, SMEM_MAX
 from mobilenet_tpu_torch.ops.v3_block import (
-    MAX_OUTPUTS_V3, v3_block, v3_block_plain, v3_plan, v3_smem_bytes,
+    MAX_FRAGS, MAX_OUTPUTS_V3, SMEM_MAX, v3_block, v3_block_plain, v3_plan, v3_smem_bytes,
 )
 
 # float32: the JAX kernel tests' own tolerance (tests/test_pallas_ir_v3.py:83).

@@ -28,7 +28,7 @@ from mobilenet_tpu.quant.pallas_block_packed_i8 import (
 from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
 from mobilenet_tpu_torch import V3Config
 from mobilenet_tpu_torch.checkpoints import fold_bn_v3, init_params_v3
-from mobilenet_tpu_torch.ops.inverted_residual import SMEM_MAX
+from mobilenet_tpu_torch.ops.v3_block import SMEM_MAX
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
     FULL, GATED, I8W_TM, POOL, v3_block_i8, v3_block_i8_plain, v3_i8_wgmma_plan,
     v3_i8_wgmma_smem_bytes,

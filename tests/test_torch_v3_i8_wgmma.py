@@ -10,7 +10,11 @@ guards; the stored pre-gate tensor, the image's gate once, the gated pass
 2; the saturating residual), held EXACTLY against `v3_block_i8_plain` and
 against the JAX package's `v3_block_pallas_i8`, `packed_block_i8_named`,
 `packed_block_i8_named_s2` and `packed_block_i8_named_s2_se` in interpret
-mode. The card tests (tests/test_torch_cuda.py) hold the kernel itself and
+mode; with the ReLU6 requant (a per-layer upper bound) on MobileNet-V2's
+blocks, against `inverted_residual_i8` (the V2 block's plain version),
+`quant/ops.requantize`, V2's oracle sequence and the JAX package's
+`inverted_residual_pallas_i8` and `expand_block_packed_s2_i8`, at six_q 127
+and at a recalibrated bound below it. The card tests (tests/test_torch_cuda.py) hold the kernel itself and
 its shared-memory arithmetic against this module's plan."""
 
 import jax.numpy as jnp
@@ -23,13 +27,22 @@ from mobilenet_tpu.quant.pallas_block_packed_i8 import (
     packed_block_i8_named, packed_block_i8_named_s2, packed_block_i8_named_s2_se,
     packed_expand_i8_named,
 )
+from mobilenet_tpu.quant import oracle as jax_oracle
+from mobilenet_tpu.quant.pallas_expand_s2_i8 import expand_block_packed_s2_i8
+from mobilenet_tpu.quant.pallas_ir_i8 import inverted_residual_pallas_i8
 from mobilenet_tpu.quant.pallas_ir_v3_i8 import v3_block_pallas_i8
-from mobilenet_tpu_torch import V3Config
+from mobilenet_tpu.quant.v2 import _res_add, pw_i8_linear
+from mobilenet_tpu_torch import V2Config, V3Config
+from mobilenet_tpu_torch.ops import v3_block_i8 as v3_block_i8_mod
+from mobilenet_tpu_torch.ops.inverted_residual_i8 import inverted_residual_i8
 from mobilenet_tpu_torch.ops.v3_block_i8 import (
     FULL, GATED, I8W_SMEM_LIMIT, I8W_TM, POOL, V3I8Plan, dw_table, kernel_weights,
-    v3_block_i8, v3_block_i8_plain, v3_i8_kernel_weights, v3_i8_wgmma_plan,
+    requant_bound, v3_block_i8, v3_block_i8_plain, v3_i8_kernel_weights, v3_i8_wgmma_plan,
     v3_i8_wgmma_smem_bytes,
 )
+from mobilenet_tpu_torch.quant import ops as qops
+from mobilenet_tpu_torch.quant.model import device_layer
+from mobilenet_tpu_torch.quant.quantize import ACT_HIDDEN_SCALE, _quant_layer
 from mobilenet_tpu_torch.quant.v3 import _quant_named, device_layer_v3
 
 WGMMA_N = (8, 16, 32, 64, 128)
@@ -172,6 +185,105 @@ def test_plan_spreads_batch_1():
         assert units[1] >= units[256] and units[1] >= 4, f"b{i:02d}"
 
 
+# The plans of every block at 1.0-224 (V2: its expanded blocks 1-16) at batch
+# 256 and 1, as the card's measurements in PERF.md were taken on them: a
+# change to the time model or to its tie band that moves a plan shows here.
+# (th, tw, split, cw, ws, bs) of each block, in order.
+PINNED_PLANS = {
+    ("large", 256): [(8, 16, 1, 16, 4, 4), (8, 14, 1, 24, 1, 3), (2, 56, 1, 24, 3, 3),
+                     (7, 14, 1, 40, 1, 2), (4, 28, 1, 40, 3, 3), (4, 28, 1, 40, 3, 3),
+                     (7, 14, 1, 80, 1, 2), (7, 14, 1, 80, 3, 3), (7, 14, 1, 80, 3, 3),
+                     (7, 14, 1, 80, 3, 3), (7, 14, 1, 112, 4, 4), (7, 14, 1, 112, 4, 4),
+                     (7, 7, 1, 160, 3, 2), (7, 7, 1, 160, 3, 2), (7, 7, 1, 160, 3, 2)],
+    ("large", 1): [(8, 16, 1, 16, 4, 4), (4, 8, 1, 24, 4, 3), (1, 28, 1, 24, 4, 4),
+                   (4, 4, 1, 40, 4, 4), (4, 4, 1, 40, 4, 4), (4, 4, 1, 40, 4, 4),
+                   (1, 14, 5, 16, 4, 4), (1, 14, 5, 16, 4, 4), (1, 14, 5, 16, 4, 4),
+                   (1, 14, 5, 16, 4, 4), (1, 14, 7, 16, 4, 4), (1, 14, 7, 16, 4, 4),
+                   (2, 7, 20, 8, 4, 4), (2, 7, 20, 8, 3, 2), (2, 7, 20, 8, 3, 2)],
+    ("large_min", 256): [(8, 16, 1, 16, 4, 4), (8, 14, 1, 24, 1, 3), (2, 56, 1, 24, 3, 3),
+                         (6, 14, 1, 40, 2, 2), (4, 28, 1, 40, 4, 3), (4, 28, 1, 40, 4, 3),
+                         (7, 14, 1, 80, 1, 2), (7, 14, 1, 80, 3, 3), (7, 14, 1, 80, 3, 3),
+                         (7, 14, 1, 80, 3, 3), (7, 14, 1, 112, 3, 3), (5, 14, 1, 112, 4, 3),
+                         (7, 7, 1, 160, 2, 2), (7, 7, 1, 160, 2, 2), (7, 7, 1, 160, 2, 2)],
+    ("large_min", 1): [(8, 16, 1, 16, 4, 4), (4, 8, 1, 24, 4, 3), (1, 28, 1, 24, 4, 4),
+                       (4, 6, 1, 40, 4, 4), (4, 4, 1, 40, 4, 4), (4, 4, 1, 40, 4, 4),
+                       (1, 14, 5, 16, 4, 4), (1, 14, 5, 16, 4, 4), (1, 14, 5, 16, 4, 4),
+                       (1, 14, 5, 16, 4, 4), (1, 14, 7, 16, 4, 4), (1, 14, 7, 16, 4, 4),
+                       (2, 7, 20, 8, 4, 4), (2, 7, 20, 8, 4, 3), (2, 7, 20, 8, 4, 3)],
+    ("small", 256): [(2, 56, 1, 16, 2, 4), (6, 14, 1, 24, 2, 2), (4, 28, 1, 24, 4, 3),
+                     (7, 14, 1, 40, 1, 2), (7, 14, 1, 40, 3, 3), (7, 14, 1, 40, 3, 3),
+                     (7, 14, 1, 48, 3, 3), (7, 14, 1, 48, 3, 3), (7, 7, 1, 96, 3, 2),
+                     (7, 7, 1, 96, 4, 4), (7, 7, 1, 96, 4, 4)],
+    ("small", 1): [(2, 56, 2, 8, 2, 4), (4, 6, 3, 8, 4, 4), (3, 7, 3, 8, 4, 4),
+                   (2, 7, 5, 8, 4, 4), (1, 14, 5, 8, 4, 4), (1, 14, 5, 8, 4, 4),
+                   (1, 14, 6, 8, 4, 4), (1, 14, 6, 8, 4, 4), (2, 7, 12, 8, 4, 4),
+                   (2, 7, 12, 8, 4, 4), (2, 7, 12, 8, 4, 4)],
+    # b11-b12 (the 11th and 12th here) on 7x14: 0.146 ms against 5x14's 0.183
+    # on an H100 at a model gap of 0.26%, inside the tie band
+    ("v2", 256): [(8, 14, 1, 24, 1, 3), (2, 56, 1, 24, 3, 3), (6, 14, 1, 32, 2, 2),
+                  (4, 28, 1, 32, 4, 3), (4, 28, 1, 32, 4, 3), (7, 14, 1, 64, 1, 3),
+                  (7, 14, 1, 64, 3, 3), (7, 14, 1, 64, 3, 3), (7, 14, 1, 64, 3, 3),
+                  (7, 14, 1, 96, 3, 3), (7, 14, 1, 96, 3, 3), (7, 14, 1, 96, 3, 3),
+                  (7, 7, 1, 160, 2, 2), (7, 7, 1, 160, 2, 2), (7, 7, 1, 160, 2, 2),
+                  (7, 7, 2, 160, 2, 2)],
+    ("v2", 1): [(3, 14, 1, 24, 3, 3), (4, 8, 1, 24, 4, 4), (4, 4, 2, 16, 4, 4),
+                (4, 4, 2, 16, 4, 4), (4, 4, 2, 16, 4, 4), (1, 14, 8, 8, 4, 4),
+                (1, 14, 8, 8, 4, 4), (1, 14, 8, 8, 4, 4), (1, 14, 8, 8, 4, 4),
+                (1, 14, 6, 16, 4, 4), (1, 14, 6, 16, 4, 4), (1, 14, 6, 16, 4, 4),
+                (2, 7, 20, 8, 4, 4), (2, 7, 20, 8, 4, 3), (2, 7, 20, 8, 4, 3),
+                (2, 7, 20, 16, 4, 3)],
+}
+
+
+@pytest.mark.parametrize("name,batch", list(PINNED_PLANS))
+def test_plans_are_pinned(name, batch):
+    if name == "v2":
+        got, h = [], 112
+        for t, cin, cout, stride in V2Config(1.0, 224).block_defs:
+            if t > 1:
+                got.append(v3_i8_wgmma_plan(batch, h, h, cin, t * cin, cout, 3, stride, 0,
+                                            False))
+            h //= stride
+    else:
+        got = [v3_i8_wgmma_plan(batch, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                                bd.se_mid, not bd.has_expand) for _, h, bd in
+               _blocks(CONFIGS[name])]
+    assert [tuple(p) for p in got] == PINNED_PLANS[name, batch]
+
+
+def test_tie_band_is_around_the_lowest_cost(monkeypatch):
+    """Candidates tie only within TIE of the lowest cost, so ties cannot
+    chain upward: with the band widened to 5%, the plan of V2 0.5-224's
+    b07-b09 shape at batch 1 (a walk of pairwise ties would end on 14x2, 7
+    units, beyond 5% of the lowest cost) is the candidate with the fewest
+    units among those within 5% of the lowest, computed here from the time
+    model by hand."""
+    monkeypatch.setattr(v3_block_i8_mod, "TIE", 0.05)
+    v3_i8_wgmma_plan.cache_clear()
+    try:
+        n, h, cin, e, cout = 1, 14, 32, 192, 32
+        cands = []
+        for th in range(1, h + 1):
+            for tw in range(1, min(h, I8W_TM // th) + 1):
+                cyc, _, steps = v3_block_i8_mod._unit_cycles(th, tw, cin, e, 3, 1, False)
+                tiles = n * -(-h // th) * -(-h // tw)
+                for cw in (8, 16, 32):
+                    fit = next((f for f in v3_block_i8_mod.I8W_RINGS if v3_i8_wgmma_smem_bytes(
+                        th, tw, cin, e, cout, 3, 1, cw, *f, False, FULL) <= I8W_SMEM_LIMIT),
+                        None)
+                    units = tiles * (cout // cw)
+                    cost = -(-units // 132) * (cyc + cw * steps * v3_block_i8_mod.PRJ_COL)
+                    cost *= 1.1 if fit[0] == 1 else 1.0
+                    cands.append(((units, tiles * th * tw - n * h * h, -th * tw, cost),
+                                  (th, tw, cout // cw, cw, *fit)))
+        low = min(c[0][-1] for c in cands)
+        want = min(c for c in cands if c[0][-1] <= 1.05 * low)[1]
+        got = tuple(v3_i8_wgmma_plan(n, h, h, cin, e, cout, 3, 1, 0, False))
+        assert got == want and got[:3] != (14, 2, 1)
+    finally:
+        v3_i8_wgmma_plan.cache_clear()
+
+
 # -- the kernel's weight forms --------------------------------------------------
 
 
@@ -206,6 +318,59 @@ def test_kernel_weights_are_made_once():
     assert all(kw[n] is blk[n]["wt"] for n in ("exp", "dw", "prj"))
 
 
+@pytest.mark.parametrize("se", [0, 8])
+def test_launch_arguments_read_the_uploaded_forms(se):
+    """What a launch keeps per key (`_prepare_i8`): the layers' uploaded
+    forms and factors in the C entry's order, x's padded channels, the SE
+    scratch, and the per-layer bounds; a layer with no form raises (the
+    card never makes one per call)."""
+    q = _layers(11, 24, 144, 40, 3, se, False)
+    blk = {name: device_layer_v3(layer, "cpu") for name, layer in q.items()}
+    v3_i8_kernel_weights(blk)
+    x = torch.zeros((2, 14, 14, 24), dtype=torch.int8)
+    args = (x, blk["exp"], blk["dw"], blk["prj"], blk.get("se1"), blk.get("se2"))
+    kw = dict(k=3, stride=1, act="hswish", residual=False)
+    call = v3_block_i8_mod._prepare_i8("t", *args, **kw)
+    assert call.cx == 32 and call.out_shape == (2, 14, 14, 40)
+    assert call.scratch == ((2 * 144, 2 * 144, 2 * 196 * 144) if se else (0, 0, 0))
+    want = [blk["exp"]["wt"], blk["exp"]["b"], blk["exp"]["a"], blk["dw"]["wt"],
+            blk["dw"]["b"], blk["dw"]["a"], blk["prj"]["wt"], blk["prj"]["b"], blk["prj"]["m"]]
+    if se:
+        want += [blk["se1"]["w"], blk["se1"]["b"], blk["se1"]["m"], blk["se2"]["w"],
+                 blk["se2"]["b"], blk["se2"]["a"]]
+    assert call.weights == tuple(t.data_ptr() for t in want) + (0,) * (0 if se else 6)
+    assert call.dims[-4:] == (blk["exp"]["m6"], blk["dw"]["m6"], qops._f32(1 / 196),
+                              qops._f32(1 / 6))
+    del blk["dw"]["wt"]
+    with pytest.raises(ValueError, match="v3_i8_kernel_weights"):
+        v3_block_i8_mod._prepare_i8("t", *args, **kw)
+
+
+def test_call_key_sees_what_the_launch_reads():
+    """Two calls share a kept launch only when `_call_key` is equal: a new
+    input of the same shape shares it; another shape of x, another tensor
+    in a layer, another six_q or another option does not."""
+    q = {k: _quant_layer(rng.normal(0, sc, shape).astype(np.float32),
+                         rng.normal(0, 0.1, (shape[ax],)).astype(np.float32), ax,
+                         np.float32(0.05), ACT_HIDDEN_SCALE)
+         for rng in [np.random.default_rng(2)]
+         for k, shape, ax, sc in (("exp", (16, 96), 1, 0.25), ("dw", (3, 3, 1, 96), 3, 0.3),
+                                  ("prj", (96, 24), 1, 0.1))}
+    layers = [device_layer(q[k], "cpu") for k in ("exp", "dw", "prj")]
+    x = torch.zeros((1, 8, 8, 16), dtype=torch.int8)
+    opts = (3, 1, "relu6", False)
+
+    def key(x=x, layers=layers, opts=opts):
+        return v3_block_i8_mod._call_key(x, (*layers, None, None), opts)
+
+    assert key() == key(x=torch.ones((1, 8, 8, 16), dtype=torch.int8))
+    assert key() != key(x=torch.zeros((2, 8, 8, 16), dtype=torch.int8))
+    assert key() != key(opts=(3, 1, "relu6", True))
+    moved = [dict(layers[0]), layers[1], dict(layers[2], b=layers[2]["b"].clone())]
+    assert key() != key(layers=moved)
+    assert key() != key(layers=[dict(layers[0], six_q=100.37), *layers[1:]])
+
+
 # -- the unit walk in torch ------------------------------------------------------
 
 
@@ -223,15 +388,17 @@ def f32_of(v: torch.Tensor, magic) -> torch.Tensor:
 
 def requant(v, mult, m6, act, magic) -> torch.Tensor:
     """The kernel's requant of int32 sums (bias included), in float32: the
-    named act in the folded order, clamped to [0 or -128, 127] before the
-    rounding, rounded by adding 1.5 * 2^23; the low byte of its bits."""
+    named act in the folded order, clamped before the rounding (relu and
+    relu6 to [0, m6], the layer's upper bound: 127, or float32 min(six_q,
+    127); the others to [-128, 127]), rounded by adding 1.5 * 2^23; the low
+    byte of its bits."""
     f = f32_of(v, magic)
     if act == "hswish":
         a = f * mult
         y = (a * (a + 3.0).clamp(0.0, 6.0)) * m6
     else:
         y = f * mult
-    y = y.clamp(0.0 if act == "relu" else -128.0, 127.0)
+    y = y.clamp(0.0, m6) if act in ("relu", "relu6") else y.clamp(-128.0, 127.0)
     return _i8((y + MAGIC_F).view(torch.int32))
 
 
@@ -289,7 +456,7 @@ def unit_walk_i8(x, exp, dw, prj, *, k, stride, act, se1=None, se2=None, residua
             acc = (win.reshape(-1, cx).long() @ kw["exp"][cols].long().t()).to(torch.int32)
             b = exp["b"][cols]
             magic = bool((b.abs() < room).all())
-            q = requant(acc + b, exp[mult][cols], exp["m6"], act, magic)
+            q = requant(acc + b, exp[mult][cols], requant_bound(exp, act), act, magic)
             z[..., cols] = torch.where(inside[..., None], q.reshape(ph, pw, -1),
                                        torch.zeros((), dtype=torch.int8))
         return z[..., :e], win
@@ -301,7 +468,7 @@ def unit_walk_i8(x, exp, dw, prj, *, k, stride, act, se1=None, se2=None, residua
             tap = z[dy:dy + (plan.th - 1) * stride + 1:stride,
                     dx:dx + (plan.tw - 1) * stride + 1:stride].to(torch.int32)
             acc = acc + tap * taps[t]
-        return requant(acc, dw[mult], dw["m6"], act, dmagic)
+        return requant(acc, dw[mult], requant_bound(dw, act), act, dmagic)
 
     def extent(oy0, ox0):
         return min(plan.th, ho - oy0), min(plan.tw, wo - ox0)
@@ -565,3 +732,131 @@ def test_magic_conversion_and_its_guard():
     got = _walk(x, dev, v3_i8_wgmma_plan(1, 6, 6, 24, 72, 24, 3, 1, 0, False), **kw)
     want = v3_block_i8_plain(torch.from_numpy(x), dev["exp"], dev["dw"], dev["prj"], **kw)
     np.testing.assert_array_equal(got, want.numpy())
+
+
+# -- MobileNet-V2: the ReLU6 requant ----------------------------------------------
+
+
+def _v2_layers(seed, cin, e, cout, six_q):
+    """A V2 int8 block's QuantLayers (quant/quantize._quant_layer, as
+    quant/v2.quantize_v2 makes them: the expansion and depthwise at the fixed
+    6/127 scale, the projection into a bottleneck scale of 0.05) with six_q
+    set to `six_q` (127, or a recalibrated bound below it)."""
+    rng = np.random.default_rng(seed)
+
+    def lay(shape, axis, s_in, s_out, scale, **kw):
+        return _quant_layer((rng.normal(0, 1, shape) * scale).astype(np.float32),
+                            rng.normal(0, 0.1, (shape[axis],)).astype(np.float32), axis,
+                            s_in, s_out, **kw)
+
+    s_x = np.float32(0.05)
+    q = {"exp": lay((cin, e), 1, s_x, ACT_HIDDEN_SCALE, 2.0 * cin ** -0.5),
+         "dw": lay((3, 3, 1, e), 3, ACT_HIDDEN_SCALE, ACT_HIDDEN_SCALE, 0.3,
+                   dw_bias_bound=True),
+         "prj": lay((e, cout), 1, ACT_HIDDEN_SCALE, s_x, e ** -0.5)}
+    q["exp"].six_q = q["dw"].six_q = np.float32(six_q)
+    return q
+
+
+def _v2_case(seed, n, h, cin, e, cout, six_q):
+    q = _v2_layers(seed, cin, e, cout, six_q)
+    x = np.random.default_rng(seed + 1).integers(-128, 128, (n, h, h, cin)).astype(np.int8)
+    return q, x, {name: device_layer(layer, "cpu") for name, layer in q.items()}
+
+
+def _v2_oracle(q, x, stride, residual):
+    """V2's oracle sequence (the JAX package's quant/oracle and quant/v2)."""
+    e, d, p = q["exp"], q["dw"], q["prj"]
+    z = jax_oracle.pw_i8(x, e.w_i8, e.bias_i32, e.m, e.six_q)
+    z = jax_oracle.dw3x3_i8(z, d.w_i8, d.bias_i32, d.m, d.six_q, stride)
+    y = pw_i8_linear(z, p.w_i8, p.bias_i32, p.m)
+    return _res_add(y, x) if residual else y
+
+
+# (n, h, cin, e, cout, stride, residual, forced plan or None): V2's block classes
+V2_WALKS = [
+    (2, 8, 16, 96, 24, 2, False, None),      # b01: Cin 16 at stride 2
+    (2, 7, 24, 144, 24, 1, True, None),      # b02: Cin 24 (padded), residual, odd side
+    (1, 6, 32, 192, 64, 2, False, None),     # b06
+    (1, 6, 96, 576, 160, 2, False, None),    # b13: the JAX package's V3 bridge
+    (1, 4, 160, 960, 320, 1, False, None),   # b16: E tail, Cout 320 in parts
+    (2, 9, 8, 48, 8, 1, True, V3I8Plan(4, 2, 1, 8, 2, 2)),  # alpha 0.35: ragged tiles
+]
+
+
+@pytest.mark.parametrize("six_q", [127.0, 100.37])
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual,forced", V2_WALKS)
+def test_unit_walk_relu6_is_the_v2_block(six_q, n, h, cin, e, cout, stride, residual, forced):
+    """The unit walk with the ReLU6 bound equals the V2 block's plain version
+    (`inverted_residual_i8` on CPU tensors) and V2's oracle sequence bit for
+    bit; at six_q 100.37 the bound is reached."""
+    q, x, dev = _v2_case(n * h + e, n, h, cin, e, cout, six_q)
+    plan = forced or v3_i8_wgmma_plan(n, h, h, cin, e, cout, 3, stride, 0, False)
+    got = _walk(x, dev, plan, k=3, stride=stride, act="relu6", residual=residual)
+    t = torch.from_numpy
+    ex, d, p = q["exp"], q["dw"], q["prj"]
+    want = inverted_residual_i8(t(x), t(ex.w_i8), t(ex.bias_i32), t(ex.m), float(ex.six_q),
+                                t(d.w_i8), t(d.bias_i32), t(d.m), float(d.six_q), t(p.w_i8),
+                                t(p.bias_i32), t(p.m), stride, residual).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _v2_oracle(q, x, stride, residual))
+    z = jax_oracle.pw_i8(x, ex.w_i8, ex.bias_i32, ex.m, ex.six_q)
+    assert int(z.max()) == min(round(six_q), 127)
+
+
+@pytest.mark.parametrize("six_q", [127.0, 100.37])
+@pytest.mark.parametrize("n,h,cin,e,cout,stride,residual,forced", [
+    w for w in V2_WALKS if w[1] * w[0] <= 16])
+def test_unit_walk_relu6_vs_inverted_residual_pallas_i8(six_q, n, h, cin, e, cout, stride,
+                                                        residual, forced):
+    """The unit walk with the ReLU6 bound against the JAX package's
+    `inverted_residual_pallas_i8` in interpret mode (as its own tests run
+    it), exactly."""
+    q, x, dev = _v2_case(cin + e + h, n, h, cin, e, cout, six_q)
+    ex, d, p = q["exp"], q["dw"], q["prj"]
+    j = jnp.asarray
+    want = inverted_residual_pallas_i8(
+        j(x), j(ex.w_i8), j(ex.bias_i32), ex.m, float(ex.six_q), j(d.w_i8), j(d.bias_i32),
+        d.m, float(d.six_q), j(p.w_i8), j(p.bias_i32), p.m, stride, residual, interpret=True)
+    plan = forced or v3_i8_wgmma_plan(n, h, h, cin, e, cout, 3, stride, 0, False)
+    got = _walk(x, dev, plan, k=3, stride=stride, act="relu6", residual=residual)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_unit_walk_relu6_vs_expand_block_packed_s2_i8():
+    """V2 block 1's class (16 -> 24, E 96, stride 2) against the JAX
+    package's lane-packed stride-2 expand block, called as its V2 route
+    calls it (relu with a = m and inv_s = 1.0: six_q 127, Cout padded 24 ->
+    32, the input carried as bf16 integers)."""
+    q, x, dev = _v2_case(41, 2, 8, 16, 96, 24, 127.0)
+    ex, d, p = q["exp"], q["dw"], q["prj"]
+    j = jnp.asarray
+    pad = 8
+    out = expand_block_packed_s2_i8(
+        pack(j(x).astype(jnp.bfloat16), 16), j(ex.w_i8), j(ex.bias_i32), j(ex.m), j(d.w_i8),
+        j(d.bias_i32), j(d.m), j(np.pad(p.w_i8, ((0, 0), (0, pad)))),
+        j(np.pad(p.bias_i32, (0, pad))), j(np.pad(p.m, (0, pad))), 16, "relu", 1.0, 1.0, 1.0,
+        out_dtype="int8", interpret=True, fold=True)
+    want = np.asarray(out).reshape(2, 4, 4, 32)[..., :24]
+    got = _walk(x, dev, V3I8Plan(3, 2, 3, 8, 2, 2), k=3, stride=2, act="relu6")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("six_q", [127.0, 100.37, 6.5])
+def test_relu6_bound_is_requantize(six_q):
+    """The kernel's ReLU6 requant (a clamp to [0, float32 min(six_q, 127)]
+    before the magic-number rounding) equals `quant/ops.requantize`'s
+    clamp(rint(clamp(f32(acc) * m, 0, six_q)), -128, 127) on sums over the
+    whole range, both conversions; so does a bound past 127."""
+    rng = np.random.default_rng(int(six_q * 100))
+    v = torch.from_numpy(rng.integers(-(2 ** 21), 2 ** 21, 4096).astype(np.int32))
+    m = torch.from_numpy(rng.uniform(1e-5, 2e-4, 4096).astype(np.float32))
+    layer = {"m": m, "six_q": six_q}
+    want = qops.requantize(v, m, six_q, True)
+    for magic in (True, False):
+        got = requant(v, m, requant_bound(layer, "relu6"), "relu6", magic)
+        assert torch.equal(got, want)
+    assert int(want.max()) == min(round(six_q), 127) and int(want.min()) == 0
+    big = {"m": m, "six_q": 300.0}
+    assert torch.equal(requant(v, m, requant_bound(big, "relu6"), "relu6", True),
+                       qops.requantize(v, m, 300.0, True))

@@ -22,9 +22,8 @@ from mobilenet_tpu.ops.pallas_se_packed import se_block_packed, se_packed_geomet
 from mobilenet_tpu_torch import V3Config
 from mobilenet_tpu_torch.block_times import v3_library
 from mobilenet_tpu_torch.ops.conv import apply_act_named
-from mobilenet_tpu_torch.ops.inverted_residual import SMEM_MAX
 from mobilenet_tpu_torch.ops.v3_block import (
-    V3W_SMEM_LIMIT, V3W_TM, V3WPlan, v3_block, v3_block_plain, v3_wgmma_plan,
+    SMEM_MAX, V3W_SMEM_LIMIT, V3W_TM, V3WPlan, v3_block, v3_block_plain, v3_wgmma_plan,
     v3_wgmma_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.v3_chain import SHAPE_BYTES, v3_chain, v3_chain_fits
