@@ -1696,9 +1696,12 @@ def stem_work(n, h, cout, kind, block0=True):
     """(bytes, ops_ms) of the fused stem kernel (block0=True: uint8 images
     (n, h, h, 3) in, block 0's output out) or the stem alone (a float input
     in, the stem output out): the input and output once, the weights once.
-    The stem and depthwise multiply-adds count at the CUDA cores' float32
-    rate (their inputs have 3 and 1 channels: no matrix unit shape), the
-    pointwise at its dtype's rate."""
+    The fused kernel's stem and depthwise multiply-adds count at the CUDA
+    cores' float32 rate (it runs both there, the stem as exact FMA chains),
+    its pointwise at its dtype's rate. The stem alone runs on the tensor
+    cores in bf16 (an im2col product, K = 27 taps padded to 32): its
+    multiply-adds count at the bf16 rate there, at the float32 rate in
+    float32."""
     act = ELEM_BYTES[kind][0]
     hs = h // 2
     pix = n * hs * hs
@@ -1706,7 +1709,7 @@ def stem_work(n, h, cout, kind, block0=True):
     stem_ops = 2 * 27 * pix * c1
     if not block0:
         nbytes = n * h * h * 3 * act + (27 * cout + cout) * act + pix * cout * act
-        return nbytes, stem_ops / PEAK_OPS_PER_S["f32"] * 1e3
+        return nbytes, stem_ops / PEAK_OPS_PER_S["bf16" if kind == "bf16" else "f32"] * 1e3
     weights = (27 * c1 + c1 + 9 * c1 + c1 + c1 * cout + cout) * act
     nbytes = n * h * h * 3 + weights + pix * cout * act
     return nbytes, ((stem_ops + 2 * 9 * pix * c1) / PEAK_OPS_PER_S["f32"]
@@ -1729,11 +1732,11 @@ def stem_phases(smi, gen, kernels, launches):
     chain = kernels["chain"]
     extra = {"ms_f32": 0.0, "plain_ms_f32": 0.0, "bound_ms_f32": 0.0}
     rows = {
-        "stem_block0": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem.cu",
+        "stem_block0": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem_wgmma.cuh",
                         "replaces": "mobilenet_tpu/ops/pallas_stem_b0.py:124", **FLOAT_ROW,
                         **extra, "unfused_ms": 0.0, "unfused_ms_f32": 0.0,
                         "unfused": "preprocess + conv2d_same (cuDNN) + separable_block b00"},
-        "stem_conv": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem.cu",
+        "stem_conv": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem_wgmma.cuh",
                       "replaces": "mobilenet_tpu/ops/pallas_stem.py:146", **FLOAT_ROW,
                       **extra, "library_ms": 0.0, "library_ms_f32": 0.0,
                       "library": "ops/conv.conv2d_same: F.conv2d (cuDNN), bias, clamp"},

@@ -1,7 +1,7 @@
 """Times of the fused block kernels and the chains on the card.
 
     python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
-        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8]
+        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8 | --stem]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -28,7 +28,13 @@ MobileNet-V2 1.0-224 (blocks 1-16), with "passes" (as --v3-int8), and with
 with --float32 the float32 block instead of bf16. With --v2-int8, instead the int8
 `inverted_residual_i8` at the same V2 shapes, with "passes" (as --v3-int8:
 the device ms of each kernel a call launches, x's pad copy included) and
-with --yardsticks its plain version. Prints one JSON line: the card and
+with --yardsticks its plain version. With --stem, instead V1 1.0-224's two
+stem kernels in bf16 and float32 ("stem_conv bf16 256", "stem_block0 f32
+1"): `stem_conv` (a normalized input -> 32 channels) and `stem_block0`
+(uint8 images -> block 0's 64 channels), and with --yardsticks also their
+plain versions, cuDNN's stem (`ops/conv.conv2d_same`) beside `stem_conv`
+and beside `stem_block0` the unfused sequence it replaces (preprocess,
+`conv2d_same`, `separable_block` b00). Prints one JSON line: the card and
 {"b00 256": {"ms": ...}, ...}.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
@@ -222,6 +228,59 @@ def bf16_times(cfg, args, gen, times) -> dict:
         if args.yardsticks:
             calls["plain_ms"] = lambda: chain_plain(*a, True)
         out["chain 1"] = times(1, calls)
+    return out
+
+
+def stem_times(cfg, args, gen, times) -> dict:
+    """`stem_conv` and `stem_block0` at V1 1.0-224 in bf16 and float32,
+    through their public wrappers only: random seeded weights scaled so that
+    part of each ReLU6 saturates, the last input row and column at their
+    largest value (beside the TF-SAME pad)."""
+    from .ops.conv import conv2d_same  # noqa: PLC0415
+    from .ops.preprocess import preprocess  # noqa: PLC0415
+    from .ops.separable_block import separable_block  # noqa: PLC0415
+    from .ops.stem import (  # noqa: PLC0415
+        stem_block0, stem_block0_plain, stem_conv, stem_conv_plain,
+    )
+
+    res, c1, cout = cfg.resolution, cfg.stem_channels, cfg.block_channels[0]
+
+    def one(batch, dt):
+        def r(*shape, scale):
+            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt)
+
+        x = (torch.rand(batch, res, res, 3, generator=gen, device="cuda") * 2 - 1).to(dt)
+        x[:, -1] = 1
+        x[:, :, -1] = 1
+        ws, bs = r(3, 3, 3, c1, scale=0.8), r(c1, scale=0.2)
+        calls = {"ms": lambda: stem_conv(x, ws, bs, True)}
+        if args.yardsticks:
+            calls["plain_ms"] = lambda: stem_conv_plain(x, ws, bs, True)
+            calls["library_ms"] = lambda: conv2d_same(x, ws, 2, bias=bs, relu6=True)
+        conv = times(batch, calls)
+
+        imgs = torch.randint(0, 256, (batch, res, res, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+        imgs[:, -1] = 255
+        imgs[:, :, -1] = 255
+        w = (r(3, 3, 3, c1, scale=0.4), r(c1, scale=0.2), r(3, 3, 1, c1, scale=0.5),
+             r(c1, scale=0.2), r(c1, cout, scale=3 * c1 ** -0.5), r(cout, scale=0.2))
+
+        def unfused():
+            y = conv2d_same(preprocess(imgs, res, dt), w[0], 2, bias=w[1], relu6=True)
+            return separable_block(y, w[2], w[3], w[4], w[5], 1, True)
+
+        calls = {"ms": lambda: stem_block0(imgs, *w, True)}
+        if args.yardsticks:
+            calls["plain_ms"] = lambda: stem_block0_plain(imgs, *w, True)
+            calls["unfused_ms"] = unfused
+        return conv, times(batch, calls)
+
+    out = {}
+    for batch in args.batch:
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            out[f"stem_conv {tag} {batch}"], out[f"stem_block0 {tag} {batch}"] = one(batch, dt)
+            torch.cuda.empty_cache()
     return out
 
 
@@ -466,6 +525,9 @@ def main(argv=None) -> None:
     kind.add_argument("--v2-int8", action="store_true",
                       help="the int8 V2 inverted-residual block instead, with each launch's "
                            "device time")
+    kind.add_argument("--stem", action="store_true",
+                      help="V1's stem kernels (stem_conv, stem_block0) in bf16 and float32 "
+                           "instead")
     p.add_argument("--float32", action="store_true",
                    help="with --v2: the float32 block instead of the bf16 one")
     args = p.parse_args(argv)
@@ -487,6 +549,8 @@ def main(argv=None) -> None:
         out = v2_times(args, gen, times)
     elif args.v2_int8:
         out = v2_int8_times(args, 0, times)
+    elif args.stem:
+        out = stem_times(ModelConfig(1.0, 224), args, gen, times)
     else:
         out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks in inline PTX: mbarriers, the Tensor Memory
-// Accelerator's tensor copies, the proxy fences, named barriers and the
+// Hopper (sm_90a) building blocks in inline PTX: mbarriers, cp.async, the
+// Tensor Memory Accelerator's tensor copies, the proxy fences, named barriers and the
 // warpgroup matrix multiply (wgmma) with its shared-memory descriptors. The
 // host side encodes TMA tensor maps
 // through the runtime's driver entry point, so the library links without
@@ -102,6 +102,22 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+// ---- cp.async: 16-byte copies global -> shared, by the issuing thread --------------
+
+// dst and src 16-byte aligned; completes with this thread's next commit group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(saddr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most kPending of this thread's latest groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // ---- TMA tensor copies ---------------------------------------------------------

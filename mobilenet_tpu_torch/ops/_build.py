@@ -84,10 +84,10 @@ _SIGNATURES = {
     "v3_chain_bf16": [_P] * 7 + [_I] * 4 + [_P] * 3,
     "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
     # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
-    # relu6 | normalize scale, offset
-    "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0,
-    # x, w, b, out | N, H, W, Cout, relu6
-    "stem_conv_f32": [_P] * 4 + [_I] * 5, "stem_conv_bf16": [_P] * 4 + [_I] * 5,
+    # relu6 | normalize scale, offset (| bf16: th, grid of ops/stem.stem_plan)
+    "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0 + [_I] * 2,
+    # x, w, b, out | N, H, W, Cout, relu6 (| bf16: th, tw, grid)
+    "stem_conv_f32": [_P] * 4 + [_I] * 5, "stem_conv_bf16": [_P] * 4 + [_I] * 8,
     # the floor probes: x, out | N, bytes per image; x, out | bytes;
     # x, w, out | elements, C, reps, variant
     "hbm_copy": [_P] * 2 + [_I, _L], "hbm_copy_flat": [_P] * 2 + [_L],
@@ -106,6 +106,8 @@ _HOST_SIGNATURES = {
     "v3_i8_wgmma_smem_bytes": ([_I] * 12, ctypes.c_int),
     # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity -> bytes of dynamic shared memory
     "v3_wgmma_smem_bytes": ([_I] * 11, ctypes.c_int),
+    # block0, th, tw, cout -> bytes of dynamic shared memory (ops/stem.stem_smem_bytes)
+    "stem_smem_bytes": ([_I] * 4, ctypes.c_int),
     # the bytes of v3_block_i8_prepare's buffer
     "v3_block_i8_prepared_bytes": ([], ctypes.c_int),
     # buf, then v3_block_i8's arguments but x, the SE scratch, out and the

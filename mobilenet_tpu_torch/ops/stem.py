@@ -1,4 +1,5 @@
-"""The stem kernels: the CUDA kernel `csrc/stem.cu` (two entry points) and
+"""The stem kernels: the CUDA kernel `csrc/stem.cu` (two entry points; bf16
+on the Hopper tiles of `csrc/stem_wgmma.cuh`, planned by `stem_plan`) and
 their plain PyTorch versions.
 
 Replaces the TPU kernels `mobilenet_tpu/ops/pallas_stem_b0.py`
@@ -21,16 +22,94 @@ library call, so they hold on the card whatever its TF32 flags say.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..config import PREPROCESS_OFFSET, PREPROCESS_SCALE
 from . import _build
 from .conv import apply_activation, dw_taps_f32, same_pads
 from .preprocess import normalize
-from .separable_block import check_aligned, check_channels, check_kernel_args
+from .separable_block import (
+    H100_SMS, SMEM_LIMIT, _sms, check_aligned, check_channels, check_kernel_args,
+)
 
 C1 = 32  # block 0's width: the fused kernel's stem output channels (alpha 1.0)
 MAX_STEM_COUT = 256  # stem_conv stages 27 x Cout weights in shared memory
+
+# -- the bf16 kernels' plan (csrc/stem_wgmma.cuh) ------------------------------
+K = 32           # the product's K: 27 taps + 5 zero columns, or block 0's 32 channels
+A_ROW = 128      # bytes an A panel row takes (128-byte swizzle)
+B_BLOCK = K * 16  # an 8-column block of the resident weight: 32 K rows x 16 bytes
+STEP = 128       # stem_conv: pixels a step, a thread a row
+HALO_W = 18      # stem_block0: the halo tile's width (16 + 2)
+SMEM_SM = 233472  # shared memory an SM holds (228 KB); a block also takes 1 KB
+MAX_CONV_TW = 128
+CONV_BLOCKS_SM = 4  # stem_conv: 128 threads, __launch_bounds__(128, 4)
+B0_BLOCKS_SM = 2    # stem_block0: 256 threads, __launch_bounds__(256, 2)
+
+
+class StemPlan(NamedTuple):
+    th: int      # tile rows (of the stem grid; stem_block0: of block 0's output)
+    tw: int      # tile columns (stem_block0: 16)
+    nwg: int     # warpgroups a block (stem_conv 1, stem_block0 2)
+    tiles: int
+    per_sm: int  # blocks an SM holds (shared memory, and the launch bounds)
+    grid: int    # persistent blocks: min(tiles, SMs x per_sm)
+    smem: int    # dynamic shared memory a block
+
+
+def _pitch(nbytes: int) -> int:
+    """A window row's bytes in shared memory: the 16-byte granules that hold
+    `nbytes` bytes at any offset."""
+    return 16 * (-(-nbytes // 16) + 1)
+
+
+def stem_smem_bytes(block0: bool, th: int, tw: int, cout: int) -> int:
+    """Dynamic shared memory of a plan (`conv_geo` / `b0_geo`): 1 KB of
+    alignment; stem_conv: an A ring of two 128-row slots, the resident
+    weight (32 rows), the bias, two window buffers of 2th+1 rows of 2tw+1
+    bf16 pixels and their row offsets; stem_block0: the pointwise's A panel
+    (th x 16 rows in 64-row blocks), weight and bias, the stem's f32 weight
+    and bias, the f32 stem tile (128 bytes a halo pixel), two uint8 windows
+    of 2(th+2)+1 rows of 37 pixels and their row offsets."""
+    if block0:
+        hp, wr = (th + 2) * HALO_W, 2 * (th + 2) + 1
+        a = -(-th * 16 // 64) * 64 * A_ROW
+        weights = cout // 8 * B_BLOCK + 28 * K * 4 + -(-2 * cout // 16) * 16
+        return 1024 + a + weights + hp * K * 4 + 2 * wr * _pitch((2 * HALO_W + 1) * 3) + 2 * wr * 4
+    wr = 2 * th + 1
+    return (1024 + 2 * STEP * A_ROW + cout // 8 * B_BLOCK + -(-2 * cout // 16) * 16
+            + 2 * wr * _pitch((2 * tw + 1) * 6) + 2 * wr * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(n: int, h: int, w: int, cout: int, block0: bool,
+              sms: int = H100_SMS) -> StemPlan:
+    """The bf16 kernel's plan on a card of `sms` SMs. stem_conv: whole stem
+    rows (tw = Ws up to 128 columns), th the largest of 4, 2, 1 rows whose
+    tiles still number at least one an SM (4 x 112 = 448 pixels, 3.5 steps,
+    at 1.0-224); stem_block0: 12 x 16 outputs, whose 14 x 18 halo tile (1.31x
+    the stem's work) gives each of the block's 256 threads one stem pixel,
+    or 6 x 16 (8 x 18, 1.5x) where 12 x 16 leaves SMs without a tile. Raises
+    where a block's shared memory would pass the limit (stem_block0's
+    resident 32 x Cout weight at a large Cout)."""
+    if block0:
+        hs, ws, tw, nwg, cap = h // 2, w // 2, 16, 2, B0_BLOCKS_SM
+        ths = (12, 6)
+    else:
+        hs, ws, nwg, cap = -(-h // 2), -(-w // 2), 1, CONV_BLOCKS_SM
+        tw = min(ws, MAX_CONV_TW)
+        ths = (4, 2, 1)
+    th = next((t for t in ths if n * -(-hs // t) * -(-ws // tw) >= sms), ths[-1])
+    tiles = n * -(-hs // th) * -(-ws // tw)
+    smem = stem_smem_bytes(block0, th, tw, cout)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"stem_plan: Cout {cout} needs {smem} bytes of shared memory, "
+                         f"above {SMEM_LIMIT}")
+    per_sm = min(cap, SMEM_SM // (smem + 1024))
+    return StemPlan(th, tw, nwg, tiles, per_sm, max(1, min(tiles, sms * per_sm)), smem)
 
 
 def _stem_taps_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -120,9 +199,13 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.library()
     out = torch.empty((n, -(-h // 2), -(-wd // 2), cout), dtype=x.dtype, device=x.device)
+    args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cout,
+            int(relu6)]
+    if sfx == "bf16":
+        plan = stem_plan(n, h, wd, cout, False, _sms(x.device.index or 0))
+        args += [plan.th, plan.tw, plan.grid]
     code = getattr(lib, f"stem_conv_{sfx}")(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cout,
-        int(relu6), torch.cuda.current_stream(x.device).cuda_stream)
+        *args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
     stem_conv.launches += 1
     return out
@@ -167,10 +250,13 @@ def stem_block0(images_u8: torch.Tensor, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b,
     n, h, w, _ = images_u8.shape
     lib = _build.library()
     out = torch.empty((n, h // 2, w // 2, cout), dtype=pw_w.dtype, device=pw_w.device)
+    args = [images_u8.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(), n, h, w,
+            cout, int(relu6), float(PREPROCESS_SCALE), float(PREPROCESS_OFFSET)]
+    if sfx == "bf16":
+        plan = stem_plan(n, h, w, cout, True, _sms(images_u8.device.index or 0))
+        args += [plan.th, plan.grid]
     code = getattr(lib, f"stem_block0_{sfx}")(
-        images_u8.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(), n, h, w,
-        cout, int(relu6), float(PREPROCESS_SCALE), float(PREPROCESS_OFFSET),
-        torch.cuda.current_stream(images_u8.device).cuda_stream)
+        *args, torch.cuda.current_stream(images_u8.device).cuda_stream)
     _build.check(lib, code, name)
     stem_block0.launches += 1
     return out

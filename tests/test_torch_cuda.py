@@ -40,7 +40,9 @@ from mobilenet_tpu_torch.ops.separable_block_i8 import (
     padded_cin, separable_block_i8, separable_block_i8_plain, separable_i8_plan,
     separable_i8_smem_bytes,
 )
-from mobilenet_tpu_torch.ops.stem import stem_block0, stem_block0_plain, stem_conv, stem_conv_plain
+from mobilenet_tpu_torch.ops.stem import (
+    stem_block0, stem_block0_plain, stem_conv, stem_conv_plain, stem_plan, stem_smem_bytes,
+)
 from mobilenet_tpu_torch.ops.v3_block import (
     v3_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
 )
@@ -1149,6 +1151,8 @@ def _stem_b0_weights(rng, dev, dtype, cout, gain):
     (3, 40, 52, 16, False),   # ragged tiles at both edges, plain ReLU
     (1, 224, 224, 64, True),  # V1 1.0-224 block 0
     (4, 224, 224, 64, True),
+    (6, 224, 224, 64, True),    # 420 12x16 tiles on 264 blocks: a partial second wave
+    (256, 224, 224, 64, True),  # the fused-stem server's batch
 ])
 def test_stem_block0(dev, dtype, n, h, w, cout, relu6):
     """The fused stem kernel against its plain version. The last input row
@@ -1177,6 +1181,8 @@ def test_stem_block0(dev, dtype, n, h, w, cout, relu6):
     (2, 32, 32, 32, True), (3, 38, 50, 24, False), (1, 224, 224, 32, True),
     (2, 224, 224, 16, True), (1, 16, 16, 256, True), (2, 37, 45, 32, True),
     (1, 225, 224, 16, False),
+    (16, 224, 224, 32, True),   # 448 4x112 tiles on 396 blocks: a partial second wave
+    (256, 224, 224, 32, True),  # the float main path's batch
 ])
 def test_stem_conv(dev, dtype, n, h, w, cout, relu6):
     """The stem kernel against its plain version; the last row and column
@@ -1195,6 +1201,19 @@ def test_stem_conv(dev, dtype, n, h, w, cout, relu6):
     _close(got, ref, dtype)
     if relu6:
         assert 0 < float((ref.float() == 6).float().mean()) < 1
+
+
+def test_stem_smem_bytes(dev):
+    """The kernel's shared-memory arithmetic equals stem_smem_bytes at the
+    plans of the card tests' shapes."""
+    lib = _build.library()
+    for n, h, w, cout, block0 in ((256, 224, 224, 64, True), (1, 224, 224, 64, True),
+                                  (1, 224, 224, 512, True), (256, 224, 224, 32, False),
+                                  (1, 225, 224, 16, False), (1, 16, 16, 256, False),
+                                  (2, 37, 45, 32, False), (1, 640, 480, 256, False)):
+        p = stem_plan(n, h, w, cout, block0)
+        assert lib.stem_smem_bytes(int(block0), p.th, p.tw, cout) == \
+            stem_smem_bytes(block0, p.th, p.tw, cout) == p.smem
 
 
 def _reset(*kernels):
