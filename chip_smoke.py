@@ -13,8 +13,12 @@ file; imports nothing of JAX. Phases, one JSON line each:
      CUDA-event times and the bound (below); for the separable block also
      the time of its unfused library sequence
      (`block_times.separable_library`: cuDNN's grouped conv + bias, clamp,
-     matmul + bias, clamp; phase 10 the same for the linear block 0), a
-     yardstick the port never calls;
+     matmul + bias, clamp; phase 10 the same for the linear block 0), for
+     the head that of `block_times.head_library` (mean, addmm), yardsticks
+     the port never calls; the head at batch 256 and 1, its bf16 kernels'
+     shared memory against `ops/head.head_smem_bytes`, and its bf16
+     conv_last walk on the eager ring (C 576 batch 64, C 1024 batch 1)
+     against the plain version;
   3. the bf16 1.0-224 pipeline, kernel route against the plain route, at
      batch 256 and batch 1 (logits tolerance, top-1), and a float32
      full-network check at batch 2;
@@ -41,9 +45,10 @@ file; imports nothing of JAX. Phases, one JSON line each:
      the V3 bottleneck's tiles with ReLU6: bf16 the Hopper tile, float32
      the CUDA-core tile, with the time of the unfused library sequence
      `block_times.v3_library`; the block-0 linear-projection mode of the
-     separable block) and the conv_last head at batch 256 and 1, plus the
-     V3-Large- and V3-Small-shaped heads (two hswish stages) at batch 256:
-     float32 then bfloat16, no TF32 flag set; the inverted-residual block in
+     separable block) and the conv_last head, V2's, V3-Large's and
+     V3-Small's forms (two hswish stages), each at batch 256 and 1, with the
+     time of the library sequence `block_times.head_library`: float32 then
+     bfloat16, no TF32 flag set; the inverted-residual block in
      bf16 also at batch 1; its plans (bf16 `v3_wgmma_plan` at batch 256 and
      1, float32 `v3_plan`) and both shared-memory mirrors;
  11. the V2 bf16 pipeline, kernel route against plain route, at batch 256
@@ -253,10 +258,11 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # bytes per element of (activations, weights, biases, multipliers)
 ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
 # No single PyTorch call computes the fused kernels' functions (fused dw+pw
-# with requant, pool+fc, K chained blocks, int8 dw+requant, fused expand +
-# dw + projection with or without requants). The standalone float depthwise
-# has a nearest library form (phase 31), the float separable block an unfused
-# library sequence (phase 2, `block_times.separable_library`).
+# with requant, K chained blocks, int8 dw+requant, fused expand + dw +
+# projection with or without requants). The standalone float depthwise has a
+# nearest library form (phase 31), the float separable block an unfused
+# library sequence (phase 2, `block_times.separable_library`), the fused head
+# one too (phases 2 and 10, `block_times.head_library`).
 LIBRARY_MS = None
 # Where the int8 separable block's Hopper tile lives (its kernel line names it).
 I8_BLOCK_DESIGN = ["mobilenet_tpu_torch/csrc/separable_i8_wgmma.cuh",
@@ -264,6 +270,8 @@ I8_BLOCK_DESIGN = ["mobilenet_tpu_torch/csrc/separable_i8_wgmma.cuh",
 V3_DESIGN = ["mobilenet_tpu_torch/csrc/v3_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_I8_DESIGN = ["mobilenet_tpu_torch/csrc/v3_i8_wgmma.cuh",
                 "mobilenet_tpu_torch/csrc/hopper.cuh"]
+HEAD_DESIGN = ["mobilenet_tpu_torch/csrc/head_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+HEAD_LIBRARY = "[torch.addmm + act (conv_last)], mean over H*W, torch.addmm + act per post matmul"
 V3_LIBRARY = ("torch.matmul + bias + act, F.conv2d(groups=E, channels-last, TF-SAME) + act, "
               "SE (mean, matmul, relu, matmul, hardsigmoid, mul), torch.matmul + bias "
               "(+ residual)")
@@ -622,6 +630,38 @@ def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16
     emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count, **row)
 
 
+def check_head_smem(gen):
+    """The bf16 head kernels' shared memory (the C entry head_smem_bytes)
+    against ops/head.head_smem_bytes, at every form's conv_last width and
+    the eager ring's (576, 1024, 1600); and the bf16 conv_last walk on the
+    eager ring (fewer slots than C's 64-channel chunks: two warpgroups at C
+    576 batch 64, one at C 1024 batch 1) against its plain version."""
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.head import (
+        fused_head, fused_head_plain, head_plan, head_smem_bytes,
+    )
+
+    lib = _build.library()
+    cases = ([(0, c, nwg, st) for c in (96, 160, 320, 448, 576, 1024, 1600) for nwg in (1, 2)
+              for st in (2, 10)] + [(1, 0, 0, st) for st in (2, 8)])
+    for case in cases:
+        if lib.head_smem_bytes(*case) != head_smem_bytes(*case):
+            raise AssertionError(f"head kernels {case}: the C side plans "
+                                 f"{lib.head_smem_bytes(*case)} B of shared memory, "
+                                 f"head_smem_bytes {head_smem_bytes(*case)}")
+    eager = []
+    for n, c in ((64, 576), (1, 1024)):
+        cp = head_plan(n, c, 256, (128,)).conv
+        if not cp.eager:
+            raise AssertionError(f"head plan at C {c} batch {n}: {cp} is not eager")
+        x, conv, post = rand_head(gen, n, 7, c, (256, "relu6"), [(128, "linear")], torch.bfloat16)
+        got, ref = fused_head(x, conv, post), fused_head_plain(x, conv, post)
+        torch.cuda.synchronize()
+        err = compare(f"fused_head eager ring C {c} batch {n}", got, ref, BF16_ATOL, BF16_RTOL)
+        eager.append({"n": n, "c": c, "nwg": cp.nwg, "stages": cp.stages, "max_abs_err": err})
+    emit("head_smem", cases=[list(c) + [head_smem_bytes(*c)] for c in cases], eager=eager)
+
+
 SEPARABLE_LIBRARY = ("F.conv2d(groups=C, channels-last, TF-SAME) + bias, clamp_, "
                      "torch.matmul, add_, clamp_")
 
@@ -767,7 +807,7 @@ def v2_phases(smi, gen, kernels, launches):
     from mobilenet_tpu_torch import InferencePipeline, V2Config
     from mobilenet_tpu_torch.models import mobilenet_v2
     from mobilenet_tpu_torch.ops import _build
-    from mobilenet_tpu_torch.block_times import v3_library
+    from mobilenet_tpu_torch.block_times import HEAD_FORMS, head_library, v3_library
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
     from mobilenet_tpu_torch.ops.inverted_residual import (
         inverted_residual, inverted_residual_plain,
@@ -790,11 +830,13 @@ def v2_phases(smi, gen, kernels, launches):
             "replaces": "mobilenet_tpu/ops/pallas_block_packed.py:132"},
         "fused_head[conv_last]": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
+            "design": HEAD_DESIGN,
             "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
     }
     for s in summary.values():
         s.update(FLOAT_ROW)
     summary["separable_block[linear]"].update(library_ms=0.0, library=SEPARABLE_LIBRARY)
+    summary["fused_head[conv_last]"].update(library_ms=0.0, library=HEAD_LIBRARY)
     summary["inverted_residual"].update(library_ms=0.0, library=V3_LIBRARY)
 
     def ir_library(*a):  # the unfused sequence of one V2 block (relu6, k 3, no SE)
@@ -844,31 +886,24 @@ def v2_phases(smi, gen, kernels, launches):
             del a1, got, ref
         torch.cuda.empty_cache()
     emit("ir_plans", plans=plans)
-    hw, c, cl = cfg.final_spatial, cfg.block_defs[-1][2], cfg.last_channels
-    for n in (256, 1):
-        mk = lambda dt: rand_head(gen, n, hw, c, (cl, "relu6"), [(cfg.num_classes, "linear")],  # noqa: E731
-                                  dt)
-        check_float(summary, "fused_head[conv_last]",
-                    f"({n},{hw},{hw},{c}) conv_last {cl} relu6 -> {cfg.num_classes}",
-                    int(n == 256), fused_head, fused_head_plain, mk(torch.float32),
-                    mk(torch.bfloat16),
-                    lambda kind: head_work(n, hw, c, cl, [cfg.num_classes], kind))
-    # V3-Large's form (conv_last 160 -> 960 hswish, head 960 -> 1280 hswish,
-    # fc): no model of the port runs it yet, so it adds nothing per forward
-    mk = lambda dt: rand_head(gen, 256, hw, 160, (960, "hswish"),  # noqa: E731
-                              [(1280, "hswish"), (1000, "linear")], dt)
-    check_float(summary, "fused_head[conv_last]",
-                "(256,7,7,160) conv_last 960 hswish -> 1280 hswish -> 1000", 0,
-                fused_head, fused_head_plain, mk(torch.float32), mk(torch.bfloat16),
-                lambda kind: head_work(256, hw, 160, 960, [1280, 1000], kind))
-    # V3-Small's form (conv_last 96 -> 576 hswish, head 576 -> 1024 hswish,
-    # fc), which V3-Small's float route launches: its time and bound
-    mk = lambda dt: rand_head(gen, 256, hw, 96, (576, "hswish"),  # noqa: E731
-                              [(1024, "hswish"), (1000, "linear")], dt)
-    check_float(summary, "fused_head[conv_last]",
-                "(256,7,7,96) conv_last 576 hswish -> 1024 hswish -> 1000", 0,
-                fused_head, fused_head_plain, mk(torch.float32), mk(torch.bfloat16),
-                lambda kind: head_work(256, hw, 96, 576, [1024, 1000], kind))
+    hw = cfg.final_spatial
+    # V2's form (conv_last 320 -> 1280 relu6, fc), then V3-Large's (conv_last
+    # 160 -> 960 hswish, head 960 -> 1280 hswish, fc) and V3-Small's (96 ->
+    # 576 hswish, 576 -> 1024 hswish, fc), which the V3 float routes launch
+    # (phases 18-25): each at batch 256 and 1; V2's batch-256 call is the
+    # row's per-forward time
+    for form in ("v2", "v3l", "v3s"):
+        fc, conv, posts = HEAD_FORMS[form]
+        per_forward = int(form == "v2")
+        for n in (256, 1):
+            mk = lambda dt: rand_head(gen, n, hw, fc, conv, posts, dt)  # noqa: E731
+            check_float(summary, "fused_head[conv_last]",
+                        f"({n},{hw},{hw},{fc}) conv_last {conv[0]} {conv[1]} -> "
+                        + " -> ".join(f"{m} {a}" for m, a in posts),
+                        per_forward * int(n == 256), fused_head, fused_head_plain,
+                        mk(torch.float32), mk(torch.bfloat16),
+                        lambda kind: head_work(n, hw, fc, conv[0], [m for m, _ in posts], kind),
+                        head_library)
 
     # -- 11. V2 pipeline: kernel route vs plain route -----------------------------
     pipe = InferencePipeline(cfg, device="cuda")
@@ -2235,6 +2270,7 @@ def main() -> int:
     from mobilenet_tpu_torch.ops.chain import chain, chain_plain
     from mobilenet_tpu_torch.ops.depthwise import depthwise
     from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8
+    from mobilenet_tpu_torch.block_times import head_library
     from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
     from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual
     from mobilenet_tpu_torch.ops.inverted_residual_i8 import inverted_residual_i8
@@ -2273,6 +2309,7 @@ def main() -> int:
                                 "mobilenet_tpu/ops/pallas_block_packed.py:371",
                                 "mobilenet_tpu/ops/pallas_block_packed_mxu.py:264"]},
         "fused_head": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
+                       "design": HEAD_DESIGN,
                        "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
         "chain": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/chain.cu",
                   "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120",
@@ -2281,6 +2318,7 @@ def main() -> int:
     for s in summary.values():
         s.update(FLOAT_ROW)
     summary["separable_block"].update(library_ms=0.0, library=SEPARABLE_LIBRARY)
+    summary["fused_head"].update(library_ms=0.0, library=HEAD_LIBRARY)
 
     for nm, n, h, cin, cout, stride, cnt in block_shapes(cfg, 256):
         mk = lambda dt: rand_block(gen, n, h, cin, cout, dt) + (stride, True)  # noqa: E731
@@ -2295,7 +2333,8 @@ def main() -> int:
         check_float(summary, "fused_head", f"({n},{hw},{hw},{c})->{cfg.num_classes}",
                     int(n == 256), fused_head, fused_head_plain, mk(torch.float32),
                     mk(torch.bfloat16),
-                    lambda kind: head_work(n, hw, c, None, [cfg.num_classes], kind))
+                    lambda kind: head_work(n, hw, c, None, [cfg.num_classes], kind), head_library)
+    check_head_smem(gen)
     hc, cc = RES // 16, cfg.block_channels[6]
     mkc = lambda dt: rand_block(gen, 1, hc, cc, cc, dt, k=5) + (True,)  # noqa: E731
     check_float(summary, "chain", f"(1,{hc},{hc},{cc}) x5", 1, chain, chain_plain,

@@ -1,7 +1,7 @@
 """Times of the fused block kernels and the chains on the card.
 
     python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
-        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8 | --stem]
+        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8 | --stem | --head]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -34,7 +34,19 @@ stem kernels in bf16 and float32 ("stem_conv bf16 256", "stem_block0 f32
 (uint8 images -> block 0's 64 channels), and with --yardsticks also their
 plain versions, cuDNN's stem (`ops/conv.conv2d_same`) beside `stem_conv`
 and beside `stem_block0` the unfused sequence it replaces (preprocess,
-`conv2d_same`, `separable_block` b00). Prints one JSON line: the card and
+`conv2d_same`, `separable_block` b00). With --head, instead the bf16
+`fused_head` in each of its forms at 1.0-224 ("head v1 256", "head v3s 1":
+V1's pool -> fc, V2's conv_last + ReLU6 -> pool -> fc, V3-Large's and
+V3-Small's conv_last + hswish -> pool -> head + hswish -> fc) and V2 alpha
+1.4's ("head v2a14 256"), at batch 256,
+64, 8 and 1 unless --batch says otherwise: CUDA events a call at every
+batch ("ms"), the host ms a call takes to return ("host_ms"),
+torch.profiler's device ms a call ("device_ms") and of each kernel it
+launches ("passes"), the bound ("bound_ms", "bound_by"), and with
+--yardsticks its plain version and the library sequence `head_library`
+(mean -> addmm; for V2 and V3 first matmul + act, and matmul + act between;
+never called by the port), by events and by device ms
+("library_device_ms"). Prints one JSON line: the card and
 {"b00 256": {"ms": ...}, ...}.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
@@ -111,6 +123,120 @@ def v3_library(x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, *, k, stride, act, se_
         return out.add_(x) if residual else out
 
     return run
+
+
+def head_library(x, conv, post):
+    """The library sequence of a fused head, a yardstick the port never
+    calls: returns a function that runs [torch.addmm + act for conv_last on
+    the (N*H*W, C) view], the mean over H*W, then torch.addmm + act for each
+    post matmul, all in x's dtype."""
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    acts = {"linear": lambda t: t, "relu": F.relu_, "relu6": lambda t: t.clamp_(0, 6),
+            "hswish": F.hardswish}
+    n, h, w, c = x.shape
+
+    def run():
+        y = x.reshape(n, h * w, c)
+        if conv is not None:
+            y = acts[conv[2]](torch.addmm(conv[1], x.reshape(-1, c), conv[0]))
+            y = y.reshape(n, h * w, -1)
+        y = y.mean(1)
+        for pw, pb, act in post:
+            y = acts[act](torch.addmm(pb, y, pw))
+        return y
+
+    return run
+
+
+# The models' head forms at 1.0-224, and V2 alpha 1.4's (448 -> 1792), on 7 x 7
+# features: C, conv_last (E, act) or None, post matmuls [(width, act)]. The
+# tests and chip_smoke.py take them from here.
+HEAD_FORMS = {
+    "v1": (1024, None, [(1000, "linear")]),
+    "v2": (320, (1280, "relu6"), [(1000, "linear")]),
+    "v3l": (160, (960, "hswish"), [(1280, "hswish"), (1000, "linear")]),
+    "v3s": (96, (576, "hswish"), [(1024, "hswish"), (1000, "linear")]),
+    "v2a14": (448, (1792, "relu6"), [(1000, "linear")]),
+}
+HEAD_HW = 7
+
+
+def head_bound(n, c, conv, posts, hw=HEAD_HW):
+    """(bound_ms, bound_by) of one bf16 head call: the features, every
+    weight and bias and the output moved once over 3.35 TB/s, or its
+    multiply-adds (x 2) and the pool's adds over 989 TFLOP/s, the larger."""
+    pix = n * hw * hw
+    k = c if conv is None else conv[0]
+    nbytes = pix * c + (0 if conv is None else c * k + k)
+    ops = (0 if conv is None else 2 * pix * c * k) + pix * k
+    for m, _ in posts:
+        nbytes += k * m + m
+        ops += 2 * n * k * m
+        k = m
+    t_b, t_o = (nbytes + n * k) * 2 / 3.35e12 * 1e3, ops / 989e12 * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def head_operands(gen, n, c, conv, posts, dtype=torch.bfloat16, hw=HEAD_HW):
+    """(x, conv, post) on the card: x in [0, 6) (a ReLU6 activation),
+    weights k^-0.5, biases 0.1."""
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    x = (torch.rand(n, hw, hw, c, generator=gen, device="cuda") * 6).to(dtype)
+    k, layer = c, None
+    if conv is not None:
+        layer = (r(c, conv[0], scale=c ** -0.5), r(conv[0], scale=0.1), conv[1])
+        k = conv[0]
+    post = []
+    for m, act in posts:
+        post.append((r(k, m, scale=k ** -0.5), r(m, scale=0.1), act))
+        k = m
+    return x, layer, post
+
+
+def head_times(args, gen) -> dict:
+    """The bf16 `fused_head` in each form at each batch, through the public
+    wrapper only."""
+    from .floors import cuda_ms  # noqa: PLC0415
+    from .ops.head import fused_head, fused_head_plain  # noqa: PLC0415
+
+    out = {}
+    for form, (c, conv, posts) in HEAD_FORMS.items():
+        for batch in args.batch:
+            a = head_operands(gen, batch, c, conv, posts)
+            calls = {"ms": lambda a=a: fused_head(*a)}
+            if args.yardsticks:
+                calls["plain_ms"] = lambda a=a: fused_head_plain(*a)
+                calls["library_ms"] = head_library(*a)
+            row = {k: cuda_ms(f, reps=50, warmup=5) for k, f in calls.items()}
+            row["host_ms"] = host_ms(calls["ms"])
+            row["device_ms"] = device_ms(calls["ms"])
+            if args.yardsticks:
+                row["library_device_ms"] = device_ms(calls["library_ms"])
+            row["passes"] = kernel_ms(calls["ms"])
+            row["bound_ms"], row["bound_by"] = head_bound(batch, c, conv, posts)
+            out[f"head {form} {batch}"] = row
+            del a, calls
+            torch.cuda.empty_cache()
+    return out
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host ms a call of fn spends before it returns (the wrapper's checks
+    and launches), with the card's queue far from full."""
+    import time  # noqa: PLC0415
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def kernel_ms(fn, reps: int = 30) -> dict:
@@ -510,7 +636,7 @@ def v2_int8_times(args, rng_seed, times) -> dict:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, nargs="+", default=[256, 1])
+    p.add_argument("--batch", type=int, nargs="+", default=None)
     p.add_argument("--yardsticks", action="store_true",
                    help="also the plain versions and the library sequence")
     kind = p.add_mutually_exclusive_group()
@@ -528,9 +654,14 @@ def main(argv=None) -> None:
     kind.add_argument("--stem", action="store_true",
                       help="V1's stem kernels (stem_conv, stem_block0) in bf16 and float32 "
                            "instead")
+    kind.add_argument("--head", action="store_true",
+                      help="the bf16 fused head in its four forms instead (default batches "
+                           "256 64 8 1)")
     p.add_argument("--float32", action="store_true",
                    help="with --v2: the float32 block instead of the bf16 one")
     args = p.parse_args(argv)
+    if args.batch is None:
+        args.batch = [256, 64, 8, 1] if args.head else [256, 1]
     if not torch.cuda.is_available():
         raise SystemExit("block_times: needs a CUDA card")
     from .config import ModelConfig  # noqa: PLC0415
@@ -551,6 +682,8 @@ def main(argv=None) -> None:
         out = v2_int8_times(args, 0, times)
     elif args.stem:
         out = stem_times(ModelConfig(1.0, 224), args, gen, times)
+    elif args.head:
+        out = head_times(args, gen)
     else:
         out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -42,6 +42,10 @@ _BLOCK = [_P] * 6 + [_I] * 8
 # x, conv_w, conv_b, w0, b0, w1, b1, pooled, out | N, HW, C, E, conv_act,
 # n_post, n0, act0, n1, act1 (acts: -1 none, 0 linear, 1 relu, 2 relu6, 3 hswish)
 _HEAD = [_P] * 9 + [_I] * 10
+# bf16: ... pooled, mid, out | N, HW, C, E, conv_act, n_post, m0, act0, m1, act1,
+# m_out | conv_nwg, conv_groups, conv_stages, kparts0, kparts1, stages0, stages1
+# (ops/head.head_plan)
+_HEAD_BF16 = [_P] * 10 + [_I] * 18
 # x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se_w1, se_b1, se_w2, se_b2,
 # partial, out | N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
 # identity, TH, TW
@@ -82,7 +86,7 @@ _SIGNATURES = {
     # the same with gate (N x E f32) and maps (the device copy of
     # v3_chain_bf16_maps' output) after partial; dims: stages x 16 ints
     "v3_chain_bf16": [_P] * 7 + [_I] * 4 + [_P] * 3,
-    "fused_head_bf16": _HEAD, "fused_head_f32": _HEAD,
+    "fused_head_bf16": _HEAD_BF16, "fused_head_f32": _HEAD,
     # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
     # relu6 | normalize scale, offset (| bf16: th, grid of ops/stem.stem_plan)
     "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0 + [_I] * 2,
@@ -108,6 +112,9 @@ _HOST_SIGNATURES = {
     "v3_wgmma_smem_bytes": ([_I] * 11, ctypes.c_int),
     # block0, th, tw, cout -> bytes of dynamic shared memory (ops/stem.stem_smem_bytes)
     "stem_smem_bytes": ([_I] * 4, ctypes.c_int),
+    # kind (0 conv_walk, 1 post), C, nwg, stages -> bytes of dynamic shared
+    # memory (ops/head.head_smem_bytes)
+    "head_smem_bytes": ([_I] * 4, ctypes.c_int),
     # the bytes of v3_block_i8_prepare's buffer
     "v3_block_i8_prepared_bytes": ([], ctypes.c_int),
     # buf, then v3_block_i8's arguments but x, the SE scratch, out and the

@@ -1,7 +1,8 @@
 """Where the device time of one pipeline forward goes, by kernel name.
 
     python -m mobilenet_tpu_torch.profile [--model v1|v2|v3|v3small] [--int8] \\
-        [--fuse-stem] [--chain] [--batch 256 1] [--steps 10] [--benchmark]
+        [--fuse-stem] [--chain] [--batch 256 1] [--steps 10] [--benchmark] \\
+        [--latency N]
 
 Builds the 1.0-224 pipeline of MobileNet-V1, -V2 (--model v2), -V3-Large
 (--model v3) or -V3-Small (--model v3small), bf16 or exact int8 (--int8),
@@ -13,9 +14,13 @@ Prints one JSON line: the window's wall time (CUDA events), the device
 busy time (the sum of the device activities' durations: one stream, so they
 do not overlap), the idle share, and the device time per kernel name, most
 first. With --benchmark, then one more line: the pipeline's `benchmark()`
-at batch 256 (img/s and the batch-1 latency). It calls only the pipelines'
-public entries, so this file copied into an archive of an earlier commit
-measures that commit in the same call. Refuses to run without a card.
+at batch 256 (img/s and the batch-1 latency). With --latency N, then one
+more line: N batch-1 calls timed as `benchmark()` times its 30 (host uint8
+to host probabilities, host clock), their p50, p90 and p99, and the p50 of
+each fifth of the calls in order (the spread within the run). It calls only
+the pipelines' public entries, so this file copied into an archive of an
+earlier commit measures that commit in the same call. Refuses to run
+without a card.
 """
 
 from __future__ import annotations
@@ -60,6 +65,26 @@ def profile(pipe, batch: int, steps: int, top: int = 12):
     }
 
 
+@torch.inference_mode()
+def latency(pipe, iters: int, warmup: int = 20) -> dict:
+    """Batch-1 latency as `benchmark()` takes it, over `iters` calls."""
+    import time  # noqa: PLC0415
+
+    res = pipe.config.resolution
+    one = np.random.default_rng(0).integers(0, 256, (1, res, res, 3), dtype=np.uint8)
+    for _ in range(warmup):
+        pipe.run_batch(one)
+    lats = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        pipe.run_batch(one)
+        lats.append((time.perf_counter() - t) * 1e3)
+    fifths = np.array_split(np.array(lats), 5)
+    return {"iters": iters, "p50_ms": float(np.percentile(lats, 50)),
+            "p90_ms": float(np.percentile(lats, 90)), "p99_ms": float(np.percentile(lats, 99)),
+            "p50_by_fifth_ms": [float(np.percentile(f, 50)) for f in fifths]}
+
+
 def main(argv=None):
     from . import (  # noqa: PLC0415
         InferencePipeline, Int8Pipeline, Int8PipelineV2, Int8PipelineV3,
@@ -77,6 +102,8 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--benchmark", action="store_true",
                    help="then the pipeline's benchmark() at batch 256")
+    p.add_argument("--latency", type=int, default=0, metavar="N",
+                   help="then N batch-1 calls' latency (host uint8 to host probabilities)")
     args = p.parse_args(argv)
     if args.fuse_stem and (args.int8 or args.model != "v1"):
         p.error("--fuse-stem is the V1 float path's option")
@@ -103,6 +130,9 @@ def main(argv=None):
     if args.benchmark:
         print(json.dumps({"model": args.model, "path": path,
                           "benchmark": pipe.benchmark(batch_size=256, steps=40)}), flush=True)
+    if args.latency:
+        print(json.dumps({"model": args.model, "path": path,
+                          "latency": latency(pipe, args.latency)}), flush=True)
 
 
 if __name__ == "__main__":

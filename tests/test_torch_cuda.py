@@ -19,6 +19,7 @@ from mobilenet_tpu_torch import (
     InferencePipeline, Int8Pipeline, Int8PipelineV2, Int8PipelineV3, ModelConfig, V2Config,
     V3Config, floors,
 )
+from mobilenet_tpu_torch.block_times import HEAD_FORMS
 from mobilenet_tpu_torch.checkpoints import (
     fold_bn, fold_bn_v2, fold_bn_v3, init_params, init_params_v2, init_params_v3,
 )
@@ -300,12 +301,39 @@ def test_separable_block_linear(dev, dtype, n, h, cin, cout, stride):
     (3, 7, 320, 1280, [(1000, "linear")], "relu6"),                    # V2
     (5, 7, 160, 960, [(1280, "hswish"), (1000, "linear")], "hswish"),  # V3-Large
     (1, 3, 24, 200, [], "relu"),                                        # no post
+    # bf16: the eager ring (fewer slots than C's 64-channel chunks): two
+    # warpgroups, 7 slots for 9 chunks; one, 11 for 16; one, 2 for 25 (the
+    # widest C the bf16 kernel takes)
+    (64, 7, 576, 256, [(128, "linear")], "relu6"),
+    (1, 7, 1024, 128, [], "relu"),
+    (16, 7, 1600, 192, [(64, "linear")], "hswish"),
 ])
 def test_fused_head_conv_last(dev, dtype, n, hw, c, e, posts, conv_act):
     rng = np.random.default_rng(n + c)
     x = _t(rng, (n, hw, hw, c), dtype, dev, lo=0)
     conv = (_t(rng, (c, e), dtype, dev, c ** -0.5), _t(rng, (e,), dtype, dev, 0.1), conv_act)
     post, k = [], e
+    for m, act in posts:
+        post.append((_t(rng, (k, m), dtype, dev, k ** -0.5), _t(rng, (m,), dtype, dev, 0.1), act))
+        k = m
+    _close(fused_head(x, conv, post), fused_head_plain(x, conv, post), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 8, 64, 65, 256])
+@pytest.mark.parametrize("form", sorted(HEAD_FORMS))
+def test_fused_head_forms(dev, dtype, batch, form):
+    """Every model form at the serving buckets, batch 256 and a ragged 65
+    (a second, one-image row tile; image groups of uneven length)."""
+    c, conv_spec, posts = HEAD_FORMS[form]
+    rng = np.random.default_rng(batch + c)
+    x = _t(rng, (batch, 7, 7, c), dtype, dev, lo=0) * 6
+    conv, k = None, c
+    if conv_spec is not None:
+        e, act = conv_spec
+        conv = (_t(rng, (c, e), dtype, dev, c ** -0.5), _t(rng, (e,), dtype, dev, 0.1), act)
+        k = e
+    post = []
     for m, act in posts:
         post.append((_t(rng, (k, m), dtype, dev, k ** -0.5), _t(rng, (m,), dtype, dev, 0.1), act))
         k = m

@@ -1,7 +1,8 @@
 """The port's fused head (its plain version, which the wrapper runs on CPU
 tensors) against the JAX package's Pallas `fused_head` in interpret mode, in
 V1's form (no conv_last, one linear fc), V2's (conv_last + ReLU6, pool, fc)
-and V3-Large's (conv_last + hswish, pool, head matmul + hswish, fc)."""
+and V3-Large's and V3-Small's (conv_last + hswish, pool, head matmul +
+hswish, fc), V1's and V3-Small's at their 1.0-224 widths at batch 1 too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +20,8 @@ BF16_TOL = dict(atol=1 / 64, rtol=2 ** -7)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,hw,c,classes", [(8, 7, 128, 1000), (2, 4, 64, 100)])
+@pytest.mark.parametrize("n,hw,c,classes", [(8, 7, 128, 1000), (2, 4, 64, 100),
+                                            (1, 8, 1024, 1000)])
 def test_vs_pallas(dtype, n, hw, c, classes):
     rng = np.random.default_rng(n + c)
     x = rng.uniform(0, 6, (n, hw, hw, c)).astype(np.float32)
@@ -47,6 +49,7 @@ def _layer(rng, k, m, act):
     ("v2", 8, 3, 32, 160, [(100, "linear")]),                 # conv_last relu6 -> fc
     ("v3", 4, 2, 24, 96, [(160, "hswish"), (100, "linear")]),  # two posts
     ("v3", 2, 2, 16, 48, []),                                  # no post: the pooled rows
+    ("v3", 1, 8, 96, 576, [(1024, "hswish"), (1000, "linear")]),  # V3-Small, batch 1
 ])
 def test_conv_last_forms_vs_pallas(dtype, form, n, hw, c, e, posts):
     rng = np.random.default_rng(e + len(posts))
