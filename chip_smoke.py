@@ -31,8 +31,11 @@ file; imports nothing of JAX. Phases, one JSON line each:
   6. the int8 kernels against their plain versions, exactly (torch.equal):
      the fused block at every 1.0-224 block shape at batch 256 and 1, given
      the stored K-major weight copy as the int8 route gives it, the
-     depthwise at every depthwise shape at batch 256; and the input
-     quantization over all 256 uint8 values against the host twin;
+     depthwise at every depthwise shape at batch 256 and 2 and at its edge
+     shapes (C = 8, 24, 40 and 264: the cp.async window of C % 16 == 8; odd
+     sides at stride 2; batch 1 and 2; ReLU without 6; six_q 100; a
+     16-channel group's biases beyond 2^21); and the input quantization over
+     all 256 uint8 values against the host twin;
   7. the int8 pipeline: kernel route against plain route, logits equal bit
      for bit at batch 256 and batch 1; the per-layer gate verify_int8 at
      batch 2 through the depthwise kernel (counters set to 0 before, read
@@ -115,7 +118,9 @@ file; imports nothing of JAX. Phases, one JSON line each:
      and 2, float32 then bfloat16: max-abs error, CUDA-event ms, the bound,
      the launches, and the time of the nearest library call at the same
      shape (cuDNN's grouped conv in channels-last, then clamp_: "two
-     calls", a yardstick the port never calls);
+     calls", a yardstick the port never calls); then at its edge shapes (C
+     = 8, 24, 40; odd sides at stride 2; bias None; ReLU; batch 1 and 2; a
+     window wider than a TMA box) within the same gates;
  32. the V1 "dw" route (the depthwise kernel, then the plain pointwise)
      against the plain route: bf16 at batch 256 and 1 with the anchored
      gate, float32 at batch 2 within MM_TOL; then a "fused" pipeline's
@@ -266,7 +271,21 @@ ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
 LIBRARY_MS = None
 # Where the int8 separable block's Hopper tile lives (its kernel line names it).
 I8_BLOCK_DESIGN = ["mobilenet_tpu_torch/csrc/separable_i8_wgmma.cuh",
+                   "mobilenet_tpu_torch/csrc/int8_tile.cuh",
                    "mobilenet_tpu_torch/csrc/hopper.cuh"]
+# The standalone depthwise kernels' Hopper design (float; int8 with the
+# depthwise stage it shares with the int8 block).
+DW_DESIGN = ["mobilenet_tpu_torch/csrc/depthwise_ring.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+DW_I8_DESIGN = ["mobilenet_tpu_torch/csrc/depthwise_ring.cuh",
+                "mobilenet_tpu_torch/csrc/int8_tile.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+# The depthwise kernels' edge shapes (phases 6 and 31): n, h, w, C, stride,
+# and (int8) six_q, relu6, biases beyond 2^21 / (float) bias, relu6.
+DW_I8_EDGES = ((1, 9, 9, 8, 2, 127.0, True, False), (2, 13, 13, 24, 1, 100.0, True, True),
+               (2, 15, 11, 40, 2, 127.0, False, False), (1, 11, 11, 264, 2, 127.0, True, True),
+               (2, 7, 7, 1024, 1, 100.0, True, True))
+DW_EDGES = ((1, 9, 9, 8, 2, True, True), (2, 13, 13, 24, 1, False, True),
+            (2, 15, 11, 40, 2, True, False), (1, 300, 300, 16, 1, True, True),
+            (1, 7, 7, 1024, 2, False, False))
 V3_DESIGN = ["mobilenet_tpu_torch/csrc/v3_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_I8_DESIGN = ["mobilenet_tpu_torch/csrc/v3_i8_wgmma.cuh",
                 "mobilenet_tpu_torch/csrc/hopper.cuh"]
@@ -506,7 +525,7 @@ def int8_phases(smi, kernels, launches):
                               "mobilenet_tpu/ops/pallas_block_packed_mxu.py:391"]},
         "depthwise_i8": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/depthwise_i8.cu",
-            "replaces": "mobilenet_tpu/quant/pallas_dw_i8.py:74"},
+            "design": DW_I8_DESIGN, "replaces": "mobilenet_tpu/quant/pallas_dw_i8.py:74"},
     }
     for s in summary.values():
         s.update(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
@@ -533,8 +552,22 @@ def int8_phases(smi, kernels, launches):
     for (n, h, c, stride), (nm, args, cnt) in dw_shapes.items():
         check_i8(summary, "depthwise_i8", f"{nm}_dw ({n},{h},{h},{c}) s{stride}", cnt, dw_i8,
                  depthwise_i8_plain, args + (127.0, stride, True), dw_work(n, h, c, stride), smi)
-    del dw_shapes
+        # batch 2, as `cli verify --int8` runs it (printed per shape, not in the row)
+        args = int8_block_args(rng, 2, h, c, 8)[:4]
+        check_i8(summary, "depthwise_i8", f"{nm}_dw (2,{h},{h},{c}) s{stride}", 0, dw_i8,
+                 depthwise_i8_plain, args + (127.0, stride, True), dw_work(2, h, c, stride), smi)
+    del dw_shapes, args
     torch.cuda.empty_cache()
+    for n, h, w, c, stride, six_q, relu6, big in DW_I8_EDGES:
+        x = torch.from_numpy(rng.integers(-128, 128, (n, h, w, c)).astype(np.int8)).cuda()
+        _, dw, db, dm, *_ = int8_block_args(rng, 1, 1, c, 8)
+        if big:  # the first 16 channels' sums convert by __int2float_rn
+            db[:16] += torch.tensor(rng.choice([-1, 1], 16) * (3 << 21), dtype=torch.int32,
+                                    device="cuda")
+            dm[:16] *= 1e-3
+        check_i8(summary, "depthwise_i8", f"edge ({n},{h},{w},{c}) s{stride} six_q {six_q} "
+                 f"relu6 {relu6} big_bias {big}", 0, dw_i8, depthwise_i8_plain,
+                 (x, dw, db, dm, six_q, stride, relu6), dw_work(n, h, c, stride), smi)
     imgs = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1).repeat(3, axis=-1)
     x = preprocess(torch.from_numpy(imgs).cuda(), 16)
     if not np.array_equal(qops.quantize_input_dev(x, ACT_IN_SCALE).cpu().numpy(),
@@ -1522,7 +1555,7 @@ def dw_phases(smi, gen, kernels, launches):
 
     cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")
     row = {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/depthwise.cu",
-           "replaces": "mobilenet_tpu/ops/pallas_dw.py:112", **FLOAT_ROW,
+           "design": DW_DESIGN, "replaces": "mobilenet_tpu/ops/pallas_dw.py:112", **FLOAT_ROW,
            "library_ms": 0.0, "library": "F.conv2d(groups=C, channels-last) + clamp_: two calls",
            "ms_f32": 0.0, "plain_ms_f32": 0.0, "library_ms_f32": 0.0, "bound_ms_f32": 0.0}
 
@@ -1568,6 +1601,21 @@ def dw_phases(smi, gen, kernels, launches):
             emit("kernel", kernel="depthwise", shape=f"{nm}_dw ({n},{h},{h},{c}) s{stride}",
                  count_per_forward=cnt, nvidia_smi=smi, **entry)
             torch.cuda.empty_cache()
+    for n, h, w, c, stride, has_bias, relu6 in DW_EDGES:
+        entry = {}
+        for tag, dt, atol, rtol in (("f32", torch.float32, 2e-6, 1e-6),
+                                    ("bf16", torch.bfloat16, 0.0, 2 ** -8)):
+            x = (torch.rand(n, h, w, c, generator=gen, device="cuda") * 4 - 2).to(dt)
+            wt = (torch.randn(3, 3, 1, c, generator=gen, device="cuda") * 0.5).to(dt)
+            b = (torch.randn(c, generator=gen, device="cuda") * 0.2).to(dt) if has_bias else None
+            before = depthwise.launches
+            got = depthwise(x, wt, stride, b, relu6)
+            ref = depthwise_plain(x, wt, stride, b, relu6)
+            torch.cuda.synchronize()
+            entry[tag] = {"max_abs_err": compare(f"depthwise edge {tag}", got, ref, atol, rtol),
+                          "atol": atol, "rtol": rtol, "launches": depthwise.launches - before}
+        emit("kernel", kernel="depthwise", shape=f"edge ({n},{h},{w},{c}) s{stride} bias "
+             f"{has_bias} relu6 {relu6}", count_per_forward=0, nvidia_smi=smi, **entry)
 
     # -- 32. the V1 "dw" route vs plain; a fused pipeline's per-layer taps --------------------
     pipe = InferencePipeline(cfg, device="cuda")

@@ -1,7 +1,8 @@
 """Times of the fused block kernels and the chains on the card.
 
     python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
-        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8 | --stem | --head]
+        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8 | --stem | --head |
+         --dw [--int8 | --float32] [--parent DIR]]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -46,8 +47,20 @@ launches ("passes"), the bound ("bound_ms", "bound_by"), and with
 --yardsticks its plain version and the library sequence `head_library`
 (mean -> addmm; for V2 and V3 first matmul + act, and matmul + act between;
 never called by the port), by events and by device ms
-("library_device_ms"). Prints one JSON line: the card and
-{"b00 256": {"ms": ...}, ...}.
+("library_device_ms"). With --dw, instead the standalone depthwise kernel
+at each distinct depthwise layer shape of MobileNet-V1 1.0-224 ("b06 256",
+with "count", the layers of one forward that have it), at batch 256 and 2
+unless --batch says otherwise: bf16 `depthwise` (--float32: float32; --int8:
+`depthwise_i8`, ReLU6 at six_q 127), with cuDNN's two calls beside the
+float forms (`F.conv2d(groups=C)` on the channels-last view, then
+`clamp_`: "library_ms", a yardstick the port never calls), the bound
+("bound_ms", "bound_by"), and with --parent DIR the same wrapper of the
+checkout unpacked at DIR (`git archive` of an earlier commit; its kernels
+built there) timed in the same process ("parent_ms"); for the kernel (and
+the parent) the host ms a call takes to return ("host_ms") and at batch 256
+torch.profiler's device ms a call ("device_ms"; at batch 2 "ms" is that
+already); a "sum <batch>" row adds each time over one forward's 13 layers. Prints one JSON line: the card
+and {"b00 256": {"ms": ...}, ...}.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
 parent, change, change, parent in one card call). Refuses to run without a
@@ -264,6 +277,111 @@ def device_ms(fn, reps: int = 30) -> float:
     """torch.profiler's device ms a call of fn (all its kernels), after
     warm-up."""
     return sum(kernel_ms(fn, reps).values())
+
+
+def dw_bound(n, h, c, stride, kind):
+    """(bound_ms, bound_by) of one depthwise call on (n, h, h, c): the input,
+    the weights (+ int32 biases and float32 multipliers in int8) and the
+    output moved once over 3.35 TB/s, or its 9 multiply-adds an output (x 2)
+    over the CUDA cores' 67 TFLOP/s float32 rate (int8: the data sheet's
+    1,979 TOP/s), the larger."""
+    ho = -(-h // stride)
+    act, wbytes = {"int8": (1, 9 + 8), "bf16": (2, 20), "f32": (4, 40)}[kind]
+    nbytes = (n * h * h + n * ho * ho) * c * act + c * wbytes
+    t_b = nbytes / 3.35e12 * 1e3
+    t_o = 18 * n * ho * ho * c / (1979e12 if kind == "int8" else 67e12) * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def load_parent(root: str):
+    """The `ops.depthwise` and `ops.depthwise_i8` modules of the checkout at
+    `root`, imported as the package `parent_mobilenet_tpu_torch` beside this
+    one (its relative imports stay inside it; its kernels build under
+    root/build)."""
+    import importlib  # noqa: PLC0415
+    import importlib.util  # noqa: PLC0415
+    import sys  # noqa: PLC0415
+    from pathlib import Path  # noqa: PLC0415
+
+    pkg = Path(root).resolve() / "mobilenet_tpu_torch"
+    name = "parent_mobilenet_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module(f"{name}.ops.depthwise"),
+            importlib.import_module(f"{name}.ops.depthwise_i8"))
+
+
+def dw_times(cfg, args, gen, times) -> dict:
+    """The standalone depthwise kernel (bf16, float32 or int8) at V1's
+    distinct depthwise layer shapes, through the public wrappers only."""
+    import torch.nn.functional as F  # noqa: PLC0415
+
+    from .ops.conv import no_tf32  # noqa: PLC0415
+    from .ops.depthwise import depthwise, depthwise_plain  # noqa: PLC0415
+    from .ops.depthwise_i8 import depthwise_i8, depthwise_i8_plain  # noqa: PLC0415
+
+    parent = load_parent(args.parent) if args.parent else None
+    kind = "int8" if args.int8 else "f32" if args.float32 else "bf16"
+    dtype = torch.float32 if args.float32 else torch.bfloat16
+    shapes = {}  # (h, c, stride) -> [name, count]
+    h, cin = cfg.resolution // 2, cfg.stem_channels
+    for i, (stride, cout) in enumerate(zip(cfg.block_strides, cfg.block_channels)):
+        shapes.setdefault((h, cin, stride), [f"b{i:02d}", 0])[1] += 1
+        h, cin = -(-h // stride), cout
+    out = {}
+    for batch in args.batch:
+        total = {}
+        for (h, c, stride), (name, count) in shapes.items():
+            if kind == "int8":
+                def ints(lo, hi, *shape, dtype=torch.int8):
+                    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                                         dtype=dtype)
+
+                m = (torch.rand(c, generator=gen, device="cuda") * 1.3 + 0.2) * 4e-3
+                a = (ints(0, 128, batch, h, h, c), ints(-127, 128, 3, 3, 1, c),
+                     ints(-5000, 5000, c, dtype=torch.int32), m, 127.0, stride, True)
+                calls = {"ms": lambda a=a: depthwise_i8(*a)}
+                if parent:
+                    calls["parent_ms"] = lambda a=a: parent[1].depthwise_i8(*a)
+                if args.yardsticks:
+                    calls["plain_ms"] = lambda a=a: depthwise_i8_plain(*a)
+            else:
+                x = (torch.rand(batch, h, h, c, generator=gen, device="cuda") * 4 - 2)
+                w = torch.randn(3, 3, 1, c, generator=gen, device="cuda") * 0.5
+                b = torch.randn(c, generator=gen, device="cuda") * 0.2
+                a = (x.to(dtype), w.to(dtype), stride, b.to(dtype), True)
+                xn = a[0].permute(0, 3, 1, 2)  # NCHW view of the NHWC data: channels-last
+                wl = a[1].reshape(3, 3, c).permute(2, 0, 1).unsqueeze(1).contiguous()
+
+                def library(xn=xn, wl=wl, b=a[3], stride=stride, c=c):
+                    with no_tf32(xn):
+                        return F.conv2d(xn, wl, b, stride, 1, 1, c).clamp_(0, 6)
+
+                calls = {"ms": lambda a=a: depthwise(*a)}
+                if parent:
+                    calls["parent_ms"] = lambda a=a: parent[0].depthwise(*a)
+                calls["library_ms"] = library
+                if args.yardsticks:
+                    calls["plain_ms"] = lambda a=a: depthwise_plain(*a)
+            row = times(batch, calls)
+            for k in [k for k in ("ms", "parent_ms") if k in calls]:
+                pre = k[:-2]
+                row[f"{pre}host_ms"] = host_ms(calls[k])
+                if batch == 256:
+                    row[f"{pre}device_ms"] = device_ms(calls[k])
+            row["bound_ms"], row["bound_by"] = dw_bound(batch, h, c, stride, kind)
+            row["count"] = count
+            out[f"{name} {batch}"] = row
+            for k, v in row.items():
+                if k.endswith("_ms") or k == "ms":
+                    total[k] = total.get(k, 0.0) + count * v
+            del a, calls
+            torch.cuda.empty_cache()
+        out[f"sum {batch}"] = total
+    return out
 
 
 def int8_times(cfg, args, gen, times) -> dict:
@@ -640,8 +758,9 @@ def main(argv=None) -> None:
     p.add_argument("--yardsticks", action="store_true",
                    help="also the plain versions and the library sequence")
     kind = p.add_mutually_exclusive_group()
-    kind.add_argument("--int8", action="store_true",
-                      help="the int8 separable block instead of the bf16 one and the chain")
+    p.add_argument("--int8", action="store_true",
+                   help="the int8 separable block instead of the bf16 one and the chain "
+                        "(with --dw: the int8 depthwise)")
     kind.add_argument("--v3", action="store_true",
                       help="the bf16 V3 bottleneck and the V3 chains instead")
     kind.add_argument("--v3-int8", action="store_true",
@@ -657,11 +776,19 @@ def main(argv=None) -> None:
     kind.add_argument("--head", action="store_true",
                       help="the bf16 fused head in its four forms instead (default batches "
                            "256 64 8 1)")
+    kind.add_argument("--dw", action="store_true",
+                      help="the standalone depthwise kernel at V1's depthwise layers instead "
+                           "(bf16; default batches 256 2)")
     p.add_argument("--float32", action="store_true",
-                   help="with --v2: the float32 block instead of the bf16 one")
+                   help="with --v2 or --dw: the float32 kernel instead of the bf16 one")
+    p.add_argument("--parent", default=None,
+                   help="with --dw: the root of an earlier checkout to time beside")
     args = p.parse_args(argv)
     if args.batch is None:
-        args.batch = [256, 64, 8, 1] if args.head else [256, 1]
+        args.batch = [256, 64, 8, 1] if args.head else [256, 2] if args.dw else [256, 1]
+    if args.int8 and (args.float32 or any(
+            (args.v3, args.v3_int8, args.v2, args.v2_int8, args.stem, args.head))):
+        p.error("--int8 goes alone or with --dw, and not with --float32")
     if not torch.cuda.is_available():
         raise SystemExit("block_times: needs a CUDA card")
     from .config import ModelConfig  # noqa: PLC0415
@@ -684,6 +811,8 @@ def main(argv=None) -> None:
         out = stem_times(ModelConfig(1.0, 224), args, gen, times)
     elif args.head:
         out = head_times(args, gen)
+    elif args.dw:
+        out = dw_times(ModelConfig(1.0, 224), args, gen, times)
     else:
         out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -120,6 +120,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
+// 8 bytes global -> shared (both 8-byte aligned), of which the first
+// `src_bytes` (8 or 0) are read and the rest written as zeros.
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(saddr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// An arrival on `bar` once every cp.async this thread has issued completes;
+// it counts as one of the arrivals the barrier was initialised with (noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(saddr(bar))
+               : "memory");
+}
+
 // ---- TMA tensor copies ---------------------------------------------------------
 
 // Box of `map` at coordinates (c0, c1, c2) (innermost first; out-of-range

@@ -1,19 +1,23 @@
-// The int8 depthwise stage shared by the standalone depthwise kernel
-// (depthwise_i8.cu) and the fused int8 block (separable_block_i8.cu), so that
-// the per-layer route and the fused route compute the same integers.
+// The int8 depthwise stage shared by the fused int8 block
+// (separable_i8_wgmma.cuh, through separable_block_i8.cu) and the standalone
+// int8 depthwise kernel (depthwise_ring.cuh, through depthwise_i8.cu), so
+// that the per-layer route and the fused route compute the same integers in
+// the same way.
 //
-// One call computes 4 consecutive channels of one output pixel: the 9-tap
-// 3x3 TF-SAME sum in exact int32 arithmetic (dy-then-dx order), + the int32
-// bias, then the requant of quant/ops.py:
-//   v = float32(acc) * m; v = max(v, 0); v = min(v, six_q) when relu6;
-//   round half to even (rintf); clamp to [-128, 127].
-// The multiply is __fmul_rn, so no multiply-add contraction can change it,
-// and the library is built without --use_fast_math.
-//
-// Alignment: the wrappers require every tensor to start on a 16-byte
-// boundary and every channel count to be a multiple of 8, so 4-channel
-// groups load and store as one 32-bit word and bias/multiplier groups as
-// one 16-byte vector.
+// A pixel's 16 channels from its nine 16-byte tap vectors: the taps are
+// transposed 4 x 4 in bytes (__byte_perm) so that one dp4a sums four taps of
+// one channel (taps 0-3, 4-7, and tap 8 against a weight word that holds its
+// byte in the channel's lane), starting from the int32 bias, exactly. The
+// requant is quant/ops.py's: v = float32(acc) * m (__fmul_rn), clamped to
+// [0, hi] (hi = min(six_q, 127) with ReLU6, else 127), rounded half to even;
+// clamping to an integer bound before rounding equals clamping after. The
+// conversions run on the full-rate adders: float32(acc) is float(0x4B400000
+// + acc) - 1.5 * 2^23, exact while |acc| < 2^22, taken for a 16-channel
+// group whose biases are all within 2^21 (nine taps add at most 9 * 128 *
+// 128); a group with a larger bias converts with __int2float_rn. The
+// clamped value is rounded by adding 1.5 * 2^23 (round to nearest even), and
+// the low byte of the sum's bits is the int8 result. The library is built
+// without --use_fast_math.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,114 +25,153 @@
 
 namespace mnk {
 
-struct I8Shape {
-  int N, H, W, C;    // input; C = the depthwise channels (Cin of a block)
-  int Cout;          // pointwise output channels (the fused block only)
-  int stride, Ho, Wo, pad_h, pad_w;
-  long long M;       // N * Ho * Wo output pixels
-  bool relu6;
-};
-
 __host__ __device__ inline int same_pad_lo(int size, int stride, int out) {
   const int total = (out - 1) * stride + 3 - size;
   return total > 0 ? total / 2 : 0;
 }
 
-__host__ __device__ inline I8Shape make_i8_shape(int N, int H, int W, int C, int Cout,
-                                                 int stride, int relu6) {
-  I8Shape s;
-  s.N = N; s.H = H; s.W = W; s.C = C; s.Cout = Cout; s.stride = stride;
-  s.Ho = (H + stride - 1) / stride;
-  s.Wo = (W + stride - 1) / stride;
-  s.pad_h = same_pad_lo(H, stride, s.Ho);
-  s.pad_w = same_pad_lo(W, stride, s.Wo);
-  s.M = (long long)N * s.Ho * s.Wo;
-  s.relu6 = relu6 != 0;
-  return s;
+constexpr int MAGIC_I = 0x4B400000;     // the bits of 1.5 * 2^23
+constexpr float MAGIC_F = 12582912.0f;  // 1.5 * 2^23
+constexpr int SMALL_BIAS = 1 << 21;     // |bias| <= this: |acc| < 2^22 (magic conversion)
+
+// Byte t of the four words a[0..3] -> word t (a 4 x 4 byte transpose).
+__device__ __forceinline__ void transpose4(const uint32_t (&a)[4], uint32_t (&t)[4]) {
+  const uint32_t lo01 = __byte_perm(a[0], a[1], 0x5140), lo23 = __byte_perm(a[2], a[3], 0x5140);
+  const uint32_t hi01 = __byte_perm(a[0], a[1], 0x7362), hi23 = __byte_perm(a[2], a[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
-// Where output pixel p reads its window: the image's first input pixel and
-// the window's top-left corner (may be negative: padding).
-struct PixelWindow {
-  int base, h0, w0;
-};
-
-__device__ __forceinline__ PixelWindow pixel_window(const I8Shape& s, long long p) {
-  const int hw = s.Ho * s.Wo;
-  const int n = int(p / hw), r = int(p % hw);
-  PixelWindow win;
-  win.base = n * s.H * s.W;
-  win.h0 = (r / s.Wo) * s.stride - s.pad_h;
-  win.w0 = (r % s.Wo) * s.stride - s.pad_w;
-  return win;
+// The low bytes of four words, in order, as one word.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-__device__ __forceinline__ int requant_i8(int acc, float m, float six_q, bool relu6) {
-  float v = __fmul_rn(__int2float_rn(acc), m);
-  v = fmaxf(v, 0.0f);
-  if (relu6) v = fminf(v, six_q);
-  v = rintf(v);
-  return int(fminf(fmaxf(v, -128.0f), 127.0f));
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// The linear requant of MobileNet-V2's projections (quant/v2.py): the same
-// multiply and rounding with no ReLU: clamp(rint(float32(acc) * m)).
-__device__ __forceinline__ int requant_linear_i8(int acc, float m) {
-  const float v = rintf(__fmul_rn(__int2float_rn(acc), m));
-  return int(fminf(fmaxf(v, -128.0f), 127.0f));
+// quant/ops.py's requant of float32(acc) = f: v = f * m, clamped to [lo, hi]
+// (integer bounds: lo 0 or -128, hi min(six_q, 127) or 127) before the
+// rounding; the low byte of the result is the int8 value.
+__device__ __forceinline__ uint32_t requant_bits(float f, float m, float lo, float hi) {
+  const float v = fminf(fmaxf(__fmul_rn(f, m), lo), hi);
+  return __float_as_uint(__fadd_rn(v, MAGIC_F));
 }
 
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (uint32_t(a) & 0xffu) | ((uint32_t(b) & 0xffu) << 8) |
-         ((uint32_t(c) & 0xffu) << 16) | ((uint32_t(d) & 0xffu) << 24);
+// float32 of a depthwise sum carried with 0x4B400000 added (the bias word):
+// the magic-number conversion (kMagic: the true sum within 2^22), or
+// __int2float_rn of the true sum.
+template <bool kMagic>
+__device__ __forceinline__ float dw_float(int acc) {
+  if constexpr (kMagic)
+    return __fsub_rn(__int_as_float(acc), MAGIC_F);
+  else
+    return __int2float_rn(int(uint32_t(acc) - uint32_t(MAGIC_I)));
 }
 
-// The depthwise weights, bias and multipliers of channels [c, c+4).
+// The depthwise weights of 4 channels: for channel e, t03[e] and t47[e] hold
+// its taps 0-3 and 4-7 (tap 0 in the low byte), t8[e] its tap 8 in byte e;
+// b[e] its bias + 0x4B400000, m[e] its multiplier.
 struct DwQuad {
-  char4 w[9];
-  int4 b;
-  float4 m;
+  uint32_t t03[4], t47[4], t8[4];
+  int b[4];
+  float m[4];
 };
 
-__device__ __forceinline__ DwQuad load_dw_quad(const int8_t* __restrict__ dw_w,
-                                               const int* __restrict__ dw_b,
-                                               const float* __restrict__ dw_m, int C,
-                                               int c) {
-  DwQuad q;
+// A thread's 16 channels: quad i holds channels 4i..4i+3.
+struct DwGroup {
+  DwQuad q[4];
+};
+
+// The tap words of channels [ch, ch+4) of a (3, 3, 1, C) int8 weight (C a
+// multiple of 4).
+__device__ __forceinline__ void dw_tap_words(const int8_t* __restrict__ dw_w, int C, int ch,
+                                             uint32_t (&t03)[4], uint32_t (&t47)[4],
+                                             uint32_t (&t8)[4]) {
+  uint32_t a[4], b[4];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) q.w[t] = *reinterpret_cast<const char4*>(dw_w + t * C + c);
-  q.b = *reinterpret_cast<const int4*>(dw_b + c);
-  q.m = *reinterpret_cast<const float4*>(dw_m + c);
-  return q;
+  for (int t = 0; t < 4; ++t) {
+    a[t] = *reinterpret_cast<const uint32_t*>(dw_w + t * C + ch);
+    b[t] = *reinterpret_cast<const uint32_t*>(dw_w + (4 + t) * C + ch);
+  }
+  transpose4(a, t03);
+  transpose4(b, t47);
+  const uint32_t w8 = *reinterpret_cast<const uint32_t*>(dw_w + 8 * C + ch);
+  t8[0] = w8 & 0xffu;
+  t8[1] = w8 & 0xff00u;
+  t8[2] = w8 & 0xff0000u;
+  t8[3] = w8 & 0xff000000u;
 }
 
-// Channels [c, c+4) of the depthwise output at the window `win`, requantized
-// and packed into one little-endian 32-bit word (channel c in the low byte).
-__device__ __forceinline__ uint32_t dw_quad(const int8_t* __restrict__ x, const DwQuad& q,
-                                            const I8Shape& s, const PixelWindow& win,
-                                            int c, float six_q) {
-  int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+// Whether four biases allow the magic conversion.
+__device__ __forceinline__ bool small_biases(const int4& b) {
+  return b.x >= -SMALL_BIAS && b.x <= SMALL_BIAS && b.y >= -SMALL_BIAS && b.y <= SMALL_BIAS &&
+         b.z >= -SMALL_BIAS && b.z <= SMALL_BIAS && b.w >= -SMALL_BIAS && b.w <= SMALL_BIAS;
+}
+
+// Channels [ch, ch + 4 * quads) of the weights, biases and multipliers into
+// a group held in registers (quads 1, 2 or 4); the group's other quads hold
+// zeros (their outputs are not stored). Returns whether every bias read
+// allows the magic conversion.
+__device__ __forceinline__ bool load_dw_group(const int8_t* __restrict__ dw_w,
+                                              const int* __restrict__ dw_b,
+                                              const float* __restrict__ dw_m, int C, int ch,
+                                              int quads, DwGroup& d) {
+  bool small = true;
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int hi = win.h0 + dy;
+  for (int i = 0; i < 4; ++i) {
+    DwQuad& q = d.q[i];
+    if (i < quads) {
+      dw_tap_words(dw_w, C, ch + 4 * i, q.t03, q.t47, q.t8);
+      const int4 b = *reinterpret_cast<const int4*>(dw_b + ch + 4 * i);
+      const float4 m = *reinterpret_cast<const float4*>(dw_m + ch + 4 * i);
+      small &= small_biases(b);
+      q.b[0] = int(uint32_t(b.x) + uint32_t(MAGIC_I));
+      q.b[1] = int(uint32_t(b.y) + uint32_t(MAGIC_I));
+      q.b[2] = int(uint32_t(b.z) + uint32_t(MAGIC_I));
+      q.b[3] = int(uint32_t(b.w) + uint32_t(MAGIC_I));
+      q.m[0] = m.x; q.m[1] = m.y; q.m[2] = m.z; q.m[3] = m.w;
+    } else {
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int wi = win.w0 + dx;
-      if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W) {
-        const char4 v = *reinterpret_cast<const char4*>(
-            x + ((long long)win.base + hi * s.W + wi) * s.C + c);
-        const char4 w = q.w[dy * 3 + dx];
-        a0 += int(v.x) * int(w.x);
-        a1 += int(v.y) * int(w.y);
-        a2 += int(v.z) * int(w.z);
-        a3 += int(v.w) * int(w.w);
+      for (int e = 0; e < 4; ++e) {
+        q.t03[e] = q.t47[e] = q.t8[e] = 0u;
+        q.b[e] = MAGIC_I;
+        q.m[e] = 0.0f;
       }
     }
   }
-  return pack4(requant_i8(a0 + q.b.x, q.m.x, six_q, s.relu6),
-               requant_i8(a1 + q.b.y, q.m.y, six_q, s.relu6),
-               requant_i8(a2 + q.b.z, q.m.z, six_q, s.relu6),
-               requant_i8(a3 + q.b.w, q.m.w, six_q, s.relu6));
+  return small;
+}
+
+// Channels 4i..4i+3 of a pixel from its nine tap vectors v (tap dy * 3 +
+// dx; 16 channels each) and their weights q: dp4a over taps 0-3, 4-7 and 8
+// from the bias, the requant to [0, hi]; one word, channel 4i in the low
+// byte.
+template <bool kMagic>
+__device__ __forceinline__ uint32_t dw_quad(const uint4 (&v)[9], int i, const DwQuad& q,
+                                            float hi) {
+  uint32_t x03[4], x47[4], r[4];
+  transpose4({word(v[0], i), word(v[1], i), word(v[2], i), word(v[3], i)}, x03);
+  transpose4({word(v[4], i), word(v[5], i), word(v[6], i), word(v[7], i)}, x47);
+  const int x8 = int(word(v[8], i));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    int acc = __dp4a(int(x03[e]), int(q.t03[e]), q.b[e]);
+    acc = __dp4a(int(x47[e]), int(q.t47[e]), acc);
+    acc = __dp4a(x8, int(q.t8[e]), acc);
+    r[e] = requant_bits(dw_float<kMagic>(acc), q.m[e], 0.0f, hi);
+  }
+  return low_bytes(r[0], r[1], r[2], r[3]);
+}
+
+// A pixel's 16 channels, the group's weights in registers.
+template <bool kMagic>
+__device__ __forceinline__ uint4 dw16(const uint4 (&v)[9], const DwGroup& d, float hi) {
+  return make_uint4(dw_quad<kMagic>(v, 0, d.q[0], hi), dw_quad<kMagic>(v, 1, d.q[1], hi),
+                    dw_quad<kMagic>(v, 2, d.q[2], hi), dw_quad<kMagic>(v, 3, d.q[3], hi));
 }
 
 }  // namespace mnk

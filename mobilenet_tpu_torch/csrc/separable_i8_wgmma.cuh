@@ -18,10 +18,10 @@
 //      warpgroup its own 64 rows, the rows its wgmma reads, so the
 //      warpgroups run apart (one's depthwise beside another's product and
 //      epilogue). A thread takes 16 channels of a pixel: the nine 16-byte
-//      tap loads are transposed 4 x 4 in bytes (__byte_perm) so that dp4a
-//      sums four taps of one channel at a time (taps 0-3, 4-7, and tap 8
-//      against a weight word holding its byte in the channel's lane), from
-//      the int32 bias, exactly. The weights come from a table in shared
+//      tap loads go through int8_tile.cuh's depthwise stage (dw_quad, dw16),
+//      which the standalone int8 depthwise kernel runs too: dp4a over
+//      byte-transposed taps from the int32 bias, exactly, and the requant
+//      with the magic-number conversions. The weights come from a table in shared
 //      memory, transposed once a block (TAB_GROUP): held in registers for a
 //      thread's four pixels with one or two consumer warpgroups, read a
 //      quad of channels at a time with four (their registers). The requant
@@ -77,9 +77,11 @@ constexpr int BOX64_BYTES = 64 * 128;    // a 64-row weight box
 constexpr int BOX8_BYTES = 8 * 128;      // an 8-row weight box
 constexpr int ZERO_BYTES = 3 * KCH;      // three zero pixels of a window row
 constexpr int SMEM_LIMIT = sw::SMEM_LIMIT;
-constexpr int MAGIC_I = 0x4B400000;      // the bits of 1.5 * 2^23
-constexpr float MAGIC_F = 12582912.0f;   // 1.5 * 2^23
-constexpr int SMALL_BIAS = 1 << 21;      // |bias| <= this: |acc| < 2^22 (magic conversion)
+// The shared depthwise stage (int8_tile.cuh), also read as si8:: by the V3 tile.
+using mnk::low_bytes;
+using mnk::MAGIC_F;
+using mnk::MAGIC_I;
+using mnk::transpose4;
 // The depthwise table in shared memory, a group of 16 channels: taps 0-3 and
 // 4-7 transposed, tap 8 in its lane, bias + 0x4B400000, multiplier (16 words
 // each), and four words, one a 4-channel word, that are 1 where all four
@@ -177,16 +179,6 @@ __device__ __forceinline__ Rings rings_of(const Geo& g, unsigned char* base) {
   return r;
 }
 
-// Byte t of the four words a[0..3] -> word t (a 4 x 4 byte transpose).
-__device__ __forceinline__ void transpose4(const uint32_t (&a)[4], uint32_t (&t)[4]) {
-  const uint32_t lo01 = __byte_perm(a[0], a[1], 0x5140), lo23 = __byte_perm(a[2], a[3], 0x5140);
-  const uint32_t hi01 = __byte_perm(a[0], a[1], 0x7362), hi23 = __byte_perm(a[2], a[3], 0x7362);
-  t[0] = __byte_perm(lo01, lo23, 0x5410);
-  t[1] = __byte_perm(lo01, lo23, 0x7632);
-  t[2] = __byte_perm(hi01, hi23, 0x5410);
-  t[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // The tensors of a launch and the upper bounds of its requants (min(six_q,
 // 127) with ReLU6, else 127; the lower bound is the instantiation's: 0, or
 // -128 in the linear mode).
@@ -206,30 +198,17 @@ __device__ __forceinline__ void fill_table(const Geo& g, const Launch& l, const 
   const int nthreads = 128 * g.nwg;
   for (int w = threadIdx.x; w < g.Cin / 4; w += nthreads) {
     const int ch = 4 * w;
-    uint32_t a[4], b[4], t03[4], t47[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      a[t] = *reinterpret_cast<const uint32_t*>(l.dw_w + t * g.Cin + ch);
-      b[t] = *reinterpret_cast<const uint32_t*>(l.dw_w + (4 + t) * g.Cin + ch);
-    }
-    transpose4(a, t03);
-    transpose4(b, t47);
-    const uint32_t w8 = *reinterpret_cast<const uint32_t*>(l.dw_w + 8 * g.Cin + ch);
+    uint32_t t03[4], t47[4], t8[4];
+    dw_tap_words(l.dw_w, g.Cin, ch, t03, t47, t8);
     unsigned char* grp = r.tab + ch / 16 * TAB_GROUP + ch % 16 * 4;
     *reinterpret_cast<uint4*>(grp) = make_uint4(t03[0], t03[1], t03[2], t03[3]);
     *reinterpret_cast<uint4*>(grp + 64) = make_uint4(t47[0], t47[1], t47[2], t47[3]);
-    *reinterpret_cast<uint4*>(grp + 128) =
-        make_uint4(w8 & 0xffu, w8 & 0xff00u, w8 & 0xff0000u, w8 & 0xff000000u);
+    *reinterpret_cast<uint4*>(grp + 128) = make_uint4(t8[0], t8[1], t8[2], t8[3]);
     const int4 bias = *reinterpret_cast<const int4*>(l.dw_b + ch);
-    const int bs[4] = {bias.x, bias.y, bias.z, bias.w};
-    uint32_t bm[4];
-    bool small = true;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      bm[e] = uint32_t(bs[e]) + uint32_t(MAGIC_I);
-      small &= bs[e] >= -SMALL_BIAS && bs[e] <= SMALL_BIAS;
-    }
-    *reinterpret_cast<uint4*>(grp + 192) = make_uint4(bm[0], bm[1], bm[2], bm[3]);
+    const bool small = small_biases(bias);
+    *reinterpret_cast<uint4*>(grp + 192) =
+        make_uint4(uint32_t(bias.x) + uint32_t(MAGIC_I), uint32_t(bias.y) + uint32_t(MAGIC_I),
+                   uint32_t(bias.z) + uint32_t(MAGIC_I), uint32_t(bias.w) + uint32_t(MAGIC_I));
     *reinterpret_cast<float4*>(grp + 256) = *reinterpret_cast<const float4*>(l.dw_m + ch);
     *reinterpret_cast<uint32_t*>(r.tab + ch / 16 * TAB_GROUP + 320 + ch % 16) = small;
   }
@@ -318,25 +297,6 @@ __device__ inline void produce_weights(const Geo& g, const Rings& r, const CUten
 
 // ---- the requant ----------------------------------------------------------------------
 
-// quant/ops.py's requant of float32(acc) = f: v = f * m, clamped to [lo, hi]
-// (integer bounds: lo 0 or -128, hi min(six_q, 127) or 127) before the
-// rounding; the low byte of the result is the int8 value.
-__device__ __forceinline__ uint32_t requant_bits(float f, float m, float lo, float hi) {
-  const float v = fminf(fmaxf(__fmul_rn(f, m), lo), hi);
-  return __float_as_uint(__fadd_rn(v, MAGIC_F));
-}
-
-// float32 of a depthwise sum carried with 0x4B400000 added (the table's
-// bias): the magic-number conversion (kMagic: the true sum within 2^22), or
-// __int2float_rn of the true sum.
-template <bool kMagic>
-__device__ __forceinline__ float dw_float(int acc) {
-  if constexpr (kMagic)
-    return __fsub_rn(__int_as_float(acc), MAGIC_F);
-  else
-    return __int2float_rn(int(uint32_t(acc) - uint32_t(MAGIC_I)));
-}
-
 // float32 of a pointwise sum + bias: the magic-number conversion where every
 // such sum is within 2^22 (kMagic, `fill_tables`), else __int2float_rn.
 template <bool kMagic>
@@ -347,26 +307,10 @@ __device__ __forceinline__ float pw_float(int acc) {
     return __int2float_rn(acc);
 }
 
-// The low bytes of four words, in order, as one word.
-__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
-}
-
 // ---- consumers ----------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// A thread's 16 depthwise channels: for channel e, t03[e] and t47[e] hold
-// its taps 0-3 and 4-7 (tap 0 in the low byte), t8[e] its tap 8 in byte e %
-// 4; the bias + 0x4B400000 and the multiplier.
-struct DwGroup {
-  uint32_t t03[16], t47[16], t8[16];
-  int b[16];
-  float m[16];
-};
-
+// A 16-channel group of the table into registers (DwGroup: quad i holds
+// channels 4i..4i+3).
 __device__ __forceinline__ void load_group(const unsigned char* grp, DwGroup& d) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -375,11 +319,12 @@ __device__ __forceinline__ void load_group(const unsigned char* grp, DwGroup& d)
     const uint4 t8 = reinterpret_cast<const uint4*>(grp + 128)[i];
     const int4 b = reinterpret_cast<const int4*>(grp + 192)[i];
     const float4 m = reinterpret_cast<const float4*>(grp + 256)[i];
-    d.t03[4 * i] = t03.x; d.t03[4 * i + 1] = t03.y; d.t03[4 * i + 2] = t03.z; d.t03[4 * i + 3] = t03.w;
-    d.t47[4 * i] = t47.x; d.t47[4 * i + 1] = t47.y; d.t47[4 * i + 2] = t47.z; d.t47[4 * i + 3] = t47.w;
-    d.t8[4 * i] = t8.x; d.t8[4 * i + 1] = t8.y; d.t8[4 * i + 2] = t8.z; d.t8[4 * i + 3] = t8.w;
-    d.b[4 * i] = b.x; d.b[4 * i + 1] = b.y; d.b[4 * i + 2] = b.z; d.b[4 * i + 3] = b.w;
-    d.m[4 * i] = m.x; d.m[4 * i + 1] = m.y; d.m[4 * i + 2] = m.z; d.m[4 * i + 3] = m.w;
+    DwQuad& q = d.q[i];
+    q.t03[0] = t03.x; q.t03[1] = t03.y; q.t03[2] = t03.z; q.t03[3] = t03.w;
+    q.t47[0] = t47.x; q.t47[1] = t47.y; q.t47[2] = t47.z; q.t47[3] = t47.w;
+    q.t8[0] = t8.x; q.t8[1] = t8.y; q.t8[2] = t8.z; q.t8[3] = t8.w;
+    q.b[0] = b.x; q.b[1] = b.y; q.b[2] = b.z; q.b[3] = b.w;
+    q.m[0] = m.x; q.m[1] = m.y; q.m[2] = m.z; q.m[3] = m.w;
   }
 }
 
@@ -460,25 +405,8 @@ __device__ __forceinline__ void dw_pixel_regs(const Geo& g, int off, int rows, i
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) v[dy * 3 + dx] = *reinterpret_cast<const uint4*>(rp + dx * g.kw);
   }
-  uint32_t q[16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t x03[4], x47[4];
-    transpose4({word(v[0], i), word(v[1], i), word(v[2], i), word(v[3], i)}, x03);
-    transpose4({word(v[4], i), word(v[5], i), word(v[6], i), word(v[7], i)}, x47);
-    const int x8 = int(word(v[8], i));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 4 * i + e;
-      int acc = __dp4a(int(x03[e]), int(d.t03[c]), d.b[c]);
-      acc = __dp4a(int(x47[e]), int(d.t47[c]), acc);
-      acc = __dp4a(x8, int(d.t8[c]), acc);
-      q[c] = requant_bits(dw_float<kMagic>(acc), d.m[c], 0.0f, hi);
-    }
-  }
   *reinterpret_cast<uint4*>(atom + m * ROW_BYTES + ((j ^ (m & 7)) << 4)) =
-      make_uint4(low_bytes(q[0], q[1], q[2], q[3]), low_bytes(q[4], q[5], q[6], q[7]),
-                 low_bytes(q[8], q[9], q[10], q[11]), low_bytes(q[12], q[13], q[14], q[15]));
+      dw16<kMagic>(v, d, hi);
 }
 
 // The same with the weights read from the table a 4-channel quad at a time,
@@ -503,23 +431,9 @@ __device__ __forceinline__ void dw_pixel_lean(const Geo& g, int off, int rows, i
     const uint4 t8 = reinterpret_cast<const uint4*>(grp + 128)[i];
     const int4 b = reinterpret_cast<const int4*>(grp + 192)[i];
     const float4 mu = reinterpret_cast<const float4*>(grp + 256)[i];
-    uint32_t x03[4], x47[4];
-    transpose4({word(v[0], i), word(v[1], i), word(v[2], i), word(v[3], i)}, x03);
-    transpose4({word(v[4], i), word(v[5], i), word(v[6], i), word(v[7], i)}, x47);
-    const int x8 = int(word(v[8], i));
-    const uint32_t w03[4] = {t03.x, t03.y, t03.z, t03.w}, w47[4] = {t47.x, t47.y, t47.z, t47.w};
-    const uint32_t w8[4] = {t8.x, t8.y, t8.z, t8.w};
-    const int bb[4] = {b.x, b.y, b.z, b.w};
-    const float mm[4] = {mu.x, mu.y, mu.z, mu.w};
-    uint32_t q[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      int acc = __dp4a(int(x03[e]), int(w03[e]), bb[e]);
-      acc = __dp4a(int(x47[e]), int(w47[e]), acc);
-      acc = __dp4a(x8, int(w8[e]), acc);
-      q[e] = requant_bits(dw_float<kMagic>(acc), mm[e], 0.0f, hi);
-    }
-    o[i] = low_bytes(q[0], q[1], q[2], q[3]);
+    const DwQuad q{{t03.x, t03.y, t03.z, t03.w}, {t47.x, t47.y, t47.z, t47.w},
+                   {t8.x, t8.y, t8.z, t8.w}, {b.x, b.y, b.z, b.w}, {mu.x, mu.y, mu.z, mu.w}};
+    o[i] = dw_quad<kMagic>(v, i, q, hi);
   }
   *reinterpret_cast<uint4*>(atom + m * ROW_BYTES + ((j ^ (m & 7)) << 4)) =
       make_uint4(o[0], o[1], o[2], o[3]);

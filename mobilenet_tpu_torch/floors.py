@@ -2,7 +2,7 @@
 and for float32 multiply-adds on the CUDA cores, beside the published peaks
 that the roofline model (`roofline.py`) divides by.
 
-    python -m mobilenet_tpu_torch.floors [--out PATH]
+    python -m mobilenet_tpu_torch.floors [--out PATH | --copy-ab ROUNDS]
 
 The probe kernels are `csrc/floors.cu` (which names the TPU probes of the JAX
 package's tools/microbench_floors.py that they replace); each has its plain
@@ -20,6 +20,9 @@ with CUDA events at the audit geometries (batch 256, 112^2 x 64 down to
   - one bf16 `torch.matmul` at 8192^3 -> TFLOP/s (the JAX tool leaves this
     product to XLA outside any kernel);
 and writes them to build/achievable_h100.json for `roofline.py --achievable`.
+With --copy-ab, instead only the two copy probes against `Tensor.copy_` in
+alternating runs (the order turned each round), a run's ms summed over the
+five audit shapes: each copy's runs, median and spread as one JSON line.
 Needs a CUDA card; refuses to run without one.
 """
 
@@ -220,6 +223,21 @@ def copy_rates(shape, fns: Dict[str, Callable]) -> Dict[str, Tuple[float, float]
     return out
 
 
+def copy_ab(rounds: int) -> Dict:
+    """hbm_copy, hbm_copy_flat and the library copy in `rounds` alternating
+    runs (A B C, then C B A, ...); a run is one copy's ms summed over the
+    five audit shapes. Returns each copy's runs, median and (min, max)."""
+    fns = {"hbm_copy": hbm_copy, "hbm_copy_flat": hbm_copy_flat,
+           "library_copy": lambda x: torch.empty_like(x).copy_(x)}
+    xs = [torch.ones(shape, dtype=torch.bfloat16, device="cuda") for _, shape in AUDIT_SHAPES]
+    runs = {k: [] for k in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            runs[name].append(sum(cuda_ms(lambda x=x: fns[name](x)) for x in xs))
+    return {k: {"runs": v, "median": sorted(v)[len(v) // 2], "spread": [min(v), max(v)]}
+            for k, v in runs.items()}
+
+
 def stencil_rate(variant: str, h: int, w: int, c: int, reps: int,
                  images: int) -> Tuple[float, float]:
     """(T-FMA/s, ms) of the stencil kernel: images x h x w x c elements,
@@ -288,10 +306,19 @@ def measure() -> Dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(OUT), help="where the JSON goes")
+    ap.add_argument("--copy-ab", type=int, default=0, metavar="ROUNDS",
+                    help="only the copy probes against Tensor.copy_, in alternating runs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mobilenet_tpu_torch.floors measures the card; "
                          "torch.cuda.is_available() is False")
+    if args.copy_ab:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip()
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                          **copy_ab(args.copy_ab)}), flush=True)
+        return 0
     res = measure()
     print(res["nvidia_smi"], flush=True)
     for label, forms in res["hbm_formulations"].items():

@@ -74,10 +74,11 @@ _SIGNATURES = {
     # a launch prepared by v3_block_i8_prepare (below) in buf: buf, x, pooled,
     # gate, z, out
     "v3_block_i8_run": [_P] * 6,
-    # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q
-    "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F],
-    # x, w, b (or 0), out | N, H, W, C, stride, relu6
-    "depthwise_f32": [_P] * 4 + [_I] * 6, "depthwise_bf16": [_P] * 4 + [_I] * 6,
+    # x, dw_w, dw_b, dw_m, out | N, H, W, C, stride, relu6 | six_q | th, tw,
+    # seg, nv, ws (ops/depthwise.dw_plan)
+    "depthwise_i8": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5,
+    # x, w, b (or 0), out | N, H, W, C, stride, relu6 | th, tw, seg, nv, ws
+    "depthwise_f32": [_P] * 4 + [_I] * 11, "depthwise_bf16": [_P] * 4 + [_I] * 11,
     "v3_block_bf16": _V3_BF16, "v3_block_f32": _V3,
     # x, out, scratch0, scratch1, partial | N, H, W, stages | ptrs (stages x
     # 10 weight pointers), dims (stages x 12 ints): host arrays; grid: one
@@ -110,6 +111,9 @@ _HOST_SIGNATURES = {
     "v3_i8_wgmma_smem_bytes": ([_I] * 12, ctypes.c_int),
     # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity -> bytes of dynamic shared memory
     "v3_wgmma_smem_bytes": ([_I] * 11, ctypes.c_int),
+    # elem, stride, th, tw, nv, ws -> bytes of dynamic shared memory
+    # (ops/depthwise.dw_smem_bytes)
+    "depthwise_smem_bytes": ([_I] * 6, ctypes.c_int),
     # block0, th, tw, cout -> bytes of dynamic shared memory (ops/stem.stem_smem_bytes)
     "stem_smem_bytes": ([_I] * 4, ctypes.c_int),
     # kind (0 conv_walk, 1 post), C, nwg, stages -> bytes of dynamic shared

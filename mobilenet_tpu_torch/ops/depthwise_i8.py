@@ -3,8 +3,10 @@
 
 Replaces the TPU kernel `mobilenet_tpu/quant/pallas_dw_i8.py`
 `depthwise_i8_pallas`, the per-layer int8 route (`forward_i8(...,
-use_dw_kernel=True)`, the int8 verify gate). Its arithmetic is the tile
-function that the fused int8 block kernel runs too (`csrc/int8_tile.cuh`).
+use_dw_kernel=True)`, the int8 verify gate). Its arithmetic is the
+depthwise stage that the fused int8 block kernel runs too
+(`csrc/int8_tile.cuh`), on the float kernel's design and plan
+(`csrc/depthwise_ring.cuh`, `ops/depthwise.dw_plan` at one byte an element).
 What bounds it on the card and what the design does about it is in the CUDA
 source's header.
 """
@@ -15,10 +17,11 @@ import torch
 
 from ..quant import ops as qops
 from . import _build
-from .separable_block import check_channels
+from .depthwise import dw_plan
+from .separable_block import _sms, check_channels
 
-# The kernels load 4-channel groups as 32-bit words and bias/multiplier
-# groups as 16-byte vectors.
+# The kernels load 4-channel weight words, bias and multiplier groups as
+# 16-byte vectors, and a window by TMA or 8-byte copies.
 ALIGN_BYTES = 16
 
 
@@ -59,7 +62,7 @@ def depthwise_i8(x, w, b, m, six_q: float, stride: int,
 
     x (N,H,W,C) int8, w (3,3,1,C) int8, b (C,) int32, m (C,) float32 ->
     (N,Ho,Wo,C) int8. On CPU tensors this is the plain version; on CUDA
-    tensors it launches the kernel or raises."""
+    tensors it launches the kernel on the plan of `dw_plan` or raises."""
     name = "depthwise_i8"
     check_i8_args(name, x, (w,), (b,), (m,))
     check_i8_dw(name, x, w, b, m, stride)
@@ -72,9 +75,10 @@ def depthwise_i8(x, w, b, m, six_q: float, stride: int,
     lib = _build.library()
     out = torch.empty((n, -(-h // stride), -(-wd // stride), c), dtype=torch.int8,
                       device=x.device)
+    plan = dw_plan(n, h, wd, c, 1, stride, _sms(x.device.index or 0))
     code = lib.depthwise_i8(x.data_ptr(), w.data_ptr(), b.data_ptr(), m.data_ptr(),
-                            out.data_ptr(), n, h, wd, c, stride, int(relu6),
-                            float(six_q), torch.cuda.current_stream(x.device).cuda_stream)
+                            out.data_ptr(), n, h, wd, c, stride, int(relu6), float(six_q),
+                            *plan, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
     depthwise_i8.launches += 1
     return out

@@ -27,7 +27,7 @@ from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2, mobilenet_v3
 from mobilenet_tpu_torch.ops import _build
 from mobilenet_tpu_torch.ops import preprocess as prep
 from mobilenet_tpu_torch.ops.chain import chain, chain_plain
-from mobilenet_tpu_torch.ops.depthwise import depthwise, depthwise_plain
+from mobilenet_tpu_torch.ops.depthwise import depthwise, depthwise_plain, dw_plan, dw_smem_bytes
 from mobilenet_tpu_torch.ops.depthwise_i8 import depthwise_i8, depthwise_i8_plain
 from mobilenet_tpu_torch.ops.head import fused_head, fused_head_plain
 from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual, inverted_residual_plain
@@ -511,8 +511,13 @@ def test_separable_i8_plan_smem_mirror(dev):
 
 
 @pytest.mark.parametrize("n,h,c,stride", [(2, 64, 8, 1), (3, 10, 24, 2), (1, 7, 1024, 1),
-                                          (2, 9, 40, 2), (1, 56, 128, 2)])
+                                          (2, 9, 40, 2), (1, 56, 128, 2), (1, 9, 24, 1),
+                                          (2, 15, 40, 1), (1, 13, 8, 2), (2, 112, 32, 1),
+                                          (2, 112, 64, 2), (2, 7, 1000, 1), (3, 11, 264, 2)])
 def test_depthwise_i8(dev, n, h, c, stride):
+    """The TMA form (C % 16 == 0) and the cp.async form (C % 16 == 8: C = 8,
+    24, 40, 264, 1000), odd sides at stride 2, batch 1 to 3, slices that do
+    not divide C."""
     rng = np.random.default_rng(c + h)
     x, w, b, m, *_ = _i8_block(rng, dev, n, h, c, 8)
     before = depthwise_i8.launches
@@ -521,6 +526,51 @@ def test_depthwise_i8(dev, n, h, c, stride):
     ref = depthwise_i8_plain(x, w, b, m, 127.0, stride, True)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("c,stride", [(24, 1), (48, 2), (256, 1)])
+@pytest.mark.parametrize("six_q,relu6", [(100.0, True), (127.0, False)])
+def test_depthwise_i8_requant_modes(dev, c, stride, six_q, relu6):
+    """ReLU6 at six_q 100 (clips where 127 would not) and plain ReLU, with one
+    16-channel group's biases beyond 2^21 (the __int2float_rn conversion) and
+    the rest within (the magic conversion), exactly."""
+    rng = np.random.default_rng(c + stride)
+    x, w, b, m, *_ = _i8_block(rng, dev, 2, 12, c, 8)
+    b[:16] += torch.tensor(rng.choice([-1, 1], 16) * (3 << 21), dtype=torch.int32, device=dev)
+    m[:16] *= 1e-3
+    m[16:] *= 6
+    got = depthwise_i8(x, w, b, m, six_q, stride, relu6)
+    ref = depthwise_i8_plain(x, w, b, m, six_q, stride, relu6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert int(ref.max()) == (100 if relu6 else 127) and (ref == 0).any()
+
+
+@pytest.mark.parametrize("batch", [256, 2])
+def test_depthwise_i8_v1_layers(dev, batch):
+    """Every distinct depthwise layer of V1 1.0-224, exactly."""
+    rng = np.random.default_rng(batch)
+    h, c = 112, 32
+    cfg = ModelConfig(1.0, 224)
+    for stride, cout in zip(cfg.block_strides, cfg.block_channels):
+        x, w, b, m, *_ = _i8_block(rng, dev, batch, h, c, 8)
+        got = depthwise_i8(x, w, b, m, 127.0, stride, True)
+        assert torch.equal(got, depthwise_i8_plain(x, w, b, m, 127.0, stride, True)), (h, c)
+        h, c = -(-h // stride), cout
+        del x, got
+        torch.cuda.empty_cache()
+
+
+def test_depthwise_smem_mirror(dev):
+    """ops/depthwise.dw_smem_bytes equals the kernel's own count at the plans
+    of V1 1.0-224 and the edge shapes, every element size."""
+    lib = _build.library()
+    for n, h, c, stride in [(256, 112, 32, 1), (256, 112, 64, 2), (2, 7, 1024, 1),
+                            (3, 9, 40, 2), (1, 300, 32, 1), (256, 14, 512, 2)]:
+        for elem in (1, 2, 4):
+            p = dw_plan(n, h, h, c, elem, stride)
+            assert lib.depthwise_smem_bytes(elem, stride, p.th, p.tw, p.nv, p.ws) == \
+                dw_smem_bytes(elem, stride, p.th, p.tw, p.nv, p.ws)
 
 
 def test_quantize_input_all_uint8(dev):
@@ -1135,6 +1185,11 @@ def test_v3_block_i8_small_block0_full_size(dev):
     (3, 7, 1024, 1, True),    # block12
     (1, 7, 32, 2, False),     # odd side at stride 2, no bias
     (2, 10, 24, 1, True),     # 0.75's narrow channels, a partial row tile
+    (1, 9, 8, 2, True),       # C = 8, odd side at stride 2
+    (2, 13, 40, 1, False),    # C = 40, no bias
+    (1, 15, 24, 2, True),     # C = 24, odd side at stride 2
+    (2, 300, 16, 1, True),    # a window wider than a TMA box: column tiles
+    (256, 14, 512, 2, True),  # block11 at batch 256
 ])
 def test_depthwise(dev, dtype, n, h, c, stride, bias):
     """The standalone depthwise kernel against its plain version: float32
