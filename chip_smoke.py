@@ -10,7 +10,13 @@ file; imports nothing of JAX. Phases, one JSON line each:
   2. each float kernel against its plain PyTorch version at the main-path
      shapes of MobileNet-V1 1.0-224: float32 at a tight tolerance (TF32
      off), then bfloat16 at the working tolerance; max-abs error,
-     CUDA-event times and the bound (below); for the separable block also
+     CUDA-event times and the bound (below), and for float32 also
+     torch.profiler's device ms of the kernel and of the library sequence
+     (taken after phase 45, so that the profiler runs after every other
+     phase's events; summed over a forward into the row's f32_* fields;
+     phases 10, 18 and 22 likewise); a row whose float32 form runs its own
+     design names it
+     (`float32_design`: `csrc/v3_f32.cuh`, `csrc/head_f32.cuh`); for the separable block also
      the time of its unfused library sequence
      (`block_times.separable_library`: cuDNN's grouped conv + bias, clamp,
      matmul + bias, clamp; phase 10 the same for the linear block 0), for
@@ -46,14 +52,14 @@ file; imports nothing of JAX. Phases, one JSON line each:
  10. each MobileNet-V2 kernel against its plain version at the 12 distinct
      block shapes of V2 1.0-224 at batch 256 (the inverted-residual block on
      the V3 bottleneck's tiles with ReLU6: bf16 the Hopper tile, float32
-     the CUDA-core tile, with the time of the unfused library sequence
+     the CUDA-core tile of `csrc/v3_f32.cuh`, with the time of the unfused library sequence
      `block_times.v3_library`; the block-0 linear-projection mode of the
      separable block) and the conv_last head, V2's, V3-Large's and
      V3-Small's forms (two hswish stages), each at batch 256 and 1, with the
      time of the library sequence `block_times.head_library`: float32 then
      bfloat16, no TF32 flag set; the inverted-residual block in
-     bf16 also at batch 1; its plans (bf16 `v3_wgmma_plan` at batch 256 and
-     1, float32 `v3_plan`) and both shared-memory mirrors;
+     bf16 also at batch 1; its plans (bf16 `v3_wgmma_plan` and float32
+     `v3_plan`, each at batch 256 and 1) and both shared-memory mirrors;
  11. the V2 bf16 pipeline, kernel route against plain route, at batch 256
      and 1 (the routing gate with the JAX package's V2 extreme-value term
      and float32 anchor, below), and a float32 full-network check at batch 2;
@@ -81,8 +87,8 @@ file; imports nothing of JAX. Phases, one JSON line each:
      unfused library sequence (`block_times.v3_library`: matmul + act,
      cuDNN's grouped k x k conv TF-SAME + act, the SE in torch ops, matmul
      + bias + residual), a yardstick the port never calls; bfloat16 also
-     at batch 1; the plans (bf16: `v3_wgmma_plan` at batch 256 and 1,
-     float32: `v3_plan`) and both shared-memory mirrors;
+     at batch 1; the plans (bf16 `v3_wgmma_plan` and float32 `v3_plan`,
+     each at batch 256 and 1) and both shared-memory mirrors;
  19. the V3-Large bf16 pipeline (seeded weights with non-zero SE, head and
      fc biases), kernel route against plain route at batch 256 and 1 (the
      anchored routing gate, as V2), a float32 full-network check at batch 2
@@ -287,6 +293,9 @@ DW_EDGES = ((1, 9, 9, 8, 2, True, True), (2, 13, 13, 24, 1, False, True),
             (2, 15, 11, 40, 2, True, False), (1, 300, 300, 16, 1, True, True),
             (1, 7, 7, 1024, 2, False, False))
 V3_DESIGN = ["mobilenet_tpu_torch/csrc/v3_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+# The float32 kernels' Hopper designs (CUDA-core fmaf on cp.async rings).
+V3_F32_DESIGN = ["mobilenet_tpu_torch/csrc/v3_f32.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
+HEAD_F32_DESIGN = ["mobilenet_tpu_torch/csrc/head_f32.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_I8_DESIGN = ["mobilenet_tpu_torch/csrc/v3_i8_wgmma.cuh",
                 "mobilenet_tpu_torch/csrc/hopper.cuh"]
 HEAD_DESIGN = ["mobilenet_tpu_torch/csrc/head_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
@@ -621,6 +630,10 @@ def int8_phases(smi, kernels, launches):
 
 FLOAT_ROW = dict(max_abs_err=0.0, max_abs_err_f32=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  bytes_ms=0.0, ops_ms=0.0, library_ms=LIBRARY_MS)
+# The float32 device-time measurements (torch.profiler), run after every
+# other phase, so that the other rows' CUDA-event times are taken in a
+# process that has not yet run the profiler.
+DEFERRED_DEVICE = []
 
 
 def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16, work,
@@ -644,8 +657,7 @@ def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16
                     "atol": atol, "rtol": rtol, "library_ms": LIBRARY_MS}
         if lfn is not None:
             with no_tf32(args[0]):
-                lib_call = lfn(*args)
-                row[tag]["library_ms"] = cuda_ms(lib_call)
+                row[tag]["library_ms"] = cuda_ms(lfn(*args))
         b_ms, b_by, t_b, t_o = bound(*work(tag), tag)
         row[tag].update(bound_ms=b_ms, bound_by=b_by)
         s = summary[kname]
@@ -660,7 +672,33 @@ def check_float(summary, kname, shape_name, count, kfn, pfn, args_f32, args_bf16
                 s["library_ms"] += count * row[tag]["library_ms"]
         else:
             s["max_abs_err_f32"] = max(s["max_abs_err_f32"], err)
+            # the float32 sums over one forward, beside the row's bf16 ones
+            add = {"f32_ms": kms, "f32_bound_ms": b_ms}
+            if lfn is not None:
+                add["f32_library_ms"] = row[tag]["library_ms"]
+            for k, v in add.items():
+                s[k] = s.get(k, 0.0) + count * v
+            DEFERRED_DEVICE.append((s, kname, shape_name, count, kfn, lfn, args))
     emit("kernel", kernel=kname, shape=shape_name, count_per_forward=count, **row)
+
+
+def float32_device_times():
+    """The float32 kernels' and library sequences' device ms (torch.profiler)
+    at every shape `check_float` saw, after every other phase; each summed
+    over one forward into its row (f32_device_ms, f32_library_device_ms)."""
+    from mobilenet_tpu_torch.block_times import device_ms
+    from mobilenet_tpu_torch.ops.conv import no_tf32
+
+    for s, kname, shape_name, count, kfn, lfn, args in DEFERRED_DEVICE:
+        got = {"device_ms": device_ms(lambda: kfn(*args), reps=10)}
+        if lfn is not None:
+            with no_tf32(args[0]):
+                got["library_device_ms"] = device_ms(lfn(*args), reps=10)
+        for k, v in got.items():
+            s[f"f32_{k}"] = s.get(f"f32_{k}", 0.0) + count * v
+        emit("kernel_f32_device", kernel=kname, shape=shape_name, count_per_forward=count, **got)
+    DEFERRED_DEVICE.clear()
+    torch.cuda.empty_cache()
 
 
 def check_head_smem(gen):
@@ -855,7 +893,8 @@ def v2_phases(smi, gen, kernels, launches):
         "inverted_residual": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_wgmma.cuh",
             "design": V3_DESIGN + ["mobilenet_tpu_torch/csrc/v3_block.cu"],
-            "float32_source": "mobilenet_tpu_torch/csrc/v3_tile.cuh",
+            "float32_source": "mobilenet_tpu_torch/csrc/v3_block.cu",
+            "float32_design": V3_F32_DESIGN,
             "replaces": "mobilenet_tpu/ops/pallas_ir_block.py:364",
             "also_replaces": ["mobilenet_tpu/ops/pallas_expand_s2.py:238"]},
         "separable_block[linear]": {
@@ -863,7 +902,7 @@ def v2_phases(smi, gen, kernels, launches):
             "replaces": "mobilenet_tpu/ops/pallas_block_packed.py:132"},
         "fused_head[conv_last]": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
-            "design": HEAD_DESIGN,
+            "design": HEAD_DESIGN, "float32_design": HEAD_F32_DESIGN,
             "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
     }
     for s in summary.values():
@@ -897,12 +936,13 @@ def v2_phases(smi, gen, kernels, launches):
                 if lib.v3_wgmma_smem_bytes(*args) != v3_wgmma_smem_bytes(*args):
                     raise AssertionError(f"{name}: the bf16 tile plans another shared memory "
                                          "than v3_wgmma_smem_bytes")
-            th, tw = plans[f"{nm} batch 256 f32"] = v3_plan(256, h, h, cin, e, cout, 3, stride,
-                                                            0, 4)
-            c_bytes = lib.v3_block_smem_bytes(cin, e, cout, 0, 3, stride, th, tw, 4)
-            if c_bytes != v3_smem_bytes(th, tw, cin, e, cout, 0, 3, stride, 4):
-                raise AssertionError(f"{name}: the float32 tile plans {c_bytes} B of shared "
-                                     "memory, v3_smem_bytes another")
+            for b in (256, 1):
+                fp = plans[f"{nm} batch {b} f32"] = v3_plan(b, h, h, cin, e, cout, 3, stride, 0)
+                args = (fp.th, fp.tw, h, h, cin, e, cout, 0, 3, stride, fp.ws, fp.bs, 0)
+                if lib.v3_f32_smem_bytes(*args) != v3_smem_bytes(*args):
+                    raise AssertionError(f"{name}: the float32 tile plans "
+                                         f"{lib.v3_f32_smem_bytes(*args)} B of shared memory, "
+                                         "v3_smem_bytes another")
             mk = lambda dt, b=256: rand_ir(gen, b, h, cin, e, cout, dt) + (stride, res)  # noqa: E731
             check_float(summary, "inverted_residual", name, cnt, inverted_residual,
                         inverted_residual_plain, mk(torch.float32), mk(torch.bfloat16),
@@ -1200,8 +1240,8 @@ def v3_kernel_checks(summary, row, cfg, gen):
     of `cfg` at batch 256 (float32 then bfloat16, `check_float`, with the
     library sequence `v3_library` timed beside it; non-zero SE biases) and,
     bfloat16 only, at batch 1, adding to `summary[row]`; the plans (bf16
-    `v3_wgmma_plan` at batch 256 and 1, float32 `v3_plan` at batch 256) and
-    each tile's shared memory against its Python mirror."""
+    `v3_wgmma_plan`, float32 `v3_plan`, each at batch 256 and 1) and each
+    tile's shared memory against its Python mirror."""
     from mobilenet_tpu_torch.block_times import v3_library
     from mobilenet_tpu_torch.ops import _build
     from mobilenet_tpu_torch.ops.v3_block import (
@@ -1223,14 +1263,14 @@ def v3_kernel_checks(summary, row, cfg, gen):
             if lib.v3_wgmma_smem_bytes(*args) != v3_wgmma_smem_bytes(*args):
                 raise AssertionError(f"{name}: the bf16 tile plans another shared memory "
                                      "than v3_wgmma_smem_bytes")
-        th, tw = plans[f"{nm} batch 256 f32"] = v3_plan(
-            256, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, 4)
-        if lib.v3_block_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride,
-                                   th, tw, 4) != v3_smem_bytes(th, tw, bd.cin, bd.cexp, bd.cout,
-                                                               bd.se_mid, bd.kernel, bd.stride,
-                                                               4):
-            raise AssertionError(f"{name}: the float32 tile plans another shared memory than "
-                                 "v3_smem_bytes")
+        for b in (256, 1):
+            fp = plans[f"{nm} batch {b} f32"] = v3_plan(
+                b, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid, identity)
+            args = (fp.th, fp.tw, h, h, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
+                    bd.stride, fp.ws, fp.bs, int(identity))
+            if lib.v3_f32_smem_bytes(*args) != v3_smem_bytes(*args):
+                raise AssertionError(f"{name}: the float32 tile plans another shared memory "
+                                     "than v3_smem_bytes")
         kw = dict(k=bd.kernel, stride=bd.stride, act=bd.act, residual=bd.has_res)
 
         def call(fn, kw=kw):
@@ -1276,7 +1316,8 @@ def v3_phases(smi, gen, kernels, launches, variant="large"):
     row, replaces, also = V3_ROWS[variant]
     kernels["v3_chain"].launches = 0  # the default routes must launch none (checked below)
     summary = {row: {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/v3_block.cu",
-                     "design": V3_DESIGN, "replaces": replaces, "also_runs": also}}
+                     "design": V3_DESIGN, "float32_design": V3_F32_DESIGN,
+                     "replaces": replaces, "also_runs": also}}
     summary[row].update(FLOAT_ROW)
     summary[row].update(library_ms=0.0, library=V3_LIBRARY)
 
@@ -2357,7 +2398,7 @@ def main() -> int:
                                 "mobilenet_tpu/ops/pallas_block_packed.py:371",
                                 "mobilenet_tpu/ops/pallas_block_packed_mxu.py:264"]},
         "fused_head": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
-                       "design": HEAD_DESIGN,
+                       "design": HEAD_DESIGN, "float32_design": HEAD_F32_DESIGN,
                        "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
         "chain": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/chain.cu",
                   "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120",
@@ -2448,6 +2489,7 @@ def main() -> int:
 
     # -- 45. the floor probes and the roofline floors ---------------------------------------
     summary.update(floor_phases(smi, launches))
+    float32_device_times()
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

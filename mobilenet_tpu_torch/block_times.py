@@ -1,8 +1,8 @@
 """Times of the fused block kernels and the chains on the card.
 
     python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
-        [--int8 | --v3 | --v3-int8 | --v2 [--float32] | --v2-int8 | --stem | --head |
-         --dw [--int8 | --float32] [--parent DIR]]
+        [--int8 | --v3 | --v3-int8 | --v2 | --v2-int8 | --stem | --head | --dw [--int8]]
+        [--float32] [--parent DIR]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -18,7 +18,8 @@ shape of MobileNet-V3-Large and -Small 1.0-224 ("v3l b03 256": its first
 block of that shape, with "count", the blocks of one forward that have it)
 and the two chains (`v3_chain` over V3-Small b1-b10 and V3-Large b1-b14),
 with --yardsticks also the plain versions and the unfused library sequence
-`v3_library` (never called by the port). With --v3-int8, instead the int8
+`v3_library` (never called by the port); with --float32 the float32 block
+and chains instead. With --v3-int8, instead the int8
 `v3_block_i8` at every distinct block shape of MobileNet-V3-Large and -Small
 1.0-224 (names and counts as --v3), with "passes": torch.profiler's device
 ms a call of each kernel it launches (an SE block's pool pass, gate and
@@ -26,7 +27,9 @@ gated pass), and with --yardsticks its plain version. With --v2, instead the
 bf16 `inverted_residual` at every distinct expanded block shape of
 MobileNet-V2 1.0-224 (blocks 1-16), with "passes" (as --v3-int8), and with
 --yardsticks also its plain version and `v3_library` (relu6, k 3, no SE);
-with --float32 the float32 block instead of bf16. With --v2-int8, instead the int8
+with --float32 the float32 block instead of bf16. --v2 and --v3 at batch
+256 also give torch.profiler's device ms a call ("device_ms", and
+"parent_device_ms" and "library_device_ms" where those run). With --v2-int8, instead the int8
 `inverted_residual_i8` at the same V2 shapes, with "passes" (as --v3-int8:
 the device ms of each kernel a call launches, x's pad copy included) and
 with --yardsticks its plain version. With --stem, instead V1 1.0-224's two
@@ -47,7 +50,8 @@ launches ("passes"), the bound ("bound_ms", "bound_by"), and with
 --yardsticks its plain version and the library sequence `head_library`
 (mean -> addmm; for V2 and V3 first matmul + act, and matmul + act between;
 never called by the port), by events and by device ms
-("library_device_ms"). With --dw, instead the standalone depthwise kernel
+("library_device_ms"); with --float32 the float32 head instead. With --dw,
+instead the standalone depthwise kernel
 at each distinct depthwise layer shape of MobileNet-V1 1.0-224 ("b06 256",
 with "count", the layers of one forward that have it), at batch 256 and 2
 unless --batch says otherwise: bf16 `depthwise` (--float32: float32; --int8:
@@ -61,6 +65,10 @@ the parent) the host ms a call takes to return ("host_ms") and at batch 256
 torch.profiler's device ms a call ("device_ms"; at batch 2 "ms" is that
 already); a "sum <batch>" row adds each time over one forward's 13 layers. Prints one JSON line: the card
 and {"b00 256": {"ms": ...}, ...}.
+With --v2, --v3 and --head, --parent DIR likewise times the wrappers of the
+checkout at DIR beside ("parent_ms"; --head also "parent_device_ms" and
+"parent_passes"). Every float32 library sequence runs with cuDNN's and
+cuBLAS's TF32 off (`ops/conv.no_tf32`), IEEE float32 as the kernels.
 It calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
 parent, change, change, parent in one card call). Refuses to run without a
@@ -162,6 +170,19 @@ def head_library(x, conv, post):
     return run
 
 
+def ieee(fn, x):
+    """fn() with cuDNN's and cuBLAS's TF32 off while x is float32 (IEEE
+    float32, as the port's float32 kernels compute), a yardstick of the same
+    function."""
+    from .ops.conv import no_tf32  # noqa: PLC0415
+
+    def run():
+        with no_tf32(x):
+            return fn()
+
+    return run
+
+
 # The models' head forms at 1.0-224, and V2 alpha 1.4's (448 -> 1792), on 7 x 7
 # features: C, conv_last (E, act) or None, post matmuls [(width, act)]. The
 # tests and chip_smoke.py take them from here.
@@ -175,10 +196,11 @@ HEAD_FORMS = {
 HEAD_HW = 7
 
 
-def head_bound(n, c, conv, posts, hw=HEAD_HW):
-    """(bound_ms, bound_by) of one bf16 head call: the features, every
-    weight and bias and the output moved once over 3.35 TB/s, or its
-    multiply-adds (x 2) and the pool's adds over 989 TFLOP/s, the larger."""
+def head_bound(n, c, conv, posts, hw=HEAD_HW, kind="bf16"):
+    """(bound_ms, bound_by) of one head call: the features, every weight and
+    bias and the output moved once over 3.35 TB/s, or its multiply-adds (x 2)
+    and the pool's adds over 989 TFLOP/s (bf16; float32: 67 TFLOP/s and 4
+    bytes an element), the larger."""
     pix = n * hw * hw
     k = c if conv is None else conv[0]
     nbytes = pix * c + (0 if conv is None else c * k + k)
@@ -187,7 +209,8 @@ def head_bound(n, c, conv, posts, hw=HEAD_HW):
         nbytes += k * m + m
         ops += 2 * n * k * m
         k = m
-    t_b, t_o = (nbytes + n * k) * 2 / 3.35e12 * 1e3, ops / 989e12 * 1e3
+    item, rate = (4, 67e12) if kind == "f32" else (2, 989e12)
+    t_b, t_o = (nbytes + n * k) * item / 3.35e12 * 1e3, ops / rate * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -210,26 +233,33 @@ def head_operands(gen, n, c, conv, posts, dtype=torch.bfloat16, hw=HEAD_HW):
 
 
 def head_times(args, gen) -> dict:
-    """The bf16 `fused_head` in each form at each batch, through the public
-    wrapper only."""
+    """The bf16 (--float32: float32) `fused_head` in each form at each
+    batch, through the public wrapper only; with --parent also the parent
+    checkout's wrapper ("parent_ms", "parent_device_ms", "parent_passes")."""
     from .floors import cuda_ms  # noqa: PLC0415
     from .ops.head import fused_head, fused_head_plain  # noqa: PLC0415
 
+    dtype = torch.float32 if args.float32 else torch.bfloat16
+    parent = load_parent(args.parent, ("ops.head",))[0] if args.parent else None
     out = {}
     for form, (c, conv, posts) in HEAD_FORMS.items():
         for batch in args.batch:
-            a = head_operands(gen, batch, c, conv, posts)
+            a = head_operands(gen, batch, c, conv, posts, dtype)
             calls = {"ms": lambda a=a: fused_head(*a)}
+            if parent:
+                calls["parent_ms"] = lambda a=a: parent.fused_head(*a)
             if args.yardsticks:
                 calls["plain_ms"] = lambda a=a: fused_head_plain(*a)
-                calls["library_ms"] = head_library(*a)
+                calls["library_ms"] = ieee(head_library(*a), a[0])
             row = {k: cuda_ms(f, reps=50, warmup=5) for k, f in calls.items()}
             row["host_ms"] = host_ms(calls["ms"])
-            row["device_ms"] = device_ms(calls["ms"])
-            if args.yardsticks:
-                row["library_device_ms"] = device_ms(calls["library_ms"])
-            row["passes"] = kernel_ms(calls["ms"])
-            row["bound_ms"], row["bound_by"] = head_bound(batch, c, conv, posts)
+            for k in [k for k in ("ms", "parent_ms", "library_ms") if k in calls]:
+                pre = {"ms": "", "parent_ms": "parent_", "library_ms": "library_"}[k]
+                row[f"{pre}device_ms"] = device_ms(calls[k])
+                if k != "library_ms":
+                    row[f"{pre}passes"] = kernel_ms(calls[k])
+            row["bound_ms"], row["bound_by"] = head_bound(batch, c, conv, posts,
+                                                          kind="f32" if args.float32 else "bf16")
             out[f"head {form} {batch}"] = row
             del a, calls
             torch.cuda.empty_cache()
@@ -293,11 +323,11 @@ def dw_bound(n, h, c, stride, kind):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def load_parent(root: str):
-    """The `ops.depthwise` and `ops.depthwise_i8` modules of the checkout at
-    `root`, imported as the package `parent_mobilenet_tpu_torch` beside this
-    one (its relative imports stay inside it; its kernels build under
-    root/build)."""
+def load_parent(root: str, mods=("ops.depthwise", "ops.depthwise_i8")):
+    """The modules `mods` (default `ops.depthwise` and `ops.depthwise_i8`)
+    of the checkout at `root`, imported as the package
+    `parent_mobilenet_tpu_torch` beside this one (its relative imports stay
+    inside it; its kernels build under root/build)."""
     import importlib  # noqa: PLC0415
     import importlib.util  # noqa: PLC0415
     import sys  # noqa: PLC0415
@@ -310,8 +340,7 @@ def load_parent(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{name}.ops.depthwise"),
-            importlib.import_module(f"{name}.ops.depthwise_i8"))
+    return tuple(importlib.import_module(f"{name}.{m}") for m in mods)
 
 
 def dw_times(cfg, args, gen, times) -> dict:
@@ -529,16 +558,20 @@ def stem_times(cfg, args, gen, times) -> dict:
 
 
 def v3_times(args, gen, times) -> dict:
-    """The bf16 `v3_block` at each distinct block shape of V3-Large and
-    V3-Small 1.0-224 and `v3_chain` over V3-Small b1-b10 and V3-Large b1-b14,
-    through the public wrappers only: x in [-2, 2), weights scaled so that
-    the activations stay O(1), SE biases non-zero."""
+    """The bf16 (--float32: float32) `v3_block` at each distinct block shape
+    of V3-Large and V3-Small 1.0-224 and `v3_chain` over V3-Small b1-b10 and
+    V3-Large b1-b14, through the public wrappers only: x in [-2, 2), weights
+    scaled so that the activations stay O(1), SE biases non-zero; with
+    --parent also the parent checkout's wrappers ("parent_ms")."""
     from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
     from .ops.v3_block import v3_block, v3_block_plain  # noqa: PLC0415
     from .ops.v3_chain import v3_chain, v3_chain_plain  # noqa: PLC0415
 
+    dtype = torch.float32 if args.float32 else torch.bfloat16
+    parent = load_parent(args.parent, ("ops.v3_block", "ops.v3_chain")) if args.parent else None
+
     def r(*shape, scale):
-        return (torch.randn(*shape, generator=gen, device="cuda") * scale).bfloat16()
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
     def weights(bd):
         e, k, se = bd.cexp, bd.kernel, bd.se_mid
@@ -553,11 +586,11 @@ def v3_times(args, gen, times) -> dict:
         return kw
 
     def inputs(n, h, c):
-        return (torch.rand(n, h, h, c, generator=gen, device="cuda") * 4 - 2).bfloat16()
+        return (torch.rand(n, h, h, c, generator=gen, device="cuda") * 4 - 2).to(dtype)
 
     out = {}
     for tag, variant in (("v3l", "large"), ("v3s", "small")):
-        cfg = V3Config(variant, 1.0, 224, compute_dtype="bfloat16")
+        cfg = V3Config(variant, 1.0, 224)
         for batch in args.batch:
             shapes, h = {}, cfg.resolution // 2
             for i, bd in enumerate(cfg.block_defs):
@@ -568,10 +601,12 @@ def v3_times(args, gen, times) -> dict:
                     name = shapes[key] = f"{tag} b{i:02d} {batch}"
                     x, kw = inputs(batch, h, bd.cin), weights(bd)
                     calls = {"ms": lambda x=x, kw=kw: v3_block(x, **kw)}
+                    if parent:
+                        calls["parent_ms"] = lambda x=x, kw=kw: parent[0].v3_block(x, **kw)
                     if args.yardsticks:
                         calls["plain_ms"] = lambda x=x, kw=kw: v3_block_plain(x, **kw)
-                        calls["library_ms"] = v3_library(x, **kw)
-                    out[name] = {**times(batch, calls), "count": 1}
+                        calls["library_ms"] = ieee(v3_library(x, **kw), x)
+                    out[name] = {**times(batch, calls), "count": 1, **devices(batch, calls)}
                     del x, kw, calls
                     torch.cuda.empty_cache()
                 h = -(-h // bd.stride)
@@ -580,9 +615,12 @@ def v3_times(args, gen, times) -> dict:
             x = inputs(batch, cfg.resolution // 2 // cfg.block_defs[0].stride,
                        cfg.block_defs[1].cin)
             calls = {"ms": lambda x=x, b=blocks: v3_chain(x, b)}
+            if parent:
+                calls["parent_ms"] = lambda x=x, b=blocks: parent[1].v3_chain(x, b)
             if args.yardsticks:
                 calls["plain_ms"] = lambda x=x, b=blocks: v3_chain_plain(x, b)
-            out[f"{tag} chain b01-b{stop - 1:02d} {batch}"] = times(batch, calls)
+            out[f"{tag} chain b01-b{stop - 1:02d} {batch}"] = {**times(batch, calls),
+                                                              **devices(batch, calls)}
             del x, blocks, calls
             torch.cuda.empty_cache()
     return out
@@ -679,6 +717,7 @@ def v2_times(args, gen, times) -> dict:
     )
 
     dtype = torch.float32 if args.float32 else torch.bfloat16
+    parent = load_parent(args.parent, ("ops.inverted_residual",))[0] if args.parent else None
 
     def r(*shape, scale):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
@@ -693,16 +732,30 @@ def v2_times(args, gen, times) -> dict:
                      prj_w=r(e, cout, scale=e ** -0.5), prj_b=r(cout, scale=0.2))
             calls = {"ms": lambda x=x, w=w, s=stride, rs=res: inverted_residual(
                 x, *w.values(), s, rs)}
+            if parent:
+                calls["parent_ms"] = lambda x=x, w=w, s=stride, rs=res: (
+                    parent.inverted_residual(x, *w.values(), s, rs))
             if args.yardsticks:
                 calls["plain_ms"] = lambda x=x, w=w, s=stride, rs=res: (
                     inverted_residual_plain(x, *w.values(), s, rs))
-                calls["library_ms"] = v3_library(x, **w, k=3, stride=stride, act="relu6",
-                                                 residual=res)
+                calls["library_ms"] = ieee(v3_library(x, **w, k=3, stride=stride, act="relu6",
+                                                      residual=res), x)
             out[name] = {**times(batch, calls), "count": counts[name],
-                         "passes": kernel_ms(calls["ms"])}
+                         "passes": kernel_ms(calls["ms"]), **devices(batch, calls)}
             del x, w, calls
             torch.cuda.empty_cache()
     return out
+
+
+def devices(batch, calls) -> dict:
+    """At batch 256 (where `times` reads CUDA events), torch.profiler's
+    device ms a call of the kernel, the parent and the library sequence
+    ("device_ms", "parent_device_ms", "library_device_ms") where given."""
+    if batch != 256:
+        return {}
+    return {f"{k[:-2]}device_ms": device_ms(calls[k], reps=10)
+            for k in ("ms", "parent_ms", "library_ms") if k in calls}
+
 
 def v2_int8_times(args, rng_seed, times) -> dict:
     """The int8 `inverted_residual_i8` at each distinct expanded block shape
@@ -762,7 +815,8 @@ def main(argv=None) -> None:
                    help="the int8 separable block instead of the bf16 one and the chain "
                         "(with --dw: the int8 depthwise)")
     kind.add_argument("--v3", action="store_true",
-                      help="the bf16 V3 bottleneck and the V3 chains instead")
+                      help="the bf16 (--float32: float32) V3 bottleneck and the V3 chains "
+                           "instead")
     kind.add_argument("--v3-int8", action="store_true",
                       help="the int8 V3 bottleneck instead, with each launch's device time")
     kind.add_argument("--v2", action="store_true",
@@ -774,15 +828,17 @@ def main(argv=None) -> None:
                       help="V1's stem kernels (stem_conv, stem_block0) in bf16 and float32 "
                            "instead")
     kind.add_argument("--head", action="store_true",
-                      help="the bf16 fused head in its four forms instead (default batches "
-                           "256 64 8 1)")
+                      help="the bf16 (--float32: float32) fused head in its forms instead "
+                           "(default batches 256 64 8 1)")
     kind.add_argument("--dw", action="store_true",
                       help="the standalone depthwise kernel at V1's depthwise layers instead "
                            "(bf16; default batches 256 2)")
     p.add_argument("--float32", action="store_true",
-                   help="with --v2 or --dw: the float32 kernel instead of the bf16 one")
+                   help="with --v2, --v3, --head or --dw: the float32 kernel instead of the "
+                        "bf16 one")
     p.add_argument("--parent", default=None,
-                   help="with --dw: the root of an earlier checkout to time beside")
+                   help="with --v2, --v3, --head or --dw: the root of an earlier checkout to "
+                        "time beside")
     args = p.parse_args(argv)
     if args.batch is None:
         args.batch = [256, 64, 8, 1] if args.head else [256, 2] if args.dw else [256, 1]

@@ -38,253 +38,37 @@
 // The tensor cores sum in another order than the fmaf chains of the plain
 // version: a bf16 output may round one step apart.
 //
-// float32 (below): IEEE float32 on the CUDA cores, as before.
-//  - conv_pool_kernel (only with a conv_last): a block owns CB images and
-//    128 of the E output channels (grid N/CB x E/128). Its pixels (CB*HW
-//    rows) go through 64-row x 128-channel FMA products over K chunks of 32,
-//    then bias, activation, rounding, and the per-image pool sums in pixel
-//    order. The (N, H, W, E) conv_last output never reaches device memory;
-//    the pooled (N, E) rows do.
-//  - head_post_kernel: a block owns HB images; it pools its input (the
-//    features, or the pooled rows as H*W = 1, where the mean is the value
-//    itself) into shared memory, then runs each post matmul there, a thread
-//    computing CPT output columns, one fmaf chain per output.
+// float32 (head_f32.cuh), the same stages on the CUDA cores, one launch a
+// stage: V1 pool + post (2 launches), V2 conv_walk + post (2), V3 conv_walk
+// + post + post (3). IEEE float32 (fmaf, no tensor core).
+//  - pool_f32_kernel: 16-byte loads of a 64-pixel x 64-channel slab, then
+//    f32 sums in pixel order.
+//  - conv_walk_f32_kernel<128, 128>: 128-row pixel tiles across image
+//    boundaries x a 128-column slice of E, where those tiles fill half the
+//    card; fmaf micro-tiles over a cp.async ring of K chunks, pooled by
+//    image in pixel order; any C.
+//  - post_f32_kernel: 64 x 64 output tiles, the weight read once per 64-row
+//    tile, K split over a thread-block cluster of up to 8 blocks reduced in
+//    rank order.
+//  - narrow_f32_kernel<POOL>: at a small batch, both matmuls (the conv_last
+//    walk with POOL) 8 columns a block with the whole of K, its slices
+//    summed in order in shared memory: many blocks and no cluster.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "head_f32.cuh"
 #include "head_wgmma.cuh"
 #include "numerics.cuh"
 
 namespace {
 
-constexpr int CONV_THREADS = 256;  // 16 x 16 threads over the 64 x 128 tile
-constexpr int RT = 64;             // conv_last rows per tile
-constexpr int CT = 128;            // conv_last channels per block
-constexpr int KT = 32;             // conv_last K chunk
-constexpr int LDA = KT + 8;
-constexpr int LDB = CT + 8;
-constexpr int LDC = CT + 4;
-constexpr int MAX_CB = 16;         // images per conv_pool block
-constexpr int HB = 2;              // images per head_post block
-constexpr int POST_THREADS = 512;
-constexpr int CPT = 2;             // output columns per thread and pass
 constexpr int MAX_POST = 2;
-constexpr int SMEM_MAX = 232448;
 
 using mnk::kHswish;
 using mnk::kLinear;
 using mnk::kNone;
 
-struct ConvSmem {
-  static constexpr int A_BYTES = RT * LDA * 4;
-  static constexpr int AB_BYTES = A_BYTES + KT * LDB * 4;
-  static constexpr int C_BYTES = RT * LDC * 4;
-  static constexpr int WORK_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  static constexpr int BYTES = WORK_BYTES + MAX_CB * CT * 4;  // + pool sums
-};
-static_assert(ConvSmem::BYTES <= 48 * 1024, "conv_pool exceeds static smem");
-
-// pooled[n][e] = mean_p act(x[n, p] . cw[:, e] + cb[e]), float32
-__global__ void __launch_bounds__(CONV_THREADS)
-    conv_pool_kernel(const float* __restrict__ x, const float* __restrict__ cw,
-                     const float* __restrict__ cb, float* __restrict__ pooled, int N, int HW,
-                     int C, int E, int CB, int conv_act) {
-  using L = ConvSmem;
-  using T = float;
-  constexpr int VEC = 4;
-  __shared__ __align__(128) unsigned char smem[L::BYTES];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + L::A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);
-  float* pool = reinterpret_cast<float*>(smem + L::WORK_BYTES);
-  const int tid = threadIdx.x;
-  const int img0 = blockIdx.x * CB;
-  const int e0 = blockIdx.y * CT;
-  const int rows = min(CB, N - img0) * HW;
-  const T* xb = x + (long long)img0 * HW * C;  // the block's images are contiguous
-  for (int i = tid; i < CB * CT; i += CONV_THREADS) pool[i] = 0.0f;
-  for (int r0 = 0; r0 < rows; r0 += RT) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < C; k0 += KT) {
-      __syncthreads();  // the previous chunk, or the previous tile's epilogue, is done
-      // 16-byte vectors: C and E are multiples of 8, the tensors 16-byte
-      // aligned (the wrapper checks), so a thread's loads are independent
-      for (int idx = tid; idx < RT * (KT / VEC); idx += CONV_THREADS) {
-        const int r = idx / (KT / VEC), k = (idx % (KT / VEC)) * VEC;
-        *reinterpret_cast<uint4*>(As + r * LDA + k) =
-            (r0 + r < rows && k0 + k < C)
-                ? *reinterpret_cast<const uint4*>(xb + (long long)(r0 + r) * C + k0 + k)
-                : make_uint4(0u, 0u, 0u, 0u);
-      }
-      for (int idx = tid; idx < KT * (CT / VEC); idx += CONV_THREADS) {
-        const int k = idx / (CT / VEC), c = (idx % (CT / VEC)) * VEC;
-        *reinterpret_cast<uint4*>(Bs + k * LDB + c) =
-            (k0 + k < C && e0 + c < E)
-                ? *reinterpret_cast<const uint4*>(cw + (long long)(k0 + k) * E + e0 + c)
-                : make_uint4(0u, 0u, 0u, 0u);
-      }
-      __syncthreads();
-      const int tx = tid % 16, ty = tid / 16;
-#pragma unroll 4
-      for (int k = 0; k < KT; ++k) {
-        float a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * LDA + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = Bs[k * LDB + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();  // every product done before Cs overwrites A/B
-    {
-      const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-    }
-    __syncthreads();
-    // bias, activation, rounding, and the pool sums in pixel order
-    if (tid < CT && e0 + tid < E) {
-      const float bias = cb[e0 + tid];
-      for (int r = 0; r < RT && r0 + r < rows; ++r)
-        pool[((r0 + r) / HW) * CT + tid] += mnk::act_named(Cs[r * LDC + tid] + bias, conv_act);
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < CB * CT; i += CONV_THREADS) {
-    const int bi = i / CT, c = i % CT;
-    if (bi * HW < rows && e0 + c < E)
-      pooled[(long long)(img0 + bi) * E + e0 + c] = pool[i] / float(HW);
-  }
-}
-
-struct PostShape {
-  int N, HW, C, n_post;
-  int post_n[MAX_POST], post_act[MAX_POST];
-  int maxw;  // widest row: C and every post width
-};
-
-// out[n] = post_{n_post-1}(... post_0(mean_p x[n, p])), float32
-__global__ void __launch_bounds__(POST_THREADS)
-    head_post_kernel(const float* __restrict__ x, const float* __restrict__ w0,
-                     const float* __restrict__ b0, const float* __restrict__ w1,
-                     const float* __restrict__ b1, float* __restrict__ out, PostShape s) {
-  using T = float;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* hin = reinterpret_cast<float*>(smem);  // HB rows of maxw, twice
-  float* hout = hin + HB * s.maxw;
-  const int tid = threadIdx.x;
-  const int img0 = blockIdx.x * HB;
-  const int nb = min(HB, s.N - img0);
-  for (int idx = tid; idx < HB * s.C; idx += POST_THREADS) {
-    const int bi = idx / s.C, c = idx % s.C;
-    float sum = 0.0f;
-    if (bi < nb) {
-      const T* px = x + ((long long)(img0 + bi) * s.HW) * s.C + c;
-#pragma unroll 7
-      for (int p = 0; p < s.HW; ++p) sum += px[(long long)p * s.C];
-    }
-    hin[bi * s.maxw + c] = sum / float(s.HW);
-  }
-  __syncthreads();
-  int K = s.C;
-  for (int j = 0; j < s.n_post; ++j) {
-    const T* w = j == 0 ? w0 : w1;
-    const T* b = j == 0 ? b0 : b1;
-    const int cols = s.post_n[j];
-    for (int col0 = 0; col0 < cols; col0 += POST_THREADS * CPT) {
-      float acc[CPT][HB];
-#pragma unroll
-      for (int q = 0; q < CPT; ++q)
-#pragma unroll
-        for (int bi = 0; bi < HB; ++bi) acc[q][bi] = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        float hv[HB];
-#pragma unroll
-        for (int bi = 0; bi < HB; ++bi) hv[bi] = hin[bi * s.maxw + k];
-#pragma unroll
-        for (int q = 0; q < CPT; ++q) {
-          const int col = col0 + tid + q * POST_THREADS;
-          if (col < cols) {
-            const float wv = w[(long long)k * cols + col];
-#pragma unroll
-            for (int bi = 0; bi < HB; ++bi) acc[q][bi] = fmaf(hv[bi], wv, acc[q][bi]);
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int col = col0 + tid + q * POST_THREADS;
-        if (col >= cols) continue;
-        const float bias = b[col];
-#pragma unroll
-        for (int bi = 0; bi < HB; ++bi)
-          hout[bi * s.maxw + col] = mnk::act_named(acc[q][bi] + bias, s.post_act[j]);
-      }
-    }
-    __syncthreads();
-    float* t = hin;
-    hin = hout;
-    hout = t;
-    K = cols;
-  }
-  for (int idx = tid; idx < nb * K; idx += POST_THREADS) {
-    const int bi = idx / K, c = idx % K;
-    out[(long long)(img0 + bi) * K + c] = hin[bi * s.maxw + c];
-  }
-}
-
 __host__ inline int rup(int v, int m) { return (v + m - 1) / m * m; }
-
-int launch_f32(const float* x, const float* cw, const float* cb, const float* w0,
-               const float* b0, const float* w1, const float* b1, float* pooled, float* out,
-               int N, int HW, int C, int E, int conv_act, int n_post, int n0, int act0, int n1,
-               int act1, cudaStream_t st) {
-  PostShape s;
-  s.N = N; s.n_post = n_post;
-  s.post_n[0] = n0; s.post_act[0] = act0;
-  s.post_n[1] = n1; s.post_act[1] = act1;
-  bool ok = N > 0 && HW > 0 && C > 0 && n_post >= 0 && n_post <= MAX_POST &&
-            conv_act >= kNone && conv_act <= kHswish && (conv_act == kNone || E > 0);
-  for (int j = 0; j < n_post; ++j)
-    ok = ok && s.post_n[j] > 0 && s.post_act[j] >= kLinear && s.post_act[j] <= kHswish;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const float* feat = x;
-  s.HW = HW; s.C = C;
-  if (conv_act != kNone) {
-    const int cbn = HW >= RT ? 1 : (RT / HW < MAX_CB ? RT / HW : MAX_CB);
-    dim3 grid((N + cbn - 1) / cbn, (E + CT - 1) / CT);
-    conv_pool_kernel<<<grid, CONV_THREADS, 0, st>>>(x, cw, cb, pooled, N, HW, C, E, cbn,
-                                                   conv_act);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    feat = pooled;  // the pooled rows: H*W = 1, the mean is the value
-    s.HW = 1; s.C = E;
-  }
-  s.maxw = s.C;
-  for (int j = 0; j < n_post; ++j) s.maxw = s.post_n[j] > s.maxw ? s.post_n[j] : s.maxw;
-  const int smem = rup(2 * HB * s.maxw * 4, 128);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static int smem_set = 48 * 1024;  // the opt-in granted so far
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(head_post_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = SMEM_MAX;
-  }
-  head_post_kernel<<<(N + HB - 1) / HB, POST_THREADS, smem, st>>>(feat, w0, b0, w1, b1, out,
-                                                                  s);
-  return (int)cudaGetLastError();
-}
 
 // ---- bf16 (head_wgmma.cuh) ------------------------------------------------------------
 
@@ -394,6 +178,110 @@ int launch_bf16(const hd::bf16* x, const hd::bf16* cw, const hd::bf16* cb, const
                           hd::post_geo(N, m0, m1, m_out, m_out, act1, kp1, st1), st);
 }
 
+// ---- float32 (head_f32.cuh) --------------------------------------------------------
+
+namespace hf = mnk::hf;
+
+// One post matmul: A (N, lda) -> out (N, ldo), columns < m_out stored;
+// narrow_f32_kernel<false> up to hf::SMALL_N rows, else post_f32_kernel.
+cudaError_t launch_post_f32(const float* a, const float* w, const float* b, float* out,
+                            const hf::PostGeo& g, cudaStream_t st) {
+  cudaError_t e;
+  if (g.N <= hf::SMALL_N) {
+    static bool done = false;
+    if ((e = allow_smem(hf::narrow_f32_kernel<false, 8>, done)) != cudaSuccess) return e;
+    hf::narrow_f32_kernel<false, 8><<<hf::cdiv(g.M, 8), hf::THREADS,
+                                      hf::narrow_smem_bytes(false, 8), st>>>(a, w, b, out, g, 1);
+    return cudaGetLastError();
+  }
+  static bool smem_done = false;
+  if ((e = allow_smem(hf::post_f32_kernel, smem_done)) != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.tj, g.kparts, g.ti);
+  cfg.blockDim = dim3(hf::THREADS);
+  cfg.dynamicSmemBytes = hf::post_smem_bytes();
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = g.kparts;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, hf::post_f32_kernel, a, w, b, out, g);
+}
+
+// The plan's checks (ops/head.f32_head_plan never breaks them).
+bool f32_ok(int N, int HW, int C, int E, int conv_act, int n_post, int m0, int act0, int m1,
+            int act1, int m_out, int conv_bm, int conv_groups, int kp0, int kp1) {
+  bool ok = N > 0 && HW > 0 && C > 0 && n_post >= 0 && n_post <= MAX_POST &&
+            conv_act >= kNone && conv_act <= kHswish && m_out > 0;
+  if (conv_act != kNone)  // conv_bm 128: conv_walk on conv_groups image groups; 8, 16: narrow
+    ok = ok && C % 4 == 0 && E > 0 && E % 4 == 0 &&
+         ((conv_bm == 128 && conv_groups >= 1 && conv_groups <= N) ||
+          ((conv_bm == 8 || conv_bm == 16) && conv_groups == 1));
+  const int ms[2] = {m0, m1}, acts[2] = {act0, act1}, kps[2] = {kp0, kp1};
+  for (int j = 0; j < n_post; ++j)
+    ok = ok && ms[j] > 0 && ms[j] % 4 == 0 && acts[j] >= kLinear && acts[j] <= kHswish &&
+         kps[j] >= 1 && kps[j] <= hf::MAX_KPARTS;
+  const int last = n_post == 0 ? (conv_act != kNone ? E : C) : ms[n_post - 1];
+  return ok && m_out <= last;
+}
+
+int launch_f32(const float* x, const float* cw, const float* cb, const float* w0,
+               const float* b0, const float* w1, const float* b1, float* pooled, float* mid,
+               float* out, int N, int HW, int C, int E, int conv_act, int n_post, int m0,
+               int act0, int m1, int act1, int m_out, int conv_bm, int conv_groups, int kp0,
+               int kp1, cudaStream_t st) {
+  if (!f32_ok(N, HW, C, E, conv_act, n_post, m0, act0, m1, act1, m_out, conv_bm, conv_groups,
+              kp0, kp1))
+    return (int)cudaErrorInvalidValue;
+  float* feat = n_post == 0 ? out : pooled;  // the pooled rows: width k, pitch ld
+  int k, ld;
+  cudaError_t e = cudaSuccess;
+  if (conv_act != kNone) {
+    k = ld = E;
+    if (conv_bm == 128) {
+      static bool done = false;
+      if ((e = allow_smem(hf::conv_walk_f32_kernel<128, 128>, done)) != cudaSuccess) return (int)e;
+      const hf::ConvGeo g{N, HW, C, E, conv_act, conv_groups, hf::cdiv(N, conv_groups), ld};
+      hf::conv_walk_f32_kernel<128, 128><<<dim3(hf::cdiv(E, 128), conv_groups), hf::THREADS,
+                                           hf::conv_smem_bytes(), st>>>(x, cw, cb, feat, g);
+    } else {  // a small batch: every image's pixel rows, conv_bm columns of E a block
+      static bool done[2] = {false, false};
+      const hf::PostGeo pg = hf::post_geo(N, C, E, C, ld, E, conv_act, 1);
+      if (conv_bm == 16) {
+        if ((e = allow_smem(hf::narrow_f32_kernel<true, 16>, done[1])) != cudaSuccess)
+          return (int)e;
+        hf::narrow_f32_kernel<true, 16><<<hf::cdiv(E, 16), hf::THREADS,
+                                          hf::narrow_smem_bytes(true, 16), st>>>(x, cw, cb, feat,
+                                                                                  pg, HW);
+      } else {
+        if ((e = allow_smem(hf::narrow_f32_kernel<true, 8>, done[0])) != cudaSuccess)
+          return (int)e;
+        hf::narrow_f32_kernel<true, 8><<<hf::cdiv(E, 8), hf::THREADS,
+                                         hf::narrow_smem_bytes(true, 8), st>>>(x, cw, cb, feat,
+                                                                                pg, HW);
+      }
+    }
+  } else {
+    k = C;
+    ld = n_post == 0 ? C : rup(C, 8);
+    const int vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    hf::pool_f32_kernel<<<dim3(hf::cdiv(ld, hf::POOL_CH), N), hf::POOL_THREADS, 0, st>>>(
+        x, feat, HW, C, ld, ld, vec);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_post == 0) return (int)e;
+  const bool one = n_post == 1;
+  e = launch_post_f32(feat, w0, b0, one ? out : mid,
+                      hf::post_geo(N, k, m0, ld, one ? m_out : m0, one ? m_out : m0, act0, kp0),
+                      st);
+  if (e != cudaSuccess || one) return (int)e;
+  return (int)launch_post_f32(mid, w1, b1, out,
+                              hf::post_geo(N, m0, m1, m0, m_out, m_out, act1, kp1), st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,14 +303,26 @@ int fused_head_bf16(const void* x, const void* cw, const void* cb, const void* w
                      conv_stages, kp0, kp1, st0, st1, (cudaStream_t)stream);
 }
 
+// The same arguments as fused_head_bf16 in float32, then conv_bm (128:
+// conv_walk; 8 or 16: narrow's columns a block), conv_groups (conv_walk's
+// image groups), kparts0, kparts1 (post_f32_kernel's K parts; 1 at N <= 16,
+// narrow) (ops/head.f32_head_plan); m0, m1: multiples of 4.
 int fused_head_f32(const void* x, const void* cw, const void* cb, const void* w0,
-                   const void* b0, const void* w1, const void* b1, void* pooled, void* out,
-                   int N, int HW, int C, int E, int conv_act, int n_post, int n0, int act0,
-                   int n1, int act1, void* stream) {
-  using F = float;
-  return launch_f32((const F*)x, (const F*)cw, (const F*)cb, (const F*)w0, (const F*)b0,
-                    (const F*)w1, (const F*)b1, (F*)pooled, (F*)out, N, HW, C, E, conv_act,
-                    n_post, n0, act0, n1, act1, (cudaStream_t)stream);
+                   const void* b0, const void* w1, const void* b1, void* pooled, void* mid,
+                   void* out, int N, int HW, int C, int E, int conv_act, int n_post, int m0,
+                   int act0, int m1, int act1, int m_out, int conv_bm, int conv_groups, int kp0,
+                   int kp1, void* stream) {
+  using F = const float*;
+  return launch_f32((F)x, (F)cw, (F)cb, (F)w0, (F)b0, (F)w1, (F)b1, (float*)pooled, (float*)mid,
+                    (float*)out, N, HW, C, E, conv_act, n_post, m0, act0, m1, act1, m_out,
+                    conv_bm, conv_groups, kp0, kp1, (cudaStream_t)stream);
+}
+
+// Dynamic shared memory of the float32 kernels (ops/head.f32_head_smem_bytes):
+// kind 0 conv_walk, 1 post, 2 narrow (pool: its POOL form; nc: columns a block).
+int head_f32_smem_bytes(int kind, int pool, int nc) {
+  return kind == 0 ? hf::conv_smem_bytes()
+                   : kind == 1 ? hf::post_smem_bytes() : hf::narrow_smem_bytes(pool != 0, nc);
 }
 
 // Dynamic shared memory of the bf16 kernels (ops/head.head_smem_bytes):

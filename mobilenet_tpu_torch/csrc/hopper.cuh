@@ -120,6 +120,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
+// 16 bytes global -> shared (both 16-byte aligned, through L2 only), of which
+// the first `src_bytes` (16 or 0) are read and the rest written as zeros.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(saddr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
 // 8 bytes global -> shared (both 8-byte aligned), of which the first
 // `src_bytes` (8 or 0) are read and the rest written as zeros.
 __device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src, uint32_t src_bytes) {

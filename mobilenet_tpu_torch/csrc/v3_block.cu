@@ -41,12 +41,14 @@
 // in the expansion and the depthwise, add nothing to the projection and
 // are never pooled.
 //
-// float32 (v3_tile.cuh): exact IEEE float32 by FMA on the CUDA cores, one
-// tile a block: the input window loaded once, the expanded channels in
-// chunks of KE = 32 (an f32 expanded tile, the depthwise, the chunk's share
-// of the projection); a synchronous loop (five barriers a chunk, no load
-// pipelining) whose time is its latency. It runs only on the verify and
-// float32 paths.
+// float32 (v3_f32.cuh, the plan of ops/v3_block.v3_plan): the same
+// persistent units (an output tile, every output channel) on the CUDA cores:
+// a producer warp stages the tile's in-image input pixels and each 32-channel
+// chunk of E's weights by cp.async into mbarrier rings; the expansion and the
+// projection are register-blocked fmaf products (4 pixels x 4 channels a
+// thread, float4 operands), the expansion into an f32 expanded tile, the
+// depthwise from it with a tap row's weights in registers, the projection's
+// accumulators live across the chunks. Exact IEEE float32 (no tensor core).
 //
 // The squeeze-excite gate is a reduction over the whole image in the middle
 // of the block, which one tile cannot see. A block with SE runs two passes
@@ -58,13 +60,14 @@
 //     `partial` (N x tiles x E f32); nothing else is written;
 //   then the image's gate: its tiles' sums in tile order, the two SE
 //     products and the hard sigmoid (bf16: once an image, by a launch of
-//     its own into N x E f32; float32: by every tile of pass 2 into shared
-//     memory);
-//   pass 2: the tile loop again with the gate applied before the
-//     projection (bf16: pass 2 alone splits Cout).
+//     its own into N x E f32; float32: by each unit of pass 2 into shared
+//     memory, once for consecutive units of one image);
+//   pass 2: bf16: the tile loop again with the gate applied before the
+//     projection (pass 2 alone splits Cout); float32: pass 1 also stores
+//     the depthwise's f32 output, and pass 2 projects it, gated, alone.
 // The pooled sum is deterministic (no atomics) and the expanded tensor still
-// never reaches device memory; SE blocks pay the expansion and depthwise
-// twice.
+// never reaches device memory; bf16 SE blocks pay the expansion and
+// depthwise twice.
 //
 // What bounds it on an H100: V3-Large 1.0-224 at batch 256 does ~100 GFLOP
 // of products over its 15 blocks; the blocks at 112-28 squared are bound by
@@ -72,86 +75,52 @@
 // squared by their operations (989 TFLOP/s bf16): 0.24 ms the sum of the
 // blocks' bounds.
 //
-// The tile loops live in v3_wgmma.cuh and v3_tile.cuh, which the chain
+// The tile loops live in v3_wgmma.cuh and v3_f32.cuh, which the chain
 // kernel (v3_chain.cu) shares.
-#include "v3_tile.cuh"
+#include "v3_f32.cuh"
 #include "v3_wgmma.cuh"
 
 namespace {
 
-using mnk::v3::SMEM_MAX;
-using mnk::v3::V3_THREADS;
-using mnk::v3::V3Shape;
-using mnk::v3::make_shape;
+namespace f = mnk::v3f;
 
-// POOL: pass 1 of an SE block (per-tile channel sums into `partial`); else the
-// block's output, gated by the image's SE gate when s.Se > 0.
-template <typename T, int K, bool POOL>
-__global__ void __launch_bounds__(V3_THREADS, 2)
-    v3_kernel(const T* __restrict__ x, const T* __restrict__ ew, const T* __restrict__ eb,
-              const T* __restrict__ dw, const T* __restrict__ db, const T* __restrict__ pw,
-              const T* __restrict__ pb, const T* __restrict__ w1, const T* __restrict__ b1,
-              const T* __restrict__ w2, const T* __restrict__ b2, float* __restrict__ partial,
-              T* __restrict__ out, V3Shape s) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tiles_img = s.tiles_h * s.tiles_w;
-  mnk::v3::v3_tile<T, K, POOL, false, V3Shape>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2,
-                                               partial, out, s, blockIdx.x / tiles_img,
-                                               blockIdx.x % tiles_img, smem);
+template <int K>
+__global__ void __launch_bounds__(f::THREADS, 1)
+    v3_f32_kernel(const __grid_constant__ f::Geo g, const f::Ptrs p, int pool) {
+  extern __shared__ __align__(128) unsigned char smem_f32[];
+  f::setup(smem_f32);
+  f::Ring wr, br;
+  f::run_pass<K>(g, p, smem_f32, pool != 0, wr, br);
 }
 
-template <typename T, int K, bool POOL>
-int launch_pass(const void* x, const void* ew, const void* eb, const void* dw, const void* db,
-                const void* pw, const void* pb, const void* w1, const void* b1,
-                const void* w2, const void* b2, float* partial, void* out, const V3Shape& s,
-                void* stream) {
-  static int smem_set = 48 * 1024;  // per instantiation: the opt-in granted so far
-  if (s.smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(v3_kernel<T, K, POOL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+// Pass 1 of an SE block (the per-tile sums), then the block's output, on a
+// persistent grid of at most the co-resident blocks.
+int launch_f32(const f::Geo& g, const f::Ptrs& p, void* stream) {
+  const auto kernel = g.K == 3 ? v3_f32_kernel<3> : v3_f32_kernel<5>;
+  static int smem_set[2] = {0, 0};  // per instantiation: the opt-in granted so far
+  int& set = smem_set[g.K == 3 ? 0 : 1];
+  cudaError_t e;
+  if (g.smem_bytes > set) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f::SMEM_LIMIT);
     if (e != cudaSuccess) return (int)e;
-    smem_set = SMEM_MAX;
+    set = f::SMEM_LIMIT;
   }
-  const long long blocks = (long long)s.N * s.tiles_h * s.tiles_w;
-  v3_kernel<T, K, POOL><<<(unsigned)blocks, V3_THREADS, s.smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)ew, (const T*)eb, (const T*)dw, (const T*)db, (const T*)pw,
-      (const T*)pb, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, partial, (T*)out,
-      s);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, f::THREADS, g.smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long units = (long long)g.N * g.tiles_img, cap = (long long)per_sm * sms;
+  const unsigned grid = (unsigned)(units < cap ? units : cap);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (g.Se > 0) {
+    kernel<<<grid, f::THREADS, g.smem_bytes, st>>>(g, p, 1);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, f::THREADS, g.smem_bytes, st>>>(g, p, 0);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int K>
-int launch_k(const void* x, const void* ew, const void* eb, const void* dw, const void* db,
-             const void* pw, const void* pb, const void* w1, const void* b1, const void* w2,
-             const void* b2, float* partial, void* out, const V3Shape& s, void* stream) {
-  if (s.Se > 0) {
-    const int code = launch_pass<T, K, true>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2,
-                                             partial, out, s, stream);
-    if (code != 0) return code;
-  }
-  return launch_pass<T, K, false>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2, partial, out, s,
-                                  stream);
-}
-
-template <typename T>
-int launch(const void* x, const void* ew, const void* eb, const void* dw, const void* db,
-           const void* pw, const void* pb, const void* w1, const void* b1, const void* w2,
-           const void* b2, void* partial, void* out, int N, int H, int W, int Cin, int E,
-           int Cout, int Se, int K, int stride, int act_exp, int act, int residual,
-           int identity, int TH, int TW, void* stream) {
-  V3Shape s;
-  if (!make_shape(&s, N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual, identity,
-                  TH, TW, (int)sizeof(T)))
-    return (int)cudaErrorInvalidValue;
-  if ((long long)N * s.tiles_h * s.tiles_w > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
-  if ((!identity && (ew == nullptr || eb == nullptr)) ||
-      (Se > 0 && (w1 == nullptr || b1 == nullptr || w2 == nullptr || b2 == nullptr ||
-                  partial == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  float* part = static_cast<float*>(partial);
-  return K == 3 ? launch_k<T, 3>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2, part, out, s, stream)
-                : launch_k<T, 5>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2, part, out, s, stream);
 }
 
 namespace w = mnk::v3w;
@@ -233,23 +202,36 @@ int v3_block_bf16(const void* x, const void* ew, const void* eb, const void* dw,
   return launch_bf16(x, ew, eb, dw, db, pw, pb, p, g, stream);
 }
 
+// partial: pass 1's sums (N x tiles x E f32) then its pre-gate tensor (N x
+// Ho x Wo x E f32), SE blocks only; plan: th, tw, ws, bs (ops/v3_block.v3_plan).
 int v3_block_f32(const void* x, const void* ew, const void* eb, const void* dw,
                  const void* db, const void* pw, const void* pb, const void* w1,
                  const void* b1, const void* w2, const void* b2, void* partial, void* out,
                  int N, int H, int W, int Cin, int E, int Cout, int Se, int K, int stride,
-                 int act_exp, int act, int residual, int identity, int TH, int TW,
-                 void* stream) {
-  return launch<float>(x, ew, eb, dw, db, pw, pb, w1, b1, w2, b2, partial, out, N, H, W, Cin,
-                       E, Cout, Se, K, stride, act_exp, act, residual, identity, TH, TW,
-                       stream);
+                 int act_exp, int act, int residual, int identity, int th, int tw, int ws,
+                 int bs, void* stream) {
+  const f::Geo g = f::make_geo(N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+                               identity, f::Plan{th, tw, ws, bs});
+  if (!f::geo_ok(g) || (long long)N * g.tiles_img > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if ((!identity && (ew == nullptr || eb == nullptr)) ||
+      (Se > 0 && (w1 == nullptr || b1 == nullptr || w2 == nullptr || b2 == nullptr ||
+                  partial == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  using F = const float*;
+  float* part = static_cast<float*>(partial);
+  const f::Ptrs p{(F)x, (F)ew, (F)eb, (F)dw, (F)db, (F)pw, (F)pb, (F)w1, (F)b1, (F)w2, (F)b2,
+                  part, part == nullptr ? nullptr : part + (long long)N * g.tiles_img * E,
+                  static_cast<float*>(out)};
+  return launch_f32(g, p, stream);
 }
 
-int v3_block_smem_bytes(int Cin, int E, int Cout, int Se, int K, int stride, int TH, int TW,
-                        int item) {
-  V3Shape s;
-  make_shape(&s, 1, 2 * 16, 2 * 16, Cin, E, Cout, Se, K, stride, mnk::kRelu, mnk::kRelu, 0, 0,
-             TH, TW, item);
-  return s.smem;
+// Dynamic shared memory of a float32 plan (ops/v3_block.v3_smem_bytes
+// mirrors it).
+int v3_f32_smem_bytes(int th, int tw, int H, int W, int Cin, int E, int Cout, int Se, int K,
+                      int stride, int ws, int bs, int identity) {
+  return f::make_geo(1, H, W, Cin, E, Cout, Se, K, stride, mnk::kRelu, mnk::kRelu, 0, identity,
+                     f::Plan{th, tw, ws, bs})
+      .smem_bytes;
 }
 
 // Dynamic shared memory of a bf16 plan (ops/v3_block.v3_wgmma_smem_bytes

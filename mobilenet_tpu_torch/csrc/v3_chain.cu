@@ -6,12 +6,12 @@
 // the per-block kernel (v3_block.cu) called once per block in sequence, bit
 // for bit, in bf16 and float32. Every stage computes its units with the same
 // code as v3_block.cu, on the plan that ops/v3_block gives that block alone
-// (bf16: v3_wgmma.cuh on v3_wgmma_plan; float32: v3_tile.cuh on v3_plan),
+// (bf16: v3_wgmma.cuh on v3_wgmma_plan; float32: v3_f32.cuh on v3_plan),
 // and rounds its output to the activation dtype where the per-block route
 // writes it to device memory.
 //
 // Design: the pattern of chain.cu. One persistent grid runs all K stages;
-// each stage loops its units (float32: tiles) over the grid. A stage with
+// each stage loops its units over the grid. A stage with
 // squeeze-excite runs v3_block.cu's passes without the launch boundaries
 // between them: pass 1 over all tiles writes the per-tile channel sums into
 // `partial`, a grid-wide barrier (cooperative_groups::this_grid().sync()),
@@ -23,9 +23,10 @@
 // dynamic shared memory of the largest stage (beside its static copy of the
 // stage's shape). Activations between stages go through two ping-pong
 // scratch buffers that the caller allocates; the SE `partial` (and bf16
-// `gate`) buffers are sized for the largest SE stage. Stage shapes, plans
+// `gate`; float32: each stage's pre-gate tensor after its sums) buffers are
+// sized for the largest SE stage. Stage shapes, plans
 // and weight pointers reach the kernel as one __grid_constant__ parameter
-// table; each stage builds (bf16) or copies (float32) its shape into shared
+// table; each stage builds its shape into shared
 // memory before its units. bf16 stages load their windows and weights by
 // TMA through tensor maps that the host encodes per stage into a pinned
 // buffer (v3_chain_bf16_maps), which the caller copies to the device ahead
@@ -33,7 +34,8 @@
 // each grid barrier the producers fence the other blocks' stores into the
 // async proxy (fence.proxy.async.global), as chain.cu does. float32: k = 3
 // or 5 is dispatched per stage at run time, so one kernel holds both k
-// instantiations of both passes; its stages load through L2 (__ldcg).
+// instantiations; its producer's cp.async copies and its gates' reads of
+// `partial` go through L2 (.cg), which the grid barrier makes coherent.
 //
 // What bounds it on an H100: the chain's input read once, its output written
 // once and the blocks' products (the sum of the per-block operation counts):
@@ -48,173 +50,153 @@
 // forward's time goes.
 #include <cooperative_groups.h>
 
-#include "v3_tile.cuh"
+#include "v3_f32.cuh"
 #include "v3_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using mnk::v3::SMEM_MAX;
-using mnk::v3::V3_THREADS;
-using mnk::v3::V3Shape;
-using mnk::v3::make_shape;
-using mnk::v3::v3_tile;
-
 constexpr int MAX_STAGES = 15;  // V3-Large's bottleneck count
-// The running stage's V3Shape is copied into a static shared variable. Read
-// through the parameter table at a run-time stage index, every field access
-// of the tile loop is a load, and a stage's tiles ran far slower than
-// v3_block's on the card; kept at the head of the dynamic shared memory,
-// where the compiler cannot tell it from the tile's buffers, it was reloaded
-// after every shared store, still well behind v3_block.
+// The running stage's shape (bf16: its Geo and plan; float32: its Geo) is
+// built into a static shared variable. Read through the parameter table at a
+// run-time stage index, every field access of the tile loop is a load, and a
+// stage's tiles ran far slower than v3_block's on the card.
 constexpr int SHAPE_BYTES = 256;  // what the Python fits function reserves for it
-static_assert(sizeof(V3Shape) <= SHAPE_BYTES, "the stage shape must fit its reserve");
 constexpr int PTRS = 10;  // weight pointers a stage: exp w/b, dw w/b, prj w/b, SE w1/b1/w2/b2
-constexpr int DIMS = 12;  // ints a stage: Cin E Cout Se K stride act_exp act residual identity TH TW
 
-struct Stage {
+// ---- float32 ----------------------------------------------------------------------
+
+namespace f = mnk::v3f;
+constexpr int DIMS_F = 14;  // Cin E Cout Se K stride act_exp act residual identity th tw ws bs
+static_assert(sizeof(f::Geo) <= SHAPE_BYTES, "the stage shape must fit its reserve");
+
+struct StageF {
   const void* w[PTRS];
-  V3Shape s;
+  int d[DIMS_F];
 };
 
-struct ChainArgs {
+struct ChainF {
   const void* x;
   void* out;
   void* scratch[2];
   float* partial;
-  int stages;
-  Stage st[MAX_STAGES];
+  int N, H, W, stages;
+  StageF st[MAX_STAGES];
 };
-static_assert(sizeof(ChainArgs) <= 4096, "the parameter table must fit the 4 KB kernel limit");
+static_assert(sizeof(ChainF) <= 4096, "the parameter table must fit the 4 KB kernel limit");
 
-template <typename T, int K>
-__device__ __forceinline__ void run_stage(const V3Shape& s, const Stage& g, const T* src, T* dst,
-                                          float* partial, unsigned char* smem,
-                                          cg::grid_group& grid) {
-  const int tiles_img = s.tiles_h * s.tiles_w;
-  const int tiles = s.N * tiles_img;
-  const auto w = [&g](int j) { return static_cast<const T*>(g.w[j]); };
-  if (s.Se > 0) {
-    for (int i = blockIdx.x; i < tiles; i += gridDim.x)
-      v3_tile<T, K, true, true, const V3Shape&>(src, w(0), w(1), w(2), w(3), w(4), w(5), w(6),
-                                                w(7), w(8), w(9), partial, dst, s,
-                                                i / tiles_img, i % tiles_img, smem);
-    grid.sync();  // every tile's sums are in `partial`
-  }
-  for (int i = blockIdx.x; i < tiles; i += gridDim.x)
-    v3_tile<T, K, false, true, const V3Shape&>(src, w(0), w(1), w(2), w(3), w(4), w(5), w(6),
-                                               w(7), w(8), w(9), partial, dst, s,
-                                               i / tiles_img, i % tiles_img, smem);
+__host__ __device__ inline f::Geo stage_geo_f(int N, int H, int W, const int* d) {
+  return f::make_geo(N, H, W, d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7], d[8], d[9],
+                     f::Plan{d[10], d[11], d[12], d[13]});
 }
 
-template <typename T>
-__global__ void __launch_bounds__(V3_THREADS, 2)
-    v3_chain_kernel(const __grid_constant__ ChainArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ V3Shape s;
+__global__ void __launch_bounds__(f::THREADS, 1)
+    v3_chain_f32_kernel(const __grid_constant__ ChainF a) {
+  extern __shared__ __align__(128) unsigned char smem_cf[];
+  __shared__ f::Geo sg;  // the running stage's shape and plan
   cg::grid_group grid = cg::this_grid();
-  const T* src = static_cast<const T*>(a.x);
+  f::setup(smem_cf);
+  f::Ring wr, br;
+  int h = a.H, wd = a.W;
+  const float* src = static_cast<const float*>(a.x);
   for (int k = 0; k < a.stages; ++k) {
-    T* dst = static_cast<T*>(k == a.stages - 1 ? a.out : a.scratch[k % 2]);
-    const Stage& g = a.st[k];
-    // every thread is past the previous stage's tiles (its grid barrier)
-    if (threadIdx.x < sizeof(V3Shape) / 4)
-      reinterpret_cast<int*>(&s)[threadIdx.x] = reinterpret_cast<const int*>(&g.s)[threadIdx.x];
+    const StageF& st = a.st[k];
+    // every thread is past the previous stage (its grid barrier)
+    if (threadIdx.x == 0) sg = stage_geo_f(a.N, h, wd, st.d);
     __syncthreads();
-    if (s.K == 3)
-      run_stage<T, 3>(s, g, src, dst, a.partial, smem, grid);
-    else
-      run_stage<T, 5>(s, g, src, dst, a.partial, smem, grid);
-    if (k + 1 < a.stages) grid.sync();  // stage k's output is complete
+    const f::Geo& g = sg;
+    const auto t = [&st](int j) { return static_cast<const float*>(st.w[j]); };
+    float* dst = static_cast<float*>(k == a.stages - 1 ? a.out : a.scratch[k % 2]);
+    const f::Ptrs p{src, t(0), t(1), t(2), t(3), t(4), t(5), t(6), t(7), t(8), t(9),
+                    a.partial, a.partial + (long long)a.N * g.tiles_img * g.E, dst};
+    h = g.Ho;  // read before the grid barrier, behind which thread 0 rewrites sg
+    wd = g.Wo;
+    for (int pass = g.Se > 0 ? 1 : 0; pass >= 0; --pass) {
+      if (g.K == 3)
+        f::run_pass<3>(g, p, smem_cf, pass == 1, wr, br);
+      else
+        f::run_pass<5>(g, p, smem_cf, pass == 1, wr, br);
+      // pass 1: every tile's sums are in `partial`; pass 0: stage k's output is complete
+      if (pass == 1 || k + 1 < a.stages) grid.sync();
+    }
     src = dst;
   }
 }
 
-// Opts the kernel in to all the dynamic shared memory that its static
-// shared memory (the stage's shape) leaves of the per-block limit.
-template <typename T>
-cudaError_t opt_in(int* granted) {
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, v3_chain_kernel<T>);
-  if (e != cudaSuccess) return e;
-  const int dynamic = SMEM_MAX - (int)attr.sharedSizeBytes;
-  e = cudaFuncSetAttribute(v3_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           dynamic);
-  if (e == cudaSuccess) *granted = dynamic;
-  return e;
-}
-
-template <typename T>
-int launch(const void* x, void* out, void* scratch0, void* scratch1, void* partial, int N,
-           int H, int W, int stages, const void* const* ptrs, const int* dims, int* grid,
-           void* stream) {
+int launch_f32(const void* x, void* out, void* scratch0, void* scratch1, void* partial, int N,
+               int H, int W, int stages, const void* const* ptrs, const int* dims, int* grid,
+               void* stream) {
   if (stages < 1 || stages > MAX_STAGES || ptrs == nullptr || dims == nullptr)
     return (int)cudaErrorInvalidValue;
   if (stages > 1 && (scratch0 == nullptr || (stages > 2 && scratch1 == nullptr)))
     return (int)cudaErrorInvalidValue;
-  ChainArgs a{};
+  ChainF a{};
   a.x = x;
   a.out = out;
   a.scratch[0] = scratch0;
   a.scratch[1] = scratch1;
   a.partial = static_cast<float*>(partial);
+  a.N = N;
+  a.H = H;
+  a.W = W;
   a.stages = stages;
   int h = H, w = W, cin = -1, smem = 0;
-  long long max_tiles = 0;
+  long long max_units = 0;
   for (int k = 0; k < stages; ++k) {
-    const int* d = dims + k * DIMS;
-    Stage& g = a.st[k];
+    const int* d = dims + k * DIMS_F;
     if (cin >= 0 && d[0] != cin) return (int)cudaErrorInvalidValue;  // stages must chain
-    if (!make_shape(&g.s, N, h, w, d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7], d[8], d[9],
-                    d[10], d[11], (int)sizeof(T)))
-      return (int)cudaErrorInvalidValue;
-    for (int j = 0; j < PTRS; ++j) g.w[j] = ptrs[k * PTRS + j];
-    const bool identity = d[9] != 0, se = d[3] > 0;
+    const f::Geo g = stage_geo_f(N, h, w, d);
+    if (!f::geo_ok(g)) return (int)cudaErrorInvalidValue;
     for (int j = 0; j < PTRS; ++j) {
-      const bool needed = j >= 6 ? se : (j < 2 ? !identity : true);
-      if (needed && g.w[j] == nullptr) return (int)cudaErrorInvalidValue;
+      const bool needed = j >= 6 ? g.Se > 0 : (j < 2 ? !g.identity : true);
+      if (needed && ptrs[k * PTRS + j] == nullptr) return (int)cudaErrorInvalidValue;
+      a.st[k].w[j] = ptrs[k * PTRS + j];
     }
-    if (se && partial == nullptr) return (int)cudaErrorInvalidValue;
-    const long long tiles = (long long)N * g.s.tiles_h * g.s.tiles_w;
-    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    max_tiles = tiles > max_tiles ? tiles : max_tiles;
-    smem = g.s.smem > smem ? g.s.smem : smem;
-    h = g.s.Ho;
-    w = g.s.Wo;
-    cin = d[2];
+    for (int j = 0; j < DIMS_F; ++j) a.st[k].d[j] = d[j];
+    if (g.Se > 0 && partial == nullptr) return (int)cudaErrorInvalidValue;
+    const long long units = (long long)N * g.tiles_img;
+    if (units > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    max_units = units > max_units ? units : max_units;
+    smem = g.smem_bytes > smem ? g.smem_bytes : smem;
+    h = g.Ho;
+    w = g.Wo;
+    cin = g.Cout;
   }
-  static int smem_set = -1;  // per instantiation: the dynamic opt-in granted
+  static int smem_set = -1;  // the dynamic opt-in granted
   cudaError_t e;
   if (smem_set < 0) {
-    e = opt_in<T>(&smem_set);
+    cudaFuncAttributes attr;
+    if ((e = cudaFuncGetAttributes(&attr, v3_chain_f32_kernel)) != cudaSuccess) return (int)e;
+    const int dynamic = 232448 - (int)attr.sharedSizeBytes;
+    e = cudaFuncSetAttribute(v3_chain_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dynamic);
     if (e != cudaSuccess) return (int)e;
+    smem_set = dynamic;
   }
   if (smem > smem_set) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v3_chain_kernel<T>, V3_THREADS,
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, v3_chain_f32_kernel, f::THREADS,
                                                     smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const long long cap = (long long)per_sm * sms;
-  const unsigned blocks = (unsigned)(max_tiles < cap ? max_tiles : cap);
+  const unsigned blocks = (unsigned)(max_units < cap ? max_units : cap);
   if (grid != nullptr) *grid = (int)blocks;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)v3_chain_kernel<T>, dim3(blocks),
-                                  dim3(V3_THREADS), args, (size_t)smem, (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel((const void*)v3_chain_f32_kernel, dim3(blocks),
+                                  dim3(f::THREADS), args, (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-
 // ---- bf16 -------------------------------------------------------------------------
 
 namespace w = mnk::v3w;
-constexpr int DIMS_W = 16;  // DIMS, then the plan's split, cw, ws, bs (TH, TW as th, tw)
+constexpr int DIMS_W = 16;  // DIMS_F's first 10, then th, tw, split, cw, ws, bs
 
 struct StageW {
   const void* w[PTRS];
@@ -380,9 +362,9 @@ extern "C" {
 
 // ptrs: stages x 10 weight pointers (exp_w, exp_b, dw_w, dw_b, prj_w, prj_b,
 // se_w1, se_b1, se_w2, se_b2; 0 where the block has no such tensor); dims:
-// stages x 12 ints (Cin, E, Cout, Se, K, stride, act_exp, act, residual,
-// identity, TH, TW), bf16 stages x 16 (then split, cw, ws, bs: the plan of
-// ops/v3_block.v3_wgmma_plan, TH and TW its th and tw). Stage k reads stage
+// stages x 14 ints (Cin, E, Cout, Se, K, stride, act_exp, act, residual,
+// identity, th, tw, ws, bs: the plan of ops/v3_block.v3_plan), bf16 stages x
+// 16 (then th, tw, split, cw, ws, bs: the plan of ops/v3_block.v3_wgmma_plan). Stage k reads stage
 // k-1's output; H and W are the first stage's input. `grid` (may be null)
 // receives the launch's block count: the largest stage's units or the
 // co-resident cap, the smaller. bf16: `gate` holds N x E f32 for the SE
@@ -419,8 +401,8 @@ int v3_chain_bf16_maps(void* host, const void* x, void* scratch0, void* scratch1
 int v3_chain_f32(const void* x, void* out, void* scratch0, void* scratch1, void* partial,
                  int N, int H, int W, int stages, const void* const* ptrs, const int* dims,
                  int* grid, void* stream) {
-  return launch<float>(x, out, scratch0, scratch1, partial, N, H, W, stages, ptrs, dims,
-                       grid, stream);
+  return launch_f32(x, out, scratch0, scratch1, partial, N, H, W, stages, ptrs, dims, grid,
+                    stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 // kernel, shared by the per-block kernel (v3_block.cu) and the chain kernel
 // (v3_chain.cu), so that a chain stage computes bit for bit what one
 // per-block launch does on the same plan. The numerics are v3_block.cu's
-// (its header); float32 stays on v3_tile.cuh.
+// (its header); float32 runs v3_f32.cuh.
 //
 // Work is split into units: an output tile of th x tw pixels of one image
 // (tiles_h x tiles_w a image) times a part of the output channels (the

@@ -39,17 +39,17 @@ build_log: str = ""
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6, pw_act
 _BLOCK = [_P] * 6 + [_I] * 8
-# x, conv_w, conv_b, w0, b0, w1, b1, pooled, out | N, HW, C, E, conv_act,
-# n_post, n0, act0, n1, act1 (acts: -1 none, 0 linear, 1 relu, 2 relu6, 3 hswish)
-_HEAD = [_P] * 9 + [_I] * 10
-# bf16: ... pooled, mid, out | N, HW, C, E, conv_act, n_post, m0, act0, m1, act1,
-# m_out | conv_nwg, conv_groups, conv_stages, kparts0, kparts1, stages0, stages1
-# (ops/head.head_plan)
+# x, conv_w, conv_b, w0, b0, w1, b1, pooled, mid, out | N, HW, C, E, conv_act,
+# n_post, m0, act0, m1, act1, m_out (acts: -1 none, 0 linear, 1 relu, 2 relu6,
+# 3 hswish), then bf16: conv_nwg, conv_groups, conv_stages, kparts0, kparts1,
+# stages0, stages1 (ops/head.head_plan); float32: conv_bm, conv_groups,
+# kparts0, kparts1 (ops/head.f32_head_plan)
 _HEAD_BF16 = [_P] * 10 + [_I] * 18
+_HEAD_F32 = [_P] * 10 + [_I] * 15
 # x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se_w1, se_b1, se_w2, se_b2,
 # partial, out | N, H, W, Cin, E, Cout, Se, K, stride, act_exp, act, residual,
-# identity, TH, TW
-_V3 = [_P] * 13 + [_I] * 15
+# identity, then float32 th, tw, ws, bs (ops/v3_block.v3_plan)
+_V3 = [_P] * 13 + [_I] * 17
 # ... then th, tw, split, cw, ws, bs (ops/v3_block.v3_wgmma_plan) for bf16;
 # partial: N x tiles x E f32 sums then N x E f32 gates (SE blocks)
 _V3_BF16 = [_P] * 13 + [_I] * 19
@@ -81,13 +81,13 @@ _SIGNATURES = {
     "depthwise_f32": [_P] * 4 + [_I] * 11, "depthwise_bf16": [_P] * 4 + [_I] * 11,
     "v3_block_bf16": _V3_BF16, "v3_block_f32": _V3,
     # x, out, scratch0, scratch1, partial | N, H, W, stages | ptrs (stages x
-    # 10 weight pointers), dims (stages x 12 ints): host arrays; grid: one
+    # 10 weight pointers), dims (stages x 14 ints): host arrays; grid: one
     # host int the launch's block count is written to
     "v3_chain_f32": [_P] * 5 + [_I] * 4 + [_P] * 3,
     # the same with gate (N x E f32) and maps (the device copy of
     # v3_chain_bf16_maps' output) after partial; dims: stages x 16 ints
     "v3_chain_bf16": [_P] * 7 + [_I] * 4 + [_P] * 3,
-    "fused_head_bf16": _HEAD_BF16, "fused_head_f32": _HEAD,
+    "fused_head_bf16": _HEAD_BF16, "fused_head_f32": _HEAD_F32,
     # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
     # relu6 | normalize scale, offset (| bf16: th, grid of ops/stem.stem_plan)
     "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0 + [_I] * 2,
@@ -104,8 +104,9 @@ _HOST_SIGNATURES = {
     "separable_bf16_smem_bytes": ([_I] * 7, ctypes.c_int),
     # nwg, th, tw, kp, ws, bs, stride, cin -> bytes of dynamic shared memory
     "separable_i8_smem_bytes": ([_I] * 8, ctypes.c_int),
-    # Cin, E, Cout, Se, K, stride, TH, TW, itemsize -> bytes of dynamic shared memory
-    "v3_block_smem_bytes": ([_I] * 9, ctypes.c_int),
+    # th, tw, H, W, Cin, E, Cout, Se, K, stride, ws, bs, identity -> bytes of
+    # dynamic shared memory (ops/v3_block.v3_smem_bytes)
+    "v3_f32_smem_bytes": ([_I] * 13, ctypes.c_int),
     # th, tw, Cin, E, Cout, K, stride, cw, ws, bs, identity, pass (0 full, 1
     # pool, 2 gated) -> bytes of dynamic shared memory
     "v3_i8_wgmma_smem_bytes": ([_I] * 12, ctypes.c_int),
@@ -119,6 +120,9 @@ _HOST_SIGNATURES = {
     # kind (0 conv_walk, 1 post), C, nwg, stages -> bytes of dynamic shared
     # memory (ops/head.head_smem_bytes)
     "head_smem_bytes": ([_I] * 4, ctypes.c_int),
+    # kind (0 conv_walk, 1 post, 2 narrow), pool, nc -> bytes of dynamic
+    # shared memory of the float32 kernels (ops/head.f32_head_smem_bytes)
+    "head_f32_smem_bytes": ([_I] * 3, ctypes.c_int),
     # the bytes of v3_block_i8_prepare's buffer
     "v3_block_i8_prepared_bytes": ([], ctypes.c_int),
     # buf, then v3_block_i8's arguments but x, the SE scratch, out and the

@@ -8,13 +8,14 @@ Replaces every form of the TPU kernel `mobilenet_tpu/ops/pallas_head.py`
 V3-Large's and V3-Small's conv_last + hswish -> pool -> head matmul + hswish
 -> fc. The conv_last output never reaches device memory: its stage writes
 only the pooled (N, E) rows. bf16 launches one kernel a stage (V1 pool, post:
-2; V2 conv_walk, post: 2; V3 conv_walk, post, post: 3), float32 two at most
-(conv_pool, then the post stage). A post weight whose width is not a
-multiple of 8 (or whose rows do not follow the previous stage's padded
-width, or whose data is not 16-byte aligned) is copied into a zero-padded
-one for the bf16 kernel's TMA maps; no model's head has one. The bf16
-conv_last takes at most 1600 input channels (its resident weight slice);
-float32 takes any width whose rows fit.
+2; V2 conv_walk, post: 2; V3 conv_walk, post, post: 3), float32 likewise on
+the CUDA-core kernels of `csrc/head_f32.cuh`, planned by `f32_head_plan`. A
+post weight whose width is not a multiple of 8 (or whose rows do not follow
+the previous stage's padded width, or whose data is not 16-byte aligned) is
+copied into a zero-padded one for the kernels' 16-byte loads (TMA maps in
+bf16); no model's head has one. The bf16 conv_last takes at most 1600 input
+channels (its resident weight slice); float32 streams its weight and takes
+any width.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from .separable_block import H100_SMS, _sms, check_aligned, check_channels, chec
 # The kernels' activation codes (numerics.cuh enum Act): fused_head, v3_block.
 ACTS = {"linear": 0, "relu": 1, "relu6": 2, "hswish": 3}
 MAX_POST = 2
-HB = 2                  # float32: images per head_post_kernel block
 SMEM_MAX = 232448       # the per-block shared-memory opt-in limit (227 KB)
 
 # -- the bf16 kernels' plan (csrc/head_wgmma.cuh) -------------------------------
@@ -54,15 +54,6 @@ def _rup(v: int, m: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def f32_post_smem_bytes(c: int, conv: Optional[Tuple], post: Sequence[Tuple]) -> int:
-    """Dynamic shared memory of the float32 post stage (fused_head.cu
-    head_post_kernel): two f32 rows of the widest pooled/post width per
-    image. The float32 conv_last stage uses a fixed static tile."""
-    e = int(conv[0].shape[1]) if conv is not None else c
-    maxw = max([e] + [int(w.shape[1]) for w, _, _ in post])
-    return _rup(2 * HB * maxw * 4, 128)
 
 
 def head_smem_bytes(kind: int, c: int, nwg: int, stages: int) -> int:
@@ -182,13 +173,124 @@ def head_plan(n: int, c: int, e: Optional[int], widths: Tuple[int, ...],
     return HeadPlan(conv, ld, tuple(posts))
 
 
+# -- the float32 kernels' plan (csrc/head_f32.cuh) -----------------------------
+F32_BK = 32             # conv_walk: K a chunk
+F32_CS = 3              # conv_walk: ring slots
+F32_PK = 32             # post: K a chunk
+F32_PT = 64             # post: rows and columns a tile
+F32_PS = 4              # post: ring slots
+F32_RED_LD = F32_PT + 4
+# narrow_f32_kernel (8 or 16 columns a block, the whole of K, no cluster) for
+# the post matmuls up to this batch, and for the conv_last walk up to two of
+# its 64-row pixel tiles
+F32_SMALL_N = 16
+F32_NARROW_ROWS = 128
+F32_POST_NC = 8         # narrow post: columns a block
+# blocks an SM holds by registers: conv_walk's 256 threads at up to 128
+# (`__launch_bounds__(256, 2)`)
+F32_CONV_PER_SM = 2
+
+
+class F32ConvPlan(NamedTuple):
+    bm: int       # 128 (conv_walk: 128-row tiles), or narrow's columns a block (8, 16)
+    bn: int       # columns of E a block
+    slices: int   # cdiv(E, bn)
+    groups: int   # image groups (grid y; narrow: 1)
+    gimg: int     # images a group: cdiv(N, groups), as the kernel computes it
+    per_sm: int   # blocks an SM holds
+    smem: int
+
+
+class F32PostPlan(NamedTuple):
+    k: int        # W's rows
+    m: int        # W's width (a multiple of 8)
+    narrow: bool  # narrow_f32_kernel (a batch up to F32_SMALL_N), else post_f32_kernel
+    kparts: int   # K parts a tile: the cluster's size (narrow: 1)
+    ti: int       # 64-row tiles (narrow: 1)
+    tj: int       # 64-column tiles (narrow: blocks)
+    nch: int      # chunks of K: 32 rows (narrow: 256)
+    blocks: int   # ti x tj x kparts
+
+
+class F32HeadPlan(NamedTuple):
+    conv: Optional[F32ConvPlan]
+    ld: int       # the pooled rows' pitch: E, or C rounded up to 8
+    posts: Tuple[F32PostPlan, ...]
+
+
+def f32_head_smem_bytes(kind: int, pool: int = 0, nc: int = 8) -> int:
+    """Dynamic shared memory of a float32 kernel (head_f32.cuh; the C entry
+    `head_f32_smem_bytes` computes the same), f32: kind 0 conv_walk (its
+    ring of 3 A chunks 128 x 32 and weight chunks 32 x 128, or the staged
+    tile 128 x 132 over it, the larger), kind 1 post (a ring of 4 A chunks
+    64 x 32 and W chunks 32 x 64, then the 64 x 68 partial tile), kind 2
+    narrow on nc columns a block (pool: the conv_last form, a ring of 4 A
+    chunks 64 x 64 and W chunks 64 x nc and the K slices' 64 x nc partials;
+    else a ring of 4 A chunks 16 x 256 and W chunks 256 x nc and the
+    slices' 16 x nc partials; 256 threads over the tile's 4 x 4 quads, the
+    rest K slices). pool_f32_kernel uses a static 16 KB slab."""
+    if kind == 0:
+        return max(F32_CS * 2 * 128 * F32_BK, 128 * 132) * 4
+    if kind == 1:
+        return (F32_PS * 2 * F32_PT * F32_PK + F32_PT * F32_RED_LD) * 4
+    tr, nk, slots = (64, 64, 4) if pool else (F32_SMALL_N, 256, 4)
+    slices = 256 // (tr // 4 * (nc // 4))
+    return (slots * (tr * nk + nk * nc) + slices * tr * nc) * 4
+
+
+def f32_conv_plan(n: int, hw: int, c: int, e: int, sms: int = H100_SMS) -> F32ConvPlan:
+    """The float32 conv_last walk's plan: up to F32_NARROW_ROWS pixel rows
+    (batch 1 and 2 at 7 x 7), narrow_f32_kernel<true>: 8 columns of E a
+    block, 16 where E / 8 blocks would exceed the card's SMs, each every
+    image's rows and the whole of C; above, conv_walk_f32_kernel (8 x 8
+    fmaf a thread) with image groups so that slices x groups fill one
+    wave."""
+    if n * hw > F32_NARROW_ROWS:
+        smem = f32_head_smem_bytes(0)
+        per_sm = min(SMEM_SM // (smem + 1024), F32_CONV_PER_SM)
+        slices = _cdiv(e, 128)
+        gimg = _cdiv(n, max(1, min(n, sms * per_sm // slices)))
+        return F32ConvPlan(128, 128, slices, _cdiv(n, gimg), gimg, per_sm, smem)
+    nc = 16 if _cdiv(e, 8) > sms else 8
+    smem = f32_head_smem_bytes(2, 1, nc)
+    return F32ConvPlan(nc, nc, _cdiv(e, nc), 1, n, SMEM_SM // (smem + 1024), smem)
+
+
+def f32_post_plan(n: int, k: int, m: int) -> F32PostPlan:
+    """The float32 post matmul's plan for (n, k) @ (k, m): up to F32_SMALL_N
+    rows, narrow_f32_kernel (F32_POST_NC columns a block, the whole of K in
+    256-row chunks); above, post_f32_kernel's 64 x 64 output tiles with K
+    split into the fewest parts (at most 8, one a 32-row chunk at least)
+    that put MIN_BLOCKS blocks on the card."""
+    if n <= F32_SMALL_N:
+        tj = _cdiv(m, F32_POST_NC)
+        return F32PostPlan(k, m, True, 1, 1, tj, _cdiv(k, 256), tj)
+    nch, ti, tj = _cdiv(k, F32_PK), _cdiv(n, F32_PT), _cdiv(m, F32_PT)
+    kparts = max(1, min(MAX_KPARTS, nch, _cdiv(MIN_BLOCKS, ti * tj)))
+    return F32PostPlan(k, m, False, kparts, ti, tj, nch, ti * tj * kparts)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_head_plan(n: int, hw: int, c: int, e: Optional[int], widths: Tuple[int, ...],
+                  sms: int = H100_SMS) -> F32HeadPlan:
+    """The float32 kernels' plan for n images of hw pixels of c channels,
+    conv_last c -> e (None: none) and post weights of `widths` (each a
+    multiple of 8: the wrapper pads the others)."""
+    conv = f32_conv_plan(n, hw, c, e, sms) if e else None
+    ld = e if e else _rup(c, 8)
+    posts, k = [], e if e else c
+    for m in widths:
+        posts.append(f32_post_plan(n, k, m))
+        k = m
+    return F32HeadPlan(conv, ld, tuple(posts))
+
+
 def head_fits(c: int, conv: Optional[Tuple], post: Sequence[Tuple]) -> bool:
-    """True when the kernels take this form: 0-2 post matmuls, known
-    activations, and the float32 post stage's rows within the shared-memory
-    limit. bf16 with a conv_last also needs `bf16_conv_fits`."""
+    """True when the kernels take this form: 0-2 post matmuls and known
+    activations (the float32 kernels tile every width; bf16 with a
+    conv_last also needs `bf16_conv_fits`). c: the input's channels."""
     acts = ([conv[2]] if conv is not None else []) + [a for _, _, a in post]
-    return (len(post) <= MAX_POST and all(a in ACTS for a in acts)
-            and f32_post_smem_bytes(c, conv, post) <= SMEM_MAX)
+    return c > 0 and len(post) <= MAX_POST and all(a in ACTS for a in acts)
 
 
 def bf16_conv_fits(c: int) -> bool:
@@ -257,7 +359,7 @@ def fused_head(x, conv: Optional[Tuple], post: Sequence[Tuple]) -> torch.Tensor:
         check_channels(name, c, int(conv[0].shape[1]))
         check_aligned(name, x, conv[0], conv[1])
     if not head_fits(c, conv, post):
-        raise ValueError(f"{name}: rows of width {k} exceed the kernel's shared memory")
+        raise ValueError(f"{name}: the kernels do not take this form")
     if sfx == "bf16" and conv is not None and not bf16_conv_fits(c):
         raise ValueError(f"{name}: the bf16 conv_last's weight slice of {c} input channels "
                          f"exceeds the kernel's shared memory")
@@ -266,30 +368,9 @@ def fused_head(x, conv: Optional[Tuple], post: Sequence[Tuple]) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.library()
-    if sfx == "bf16":
-        out = _launch_bf16(lib, x, conv, post, k, _sms(x.device.index or 0),
-                           torch.cuda.current_stream(x.device).cuda_stream)
-        fused_head.launches += 1
-        return out
-    out = torch.empty((n, k), dtype=x.dtype, device=x.device)
-    e = int(conv[0].shape[1]) if conv is not None else c
-    # the conv_last stage's pooled (N, E) rows, read by the post stage
-    pooled = None if conv is None else torch.empty((n, e), dtype=x.dtype, device=x.device)
-    ptrs = [0, 0] if conv is None else [conv[0].data_ptr(), conv[1].data_ptr()]
-    dims = []
-    for j in range(MAX_POST):
-        if j < len(post):
-            ptrs += [post[j][0].data_ptr(), post[j][1].data_ptr()]
-            dims += [int(post[j][0].shape[1]), ACTS[post[j][2]]]
-        else:
-            ptrs += [0, 0]
-            dims += [0, 0]
-    code = getattr(lib, f"fused_head_{sfx}")(
-        x.data_ptr(), *ptrs, 0 if pooled is None else pooled.data_ptr(), out.data_ptr(),
-        n, h * w, c, e,
-        -1 if conv is None else ACTS[conv[2]], len(post), *dims,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, name)
+    launch = _launch_bf16 if sfx == "bf16" else _launch_f32
+    out = launch(lib, x, conv, post, k, _sms(x.device.index or 0),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     fused_head.launches += 1
     return out
 
@@ -356,5 +437,51 @@ def _launch_bf16(lib, x, conv, post, m_out: int, sms: int, stream: int) -> torch
         pooled = scratch.data_ptr()
         mid = pooled + 2 * _rup(n_pooled, 8) if n_mid else 0
     code = lib.fused_head_bf16(x.data_ptr(), *ptrs, pooled, mid, out.data_ptr(), *ints, stream)
+    _build.check(lib, code, "fused_head")
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _f32_ints(n: int, hw: int, c: int, e: int, widths: Tuple[int, ...],
+              acts: Tuple[int, ...], conv_act: int, m_out: int, sms: int):
+    """The float32 C entry's integer arguments for one form and batch
+    (`f32_head_plan`'s numbers), and the elements of the pooled rows and the
+    first post's rows (0: none)."""
+    plan = f32_head_plan(n, hw, c, e or None, widths, sms)
+    cp, n_post = plan.conv, len(widths)
+    dims = []
+    for j in range(MAX_POST):
+        dims += [widths[j], acts[j]] if j < n_post else [0, 0]
+    ints = (n, hw, c, e, conv_act, n_post, *dims, m_out, cp.bm if cp else 0,
+            cp.groups if cp else 0,
+            *[plan.posts[j].kparts if j < n_post else 0 for j in range(MAX_POST)])
+    return ints, n * plan.ld if n_post else 0, n * widths[0] if n_post == 2 else 0
+
+
+def _launch_f32(lib, x, conv, post, m_out: int, sms: int, stream: int) -> torch.Tensor:
+    """The float32 kernels of head_f32.cuh on the plan of `f32_head_plan`
+    for a card of `sms` SMs, on `stream`: the output, and one scratch
+    allocation for the pooled rows and the first post's rows."""
+    n, h, w, c = x.shape
+    dev, dt = x.device, x.dtype
+    e = int(conv[0].shape[1]) if conv is not None else 0
+    ptrs = [0, 0] if conv is None else [conv[0].data_ptr(), conv[1].data_ptr()]
+    widths, acts, keep, rows = [], [], [], e or c
+    for pw, pb, act in post:
+        tw, tb, rows = _tma_weight(pw, pb, rows)
+        keep += [tw, tb]  # a padded copy lives until the launch is queued
+        ptrs += [tw.data_ptr(), tb.data_ptr()]
+        widths.append(rows)
+        acts.append(ACTS[act])
+    ptrs += [0, 0] * (MAX_POST - len(post))
+    ints, n_pooled, n_mid = _f32_ints(n, h * w, c, e, tuple(widths), tuple(acts),
+                                      -1 if conv is None else ACTS[conv[2]], m_out, sms)
+    out = torch.empty((n, m_out), dtype=dt, device=dev)
+    pooled = mid = 0
+    if n_pooled:
+        scratch = torch.empty(_rup(n_pooled, 4) + n_mid, dtype=dt, device=dev)
+        pooled = scratch.data_ptr()
+        mid = pooled + 4 * _rup(n_pooled, 4) if n_mid else 0
+    code = lib.fused_head_f32(x.data_ptr(), *ptrs, pooled, mid, out.data_ptr(), *ints, stream)
     _build.check(lib, code, "fused_head")
     return out

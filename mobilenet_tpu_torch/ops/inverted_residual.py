@@ -2,7 +2,7 @@
 version. On the card it runs the V3 bottleneck's kernel (`csrc/v3_block.cu`,
 through `ops/v3_block.check_block` and `launch`) with ReLU6, k 3 and no SE:
 bf16 on the Hopper tile of `csrc/v3_wgmma.cuh` (plan `v3_wgmma_plan`),
-float32 on the CUDA-core tile of `csrc/v3_tile.cuh` (plan `v3_plan`).
+float32 on the CUDA-core tile of `csrc/v3_f32.cuh` (plan `v3_plan`).
 
 Replaces the TPU kernels `mobilenet_tpu/ops/pallas_ir_block.py`
 `inverted_residual_pallas` (V2 blocks 2-16) and, at stride 2,

@@ -8,11 +8,12 @@ or 5, stride 1 or 2) + act -> [squeeze-excite gate] -> linear projection
 the JAX package sends to its lane-packed kernels; MobileNet-V2's blocks
 1-16 run it too (`ops/inverted_residual.py`: ReLU6, k 3, no SE). What
 bounds it on the card and what the design does about it (a block with SE
-runs two launches: the per-tile channel sums of the gate's pool, then the
-gated block) is in the CUDA source's header. bf16 runs the Hopper tile of `csrc/v3_wgmma.cuh` on
-the plan of `v3_wgmma_plan`, float32 the tile of `csrc/v3_tile.cuh` on
-`v3_plan`; each picks the tile from the shapes alone and is the
-fits-function: a shape with no plan raises at the call.
+runs two passes: the per-tile channel sums of the gate's pool, then the
+gated block) is in the CUDA source's header. bf16 runs the Hopper tile of
+`csrc/v3_wgmma.cuh` on the plan of `v3_wgmma_plan`, float32 the CUDA-core
+tile of `csrc/v3_f32.cuh` on `v3_plan`; each picks the tile from the
+shapes alone and is the fits-function: a shape with no plan raises at the
+call.
 """
 
 from __future__ import annotations
@@ -29,78 +30,177 @@ from .separable_block import H100_SMS, _sms, check_aligned, check_channels, chec
 
 BLOCK_ACTS = ("relu", "relu6", "hswish")
 
-# -- the float32 kernel's plan (csrc/v3_tile.cuh) ----------------------------
-KE = 32                 # expanded channels per chunk
-MAX_FRAGS = 40          # (TMp / 16) * (CoutP / 16): projection accumulators
+# -- the float32 kernel's plan (csrc/v3_f32.cuh) ------------------------------
+KE = 32                 # expanded channels a chunk: a channel quad a consumer warp
+LZ = KE + 4             # floats a pixel row of the expanded tile Z and of the A panel
+MAX_TM = 256            # output pixels a unit (8 a lane of the depthwise)
+MAX_NJ = 4              # projection channel quads a thread (16 accumulators each)
+F32_CONSUMERS = 256     # 8 consumer warps (+ the producer warp)
 SMEM_MAX = 232448       # the per-block shared-memory opt-in limit (227 KB)
-# Tiles whose shared memory fits this budget keep two blocks on an SM.
-SMEM_PREFERRED = 113 * 1024
-# The largest tile the float32 plan takes, in outputs. The projection
-# accumulators bound TM x Cout (MAX_FRAGS), not TM alone; V3's narrow blocks
-# (Cout 16-40 at 112-28 squared) fit 256-output tiles, which load 4x fewer
-# windows and weight slices than 64-output ones (`ir_tiles --model v3`,
-# PERF.md).
-MAX_OUTPUTS_V3 = 256
-# The tile plan's time model, fitted to per-tile timings of the V2 1.0-224
-# blocks on an H100 at batch 1 and 256: a tile costs, per expanded-channel
-# chunk, CHUNK_OVERHEAD plus its work (expanded window pixels x (Cin + 16)
-# + output rows x (Cout + 16)), in one unit; the card runs about
-# SLOTS_TWO_PER_SM of them at once when two fit on an SM (2 x 132 SMs at
-# ~1.3x the latency of one), 132 when one does.
-CHUNK_OVERHEAD = 33000
-SLOTS_TWO_PER_SM, SLOTS_ONE_PER_SM = 200, 132
+# 227 KB less the 256 bytes the chain kernel keeps for a stage's shape, so that
+# every plan also runs as a chain stage
+V3F_SMEM_LIMIT = SMEM_MAX - 256
+# (window slots, weight slots) in the order the plan takes the first that fits
+V3F_RINGS = ((2, 3), (2, 2), (1, 3), (1, 2), (1, 1))
+# The unit time model, in SM cycles (first estimates from the instruction
+# counts of 8 consumer warps on 4 schedulers; a least-squares refit to
+# `block_times --v2 --float32` and `--v3 --float32` on the card read ~2.4x
+# more cycles but chose no faster tiles, so these rank the tiles; PERF.md):
+# a 4-channel K step of an expansion round (each thread 64 fmaf, 8 float4
+# loads), one tap of the depthwise's pixel slot (a float4 load, 4 fmaf), a
+# 4-channel K step of one projection quad a thread, a chunk's barriers and
+# waits, a unit's window wait, zeroing and epilogue, an SE unit's gate
+# (cycles a product of its two FCs over the consumer threads); the bytes an
+# SM streams from L2 a cycle (a chunk takes at least its stage's bytes at
+# that rate, and both in turn with a single weight slot; a single window
+# slot adds the window's); one block an SM (288 threads at up to 168
+# registers: 9 warps put three on one scheduler).
+EXP_STEP, DW_TAP, PRJ_STEP, CHUNK_FIXED, UNIT_FIXED, GATE_FMA = 200, 32, 150, 600, 3000, 4
+L2_BYTES_PER_CYCLE = 24
+
+
+class V3FPlan(NamedTuple):
+    th: int     # output tile rows of one image
+    tw: int     # output tile columns
+    ws: int     # window ring slots
+    bs: int     # weight ring slots (one 32-channel chunk of E each)
 
 
 def _rup(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def v3_smem_bytes(th: int, tw: int, cin: int, e: int, cout: int, se: int, k: int,
-                  stride: int, itemsize: int) -> int:
-    """Dynamic shared memory of one float32 tile (v3_tile.cuh make_shape; the
-    arithmetic takes any itemsize): the input
-    window ((TH-1)s+k by (TW-1)s+k pixels), then the chunk buffers (f32
-    expanded tile, expand and projection weight slices, depthwise tile) or
-    the f32 result tile, then with SE the f32 gate (E) and hidden row (Se)."""
-    pp = _rup(((th - 1) * stride + k) * ((tw - 1) * stride + k), 16)
-    cinp, coutp, tmp = _rup(cin, 16), _rup(cout, 16), _rup(th * tw, 16)
-    xs = _rup(pp * (cinp + 8) * itemsize, 128)
-    work = (_rup(pp * (KE + 4) * 4, 128) + _rup(cinp * (KE + 8) * itemsize, 128)
-            + _rup(tmp * (KE + 8) * itemsize, 128) + _rup(KE * (coutp + 8) * itemsize, 128))
+def v3f_quads(tm: int, cout: int) -> Tuple[int, int]:
+    """The float32 projection's thread map for tm output pixels: (nj, cqt),
+    the channel quads a thread and the thread columns (v3_f32.cuh
+    make_geo): the fewest quads a thread that fit the pixel quads x thread
+    columns in the 256 consumer threads."""
+    pq, cq = -(-tm // 4), cout // 4
+    nj = max(1, -(-pq * cq // F32_CONSUMERS))
+    while nj < cq and pq * -(-cq // nj) > F32_CONSUMERS:
+        nj += 1
+    return nj, -(-cq // nj)
+
+
+def v3_smem_bytes(th: int, tw: int, h: int, w: int, cin: int, e: int, cout: int, se: int,
+                  k: int, stride: int, ws: int, bs: int, identity: bool = False) -> int:
+    """Dynamic shared memory of a float32 plan (v3_f32.cuh make_geo; the C
+    entry `v3_f32_smem_bytes` computes the same): the barriers (128 bytes),
+    ws windows (the staged pixels, at most min(ph, h) x min(pw, w) of the
+    (th-1)s+k x (tw-1)s+k window, the whole window for the identity, x Cin
+    f32), bs stages (a 32-channel chunk's expand weight Cin x 32, projection
+    weight 32 x Cout, depthwise weight k*k x 32 and two biases; with SE at
+    least the projection weight and the tile's pre-gate rows, th*tw rounded
+    up to 4 x 36 f32, of pass 2), the expanded tile Z (the window's pixels x
+    36 f32; none for the identity), the A panel (th*tw rounded up to 4
+    pixels x 36 f32), the expansion's K-split partials (`v3f_split`: kc - 1
+    x its items x 16 f32), and with SE the gate (E f32) and hidden row (Se
+    f32); each rounded up to 128 bytes."""
+    ph, pw = (th - 1) * stride + k, (tw - 1) * stride + k
+    wpix = ph * pw if identity else min(ph, h) * min(pw, w)
+    dw_off = (0 if identity else cin * KE * 4) + KE * cout * 4
+    stage = max(dw_off + k * k * KE * 4 + 2 * KE * 4,
+                dw_off + 4 * -(-th * tw // 4) * LZ * 4 if se else 0)
+    z = 0 if identity else _rup(ph * pw * LZ * 4, 128)
+    kc, items = v3f_split(wpix, cin, identity)
+    split = _rup((kc - 1) * items * 64, 128) if kc > 1 else 0
     gate = _rup(e * 4, 128) + _rup(se * 4, 128) if se else 0
-    return xs + max(work, _rup(tmp * (coutp + 4) * 4, 128)) + gate
+    return (128 + ws * _rup(wpix * cin * 4, 128) + bs * _rup(stage, 128) + z
+            + _rup(4 * -(-th * tw // 4) * LZ * 4, 128) + split + gate)
+
+
+def v3f_split(wpix: int, cin: int, identity: bool) -> Tuple[int, int]:
+    """The float32 expansion's K split for a window of at most wpix staged
+    pixels (v3_f32.cuh make_geo): (kc, items), the thread groups that share
+    Cin (2 where at most half the consumer threads have an item of 4 pixels
+    x 4 channels, 4 where at most a quarter do and Cin >= 16) and the items
+    at most."""
+    items = -(-wpix // 4) * (KE // 4)
+    if identity or items > F32_CONSUMERS // 2:
+        return 1, items
+    return (2 if items > F32_CONSUMERS // 4 or cin < 16 else 4), items
+
+
+def _staged(n_out: int, t: int, s: int, k: int, pad: int, n_in: int) -> list:
+    """The staged window extent along one side of each tile (t outputs a
+    tile): the window's rows inside the input."""
+    out = []
+    for o0 in range(0, n_out, t):
+        i0 = o0 * s - pad
+        out.append(min((t - 1) * s + k, n_in - i0) - max(0, -i0))
+    return out
+
+
+def _v3f_unit_cycles(th: int, tw: int, h: int, w: int, cin: int, e: int, cout: int, k: int,
+                     stride: int, se: int, identity: bool, ws: int, bs: int) -> float:
+    """The time model's cycles of one unit (both passes of an SE block: the
+    expansion, depthwise and pre-gate store, then the gated projection), on
+    the average staged window of the block's tiles."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    pad = (k - 1) // 2 if stride == 1 else (k - 2) // 2
+    ph, pw = (th - 1) * stride + k, (tw - 1) * stride + k
+    if identity:
+        pv = ph * pw
+    else:
+        rows, cols = _staged(ho, th, stride, k, pad, h), _staged(wo, tw, stride, k, pad, w)
+        pv = sum(rows) * sum(cols) / (len(rows) * len(cols))
+    tm = th * tw
+    nj, _ = v3f_quads(tm, cout)
+    kc, _ = v3f_split(ph * pw if identity else min(ph, h) * min(pw, w), cin, identity)
+    expand = 0 if identity else (-(-(-(-int(pv) // 4) * 8) // F32_CONSUMERS) * (cin // 4) / kc
+                                 * EXP_STEP + (kc > 1) * CHUNK_FIXED)
+    dw = -(-tm // 32) * k * k * DW_TAP
+    stage_bytes = (0 if identity else cin * KE * 4) + k * k * KE * 4
+    win_bytes = (ph * pw if identity else pv) * cin * 4
+    nec = -(-e // KE)
+    prj = nj * (KE // 4) * PRJ_STEP
+    # a block without SE, or SE pass 1 (which stores its pre-gate rows instead of projecting)
+    per_chunk = expand + dw + CHUNK_FIXED + (-(-tm * 8 // F32_CONSUMERS) * DW_TAP if se else prj)
+    # a chunk overlaps its stage's load with the previous chunk, but not with a single slot
+    join = max if bs > 1 else (lambda a, b: a + b)
+    per_chunk = join(per_chunk, (stage_bytes + (0 if se else KE * cout * 4)) / L2_BYTES_PER_CYCLE)
+    cyc = UNIT_FIXED + nec * per_chunk
+    if ws == 1:
+        cyc += win_bytes / L2_BYTES_PER_CYCLE
+    if se:  # pass 2: the gate, then the projection of the stages' pre-gate rows
+        cyc += (UNIT_FIXED + 2 * e * se / F32_CONSUMERS * GATE_FMA
+                + nec * join(prj, KE * (cout + tm) * 4 / L2_BYTES_PER_CYCLE))
+    return cyc
 
 
 @functools.lru_cache(maxsize=None)
 def v3_plan(n: int, h: int, w: int, cin: int, e: int, cout: int, k: int, stride: int,
-            se: int, itemsize: int) -> Optional[Tuple[int, int]]:
-    """The float32 kernel's output tile (TH, TW) of a block on (n, h, w,
-    cin) -> cout, or None when no tile fits. Among tiles of at most
-    MAX_OUTPUTS_V3 outputs (TH, TW <= 16) whose projection accumulators and
-    shared memory fit, the one the time model above rates fastest: few
-    large tiles when the batch fills the card (less halo recompute), many
-    small ones when it does not (batch 1)."""
-    if k not in (3, 5) or (stride == 2 and (h % 2 or w % 2)):
+            se: int, identity: bool = False, sms: int = H100_SMS) -> Optional[V3FPlan]:
+    """The float32 kernel's plan for a block on (n, h, w, cin) -> cout on a
+    card of `sms` SMs, or None when the kernel takes no plan of it.
+    Candidates: every output tile of th, tw <= 16 and th * tw <= MAX_TM
+    whose projection fits MAX_NJ channel quads a thread; ring slots the
+    first of V3F_RINGS that fits V3F_SMEM_LIMIT. The choice minimises waves
+    (one block an SM) x the unit time model above (whose expansion counts
+    the staged window, so a stride-2 tile pays for its 4x larger window);
+    ties go to fewer units, then to the larger tile."""
+    ok = (k in (3, 5) and stride in (1, 2) and min(n, h, w, cin, e, cout) > 0
+          and cin % 8 == 0 and e % 8 == 0 and cout % 8 == 0 and (not identity or e == cin)
+          and (stride == 1 or (h % 2 == 0 and w % 2 == 0)))
+    if not ok:
         return None
     ho, wo = -(-h // stride), -(-w // stride)
-    cinp, coutp = _rup(cin, 16), _rup(cout, 16)
     best = None
     for th in range(1, min(ho, 16) + 1):
         for tw in range(1, min(wo, 16) + 1):
-            tmp = _rup(th * tw, 16)
-            if th * tw > MAX_OUTPUTS_V3 or (tmp // 16) * (coutp // 16) > MAX_FRAGS:
+            if th * tw > MAX_TM or v3f_quads(th * tw, cout)[0] > MAX_NJ:
                 continue
-            smem = v3_smem_bytes(th, tw, cin, e, cout, se, k, stride, itemsize)
-            if smem > SMEM_MAX:
+            fit = next((f for f in V3F_RINGS if v3_smem_bytes(
+                th, tw, h, w, cin, e, cout, se, k, stride, *f, identity) <= V3F_SMEM_LIMIT),
+                None)
+            if fit is None:
                 continue
-            pp = _rup(((th - 1) * stride + k) * ((tw - 1) * stride + k), 16)
-            blocks = n * -(-ho // th) * -(-wo // tw)
-            slots = SLOTS_TWO_PER_SM if smem <= SMEM_PREFERRED else SLOTS_ONE_PER_SM
-            cost = (max(1.0, blocks / slots)
-                    * (CHUNK_OVERHEAD + pp * (cinp + 16) + tmp * (coutp + 16)))
-            key = (cost, -th * tw)
+            units = n * -(-ho // th) * -(-wo // tw)
+            cost = -(-units // sms) * _v3f_unit_cycles(th, tw, h, w, cin, e, cout, k, stride,
+                                                        se, identity, *fit)
+            key = (cost, units, -th * tw)
             if best is None or key < best[0]:
-                best = (key, (th, tw))
+                best = (key, V3FPlan(th, tw, *fit))
     return None if best is None else best[1]
 
 
@@ -229,9 +329,9 @@ def check_block(name: str, n: int, h: int, w: int, cin: int, exp_w, exp_b, dw_w,
                 itemsize: int, sms: int = H100_SMS) -> Tuple[int, int, int, tuple]:
     """The kernel's checks of one bottleneck on an (n, h, w, cin) input
     (weights as `block_weights` gives them): weight shapes, k, stride, act,
-    the residual, channel counts, and a plan: `v3_wgmma_plan` (on `sms` SMs)
-    for bf16 (itemsize 2), `v3_plan`'s (TH, TW) for float32. Returns (E,
-    Cout, Se, plan); raises ValueError on what the kernel does not take."""
+    the residual, channel counts, and a plan on `sms` SMs: `v3_wgmma_plan`
+    for bf16 (itemsize 2), `v3_plan` for float32. Returns (E, Cout, Se,
+    plan); raises ValueError on what the kernel does not take."""
     se_w1, se_b1, se_w2, se_b2 = se
     e = cin if exp_w is None else int(exp_w.shape[-1])
     cout = int(prj_w.shape[-1])
@@ -257,7 +357,8 @@ def check_block(name: str, n: int, h: int, w: int, cin: int, exp_w, exp_b, dw_w,
         plan, fits = v3_wgmma_plan(n, h, w, cin, e, cout, k, stride, sem, exp_w is None,
                                    sms), "v3_wgmma_plan"
     else:
-        plan, fits = v3_plan(n, h, w, cin, e, cout, k, stride, sem, itemsize), "v3_plan"
+        plan, fits = v3_plan(n, h, w, cin, e, cout, k, stride, sem, exp_w is None,
+                             sms), "v3_plan"
     if plan is None:
         raise ValueError(f"{name}: no tile of the kernel takes ({n},{h},{w},{cin})->{cout} "
                          f"E{e} k{k} s{stride} SE{sem} ({fits})")
@@ -340,10 +441,10 @@ def launch(name: str, sfx: str, x, exp_w, exp_b, dw_w, dw_b, prj_w, prj_b, se, *
     ho, wo = -(-h // stride), -(-w // stride)
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     partial = None
-    if se[0] is not None:  # pass 1's per-tile channel sums (bf16: then the images' gates)
-        tiles = -(-ho // plan[0]) * -(-wo // plan[1])
-        partial = torch.empty((n * (tiles + (sfx == "bf16")) * e,), dtype=torch.float32,
-                              device=x.device)
+    if se[0] is not None:  # pass 1's per-tile channel sums, then (bf16) the images' gates
+        tiles = -(-ho // plan[0]) * -(-wo // plan[1])  # or (float32) the pre-gate tensor
+        partial = torch.empty((n * (tiles + (1 if sfx == "bf16" else ho * wo)) * e,),
+                              dtype=torch.float32, device=x.device)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()

@@ -4,7 +4,7 @@ kernel `csrc/v3_chain.cu` and its plain PyTorch version.
 Replaces the TPU kernel `mobilenet_tpu/ops/pallas_chain_v3.py`
 `v3_chain_pallas`. The output equals `v3_block` called once per block in
 sequence, bit for bit: every stage runs `v3_block.cu`'s tile code (bf16:
-`csrc/v3_wgmma.cuh` on `v3_wgmma_plan`; float32: `csrc/v3_tile.cuh` on
+`csrc/v3_wgmma.cuh` on `v3_wgmma_plan`; float32: `csrc/v3_f32.cuh` on
 `v3_plan`) on the plan that block alone has.
 What bounds it on the card and what the design does about it (one
 cooperative persistent grid, a grid barrier between stages and between an
@@ -42,8 +42,9 @@ def _stage_smem(n, h, w, cin, e, cout, k, stride, se, itemsize, identity=False,
         p = v3_wgmma_plan(n, h, w, cin, e, cout, k, stride, se, identity, sms)
         return None if p is None else v3_wgmma_smem_bytes(
             p.th, p.tw, cin, e, cout, k, stride, p.cw, p.ws, p.bs, identity)
-    p = v3_plan(n, h, w, cin, e, cout, k, stride, se, itemsize)
-    return None if p is None else v3_smem_bytes(*p, cin, e, cout, se, k, stride, itemsize)
+    p = v3_plan(n, h, w, cin, e, cout, k, stride, se, identity, sms)
+    return None if p is None else v3_smem_bytes(p.th, p.tw, h, w, cin, e, cout, se, k, stride,
+                                                p.ws, p.bs, identity)
 
 
 def v3_chain_fits(n: int, h: int, w: int, shapes: Sequence[Tuple[int, ...]],
@@ -87,7 +88,7 @@ class _Plan(NamedTuple):
     partial: int  # float32 elements of the SE channel sums (0: none)
     gate: int  # float32 elements of the images' SE gates (bf16; 0: none)
     ptrs: Any  # ctypes (void* x 10) per stage, TENSOR_KEYS order
-    dims: Any  # ctypes (int x 12; bf16 x 16) per stage
+    dims: Any  # ctypes (int x 14; bf16 x 16) per stage
 
 
 _PLANS: Dict[tuple, _Plan] = {}
@@ -139,8 +140,10 @@ def _plan(x, blocks: Sequence[Dict[str, Any]]) -> _Plan:
         ho, wo = -(-h // stride), -(-w // stride)
         dims += [c, e, cout, sem, k, stride, ACTS["linear" if identity else act], ACTS[act],
                  int(residual), int(identity), *plan]
-        if sem:  # the SE pass's per-tile channel sums and gates, reused by every SE stage
-            partial = max(partial, n * -(-ho // plan[0]) * -(-wo // plan[1]) * e)
+        if sem:  # the SE pass's per-tile channel sums and gates (float32: the pre-gate
+            # tensor after the sums), reused by every SE stage
+            tiles = -(-ho // plan[0]) * -(-wo // plan[1])
+            partial = max(partial, n * (tiles + (0 if sfx == "bf16" else ho * wo)) * e)
             gate = max(gate, n * e) if sfx == "bf16" else 0
         if i < len(blocks) - 1:
             scratch[i % 2] = max(scratch[i % 2], n * ho * wo * cout)

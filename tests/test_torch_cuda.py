@@ -277,9 +277,9 @@ def test_ir_smem_plan_matches_kernel(dev):
                 p = v3_wgmma_plan(n, h, h, cin, t * cin, cout, 3, stride, 0, False)
                 args = (p.th, p.tw, cin, t * cin, cout, 3, stride, p.cw, p.ws, p.bs, 0)
                 assert lib.v3_wgmma_smem_bytes(*args) == v3_wgmma_smem_bytes(*args)
-                th, tw = v3_plan(n, h, h, cin, t * cin, cout, 3, stride, 0, 4)
-                assert lib.v3_block_smem_bytes(cin, t * cin, cout, 0, 3, stride, th, tw, 4) == \
-                    v3_smem_bytes(th, tw, cin, t * cin, cout, 0, 3, stride, 4)
+                fp = v3_plan(n, h, h, cin, t * cin, cout, 3, stride, 0)
+                args = (fp.th, fp.tw, h, h, cin, t * cin, cout, 0, 3, stride, fp.ws, fp.bs, 0)
+                assert lib.v3_f32_smem_bytes(*args) == v3_smem_bytes(*args)
             h //= stride
 
 
@@ -337,6 +337,42 @@ def test_fused_head_forms(dev, dtype, batch, form):
     for m, act in posts:
         post.append((_t(rng, (k, m), dtype, dev, k ** -0.5), _t(rng, (m,), dtype, dev, 0.1), act))
         k = m
+    _close(fused_head(x, conv, post), fused_head_plain(x, conv, post), dtype)
+
+
+@pytest.mark.parametrize("batch", [2, 3])
+@pytest.mark.parametrize("form", sorted(HEAD_FORMS))
+def test_fused_head_f32_small_batches(dev, batch, form):
+    """The float32 head (csrc/head_f32.cuh) in every form at batch 2 and 3
+    (beside test_fused_head_forms' 1, 8, 64, 65 and 256): the 16-row post
+    tiles with ragged rows and the K-split conv_last."""
+    c, conv_spec, posts = HEAD_FORMS[form]
+    rng = np.random.default_rng(batch + c + 1)
+    dtype = torch.float32
+    x = _t(rng, (batch, 7, 7, c), dtype, dev, lo=0) * 6
+    conv, k = None, c
+    if conv_spec is not None:
+        e, act = conv_spec
+        conv = (_t(rng, (c, e), dtype, dev, c ** -0.5), _t(rng, (e,), dtype, dev, 0.1), act)
+        k = e
+    post = []
+    for m, act in posts:
+        post.append((_t(rng, (k, m), dtype, dev, k ** -0.5), _t(rng, (m,), dtype, dev, 0.1), act))
+        k = m
+    _close(fused_head(x, conv, post), fused_head_plain(x, conv, post), dtype)
+
+
+@pytest.mark.parametrize("n", [1, 3, 256])
+def test_fused_head_f32_wide_conv_last(dev, n):
+    """float32 takes a conv_last wider than the bf16 kernel's resident limit
+    (1600): C 2048, its weight streamed."""
+    rng = np.random.default_rng(n + 2048)
+    dtype = torch.float32
+    x = _t(rng, (n, 7, 7, 2048), dtype, dev, lo=0)
+    conv = (_t(rng, (2048, 256), dtype, dev, 2048 ** -0.5), _t(rng, (256,), dtype, dev, 0.1),
+            "relu6")
+    post = [(_t(rng, (256, 104), dtype, dev, 256 ** -0.5), _t(rng, (104,), dtype, dev, 0.1),
+             "linear")]
     _close(fused_head(x, conv, post), fused_head_plain(x, conv, post), dtype)
 
 
@@ -798,20 +834,74 @@ def test_v3_block(dev, dtype, n, h, cin, e, cout, k, stride, se, act, residual, 
 
 
 def test_v3_smem_plan_matches_kernel(dev):
-    """The Python mirror of the V3 kernel's shared-memory plan equals the
-    kernel's own for every V3-Large, -minimalistic and -Small block's tile at
-    batch 1 and 256 and both itemsizes."""
+    """The Python mirror of the float32 V3 tile's shared-memory plan equals
+    the kernel's own for every V3-Large, -minimalistic and -Small block's
+    tile at batch 1, 2 and 256."""
     lib = _build.library()
     for variant, mini in (("large", False), ("large", True), ("small", False)):
         h = 112
         for bd in V3Config(variant, 1.0, 224, minimalistic=mini).block_defs:
-            for n, item in ((1, 2), (256, 2), (1, 4), (256, 4)):
-                th, tw = v3_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
-                                 bd.se_mid, item)
-                assert lib.v3_block_smem_bytes(bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
-                                               bd.stride, th, tw, item) == v3_smem_bytes(
-                    th, tw, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel, bd.stride, item)
+            for n in (1, 2, 256):
+                ident = not bd.has_expand
+                p = v3_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                            bd.se_mid, ident)
+                args = (p.th, p.tw, h, h, bd.cin, bd.cexp, bd.cout, bd.se_mid, bd.kernel,
+                        bd.stride, p.ws, p.bs, int(ident))
+                assert lib.v3_f32_smem_bytes(*args) == v3_smem_bytes(*args)
             h //= bd.stride
+
+
+def _f32_block_shapes():
+    """(name, h, cin, e, cout, k, stride, se, act, residual, identity) of
+    every distinct V2 (blocks 1-16), V3-Large and V3-Small 1.0-224 block."""
+    out, seen = [], set()
+    h = 112
+    for i, (t, cin, cout, stride) in enumerate(V2Config(1.0, 224).block_defs):
+        key = ("v2", h, t, cin, cout, stride)
+        if t > 1 and key not in seen:
+            seen.add(key)
+            out.append((f"v2b{i:02d}", h, cin, t * cin, cout, 3, stride, 0, "relu6",
+                        stride == 1 and cin == cout, False))
+        h = -(-h // stride)
+    for tag, variant in (("v3l", "large"), ("v3s", "small")):
+        h = 112
+        for i, bd in enumerate(V3Config(variant, 1.0, 224).block_defs):
+            key = (tag, h, bd)
+            if key not in seen:
+                seen.add(key)
+                out.append((f"{tag}b{i:02d}", h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride,
+                            bd.se_mid, bd.act, bd.has_res, not bd.has_expand))
+            h = -(-h // bd.stride)
+    return out
+
+
+@pytest.mark.parametrize("batch", [1, 2, 256])
+def test_v3_block_f32_every_shape(dev, batch):
+    """The float32 tile (csrc/v3_f32.cuh) against its plain version at every
+    distinct V2, V3-Large and V3-Small 1.0-224 block shape (non-zero SE
+    biases), within the float32 gate."""
+    for name, h, cin, e, cout, k, stride, se, act, residual, ident in _f32_block_shapes():
+        rng = np.random.default_rng(cin + e + k + batch)
+        kw = _v3_args(rng, dev, torch.float32, batch, h, cin, e, cout, k, se, ident)
+        kw.update(k=k, stride=stride, act=act, residual=residual)
+        _close(v3_block(**kw), v3_block_plain(**kw), torch.float32)
+        del kw
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("n,h,cin,e,cout,k,stride,se,act,residual,identity", [
+    (2, 13, 24, 72, 24, 3, 1, 0, "relu", True, False),       # Cin 24, odd side at stride 1
+    (2, 14, 40, 120, 48, 5, 2, 32, "hswish", False, False),  # Cin 40, k 5 at stride 2 with SE
+    (1, 9, 16, 40, 16, 5, 1, 8, "relu6", True, False),       # Cin 16, E not a multiple of 32
+    (2, 11, 24, 24, 24, 3, 1, 0, "relu", True, True),        # the identity, the residual
+    (3, 15, 40, 200, 40, 3, 1, 16, "hswish", True, False),   # odd side, SE, residual, E tail
+    (1, 300, 16, 96, 24, 3, 2, 0, "relu6", False, False),    # a wide image
+])
+def test_v3_block_f32_edges(dev, n, h, cin, e, cout, k, stride, se, act, residual, identity):
+    rng = np.random.default_rng(cin + e + k + h)
+    kw = _v3_args(rng, dev, torch.float32, n, h, cin, e, cout, k, se, identity)
+    kw.update(k=k, stride=stride, act=act, residual=residual)
+    _close(v3_block(**kw), v3_block_plain(**kw), torch.float32)
 
 
 def test_v3_wgmma_smem_mirror(dev):

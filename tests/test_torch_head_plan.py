@@ -30,9 +30,11 @@ import torch
 from mobilenet_tpu.ops.pallas_head import fused_head as jax_fused_head
 from mobilenet_tpu_torch.block_times import HEAD_FORMS
 from mobilenet_tpu_torch.ops.head import (
-    CHUNK_BYTES, KCH, MAX_CONV_STAGES, MAX_POST_STAGES, MIN_BLOCKS, RED_LD, SMEM_MAX, SMEM_SM,
-    STAGE_LD, TM, TN, ConvPlan, PostPlan, _tma_weight, conv_plan, fused_head, fused_head_plain,
-    head_act, head_fits, head_plan, head_smem_bytes, post_plan,
+    CHUNK_BYTES, F32_NARROW_ROWS, F32_PK, F32_POST_NC, F32_PT, F32_SMALL_N, KCH,
+    MAX_CONV_STAGES, MAX_KPARTS,
+    MAX_POST_STAGES, MIN_BLOCKS, RED_LD, SMEM_MAX, SMEM_SM, STAGE_LD, TM, TN, ConvPlan, PostPlan,
+    _tma_weight, conv_plan, f32_head_plan, f32_head_smem_bytes, f32_post_plan, fused_head,
+    fused_head_plain, head_act, head_fits, head_plan, head_smem_bytes, post_plan,
 )
 
 # test_torch_head.py's tolerances: one bf16 step at each rounding; conv
@@ -264,8 +266,9 @@ def test_conv_ring_tile_release_needs_a_tile_of_slots():
 
 
 def test_head_domain_by_dtype():
-    """float32 takes a conv_last of any width whose rows fit (2048 input
-    channels here); bf16 raises above 1600, on the CPU as on the card."""
+    """float32 takes a conv_last of any width (its kernels stream the weight:
+    2048 input channels here); bf16 raises above 1600, on the CPU as on the
+    card."""
     rng = np.random.default_rng(3)
 
     def operands(c, dtype):
@@ -531,3 +534,247 @@ def test_launch_bf16_arguments(n, c, conv_spec, posts):
         assert mid % 16 == 0 and mid >= pooled + 2 * n * plan.ld
     if posts and posts[0][0] % 8:  # a ragged width reaches the kernel padded
         assert w0p != post[0][0].data_ptr()
+
+
+# -- the float32 kernels' plan (csrc/head_f32.cuh) ---------------------------------------
+
+# the forms' widths, and a conv_last above the bf16 kernel's resident limit
+F32_FORMS = dict(FORMS, c2048=(2048, 256, (104,)))
+
+
+def _parts(nch, kparts):
+    """The chunk ranges of K parts [p * nch / kp, (p + 1) * nch / kp)."""
+    return [(p * nch // kparts, (p + 1) * nch // kparts) for p in range(kparts)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 64, 256])
+@pytest.mark.parametrize("form", sorted(F32_FORMS))
+def test_f32_head_plan_covers(form, n):
+    """The float32 plan at C = 1024 (V1), 320 (V2), 160 (V3-L), 96 (V3-S),
+    448 (V2 alpha 1.4) and 2048: conv_walk's image groups and 128-column
+    slices cover every image and column once, or narrow's 8- or 16-column
+    blocks cover E once with every image in each; each post's tiles cover the
+    output (narrow up to F32_SMALL_N rows: 8-column blocks, the whole of K;
+    else 64 x 64 tiles whose K parts take every 32-row chunk once, each
+    non-empty, and whose column shares, groups of 4, take the tile's 64
+    columns once); at batch 1 a model's form puts >= 36 blocks on the card
+    in its conv_last and >= 63 in each post; shared memory within the
+    limit."""
+    c, e, widths = F32_FORMS[form]
+    plan = f32_head_plan(n, 49, c, e, widths)
+    cp = plan.conv
+    if e is None:
+        assert cp is None and plan.ld == -(-c // 8) * 8
+    else:
+        assert plan.ld == e and cp.smem <= SMEM_MAX
+        assert cp.slices * cp.bn >= e > (cp.slices - 1) * cp.bn
+        assert cp.groups * cp.gimg >= n > (cp.groups - 1) * cp.gimg
+        if cp.bm == 128:
+            assert cp.smem == f32_head_smem_bytes(0) and cp.bn == 128
+            assert n * 49 > F32_NARROW_ROWS
+        else:
+            assert cp.bm == cp.bn in (8, 16) and cp.groups == 1 and n * 49 <= F32_NARROW_ROWS
+            assert cp.smem == f32_head_smem_bytes(2, 1, cp.bn) <= SMEM_MAX
+            assert cp.slices <= 132 or cp.bn == 16
+        if n == 1 and form in FORMS:
+            assert cp.slices >= 36
+    k = e or c
+    for q, m in zip(plan.posts, widths):
+        assert (q.k, q.m) == (k, m) and q.narrow == (n <= F32_SMALL_N)
+        if q.narrow:
+            nc = F32_POST_NC
+            assert q.kparts == 1 and q.tj * nc >= m > (q.tj - 1) * nc
+            assert q.nch == -(-k // 256) and f32_head_smem_bytes(2, 0, nc) <= SMEM_MAX
+        else:
+            assert q.ti * F32_PT >= n > (q.ti - 1) * F32_PT and q.tj * F32_PT >= m
+            assert q.nch == -(-k // F32_PK) and 1 <= q.kparts <= min(MAX_KPARTS, q.nch)
+            ranges = _parts(q.nch, q.kparts)
+            assert ranges[0][0] == 0 and ranges[-1][1] == q.nch
+            assert all(a < b for a, b in ranges)
+            shares = [(p * 16 // q.kparts, (p + 1) * 16 // q.kparts) for p in range(q.kparts)]
+            assert shares[0][0] == 0 and shares[-1][1] == 16
+            assert f32_head_smem_bytes(1) <= SMEM_MAX
+        if n == 1 and form in FORMS:
+            assert q.blocks >= 125
+        k = m
+
+
+def test_f32_head_smem():
+    """The float32 kernels' shared memory, part by part (f32): conv_walk's
+    ring of 3 chunks (128 x 32 + 32 x 128), over which its staged 128 x 132
+    tile lies; post's ring of 4 (64 x 32 + 32 x 64) and a 64 x 68 partial;
+    narrow's conv_last form, a ring of 4 (64 x 64 + 64 x nc) and 256 / (16 x
+    nc / 4) slices' 64 x nc partials, and its post form, a ring of 4 (16 x
+    256 + 256 x nc) and 256 / (4 x nc / 4) slices' 16 x nc partials."""
+    assert f32_head_smem_bytes(0) == 3 * 2 * 4096 * 4 > 128 * 132 * 4
+    assert f32_head_smem_bytes(1) == (4 * 4096 + 64 * 68) * 4
+    assert f32_head_smem_bytes(2, 1, 8) == (4 * (4096 + 512) + 8 * 512) * 4
+    assert f32_head_smem_bytes(2, 1, 16) == (4 * (4096 + 1024) + 4 * 1024) * 4
+    assert f32_head_smem_bytes(2, 0, 8) == (4 * (4096 + 2048) + 32 * 128) * 4
+    assert f32_head_smem_bytes(2, 0, 16) == (4 * (4096 + 4096) + 16 * 256) * 4
+
+
+def mirror_conv_f32(x, cw, cb, act, cp):
+    """The float32 conv_last walk's order of work: conv_walk (bm 128): each
+    128-column slice's 128-row tiles of an image group, the product over C in
+    order; narrow (bm the columns a block): every image's rows in 64-row
+    tiles, each of its K slices summing its rows of every 64-row chunk in order, the slices
+    then summed in order; + bias, act, and each column's running f32 sum over
+    the rows in order, stored / HW at an image's last pixel."""
+    n, h, w, c = x.shape
+    hw, e = h * w, cw.shape[1]
+    rows = x.reshape(n * hw, c)
+    out = np.full((n, e), np.nan, np.float32)
+    tile = 128 if cp.bm == 128 else 64
+    for s in range(cp.slices):
+        cs = slice(s * cp.bn, min(e, (s + 1) * cp.bn))
+        for g in range(cp.groups):
+            img0, img1 = g * cp.gimg, min(n, (g + 1) * cp.gimg)
+            total, cur, left = np.zeros(cs.stop - cs.start, np.float32), img0, hw
+            for r0 in range(img0 * hw, img1 * hw, tile):
+                r1 = min(img1 * hw, r0 + tile)
+                y = rows[r0:r1] @ cw[:, cs] if cp.bm == 128 else _sliced(
+                    rows[r0:r1], cw[:, cs], 64, 256 // (16 * cp.bn // 4))
+                y = _act(y + cb[cs], act)
+                for rr in range(r1 - r0):
+                    total = total + y[rr]
+                    left -= 1
+                    if left == 0:
+                        out[cur, cs] = total / np.float32(hw)
+                        total, left, cur = np.zeros_like(total), hw, cur + 1
+    assert not np.isnan(out).any()
+    return out
+
+
+def _sliced(a, wt, nk, slices):
+    """narrow's sum: slice s takes rows [s * nk / slices, ...) of every
+    nk-row chunk of K; the slices' sums then added in slice order."""
+    kps = nk // slices
+    total = None
+    for s in range(slices):
+        idx = np.concatenate([np.arange(c0 + s * kps, min(c0 + (s + 1) * kps, a.shape[1]))
+                              for c0 in range(0, a.shape[1], nk)])
+        part = a[:, idx] @ wt[idx] if len(idx) else np.zeros((a.shape[0], wt.shape[1]), np.float32)
+        total = part if total is None else total + part
+    return total
+
+
+def mirror_post_f32(a, wt, b, act, q, m_out):
+    """post_f32_kernel (each tile's K parts of 32-row chunks in rank order)
+    or narrow (its K slices of every 256-row chunk, in slice order)."""
+    if q.narrow:
+        out = _sliced(a, wt, 256, 256 // (4 * F32_POST_NC // 4))
+    else:
+        out = np.zeros((a.shape[0], wt.shape[1]), np.float32)
+        for lo, hi in _parts(q.nch, q.kparts):
+            ks = slice(lo * F32_PK, hi * F32_PK)
+            out = out + a[:, ks] @ wt[ks]
+    return _act(out + b, act)[:, :m_out]
+
+
+@pytest.mark.parametrize("kernel", ["walk", "narrow"])
+@pytest.mark.parametrize("case", sorted(MIRROR_CASES))
+def test_f32_mirror_vs_plain_and_pallas(case, kernel):
+    """The float32 kernels' order of work (either conv_last kernel, and
+    either post kernel, forced) against the plain version and the JAX
+    package's Pallas kernel in interpret mode."""
+    n, side, c, conv_spec, posts, _ = MIRROR_CASES[case]
+    rng = np.random.default_rng(n * 100 + c + 1)
+    x = rng.uniform(0, 6, (n, side, side, c)).astype(np.float32)
+    conv, k = None, c
+    if conv_spec is not None:
+        conv = _layer(rng, c, conv_spec[0], conv_spec[1], False)
+        k = conv_spec[0]
+    post = []
+    for m, act in posts:
+        post.append(_layer(rng, k, m, act, False))
+        k = m
+    plan = f32_head_plan(n, side * side, c, conv_spec[0] if conv_spec else None,
+                         tuple(-(-m // 8) * 8 for m, _ in posts))
+    if conv is not None:
+        e = conv_spec[0]
+        cp = plan.conv._replace(bm=128, bn=128, slices=-(-e // 128), groups=2,
+                                gimg=-(-n // 2)) if kernel == "walk" else \
+            plan.conv._replace(bm=8, bn=8, slices=-(-e // 8), groups=1, gimg=n)
+        feat = mirror_conv_f32(x, conv[0], conv[1], conv[2], cp)
+    else:
+        feat = np.pad(mirror_pool(x, False), ((0, 0), (0, plan.ld - c)))
+    rows = conv_spec[0] if conv_spec else c
+    for j, ((pw, pb, act), q) in enumerate(zip(post, plan.posts)):
+        q = f32_post_plan(F32_SMALL_N + 1 if kernel == "walk" else 1, q.k, q.m)
+        tw, tb, mp = _tma_weight(torch.from_numpy(pw), torch.from_numpy(pb), rows)
+        a = feat[:, :q.k] if j == 0 else feat
+        feat = mirror_post_f32(a, tw.numpy(), tb.numpy(), act, q,
+                               pw.shape[1] if j == len(post) - 1 else mp)
+        rows = mp
+    got = feat if post or conv is not None else feat[:, :c]
+    assert got.shape == (n, k)
+    tx = [(torch.from_numpy(w), torch.from_numpy(b), a) for w, b, a in post]
+    plain = fused_head_plain(torch.from_numpy(x), None if conv is None else (
+        torch.from_numpy(conv[0]), torch.from_numpy(conv[1]), conv[2]), tx)
+    np.testing.assert_allclose(got, plain.numpy(), **F32_TOL)
+    jx = [(jnp.asarray(w), jnp.asarray(b), a) for w, b, a in post]
+    ref = jax_fused_head(jnp.asarray(x), None if conv is None else (
+        jnp.asarray(conv[0]), jnp.asarray(conv[1]), conv[2]), jx, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), **F32_TOL)
+
+
+class _RecordingLibF32:
+    """Stands in for the kernel library: records fused_head_f32's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_head_f32(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("n,c,conv_spec,posts", [
+    (1, 1024, None, [(1000, "linear")]),                              # V1
+    (65, 320, (1280, "relu6"), [(1000, "linear")]),                   # V2, ragged batch
+    (8, 96, (576, "hswish"), [(1024, "hswish"), (1000, "linear")]),   # V3-Small
+    (3, 200, None, [(130, "linear")]),                                # ragged width: padded
+    (2, 24, (200, "relu"), []),                                       # no post
+])
+def test_launch_f32_arguments(n, c, conv_spec, posts):
+    """What the float32 wrapper hands the C entry point: as many arguments
+    as its signature declares (and the stream), `f32_head_plan`'s numbers,
+    the output, and the pooled rows and the first post's rows as disjoint
+    16-byte-aligned parts of one scratch allocation."""
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.head import ACTS, _launch_f32
+
+    x = torch.zeros(n, 7, 7, c)
+    conv, k = None, c
+    if conv_spec is not None:
+        conv = (torch.zeros(c, conv_spec[0]), torch.zeros(conv_spec[0]), conv_spec[1])
+        k = conv_spec[0]
+    post = []
+    for m, act in posts:
+        post.append((torch.zeros(k, m), torch.zeros(m), act))
+        k = m
+    lib = _RecordingLibF32()
+    out = _launch_f32(lib, x, conv, post, k, 132, 7)
+    (args,) = lib.calls
+    assert len(args) == len(_build._SIGNATURES["fused_head_f32"]) + 1 and args[-1] == 7
+    ptrs, ints = args[:10], args[10:-1]
+    (xp, cwp, cbp, w0p, b0p, w1p, b1p, pooled, mid, outp) = ptrs
+    (N, hw, C, E, conv_act, n_post, m0, act0, m1, act1, m_out, bm, groups, kp0, kp1) = ints
+    assert out.shape == (n, k) and outp == out.data_ptr() and xp == x.data_ptr()
+    assert (N, hw, C, m_out, n_post) == (n, 49, c, k, len(posts))
+    assert E == (conv_spec[0] if conv_spec else 0)
+    assert conv_act == (ACTS[conv_spec[1]] if conv_spec else -1)
+    widths = [-(-m // 8) * 8 for m, _ in posts]
+    assert [m0, m1][:len(posts)] == widths
+    plan = f32_head_plan(n, 49, c, E or None, tuple(widths))
+    if conv_spec:
+        assert (bm, groups) == (plan.conv.bm, plan.conv.groups)
+    assert [kp0, kp1][:len(posts)] == [q.kparts for q in plan.posts]
+    assert all(q.narrow == (n <= F32_SMALL_N) for q in plan.posts)
+    if posts:
+        assert pooled % 16 == 0 and pooled != 0
+        if len(posts) == 2:
+            assert mid % 16 == 0 and mid >= pooled + 4 * n * plan.ld
+    else:
+        assert pooled == 0 and mid == 0

@@ -22,7 +22,7 @@ from mobilenet_tpu_torch import V2Config
 from mobilenet_tpu_torch.ops.inverted_residual import inverted_residual, inverted_residual_plain
 from mobilenet_tpu_torch.ops.separable_block import separable_block
 from mobilenet_tpu_torch.ops.v3_block import (
-    MAX_OUTPUTS_V3, SMEM_MAX, V3W_SMEM_LIMIT, V3W_TM, v3_block_plain, v3_plan, v3_smem_bytes,
+    MAX_TM, V3F_SMEM_LIMIT, V3W_SMEM_LIMIT, V3W_TM, v3_block_plain, v3_plan, v3_smem_bytes,
     v3_wgmma_plan, v3_wgmma_smem_bytes,
 )
 
@@ -125,9 +125,9 @@ def test_every_v2_block_has_a_tile(alpha, itemsize):
     """Every expanded block of V2 at 224 has a plan at batch 1 and 256 within
     the shared-memory limit: bf16 (itemsize 2) of the V3 bottleneck's Hopper
     tile (`v3_wgmma_plan`, ReLU6, k 3, no SE), whose units at batch 1 are at
-    least as many as at batch 256 divided by the batch; float32 of the
-    CUDA-core tile (`v3_plan`), whose batch-1 tiles are no larger than the
-    batch-256 ones (more blocks where the batch does not fill the card)."""
+    least as many as at batch 256 divided by the batch; float32 (itemsize 4)
+    of the CUDA-core tile (`v3_plan`), whose batch-1 tiles are no larger than
+    the batch-256 ones (more blocks where the batch does not fill the card)."""
     cfg = V2Config(alpha, 224)
     h = 112
     for t, cin, cout, stride in cfg.block_defs:
@@ -142,12 +142,13 @@ def test_every_v2_block_has_a_tile(alpha, itemsize):
                 units.append(-(-ho // p.th) * -(-ho // p.tw) * p.split)
             assert units[0] * 256 >= units[1]
         elif t > 1:
-            plans = [v3_plan(n, h, h, cin, e, cout, 3, stride, 0, itemsize) for n in (1, 256)]
-            for plan in plans:
-                assert plan is not None, (h, cin, cout, stride)
-                assert v3_smem_bytes(*plan, cin, e, cout, 0, 3, stride, itemsize) <= SMEM_MAX
-                assert plan[0] * plan[1] <= MAX_OUTPUTS_V3
-            assert plans[0][0] * plans[0][1] <= plans[1][0] * plans[1][1]
+            plans = [v3_plan(n, h, h, cin, e, cout, 3, stride, 0) for n in (1, 256)]
+            for p in plans:
+                assert p is not None, (h, cin, cout, stride)
+                assert v3_smem_bytes(p.th, p.tw, h, h, cin, e, cout, 0, 3, stride, p.ws,
+                                     p.bs) <= V3F_SMEM_LIMIT
+                assert p.th * p.tw <= MAX_TM
+            assert plans[0].th * plans[0].tw <= plans[1].th * plans[1].tw
         h //= stride
 
 
@@ -179,7 +180,7 @@ def test_wrapper_rejects_what_no_kernel_takes():
         inverted_residual(*t, 2, True)  # residual at stride 2
     with pytest.raises(ValueError):
         inverted_residual(t[0], *t[1:5], t[5][:, :12].contiguous(), t[6][:12], 1, False)
-    assert v3_plan(1, 6, 5, 16, 96, 16, 3, 2, 0, 4) is None
+    assert v3_plan(1, 6, 5, 16, 96, 16, 3, 2, 0) is None
     assert v3_wgmma_plan(1, 6, 5, 16, 96, 16, 3, 2, 0, False) is None
     with pytest.raises(ValueError, match="v3_plan"):  # float32: the CUDA-core tile's plan
         inverted_residual(t[0][:, :, :5].contiguous(), *t[1:], 2, False)

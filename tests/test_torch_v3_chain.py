@@ -5,7 +5,8 @@ the shape classes of the JAX package's own chain tests
 residuals inside one run, an odd final side); the wrapper's rejections; the
 chain knobs' segmentation at 1.0-224 from shapes alone; and the chained
 forward_v3 against the port's per-block route and the JAX package's chained
-forward."""
+forward; and the float32 chain's rings stepped role by role across its
+stages' passes, on the plans each stage has alone."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +22,9 @@ from mobilenet_tpu_torch import V3Config
 from mobilenet_tpu_torch.checkpoints import from_jax_params_v3
 from mobilenet_tpu_torch.models import mobilenet_v3
 from mobilenet_tpu_torch.ops import v3_chain as v3_chain_mod
+from mobilenet_tpu_torch.ops.v3_block import v3_plan
 from mobilenet_tpu_torch.ops.v3_chain import v3_chain, v3_chain_fits, v3_chain_plain
+from test_torch_v3_block import ring_walk
 
 # float32: the port's V3 kernel tests' tolerance (tests/test_torch_v3_block.py).
 F32_TOL = dict(atol=3e-5, rtol=1e-5)
@@ -217,3 +220,28 @@ def test_chained_forward_vs_per_block_and_jax(monkeypatch):
     ref = np.asarray(jax_v3.forward_v3(tree, jnp.asarray(x), jcfg, dw_backend="fused"))
     assert jruns and max(jruns) >= 2
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["large", "small"])
+@pytest.mark.parametrize("n", [1, 256])
+def test_f32_chain_rings_progress(variant, n):
+    """The float32 chain (blocks 1 to the last at 1.0-224) runs every
+    stage's passes on one pair of rings whose slot counts change from stage
+    to stage (each stage's own `v3_plan`): a stage without SE one pass on
+    both rings, an SE stage pass 1 on both and pass 2 on the weight ring
+    alone. Stepped role by role (a few units and chunks a pass), every fill
+    reaches the read meant for it and no role waits forever."""
+    cfg = V3Config(variant, 1.0, 224)
+    h = 112 // cfg.block_defs[0].stride
+    passes, slots = [], set()
+    for bd in cfg.block_defs[1:]:
+        p = v3_plan(n, h, h, bd.cin, bd.cexp, bd.cout, bd.kernel, bd.stride, bd.se_mid)
+        slots.add((p.ws, p.bs))
+        units = min(3, n * -(-(-(-h // bd.stride)) // p.th) * -(-(-(-h // bd.stride)) // p.tw))
+        chunks = min(-(-bd.cexp // 32), 2 * p.bs + 1)
+        passes.append((units, chunks, p.ws, p.bs, True))
+        if bd.se_mid:
+            passes.append((units, chunks, p.ws, p.bs, False))
+        h = -(-h // bd.stride)
+    assert ring_walk(passes)
+    assert len(slots) > 1 or n == 1  # the slot counts do change between stages
