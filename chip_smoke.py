@@ -15,8 +15,12 @@ file; imports nothing of JAX. Phases, one JSON line each:
      (taken after phase 45, so that the profiler runs after every other
      phase's events; summed over a forward into the row's f32_* fields;
      phases 10, 18 and 22 likewise); a row whose float32 form runs its own
-     design names it
-     (`float32_design`: `csrc/v3_f32.cuh`, `csrc/head_f32.cuh`); for the separable block also
+     design names it (`float32_design`: `csrc/separable_f32.cuh`,
+     `csrc/v3_f32.cuh`, `csrc/head_f32.cuh`); the float32 separable tile also
+     at batch 2 and 1 at every V1 block shape and V2 b00 (its rows'
+     f32_b2 / f32_b1 sums over a forward), its plan's shared memory against
+     the kernel's at batch 256, 2 and 1, and the float32 chain equal to five
+     per-block launches bit for bit at batch 1 and 2; for the separable block also
      the time of its unfused library sequence
      (`block_times.separable_library`: cuDNN's grouped conv + bias, clamp,
      matmul + bias, clamp; phase 10 the same for the linear block 0), for
@@ -193,7 +197,8 @@ file; imports nothing of JAX. Phases, one JSON line each:
  45. the floor probes (`python -m mobilenet_tpu_torch.floors`'s run,
      counters set to 0 before and read after; the JSON written to
      build/achievable_h100.json): the copies bit-equal to their input at
-     the five audit shapes, the stencil's variants against their plain
+     the five audit shapes, their A/B against `Tensor.copy_` (`floors
+     --copy-ab 7`: medians and spreads of alternating runs), the stencil's variants against their plain
      versions (bf16 bit-equal; float32 within one bf16 step, relative, for
      FMA contraction) at the timed 56^2 x 128 shape after 2, 8 and 256
      rounds, the short runs required to depend on x (`check_stencil`), the
@@ -294,6 +299,8 @@ DW_EDGES = ((1, 9, 9, 8, 2, True, True), (2, 13, 13, 24, 1, False, True),
             (1, 7, 7, 1024, 2, False, False))
 V3_DESIGN = ["mobilenet_tpu_torch/csrc/v3_wgmma.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
 # The float32 kernels' Hopper designs (CUDA-core fmaf on cp.async rings).
+SEP_F32_DESIGN = ["mobilenet_tpu_torch/csrc/separable_f32.cuh",
+                  "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_F32_DESIGN = ["mobilenet_tpu_torch/csrc/v3_f32.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
 HEAD_F32_DESIGN = ["mobilenet_tpu_torch/csrc/head_f32.cuh", "mobilenet_tpu_torch/csrc/hopper.cuh"]
 V3_I8_DESIGN = ["mobilenet_tpu_torch/csrc/v3_i8_wgmma.cuh",
@@ -371,6 +378,19 @@ def dw_work(n, h, c, stride, kind="int8"):
     ho = -(-h // stride)
     return (n * h * h * c * act + c * (9 * w + b + m) + n * ho * ho * c * act,
             2 * 9 * n * ho * ho * c)
+
+
+def ptxas_lines(log: str) -> list:
+    """The build log's register and spill lines, each after the mangled name
+    of the kernel ptxas was compiling ("<kernel>: ptxas info : Used ...")."""
+    out, kernel = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            kernel = m.group(1)
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{kernel}: {ln.strip()}")
+    return out
 
 
 def emit(phase: str, **kw):
@@ -701,6 +721,69 @@ def float32_device_times():
     torch.cuda.empty_cache()
 
 
+def f32_separable_checks(summary, gen, cfg):
+    """Phase 2's float32 separable tile (`csrc/separable_f32.cuh`) beyond the
+    batch-256 rows: its plan's shared memory (`f32_sep_plan`,
+    `f32_sep_smem_bytes`) against the kernel's own (`separable_f32_smem_bytes`)
+    at every V1 1.0-224 block shape, V2 b00 and the chain's at batch 256, 2
+    and 1; the tile against its plain version within F32_ATOL/RTOL at those
+    shapes at batch 2 and 1 (its events and plain times per shape; its device
+    ms deferred to `float32_device_times`, summed over a forward into the
+    row's f32_b2 / f32_b1); the float32 chain equal to five per-block
+    launches bit for bit at batch 1 and 2."""
+    from mobilenet_tpu_torch.ops import _build
+    from mobilenet_tpu_torch.ops.chain import chain
+    from mobilenet_tpu_torch.ops.separable_block import (
+        f32_sep_plan, f32_sep_smem_bytes, separable_block, separable_block_plain,
+    )
+
+    lib = _build.library()
+    shapes = [(nm, h, ci, co, s, cnt, True) for nm, _, h, ci, co, s, cnt in block_shapes(cfg, 1)]
+    shapes.append(("v2b00", 112, 32, 16, 1, 0, False))
+    for n in (256, 2, 1):
+        for _, h, ci, co, s, _, _ in shapes + [("chain", 14, 512, 512, 1, 0, True)]:
+            p = f32_sep_plan(n, h, h, ci, co, s)
+            got = lib.separable_f32_smem_bytes(p.mg, p.th, p.tw, p.kp, p.ns, p.ws, p.bs, s)
+            want = f32_sep_smem_bytes(p.mg, p.th, p.tw, p.kp, p.ns, p.ws, p.bs, s)
+            if got != want:
+                raise AssertionError(f"separable_f32_smem_bytes {(n, h, ci, co, s)} {p}: "
+                                     f"kernel {got}, plan {want}")
+    for n in (2, 1):
+        row = summary["separable_block"].setdefault(f"f32_b{n}", {})
+        for nm, h, ci, co, s, cnt, act in shapes:
+            args = rand_block(gen, n, h, ci, co, torch.float32) + (s, True)
+            fn = (lambda *a, act=act: separable_block(*a, pw_act=act))  # noqa: E731
+            name = f"separable_block {nm} ({n},{h},{h},{ci})->{co} s{s} f32"
+            err = compare(name, fn(*args), separable_block_plain(*args, pw_act=act),
+                          F32_ATOL, F32_RTOL)
+            kms = cuda_ms(lambda: fn(*args))
+            pms = cuda_ms(lambda: separable_block_plain(*args, pw_act=act))
+            b_ms = bound(*block_work(n, h, ci, co, s, "f32"), "f32")[0]
+            emit("kernel_f32", kernel="separable_block", shape=name, batch=n,
+                 plan=list(f32_sep_plan(n, h, h, ci, co, s)), max_abs_err=err, ms=kms,
+                 plain_ms=pms, bound_ms=b_ms, atol=F32_ATOL, rtol=F32_RTOL)
+            summary["separable_block"]["max_abs_err_f32"] = max(
+                summary["separable_block"]["max_abs_err_f32"], err)
+            if cnt:
+                for k, v in (("ms", kms), ("bound_ms", b_ms)):
+                    row[k] = row.get(k, 0.0) + cnt * v
+                DEFERRED_DEVICE.append((row, "separable_block", name, cnt, fn, None, args))
+    for n in (1, 2):
+        args = rand_block(gen, n, 14, 512, 512, torch.float32, k=5) + (True,)
+        got, y = chain(*args), args[0]
+        for i in range(5):
+            y = separable_block(y, args[1][i].reshape(3, 3, 1, 512).contiguous(), args[2][i],
+                                args[3][i], args[4][i], 1, True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, y):
+            raise AssertionError(f"float32 chain at batch {n}: not equal to five per-block "
+                                 f"launches (max-abs {float((got - y).abs().max()):.3e})")
+        emit("chain_f32_bit_equal", batch=n, plan=list(f32_sep_plan(n, 14, 14, 512, 512, 1)),
+             ms=cuda_ms(lambda: chain(*args)), bit_equal_to_separable_block=True)
+        del args, got, y
+    torch.cuda.empty_cache()
+
+
 def check_head_smem(gen):
     """The bf16 head kernels' shared memory (the C entry head_smem_bytes)
     against ops/head.head_smem_bytes, at every form's conv_last width and
@@ -899,6 +982,7 @@ def v2_phases(smi, gen, kernels, launches):
             "also_replaces": ["mobilenet_tpu/ops/pallas_expand_s2.py:238"]},
         "separable_block[linear]": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block.cu",
+            "float32_design": SEP_F32_DESIGN,
             "replaces": "mobilenet_tpu/ops/pallas_block_packed.py:132"},
         "fused_head[conv_last]": {
             "route": "cuda", "source": "mobilenet_tpu_torch/csrc/fused_head.cu",
@@ -2335,6 +2419,8 @@ def floor_phases(smi, launches):
     rows["hbm_copy"]["max_abs_err"] = rows["hbm_copy_flat"]["max_abs_err"] = 0.0
     emit("floor_probes", nvidia_smi=smi, stencil_checks=checks,
          stencil_rtol=floors.STENCIL_RTOL, copies_bit_equal=True)
+    # the copies' A/B (`floors --copy-ab 7`): alternating runs, medians and spreads
+    emit("copy_ab", nvidia_smi=smi, **floors.copy_ab(7))
     measured, _ = roofline.achievable_rates(floors.OUT)
     for model in ("v1", "v2", "v3", "v3small"):
         out = {}
@@ -2380,8 +2466,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_lines(_build.build_log)
     emit("build", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          build_s=build_s, nvcc_seconds=_build.build_seconds, ptxas=ptxas)
@@ -2392,6 +2477,7 @@ def main() -> int:
     summary = {
         "separable_block": {"route": "cuda",
                             "source": "mobilenet_tpu_torch/csrc/separable_block.cu",
+                            "float32_design": SEP_F32_DESIGN,
                             "replaces": "mobilenet_tpu/ops/pallas_block.py:217",
                             "also_replaces": [
                                 "mobilenet_tpu/ops/pallas_block_packed.py:132",
@@ -2401,6 +2487,7 @@ def main() -> int:
                        "design": HEAD_DESIGN, "float32_design": HEAD_F32_DESIGN,
                        "replaces": "mobilenet_tpu/ops/pallas_head.py:168"},
         "chain": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/chain.cu",
+                  "float32_design": SEP_F32_DESIGN,
                   "replaces": "mobilenet_tpu/ops/pallas_chain_systolic.py:120",
                   "also_replaces": ["mobilenet_tpu/ops/pallas_chain.py:74"]},
     }
@@ -2429,6 +2516,7 @@ def main() -> int:
     check_float(summary, "chain", f"(1,{hc},{hc},{cc}) x5", 1, chain, chain_plain,
                 mkc(torch.float32), mkc(torch.bfloat16),
                 lambda kind: block_work(1, hc, cc, cc, 1, kind, k=5))
+    f32_separable_checks(summary, gen, cfg)
 
     # -- 3. pipeline: kernel route vs plain route ---------------------------------
     pipe = InferencePipeline(cfg, device="cuda")

@@ -3,6 +3,8 @@
     python -m mobilenet_tpu_torch.block_times [--batch 256 1] [--yardsticks] \
         [--int8 | --v3 | --v3-int8 | --v2 | --v2-int8 | --stem | --head | --dw [--int8]]
         [--float32] [--parent DIR]
+    python -m mobilenet_tpu_torch.block_times --float32 --yardsticks --parent DIR
+    python -m mobilenet_tpu_torch.block_times --float32 --plans [--batch 256 2 1]
 
 At each block shape of MobileNet-V1 1.0-224 (and V2 1.0-224's linear block
 0 at batch 256), and at the V1 chain's five blocks at batch 1, times the
@@ -65,11 +67,24 @@ the parent) the host ms a call takes to return ("host_ms") and at batch 256
 torch.profiler's device ms a call ("device_ms"; at batch 2 "ms" is that
 already); a "sum <batch>" row adds each time over one forward's 13 layers. Prints one JSON line: the card
 and {"b00 256": {"ms": ...}, ...}.
-With --v2, --v3 and --head, --parent DIR likewise times the wrappers of the
-checkout at DIR beside ("parent_ms"; --head also "parent_device_ms" and
-"parent_passes"). Every float32 library sequence runs with cuDNN's and
+With --float32 and no kind, instead the float32 `separable_block` at V1
+1.0-224's distinct block shapes ("b06 256", with "count"; "sum <batch>"
+over the 13 blocks), V2's linear block 0 ("v2b00 <batch>") and the V1
+chain's five blocks ("chain <batch>" where `chain_fits`: not at 256) at
+batch 256, 2 and 1 unless --batch
+says otherwise: events at batch 256 and torch.profiler's device ms at every
+batch ("device_ms"), with --yardsticks the plain versions and
+`separable_library` with TF32 off, and the bound (`block_bound`).
+With --float32 --plans, instead every candidate plan that `f32_sep_plan`
+weighs at those block shapes (not the chain), each by CUDA events over a
+CUDA graph of its launches: per shape the plan's pick and the fastest
+candidate, and the geometric mean and worst of their ratio ("fit"); this
+mode launches the C entry with each plan.
+With --float32, --v2, --v3 and --head, --parent DIR likewise times the
+wrappers of the checkout at DIR beside ("parent_ms"; --head also
+"parent_device_ms" and "parent_passes"). Every float32 library sequence runs with cuDNN's and
 cuBLAS's TF32 off (`ops/conv.no_tf32`), IEEE float32 as the kernels.
-It calls only the kernels' public wrappers, so this file copied into an
+Else it calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
 parent, change, change, parent in one card call). Refuses to run without a
 card.
@@ -282,25 +297,32 @@ def host_ms(fn, reps: int = 50) -> float:
     return (t1 - t0) / reps * 1e3
 
 
-def kernel_ms(fn, reps: int = 30) -> dict:
+def kernel_ms(fn, reps: int = 30, tries: int = 3) -> dict:
     """torch.profiler's device ms a call of fn, by kernel (the name up to
-    its arguments), after warm-up."""
+    its arguments), after warm-up. The profiler can lose some of a session's
+    kernel records (on the H100 a few sessions in a hundred: a sum then reads
+    low): a session in which a kernel's count is not a whole multiple of
+    `reps`, or that recorded none, is run again, at most `tries` times."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].strip()
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out, whole = {}, True
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                whole = whole and e.count % reps == 0
+                name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].strip()
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+        if whole and out:
+            return out
+    raise RuntimeError(f"torch.profiler lost kernel records in {tries} sessions of {reps} calls")
 
 
 def device_ms(fn, reps: int = 30) -> float:
@@ -501,6 +523,159 @@ def bf16_times(cfg, args, gen, times) -> dict:
         if args.yardsticks:
             calls["plain_ms"] = lambda: chain_plain(*a, True)
         out["chain 1"] = times(1, calls)
+    return out
+
+
+def block_bound(n, h, cin, cout, stride, k=1):
+    """(bound_ms, bound_by) of k float32 separable blocks on (n, h, h, cin):
+    the input, the weights and the output moved once over 3.35 TB/s, or the
+    blocks' multiply-adds (9 a depthwise output and Cin a pointwise output,
+    x 2) over the CUDA cores' 67 TFLOP/s, the larger (chip_smoke.py's
+    `block_work` in float32)."""
+    ho = -(-h // stride)
+    pix_out = n * ho * ho
+    nbytes = 4 * (n * h * h * cin + k * (10 * cin + cin * cout + cout) + pix_out * cout)
+    ops = k * (2 * 9 * pix_out * cin + 2 * pix_out * cin * cout)
+    t_b, t_o = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def f32_operands(gen, n, h, cin, cout, k=None):
+    """Seeded float32 operands of a separable block (x, dw_w, dw_b, pw_w, pw_b)
+    on the card, or with k those of a k-block chain of C -> C blocks."""
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).contiguous()
+
+    x = (torch.rand(n, h, h, cin, generator=gen, device="cuda") * 2 - 1).contiguous()
+    if k:
+        return (x, r(k, 3, 3, cin, scale=0.5), r(k, cin, scale=0.2),
+                r(k, cin, cin, scale=cin ** -0.5), r(k, cin, scale=0.2))
+    return (x, r(3, 3, 1, cin, scale=0.5), r(cin, scale=0.2),
+            r(cin, cout, scale=cin ** -0.5), r(cout, scale=0.2))
+
+
+def f32_blocks(cfg) -> list:
+    """(name, count, h, cin, cout, stride, pw_act) of V1's distinct block
+    shapes ("b06" the first block of its shape, count the blocks of one
+    forward that have it), then V2 1.0-224's linear block 0 (count 0)."""
+    shapes = {}  # (h, cin, cout, stride) -> [name, count]
+    h, cin = cfg.resolution // 2, cfg.stem_channels
+    for i, (stride, cout) in enumerate(zip(cfg.block_strides, cfg.block_channels)):
+        shapes.setdefault((h, cin, cout, stride), [f"b{i:02d}", 0])[1] += 1
+        h, cin = -(-h // stride), cout
+    return ([(name, count, h, ci, co, s, True) for (h, ci, co, s), (name, count)
+             in shapes.items()] + [("v2b00", 0, 112, 32, 16, 1, False)])
+
+
+def f32_plan_times(cfg, args, gen) -> dict:
+    """With --float32 --plans: every candidate plan that `f32_sep_plan` weighs
+    (`f32_sep_candidates`) at V1 1.0-224's distinct block shapes and V2's
+    linear block 0, at each batch, each by `floors.graph_ms` (CUDA events over
+    a CUDA graph of 10 launches: the card's time). Per shape ("b06 2"):
+    the plan's pick and its ms, the fastest candidate and its ms, their
+    ratio and the candidates' count; then each batch's and all shapes'
+    geometric mean and worst of the ratios ("fit <batch>", "fit")."""
+    import math  # noqa: PLC0415
+
+    from .floors import graph_ms  # noqa: PLC0415
+    from .ops import _build  # noqa: PLC0415
+    from .ops.separable_block import f32_sep_candidates, f32_sep_plan  # noqa: PLC0415
+
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out, ratios = {}, {}
+    for batch in args.batch:
+        for name, _, h, ci, co, stride, act in f32_blocks(cfg):
+            a = f32_operands(gen, batch, h, ci, co)
+            y = torch.empty((batch, -(-h // stride), -(-h // stride), co), device="cuda")
+            head = [t.data_ptr() for t in a] + [y.data_ptr(), batch, h, h, ci, co, stride, 1,
+                                                int(act)]
+
+            def launch(plan, head=head):
+                code = lib.separable_block_f32(*head, *plan,
+                                               torch.cuda.current_stream().cuda_stream)
+                _build.check(lib, code, "separable_block_f32")
+
+            plans = list(dict.fromkeys(  # a tile two pixel budgets reach is timed once
+                plan for _, plan in f32_sep_candidates(batch, h, h, ci, co, stride, sms)))
+            ms = {plan: graph_ms(lambda plan=plan: launch(plan), reps=10) for plan in plans}
+            pick = f32_sep_plan(batch, h, h, ci, co, stride, sms)
+            best = min(ms, key=ms.get)
+            ratios.setdefault(batch, []).append(ms[pick] / ms[best])
+            out[f"{name} {batch}"] = {"pick": list(pick), "pick_ms": ms[pick],
+                                      "best": list(best), "best_ms": ms[best],
+                                      "ratio": ms[pick] / ms[best], "candidates": len(plans)}
+            del a, y
+            torch.cuda.empty_cache()
+
+    def fit(rs):
+        return {"geomean": math.exp(sum(map(math.log, rs)) / len(rs)), "worst": max(rs)}
+
+    for batch, rs in ratios.items():
+        out[f"fit {batch}"] = fit(rs)
+    out["fit"] = fit([r for rs in ratios.values() for r in rs])
+    return out
+
+
+def f32_times(cfg, args, gen, times) -> dict:
+    """The float32 `separable_block` at V1 1.0-224's distinct block shapes
+    ("b06 256", with "count", the blocks of one forward that have it; a "sum
+    <batch>" row over the 13 blocks), V2 1.0-224's linear block 0 ("v2b00
+    <batch>") and the V1 chain's five blocks ("chain <batch>", at the
+    batches where one launch takes them: `chain_fits`), at each batch: CUDA
+    events ("ms" at batch 256) and torch.profiler's device ms a call
+    ("device_ms"; at other batches "ms" is that already), with --parent
+    the same wrappers of the checkout at DIR ("parent_ms", "parent_device_ms"),
+    with --yardsticks the plain versions and the library sequence
+    `separable_library` with TF32 off ("library_ms", "library_device_ms"),
+    and the bound."""
+    from .ops.chain import chain, chain_fits, chain_plain  # noqa: PLC0415
+    from .ops.separable_block import separable_block, separable_block_plain  # noqa: PLC0415
+
+    parent = (load_parent(args.parent, ("ops.separable_block", "ops.chain"))
+              if args.parent else None)
+
+    def row(batch, calls, bound):
+        got = times(batch, calls)
+        for k in [k for k in ("ms", "parent_ms", "library_ms") if k in calls]:
+            got[f"{k[:-2]}device_ms"] = (got[k] if batch != 256
+                                         else device_ms(calls[k], reps=10))
+        got["bound_ms"], got["bound_by"] = bound
+        return got
+
+    out = {}
+    for batch in args.batch:
+        total = {}
+        for name, count, h, ci, co, stride, act in f32_blocks(cfg):
+            a = f32_operands(gen, batch, h, ci, co)
+            kw = dict(pw_act=act)
+            calls = {"ms": lambda a=a, s=stride, kw=kw: separable_block(*a, s, True, **kw)}
+            if parent:
+                calls["parent_ms"] = lambda a=a, s=stride, kw=kw: (
+                    parent[0].separable_block(*a, s, True, **kw))
+            if args.yardsticks:
+                calls["plain_ms"] = lambda a=a, s=stride, kw=kw: (
+                    separable_block_plain(*a, s, True, **kw))
+                calls["library_ms"] = ieee(separable_library(*a, stride, True, **kw), a[0])
+            got = {**row(batch, calls, block_bound(batch, h, ci, co, stride)), "count": count}
+            out[f"{name} {batch}"] = got
+            for k, v in got.items():
+                if count and (k.endswith("_ms") or k == "ms"):
+                    total[k] = total.get(k, 0.0) + count * v
+            del a, calls
+            torch.cuda.empty_cache()
+        out[f"sum {batch}"] = total
+        if not chain_fits(batch, 14, 14, 512, 5, 4):
+            continue  # the route runs per-block kernels there (batch 256)
+        a = f32_operands(gen, batch, 14, 512, 512, k=5)
+        calls = {"ms": lambda a=a: chain(*a, True)}
+        if parent:
+            calls["parent_ms"] = lambda a=a: parent[1].chain(*a, True)
+        if args.yardsticks:
+            calls["plain_ms"] = lambda a=a: chain_plain(*a, True)
+        out[f"chain {batch}"] = row(batch, calls, block_bound(batch, 14, 512, 512, 1, k=5))
+        del a, calls
+        torch.cuda.empty_cache()
     return out
 
 
@@ -834,17 +1009,24 @@ def main(argv=None) -> None:
                       help="the standalone depthwise kernel at V1's depthwise layers instead "
                            "(bf16; default batches 256 2)")
     p.add_argument("--float32", action="store_true",
-                   help="with --v2, --v3, --head or --dw: the float32 kernel instead of the "
-                        "bf16 one")
+                   help="the float32 kernel instead of the bf16 one (alone: the float32 "
+                        "separable block and chain, default batches 256 2 1)")
+    p.add_argument("--plans", action="store_true",
+                   help="with --float32 alone: every candidate plan of the float32 separable "
+                        "block at V1's shapes and V2 b00, the plan's pick against the fastest")
     p.add_argument("--parent", default=None,
-                   help="with --v2, --v3, --head or --dw: the root of an earlier checkout to "
-                        "time beside")
+                   help="with --float32, --v2, --v3, --head or --dw: the root of an earlier "
+                        "checkout to time beside")
     args = p.parse_args(argv)
     if args.batch is None:
-        args.batch = [256, 64, 8, 1] if args.head else [256, 2] if args.dw else [256, 1]
+        args.batch = ([256, 64, 8, 1] if args.head else [256, 2] if args.dw
+                      else [256, 2, 1] if args.float32 else [256, 1])
     if args.int8 and (args.float32 or any(
             (args.v3, args.v3_int8, args.v2, args.v2_int8, args.stem, args.head))):
         p.error("--int8 goes alone or with --dw, and not with --float32")
+    if args.plans and (not args.float32 or args.int8 or args.parent or any(
+            (args.v3, args.v3_int8, args.v2, args.v2_int8, args.stem, args.head, args.dw))):
+        p.error("--plans goes with --float32 alone")
     if not torch.cuda.is_available():
         raise SystemExit("block_times: needs a CUDA card")
     from .config import ModelConfig  # noqa: PLC0415
@@ -869,8 +1051,11 @@ def main(argv=None) -> None:
         out = head_times(args, gen)
     elif args.dw:
         out = dw_times(ModelConfig(1.0, 224), args, gen, times)
+    elif args.plans:
+        out = f32_plan_times(ModelConfig(1.0, 224), args, gen)
     else:
-        out = (int8_times if args.int8 else bf16_times)(ModelConfig(1.0, 224), args, gen, times)
+        run = int8_times if args.int8 else f32_times if args.float32 else bf16_times
+        out = run(ModelConfig(1.0, 224), args, gen, times)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, **out}),

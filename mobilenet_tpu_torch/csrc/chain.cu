@@ -6,7 +6,7 @@
 // bit: every stage runs the per-block kernel's code on the same plan, bf16
 // the Hopper stage of separable_wgmma.cuh (plan from
 // ops/separable_block.separable_plan, passed by the caller), float32 the
-// tile of separable_tile.cuh.
+// stage of separable_f32.cuh (plan from ops/separable_block.f32_sep_plan).
 //
 // What bounds it on an H100: at batch 1 each block is 1.3 MFLOP of depthwise
 // and 51 MFLOP of pointwise work, so a per-block launch leaves most SMs idle
@@ -14,18 +14,20 @@
 // grid runs all K stages; stage k+1 waits for stage k at a grid-wide barrier
 // (cooperative_groups::this_grid().sync()), since blocks run in no order.
 // The launch is cooperative so the whole grid is co-resident; its size is
-// the unit (bf16) or tile (float32) count capped by what
+// the unit count capped by what
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor allows at the kernel's
 // dynamic shared memory. The activation between stages goes through two
 // ping-pong scratch buffers that the caller allocates (200 KB per image at
 // 14x14x512 bf16), which stay in L2. In bf16 a stage's input windows load by
 // TMA (the async proxy): after each grid barrier the producer fences the
 // other blocks' stores into that proxy (fence.proxy.async.global); the
-// float32 stages load through L2 (__ldcg). Keeping the activations in
-// distributed shared memory across a thread-block cluster is later work.
+// float32 stages' cp.async copies (cp.async.cg) read through L2, which holds
+// the other blocks' stores once the barrier has passed. Keeping the
+// activations in distributed shared memory across a thread-block cluster is
+// later work.
 #include <cooperative_groups.h>
 
-#include "separable_tile.cuh"
+#include "separable_f32.cuh"
 #include "separable_wgmma.cuh"
 
 namespace cg = cooperative_groups;
@@ -34,22 +36,24 @@ namespace {
 
 using mnk::sw::bf16;
 
-__global__ void __launch_bounds__(mnk::THREADS)
-    chain_f32_kernel(const float* __restrict__ x, const float* __restrict__ dw_ws,
-                     const float* __restrict__ dw_bs, const float* __restrict__ pw_ws,
-                     const float* __restrict__ pw_bs, float* scratch0, float* scratch1,
-                     float* out, mnk::BlockShape s, int K) {
-  __shared__ __align__(128) unsigned char smem[mnk::TILE_SMEM_BYTES];
+namespace sf = mnk::sf;
+
+// p: the input, stage 0's weights (stage k's follow at k x their size) and the
+// output; scratch0/1 between the stages.
+template <int MG>
+__global__ void __launch_bounds__(sf::THREADS, 1)
+    chain_f32_kernel(const __grid_constant__ sf::Geo g, const sf::Ptrs p, float* scratch0,
+                     float* scratch1, int K) {
+  extern __shared__ __align__(128) unsigned char smem_cf[];
   cg::grid_group grid = cg::this_grid();
-  const int C = s.Cin;
-  const long long tiles = mnk::num_tiles(s);
-  const float* src = x;
+  sf::setup(smem_cf);
+  sf::Ring wr, br;
+  const long long C = g.Cin;
+  const float* src = p.x;
   for (int k = 0; k < K; ++k) {
-    float* dst = (k == K - 1) ? out : ((k % 2 == 0) ? scratch0 : scratch1);
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x)
-      mnk::separable_tile<true>(src, dw_ws + (long long)k * 9 * C, dw_bs + (long long)k * C,
-                                pw_ws + (long long)k * C * C, pw_bs + (long long)k * C, dst, s,
-                                t, smem);
+    float* dst = (k == K - 1) ? p.out : ((k % 2 == 0) ? scratch0 : scratch1);
+    const sf::Ptrs ps{src, p.dw + k * 9 * C, p.db + k * C, p.pw + k * C * C, p.pb + k * C, dst};
+    sf::run<MG>(g, ps, smem_cf, wr, br);
     if (k + 1 < K) grid.sync();
     src = dst;
   }
@@ -85,22 +89,24 @@ int cooperative(const void* kernel, long long units, int threads, int smem, void
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const void* x, const void* dw_ws, const void* dw_bs, const void* pw_ws,
-               const void* pw_bs, void* scratch0, void* scratch1, void* out, int N, int H,
-               int W, int C, int K, int relu6, void* stream) {
-  mnk::BlockShape s = mnk::make_shape(N, H, W, C, C, 1, relu6);
-  const long long tiles = mnk::num_tiles(s);
-  if (tiles <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const float* xp = (const float*)x;
-  const float* dwp = (const float*)dw_ws;
-  const float* dbp = (const float*)dw_bs;
-  const float* pwp = (const float*)pw_ws;
-  const float* pbp = (const float*)pw_bs;
+sf::Launcher f32_launcher{{(const void*)chain_f32_kernel<1>, (const void*)chain_f32_kernel<2>},
+                          {0, 0}};
+
+int launch_f32(const sf::Geo& g, const sf::Ptrs& p, void* scratch0, void* scratch1, int K,
+               void* stream) {
+  const void* kernel = nullptr;
+  unsigned grid = 0;
+  cudaError_t e = sf::prepare(f32_launcher, g, &kernel, &grid);
+  if (e != cudaSuccess) return (int)e;
+  sf::Geo gg = g;
+  sf::Ptrs pp = p;
   float* s0 = (float*)scratch0;
   float* s1 = (float*)scratch1;
-  float* op = (float*)out;
-  void* args[] = {&xp, &dwp, &dbp, &pwp, &pbp, &s0, &s1, &op, &s, &K};
-  return cooperative((const void*)chain_f32_kernel, tiles, mnk::THREADS, 0, args, stream);
+  void* args[] = {&gg, &pp, &s0, &s1, &K};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(sf::THREADS), args, g.smem_bytes,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 template <int NWG>
@@ -145,11 +151,18 @@ int chain_bf16(const void* x, const void* dw_ws, const void* dw_bs, const void* 
                                    K, stream);
 }
 
+// plan: mg, th, tw, kp, split, cw, ns, ws, bs (ops/separable_block.f32_sep_plan
+// of one block of the chain's shape)
 int chain_f32(const void* x, const void* dw_ws, const void* dw_bs, const void* pw_ws,
               const void* pw_bs, void* scratch0, void* scratch1, void* out, int N,
-              int H, int W, int C, int K, int relu6, void* stream) {
-  return launch_f32(x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out, N, H, W, C, K,
-                    relu6, stream);
+              int H, int W, int C, int K, int relu6, int mg, int th, int tw, int kp, int split,
+              int cw, int ns, int ws, int bs, void* stream) {
+  const sf::Geo g = sf::make_geo(N, H, W, C, C, 1, relu6, 1,
+                                 sf::Plan{mg, th, tw, kp, split, cw, ns, ws, bs});
+  if (!sf::geo_ok(g) || K <= 0) return (int)cudaErrorInvalidValue;
+  using F = const float*;
+  const sf::Ptrs p{(F)x, (F)dw_ws, (F)dw_bs, (F)pw_ws, (F)pw_bs, static_cast<float*>(out)};
+  return launch_f32(g, p, scratch0, scratch1, K, stream);
 }
 
 }  // extern "C"

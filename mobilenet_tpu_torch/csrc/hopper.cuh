@@ -143,6 +143,18 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// ---- bulk copy: contiguous bytes by the copy engine ----------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) global -> shared
+// at dst; completes them on `bar` (whose expected bytes the caller sets).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
+
 // ---- TMA tensor copies ---------------------------------------------------------
 
 // Box of `map` at coordinates (c0, c1, c2) (innermost first; out-of-range

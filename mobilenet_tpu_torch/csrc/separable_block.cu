@@ -27,23 +27,28 @@
 // 16-byte vectors. A producer warp runs each ring, so the next unit's window
 // and the next weight chunk load while the warpgroups compute.
 //
-// float32 (separable_tile.cuh): exact IEEE float32 by FMA on the CUDA cores,
-// one 64-pixel x 128-channel tile a block (the verify path, unchanged).
-#include "separable_tile.cuh"
+// float32 (separable_f32.cuh, the plan of ops/separable_block.f32_sep_plan):
+// exact IEEE float32 by fmaf on the CUDA cores; a persistent grid over units
+// of a pixel tile x a part of Cout, a producer warp's cp.async rings of window
+// chunks and weight stages, the depthwise once per pixel and channel of a
+// unit into a K-major panel, 8 x 8 (or 4 x 4) register micro-tiles with
+// float4 operands for the pointwise (the header says what held the old tile).
+#include "separable_f32.cuh"
 #include "separable_wgmma.cuh"
 
 namespace {
 
 using mnk::sw::bf16;
 
-template <bool kPwAct>
-__global__ void __launch_bounds__(mnk::THREADS)
-    separable_block_f32_kernel(const float* __restrict__ x, const float* __restrict__ dw_w,
-                               const float* __restrict__ dw_b, const float* __restrict__ pw_w,
-                               const float* __restrict__ pw_b, float* __restrict__ out,
-                               mnk::BlockShape s) {
-  __shared__ __align__(128) unsigned char smem[mnk::TILE_SMEM_BYTES];
-  mnk::separable_tile<false, kPwAct>(x, dw_w, dw_b, pw_w, pw_b, out, s, blockIdx.x, smem);
+namespace sf = mnk::sf;
+
+template <int MG>
+__global__ void __launch_bounds__(sf::THREADS, 1)
+    separable_block_f32_kernel(const __grid_constant__ sf::Geo g, const sf::Ptrs p) {
+  extern __shared__ __align__(128) unsigned char smem_sf[];
+  sf::setup(smem_sf);
+  sf::Ring wr, br;
+  sf::run<MG>(g, p, smem_sf, wr, br);
 }
 
 template <int NWG, bool kPwAct>
@@ -54,18 +59,22 @@ __global__ void __launch_bounds__(mnk::sw::threads_of(NWG), 1)
   mnk::sw::run<NWG, kPwAct>(g, smem_raw, maps, l, [] {});
 }
 
-int launch_f32(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-               const void* pw_b, void* out, int N, int H, int W, int Cin, int Cout, int stride,
-               int relu6, int pw_act, void* stream) {
-  mnk::BlockShape s = mnk::make_shape(N, H, W, Cin, Cout, stride, relu6);
-  long long tiles = mnk::num_tiles(s);
-  if (tiles <= 0) return (int)cudaSuccess;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  // pw_act picks the instantiation: the activated epilogue has no runtime branch
-  auto kernel = pw_act ? separable_block_f32_kernel<true> : separable_block_f32_kernel<false>;
-  kernel<<<(unsigned)tiles, mnk::THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)dw_w, (const float*)dw_b, (const float*)pw_w,
-      (const float*)pw_b, (float*)out, s);
+sf::Launcher f32_launcher{
+    {(const void*)separable_block_f32_kernel<1>, (const void*)separable_block_f32_kernel<2>},
+    {0, 0}};
+
+// A persistent grid of at most the co-resident blocks over the plan's units.
+int launch_f32(const sf::Geo& g, const sf::Ptrs& p, void* stream) {
+  const void* kernel = nullptr;
+  unsigned grid = 0;
+  cudaError_t e = sf::prepare(f32_launcher, g, &kernel, &grid);
+  if (e != cudaSuccess) return (int)e;
+  sf::Geo gg = g;
+  sf::Ptrs pp = p;
+  void* args[] = {&gg, &pp};
+  e = cudaLaunchKernel(kernel, dim3(grid), dim3(sf::THREADS), args, g.smem_bytes,
+                       (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -115,12 +124,26 @@ int separable_block_bf16(const void* x, const void* dw_w, const void* dw_b,
                   : launch_bf16<1>(x, dw_w, dw_b, pw_w, pw_b, out, g, pw_act, stream);
 }
 
+// plan: mg, th, tw, kp, split, cw, ns, ws, bs (ops/separable_block.f32_sep_plan)
 int separable_block_f32(const void* x, const void* dw_w, const void* dw_b,
                         const void* pw_w, const void* pw_b, void* out, int N, int H,
                         int W, int Cin, int Cout, int stride, int relu6, int pw_act,
-                        void* stream) {
-  return launch_f32(x, dw_w, dw_b, pw_w, pw_b, out, N, H, W, Cin, Cout, stride, relu6,
-                    pw_act, stream);
+                        int mg, int th, int tw, int kp, int split, int cw, int ns, int ws,
+                        int bs, void* stream) {
+  const sf::Geo g = sf::make_geo(N, H, W, Cin, Cout, stride, relu6, pw_act,
+                                 sf::Plan{mg, th, tw, kp, split, cw, ns, ws, bs});
+  if (!sf::geo_ok(g)) return (int)cudaErrorInvalidValue;
+  using F = const float*;
+  const sf::Ptrs p{(F)x, (F)dw_w, (F)dw_b, (F)pw_w, (F)pw_b, static_cast<float*>(out)};
+  return launch_f32(g, p, stream);
+}
+
+// Dynamic shared memory of a float32 plan (ops/separable_block.f32_sep_smem_bytes
+// mirrors it).
+int separable_f32_smem_bytes(int mg, int th, int tw, int kp, int ns, int ws, int bs,
+                             int stride) {
+  const sf::Plan p{mg, th, tw, kp, 1, 8, ns, ws, bs};
+  return sf::make_geo(1, 8, 8, 8, 8, stride, 1, 1, p).smem_bytes;
 }
 
 // Dynamic shared memory of a bf16 plan (the CPU tests mirror it).

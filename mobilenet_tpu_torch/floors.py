@@ -7,11 +7,12 @@ that the roofline model (`roofline.py`) divides by.
 The probe kernels are `csrc/floors.cu` (which names the TPU probes of the JAX
 package's tools/microbench_floors.py that they replace); each has its plain
 PyTorch version here, which the wrappers run on CPU tensors. The run times,
-with CUDA events at the audit geometries (batch 256, 112^2 x 64 down to
-7^2 x 1024):
-  - hbm_copy (an image's bytes by its own blocks) and hbm_copy_flat (one
-    grid-stride loop over the flat buffer), beside the library copy
-    `Tensor.copy_` as a yardstick the port never calls -> GB/s, read + write;
+at the audit geometries (batch 256, 112^2 x 64 down to 7^2 x 1024):
+  - hbm_copy (an image's bytes by its own blocks) and hbm_copy_flat (the flat
+    buffer, a 16-byte vector a thread), beside the library copy
+    `Tensor.copy_` as a yardstick the port never calls -> GB/s, read + write,
+    by CUDA events over a CUDA graph of the calls (the rest below by CUDA
+    events over back-to-back calls);
   - the stencil, each variant (chain, ilp3, const, bf16, noepi, and the
     TPU tool's grid and width forms) -> T-FMA/s, against the 33.5 T-FMA/s
     (67 TFLOP/s) float32 CUDA-core peak;
@@ -22,7 +23,9 @@ with CUDA events at the audit geometries (batch 256, 112^2 x 64 down to
 and writes them to build/achievable_h100.json for `roofline.py --achievable`.
 With --copy-ab, instead only the two copy probes against `Tensor.copy_` in
 alternating runs (the order turned each round), a run's ms summed over the
-five audit shapes: each copy's runs, median and spread as one JSON line.
+five audit shapes, by CUDA events over back-to-back calls and over a CUDA
+graph of them: each copy's runs, medians, spreads and medians at each shape
+as one JSON line.
 Needs a CUDA card; refuses to run without one.
 """
 
@@ -212,29 +215,72 @@ def check_stencil(variant: str, n: int, h: int, w: int, c: int, reps: int,
             "max_rel": float((diff / ref.abs().clamp_min(1e-30)).max()), "sees_x": sees_x}
 
 
+def graph_ms(fn: Callable[[], object], reps: int = 20) -> float:
+    """CUDA-event ms a call of fn, replayed from one CUDA graph of `reps`
+    calls: the card's time for the calls with no host work between them (a
+    wrapper's checks, ctypes call and allocation stay out of it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: the build, the allocator's pool
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def copy_rates(shape, fns: Dict[str, Callable]) -> Dict[str, Tuple[float, float]]:
-    """{name: (GB/s read + write, ms)} of each copy function on a bf16 batch."""
+    """{name: (GB/s read + write, ms)} of each copy function on a bf16 batch,
+    by `graph_ms`: the rate is the copy's on the card, not that of a
+    wrapper's host work."""
     x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
     nbytes = 2 * x.numel() * x.element_size()
     out = {}
     for name, fn in fns.items():
-        ms = cuda_ms(lambda: fn(x))
+        ms = graph_ms(lambda: fn(x))
         out[name] = (nbytes / (ms * 1e-3) / 1e9, ms)
     return out
 
 
 def copy_ab(rounds: int) -> Dict:
     """hbm_copy, hbm_copy_flat and the library copy in `rounds` alternating
-    runs (A B C, then C B A, ...); a run is one copy's ms summed over the
-    five audit shapes. Returns each copy's runs, median and (min, max)."""
+    runs (A B C, then C B A, ...). A run is one copy's ms summed over the five
+    audit shapes, taken two ways at each shape: CUDA events over back-to-back
+    calls ("runs", host work included where a call's is longer than its
+    copy) and `graph_ms` ("graph_runs", the card's time alone). Returns each
+    copy's runs of both kinds, their medians and (min, max), and its median
+    ms of both kinds at each shape."""
     fns = {"hbm_copy": hbm_copy, "hbm_copy_flat": hbm_copy_flat,
            "library_copy": lambda x: torch.empty_like(x).copy_(x)}
     xs = [torch.ones(shape, dtype=torch.bfloat16, device="cuda") for _, shape in AUDIT_SHAPES]
-    runs = {k: [] for k in fns}
+    runs = {k: {"runs": [], "graph_runs": []} for k in fns}
+    shape_ms = {k: {kind: {label: [] for label, _ in AUDIT_SHAPES} for kind in runs[k]}
+                for k in fns}
     for r in range(rounds):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            runs[name].append(sum(cuda_ms(lambda x=x: fns[name](x)) for x in xs))
-    return {k: {"runs": v, "median": sorted(v)[len(v) // 2], "spread": [min(v), max(v)]}
+            each = {"runs": [cuda_ms(lambda x=x: fns[name](x)) for x in xs],
+                    "graph_runs": [graph_ms(lambda x=x: fns[name](x)) for x in xs]}
+            for kind, ms in each.items():
+                runs[name][kind].append(sum(ms))
+                for (label, _), m in zip(AUDIT_SHAPES, ms):
+                    shape_ms[name][kind][label].append(m)
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    return {k: {"runs": v["runs"], "median": med(v["runs"]),
+                "spread": [min(v["runs"]), max(v["runs"])],
+                "graph_runs": v["graph_runs"], "graph_median": med(v["graph_runs"]),
+                "graph_spread": [min(v["graph_runs"]), max(v["graph_runs"])],
+                "shape_median_ms": {lb: med(m) for lb, m in shape_ms[k]["runs"].items()},
+                "shape_graph_median_ms": {lb: med(m)
+                                          for lb, m in shape_ms[k]["graph_runs"].items()}}
             for k, v in runs.items()}
 
 

@@ -56,11 +56,13 @@ _V3_BF16 = [_P] * 13 + [_I] * 19
 _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch1, out | N, H, W, C, K, relu6
 # the bf16 and int8 separable plans: nwg, th, tw, kp, split, cw, ws, bs
 _PLAN = [_I] * 8
+# the float32 separable plan: mg, th, tw, kp, split, cw, ns, ws, bs
+_F32_PLAN = [_I] * 9
 _STEM_B0 = [_P] * 8 + [_I] * 5 + [_F] * 2
 # C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
-    "separable_block_bf16": _BLOCK + _PLAN, "separable_block_f32": _BLOCK,
-    "chain_bf16": _CHAIN + _PLAN, "chain_f32": _CHAIN,
+    "separable_block_bf16": _BLOCK + _PLAN, "separable_block_f32": _BLOCK + _F32_PLAN,
+    "chain_bf16": _CHAIN + _PLAN, "chain_f32": _CHAIN + _F32_PLAN,
     # x, dw_w, dw_b, dw_m, pw_wt (K-major), pw_b, pw_m, out | N, H, W, Cin,
     # Cout, stride, relu6 | dw_six_q, pw_six_q | the int8 plan (as _PLAN)
     "separable_block_i8": [_P] * 8 + [_I] * 7 + [_F] * 2 + _PLAN,
@@ -102,6 +104,9 @@ _SIGNATURES = {
 _HOST_SIGNATURES = {
     # nwg, th, tw, kp, ws, bs, stride -> bytes of dynamic shared memory
     "separable_bf16_smem_bytes": ([_I] * 7, ctypes.c_int),
+    # mg, th, tw, kp, ns, ws, bs, stride -> bytes of dynamic shared memory
+    # (ops/separable_block.f32_sep_smem_bytes)
+    "separable_f32_smem_bytes": ([_I] * 8, ctypes.c_int),
     # nwg, th, tw, kp, ws, bs, stride, cin -> bytes of dynamic shared memory
     "separable_i8_smem_bytes": ([_I] * 8, ctypes.c_int),
     # th, tw, H, W, Cin, E, Cout, Se, K, stride, ws, bs, identity -> bytes of

@@ -85,9 +85,8 @@ def chain(x, dw_ws, dw_bs, pw_ws, pw_bs, relu6: bool = True) -> torch.Tensor:
     args = [x.data_ptr(), dw_ws.data_ptr(), dw_bs.data_ptr(), pw_ws.data_ptr(),
             pw_bs.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
             out.data_ptr(), n, hh, ww, c, k, int(relu6)]
-    if sfx == "bf16":  # the per-block kernel's plan: bit-equal stages
-        check_aligned(name, x, dw_ws, dw_bs, pw_ws, pw_bs)
-        args += plan_for(x, c, c, 1)
+    check_aligned(name, x, dw_ws, dw_bs, pw_ws, pw_bs)
+    args += plan_for(x, c, c, 1)  # the per-block kernel's plan: bit-equal stages
     code = getattr(lib, f"chain_{sfx}")(
         *args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)

@@ -35,7 +35,8 @@ from mobilenet_tpu_torch.ops.inverted_residual_i8 import (
     inverted_residual_i8, inverted_residual_i8_plain,
 )
 from mobilenet_tpu_torch.ops.separable_block import (
-    separable_block, separable_block_plain, separable_plan, separable_smem_bytes,
+    f32_sep_plan, f32_sep_smem_bytes, separable_block, separable_block_plain, separable_plan,
+    separable_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.separable_block_i8 import (
     padded_cin, separable_block_i8, separable_block_i8_plain, separable_i8_plan,
@@ -1438,7 +1439,114 @@ def test_fused_stem_float32(dev, res, fuses):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-3)
 
 
+# -- the float32 separable tile (csrc/separable_f32.cuh) ---------------------------
+
+
+def _v1_f32_shapes():
+    """(h, cin, cout, stride, pw_act) of V1 1.0-224's distinct block shapes
+    and V2 1.0-224's linear block 0."""
+    cfg = ModelConfig(1.0, 224)
+    out, h, cin = [], 112, cfg.stem_channels
+    for stride, cout in zip(cfg.block_strides, cfg.block_channels):
+        if (h, cin, cout, stride, True) not in out:
+            out.append((h, cin, cout, stride, True))
+        h, cin = -(-h // stride), cout
+    return out + [(112, 32, 16, 1, False)]
+
+
+def _f32_block(rng, dev, n, h, cin, cout, w=None):
+    return (_t(rng, (n, h, w or h, cin), torch.float32, dev, lo=-1),
+            _t(rng, (3, 3, 1, cin), torch.float32, dev, 0.5),
+            _t(rng, (cin,), torch.float32, dev, 0.2),
+            _t(rng, (cin, cout), torch.float32, dev, cin ** -0.5),
+            _t(rng, (cout,), torch.float32, dev, 0.2))
+
+
+@pytest.mark.parametrize("batch", [1, 2, 256])
+def test_separable_block_f32_every_shape(dev, batch):
+    """The float32 tile against its plain version at every V1 1.0-224 block
+    shape and V2 b00 (linear), within the float32 gate; one launch a call."""
+    for h, cin, cout, stride, act in _v1_f32_shapes():
+        rng = np.random.default_rng(cin + cout + batch)
+        args = _f32_block(rng, dev, batch, h, cin, cout) + (stride, True)
+        before = separable_block.launches
+        got = separable_block(*args, pw_act=act)
+        assert separable_block.launches == before + 1
+        _close(got, separable_block_plain(*args, pw_act=act), torch.float32)
+        del args, got
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,stride", [
+    (2, 13, 13, 8, 16, 1),     # Cin 8: one chunk of 8 live channels; odd Wo
+    (2, 16, 16, 24, 40, 2),    # Cin 24, stride 2 on even sides
+    (3, 15, 11, 40, 24, 1),    # Cin 40: a chunk and 8 more channels; odd sides
+    (1, 14, 18, 40, 136, 2),   # Cout 136: a slice past 128
+    (2, 7, 7, 1048, 64, 1),    # Cin 1048: 32 chunks and 24 more channels
+    (1, 300, 300, 16, 24, 2),  # a wide image
+])
+@pytest.mark.parametrize("pw_act", [True, False])
+def test_separable_block_f32_edges(dev, n, h, w, cin, cout, stride, pw_act):
+    rng = np.random.default_rng(cin * cout + h)
+    args = _f32_block(rng, dev, n, h, cin, cout, w) + (stride, True)
+    got = separable_block(*args, pw_act=pw_act)
+    _close(got, separable_block_plain(*args, pw_act=pw_act), torch.float32)
+    if not pw_act:
+        assert (got < 0).any()
+
+
+def test_separable_f32_smem_mirror(dev):
+    """The float32 plan's shared memory (f32_sep_smem_bytes) equals the
+    kernel's own at every V1 1.0-224 block shape, V2 b00 and the edge shapes,
+    at batch 1, 2 and 256."""
+    lib = _build.library()
+    for n in (1, 2, 256):
+        for h, cin, cout, stride, _ in _v1_f32_shapes() + [(13, 8, 16, 1, 1), (16, 40, 136, 2, 1),
+                                                           (7, 1048, 64, 1, 1)]:
+            p = f32_sep_plan(n, h, h, cin, cout, stride)
+            args = (p.mg, p.th, p.tw, p.kp, p.ns, p.ws, p.bs, stride)
+            assert lib.separable_f32_smem_bytes(*args) == f32_sep_smem_bytes(*args)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_chain_f32_equals_blocks(dev, n):
+    """The float32 chain (V1 blocks 6-10's shape) equals five per-block
+    launches bit for bit, and its plain version within the float32 gate."""
+    rng = np.random.default_rng(n + 512)
+    args = (_t(rng, (n, 14, 14, 512), torch.float32, dev, lo=-1),
+            _t(rng, (5, 3, 3, 512), torch.float32, dev, 0.4),
+            _t(rng, (5, 512), torch.float32, dev, 0.2),
+            _t(rng, (5, 512, 512), torch.float32, dev, 512 ** -0.5),
+            _t(rng, (5, 512), torch.float32, dev, 0.2), True)
+    got = chain(*args)
+    y = args[0]
+    for i in range(5):
+        y = separable_block(y, args[1][i].reshape(3, 3, 1, 512).contiguous(), args[2][i],
+                            args[3][i], args[4][i], 1, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, y)
+    _close(got, chain_plain(*args), torch.float32)
+
+
 # -- the floor probes ------------------------------------------------------------
+
+
+def test_hbm_copy_flat_equals_input(dev):
+    """hbm_copy_flat equals its input at the five audit shapes
+    and at 16 bytes, 48 bytes and 4 MiB + 16 bytes; one launch each."""
+    tensors = [torch.randn(shape, device=dev).to(torch.bfloat16)
+               for _, shape in floors.AUDIT_SHAPES]
+    tensors += [torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=dev)
+                for nbytes in (16, 48, 4 * 2 ** 20 + 16)]
+    for x in tensors:
+        before = floors.hbm_copy_flat.launches
+        got = floors.hbm_copy_flat(x)
+        assert floors.hbm_copy_flat.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, x)
+        del got
+    del tensors
+    torch.cuda.empty_cache()
 
 
 def test_floor_copies(dev):
