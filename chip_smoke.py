@@ -197,11 +197,14 @@ file; imports nothing of JAX. Phases, one JSON line each:
  45. the floor probes (`python -m mobilenet_tpu_torch.floors`'s run,
      counters set to 0 before and read after; the JSON written to
      build/achievable_h100.json): the copies bit-equal to their input at
-     the five audit shapes, their A/B against `Tensor.copy_` (`floors
-     --copy-ab 7`: medians and spreads of alternating runs), the stencil's variants against their plain
+     the five audit shapes and at 65,537 images of 16 bytes, their A/B
+     against `Tensor.copy_` (`floors --copy-ab 7`: medians and spreads of
+     alternating runs), the stencil's variants against their plain
      versions (bf16 bit-equal; float32 within one bf16 step, relative, for
      FMA contraction) at the timed 56^2 x 128 shape after 2, 8 and 256
-     rounds, the short runs required to depend on x (`check_stencil`), the
+     rounds and at the plan's edge shapes (STENCIL_EDGES) after 0, 1 and
+     19, the short runs required to depend on x (`check_stencil`), each
+     stencil run's time on the card against its bound, the
      library copy's time; the roofline floors of V1, V2,
      V3-Large and V3-Small 1.0-224 at batch 256 at the published and the
      measured rates.
@@ -2360,21 +2363,26 @@ def v3_chain_phases(smi, gen, kernels, launches):
     return summary
 
 
+# the stencil's edge shapes (n, h, w, c) for `floors.check_stencil`
+STENCIL_EDGES = ((1, 7, 9, 17), (3, 5, 7, 1), (2, 9, 11, 3), (1, 7, 7, 1024), (8, 56, 56, 128))
+
+
 def floor_phases(smi, launches):
     """Phase 45: the floor probes (`python -m mobilenet_tpu_torch.floors`'s
     run, counters set to 0 before and read after), then each probe against
     its plain version, and the roofline floors of V1, V2, V3-Large and
     V3-Small 1.0-224 at batch 256 at the published and the measured rates.
-    Returns the three probes' rows."""
+    Returns the three probes' rows: hbm_copy's is hbm_copy_flat's, its
+    kernel (an image's bytes are contiguous), timed and counted once."""
     from mobilenet_tpu_torch import floors, roofline
 
-    probes = {"hbm_copy": floors.hbm_copy, "hbm_copy_flat": floors.hbm_copy_flat,
-              "stencil": floors.stencil}
+    probes = {"hbm_copy_flat": floors.hbm_copy_flat, "stencil": floors.stencil}
     for fn in probes.values():
         fn.launches = 0
     res = floors.measure()
     torch.cuda.synchronize()
     launches.update({name: fn.launches for name, fn in probes.items()})
+    launches["hbm_copy"] = launches["hbm_copy_flat"]
     floors.OUT.parent.mkdir(parents=True, exist_ok=True)
     floors.OUT.write_text(json.dumps(res, indent=1))
     emit("floors", **res)
@@ -2382,45 +2390,66 @@ def floor_phases(smi, launches):
     src = "mobilenet_tpu_torch/csrc/floors.cu"
     rows = {name: {"route": "cuda", "source": src, "replaces": f"tools/microbench_floors.py:{ln}",
                    **FLOAT_ROW, "library_ms": 0.0 if name != "stencil" else LIBRARY_MS}
-            for name, ln in (("hbm_copy", 52), ("stencil", 116), ("hbm_copy_flat", 144))}
-    for label, shape in floors.AUDIT_SHAPES:  # the copies: bit-equal; summed over the shapes
+            for name, ln in (("stencil", 116), ("hbm_copy_flat", 144))}
+    r = rows["hbm_copy_flat"]
+    for label, shape in floors.AUDIT_SHAPES:  # the copy: bit-equal; summed over the shapes
         x = torch.randn(shape, device="cuda").to(torch.bfloat16)
-        for name in ("hbm_copy", "hbm_copy_flat"):
-            got = probes[name](x)
-            torch.cuda.synchronize()
-            if not torch.equal(got, x):
-                raise AssertionError(f"{name} {label}: the copy differs from its input")
-            b_ms, _, t_b, t_o = bound(2 * x.numel() * x.element_size(), 0, "bf16")
-            r = rows[name]
-            r["ms"] += res["hbm_ms"][label][name]
-            r["plain_ms"] += cuda_ms(lambda: floors.hbm_copy_plain(x))
-            r["library_ms"] += res["hbm_ms"][label]["library_copy"]
-            r["bound_ms"] += b_ms
-            r["bytes_ms"] += t_b
-            r["ops_ms"] += t_o
+        got = floors.hbm_copy_flat(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, x):
+            raise AssertionError(f"hbm_copy_flat {label}: the copy differs from its input")
+        b_ms, _, t_b, t_o = bound(2 * x.numel() * x.element_size(), 0, "bf16")
+        r["ms"] += res["hbm_ms"][label]["hbm_copy_flat"]
+        r["plain_ms"] += cuda_ms(lambda: floors.hbm_copy_plain(x))
+        r["library_ms"] += res["hbm_ms"][label]["library_copy"]
+        r["bound_ms"] += b_ms
+        r["bytes_ms"] += t_b
+        r["ops_ms"] += t_o
         del x, got
         torch.cuda.empty_cache()
+    # a batch of more images than a grid's y dimension holds (65,535), 16
+    # bytes each: the whole batch copied
+    x = torch.randn((65_537, 8), device="cuda").to(torch.bfloat16)
+    got = floors.hbm_copy(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, x):
+        raise AssertionError("hbm_copy (65537, 8): the copy differs from its input")
+    del x, got
     # the stencil against its plain version (floors.check_stencil: within
     # STENCIL_RTOL relative, bf16 bit-equal) at the timed run's 256 rounds,
     # whose output the weights set, and at 2 and 8 rounds, where it must
-    # still depend on x
+    # still depend on x; then at the plan's edges: odd C (bf16 pairs across
+    # pixels), C = 1 and 3, C = 1024 at an odd pixel count, fewer elements
+    # than a wave's threads, and 8 x 56^2 x 128 (several passes a thread),
+    # at 0, 1 and 19 rounds (19: not a multiple of any unroll)
     label, _, h, w, c, reps, images = floors.STENCIL_RUNS[0]
     checks = {f"{variant} x{r}": floors.check_stencil(variant, images, h, w, c, r, "cuda")
               for variant in floors.VARIANTS for r in (2, 8, reps)}
+    for shape in STENCIL_EDGES:
+        checks.update({f"{variant} {'x'.join(map(str, shape))} x{r}":
+                       floors.check_stencil(variant, *shape, r, "cuda")
+                       for variant in floors.VARIANTS for r in (0, 1, 19)})
     x, wt = floors.stencil_inputs(images, h, w, c, "cuda")
     elems = x.numel()
-    # 9 FMAs (two operations each) and the epilogue's add and min a round
-    b_ms, _, t_b, t_o = bound(2 * elems * 2 + 9 * c * 2, reps * (9 * 2 + 2) * elems, "f32")
+    b_ms, t_b, t_o = floors.stencil_bound(elems, c, reps, "chain")
     rows["stencil"].update(
         ms=res["stencil_ms"][label],
         max_abs_err=max(v["max_abs"] for k, v in checks.items() if k.startswith("chain ")),
         plain_ms=cuda_ms(lambda: floors.stencil_plain(x, wt, reps), reps=1, warmup=1),
         bound_ms=b_ms, bytes_ms=t_b, ops_ms=t_o, atol=0.0, rtol=floors.STENCIL_RTOL)
-    rows["hbm_copy"]["max_abs_err"] = rows["hbm_copy_flat"]["max_abs_err"] = 0.0
+    rows["hbm_copy"] = {**r, "replaces": "tools/microbench_floors.py:52",
+                        "same_kernel_as": "hbm_copy_flat"}
     emit("floor_probes", nvidia_smi=smi, stencil_checks=checks,
          stencil_rtol=floors.STENCIL_RTOL, copies_bit_equal=True)
+    # each stencil run's time on the card (`floors.graph_ms`) against its bound
+    bounds = {lb: floors.stencil_bound(n * hh * ww * cc, cc, r, v)[0]
+              for lb, v, hh, ww, cc, r, n in floors.STENCIL_RUNS}
+    emit("stencil_runs", nvidia_smi=smi, **{
+        lb: {"ms": res["stencil_ms"][lb], "events_ms": res["stencil_events_ms"][lb],
+             "bound_ms": b, "share_of_bound": b / res["stencil_ms"][lb]}
+        for lb, b in bounds.items()})
     # the copies' A/B (`floors --copy-ab 7`): alternating runs, medians and spreads
-    emit("copy_ab", nvidia_smi=smi, **floors.copy_ab(7))
+    emit("copy_ab", nvidia_smi=smi, **floors.copy_ab(7, floors.copy_fns()))
     measured, _ = roofline.achievable_rates(floors.OUT)
     for model in ("v1", "v2", "v3", "v3small"):
         out = {}

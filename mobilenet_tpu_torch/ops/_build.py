@@ -95,10 +95,10 @@ _SIGNATURES = {
     "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0 + [_I] * 2,
     # x, w, b, out | N, H, W, Cout, relu6 (| bf16: th, tw, grid)
     "stem_conv_f32": [_P] * 4 + [_I] * 5, "stem_conv_bf16": [_P] * 4 + [_I] * 8,
-    # the floor probes: x, out | N, bytes per image; x, out | bytes;
-    # x, w, out | elements, C, reps, variant
-    "hbm_copy": [_P] * 2 + [_I, _L], "hbm_copy_flat": [_P] * 2 + [_L],
-    "stencil": [_P] * 3 + [_L] + [_I] * 3,
+    # the floor probes: x, out | bytes; x, w, out | elements, C, reps,
+    # variant, then the plan's chains, passes, stride, grid
+    # (floors.stencil_plan)
+    "hbm_copy_flat": [_P] * 2 + [_L], "stencil": [_P] * 3 + [_L] + [_I] * 7,
 }
 # C functions that launch nothing: (argument types, no stream; result type).
 _HOST_SIGNATURES = {
@@ -136,6 +136,9 @@ _HOST_SIGNATURES = {
     # host (stages x 1152 bytes), x, scratch0, scratch1, gate | N, H, W, stages |
     # ptrs, dims (as v3_chain_bf16): the bf16 chain's TMA tensor maps -> cudaError_t
     "v3_chain_bf16_maps": ([_P] * 5 + [_I] * 4 + [_P] * 2, ctypes.c_int),
+    # variant, chains -> blocks of the stencil kernel an SM holds
+    # (floors.stencil_plan's blocks_per_sm)
+    "stencil_blocks_per_sm": ([_I] * 2, ctypes.c_int),
     "cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

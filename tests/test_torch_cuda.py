@@ -1549,6 +1549,25 @@ def test_hbm_copy_flat_equals_input(dev):
     torch.cuda.empty_cache()
 
 
+def test_hbm_copy_equals_input(dev):
+    """hbm_copy equals its input at the five audit shapes, at one image, at
+    16 and 48 bytes an image, at an odd count of 16-byte vectors an image
+    and at more images than a grid's y dimension holds; one launch each."""
+    tensors = [torch.randn(shape, device=dev).to(torch.bfloat16)
+               for _, shape in floors.AUDIT_SHAPES]
+    tensors += [torch.randint(-128, 128, shape, dtype=torch.int8, device=dev)
+                for shape in ((1, 7, 7, 1024), (5, 16), (7, 48), (3, 5, 7, 16), (65537, 16))]
+    for x in tensors:
+        before = floors.hbm_copy.launches
+        got = floors.hbm_copy(x)
+        assert floors.hbm_copy.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, x)
+        del got
+    del tensors
+    torch.cuda.empty_cache()
+
+
 def test_floor_copies(dev):
     """Both copy probes equal their input, one launch each."""
     for shape in ((3, 7, 7, 1024), (2, 112, 112, 64), (5, 3, 3, 8)):
@@ -1568,8 +1587,40 @@ def test_floor_stencil(dev, variant):
     variants within one bf16 step of the output (2^-7 relative, no absolute
     term), since the kernel contracts each product and sum into one FMA
     where the plain version rounds twice. At 2 and 8 rounds the output must
-    still depend on x (64 rounds: the weights set it); one launch a call."""
+    still depend on x (64 rounds: the weights set it); one launch a call.
+    Then the plan's edges: odd C (bf16 pairs across pixels, an odd element
+    count), C = 1 and 3, C = 1024 at an odd pixel count, fewer elements
+    than a wave's threads, and 8 x 56^2 x 128 (several passes a thread),
+    at 0, 1 and 19 rounds (19 a multiple of no unroll)."""
     for reps in (2, 8, 64):
         before = floors.stencil.launches
         floors.check_stencil(variant, 2, 14, 14, 64, reps, dev)  # raises on a disagreement
         assert floors.stencil.launches == before + 1
+    for shape in ((1, 7, 9, 17), (3, 5, 7, 1), (2, 9, 11, 3), (1, 7, 7, 1024),
+                  (8, 56, 56, 128)):
+        for reps in (0, 1, 19):
+            before = floors.stencil.launches
+            floors.check_stencil(variant, *shape, reps, dev)
+            assert floors.stencil.launches == before + 1
+
+
+def test_stencil_refuses_a_plan_that_misses(dev):
+    """The kernel's entry refuses a plan that would leave elements
+    uncomputed or mix channels in a thread; the occupancy query gives at
+    least one block an SM for every variant and chain count."""
+    lib = _build.library()
+    x = torch.ones((1, 4, 4, 16), dtype=torch.bfloat16, device=dev)
+    w = torch.ones((3, 3, 16), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), x.numel(), 16, 2, 0)
+    assert lib.stencil(*args, 1, 1, 256, 1, stream) == 0
+    for plan in ((1, 1, 128, 1),   # 128 units of 256
+                 (1, 1, 264, 2),   # stride not a multiple of C
+                 (5, 1, 256, 1),   # no kernel with 5 chains
+                 (1, 1, 256, 0)):  # no block
+        assert lib.stencil(*args, *plan, stream) != 0, plan
+    torch.cuda.synchronize()
+    for v in range(len(floors.VARIANTS)):
+        for n in floors.STENCIL_CHAINS:
+            assert lib.stencil_blocks_per_sm(v, n) >= 1
