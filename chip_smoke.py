@@ -1903,35 +1903,12 @@ def v3small_int8_phases(smi, kernels, launches):
     return summary
 
 
-def stem_work(n, h, cout, kind, block0=True):
-    """(bytes, ops_ms) of the fused stem kernel (block0=True: uint8 images
-    (n, h, h, 3) in, block 0's output out) or the stem alone (a float input
-    in, the stem output out): the input and output once, the weights once.
-    The fused kernel's stem and depthwise multiply-adds count at the CUDA
-    cores' float32 rate (it runs both there, the stem as exact FMA chains),
-    its pointwise at its dtype's rate. The stem alone runs on the tensor
-    cores in bf16 (an im2col product, K = 27 taps padded to 32): its
-    multiply-adds count at the bf16 rate there, at the float32 rate in
-    float32."""
-    act = ELEM_BYTES[kind][0]
-    hs = h // 2
-    pix = n * hs * hs
-    c1 = 32 if block0 else cout
-    stem_ops = 2 * 27 * pix * c1
-    if not block0:
-        nbytes = n * h * h * 3 * act + (27 * cout + cout) * act + pix * cout * act
-        return nbytes, stem_ops / PEAK_OPS_PER_S["bf16" if kind == "bf16" else "f32"] * 1e3
-    weights = (27 * c1 + c1 + 9 * c1 + c1 + c1 * cout + cout) * act
-    nbytes = n * h * h * 3 + weights + pix * cout * act
-    return nbytes, ((stem_ops + 2 * 9 * pix * c1) / PEAK_OPS_PER_S["f32"]
-                    + 2 * pix * c1 * cout / PEAK_OPS_PER_S[kind]) * 1e3
-
-
 def stem_phases(smi, gen, kernels, launches):
     """Phases 38-41. Fills launches["stem_block0"] (the fused-stem server;
     launches["stem_conv"] comes from the float main path, phase 5, whose
     "fused" block 0 puts the stem on it); returns the two kernels' rows."""
     from mobilenet_tpu_torch import InferencePipeline, ModelConfig
+    from mobilenet_tpu_torch.block_times import stem_work
     from mobilenet_tpu_torch.models import mobilenet_v1
     from mobilenet_tpu_torch.ops.conv import conv2d_same
     from mobilenet_tpu_torch.ops.preprocess import preprocess
@@ -1942,14 +1919,18 @@ def stem_phases(smi, gen, kernels, launches):
 
     chain = kernels["chain"]
     extra = {"ms_f32": 0.0, "plain_ms_f32": 0.0, "bound_ms_f32": 0.0}
+    # bf16 runs stem_wgmma.cuh ("source"), float32 stem_f32.cuh ("source_f32")
+    sources = {"source": "mobilenet_tpu_torch/csrc/stem_wgmma.cuh",
+               "source_f32": "mobilenet_tpu_torch/csrc/stem_f32.cuh"}
     rows = {
-        "stem_block0": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem_wgmma.cuh",
+        "stem_block0": {"route": "cuda", **sources,
                         "replaces": "mobilenet_tpu/ops/pallas_stem_b0.py:124", **FLOAT_ROW,
-                        **extra, "unfused_ms": 0.0, "unfused_ms_f32": 0.0,
-                        "unfused": "preprocess + conv2d_same (cuDNN) + separable_block b00"},
-        "stem_conv": {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/stem_wgmma.cuh",
+                        **extra, "bound_by_f32": "", "unfused_ms": 0.0, "unfused_ms_f32": 0.0,
+                        "unfused": "preprocess + conv2d_same (cuDNN) + separable_block b00",
+                        "f32_shape": "(256,160,160,3) u8 -> 64"},
+        "stem_conv": {"route": "cuda", **sources,
                       "replaces": "mobilenet_tpu/ops/pallas_stem.py:146", **FLOAT_ROW,
-                      **extra, "library_ms": 0.0, "library_ms_f32": 0.0,
+                      **extra, "bound_by_f32": "", "library_ms": 0.0, "library_ms_f32": 0.0,
                       "library": "ops/conv.conv2d_same: F.conv2d (cuDNN), bias, clamp"},
     }
 
@@ -1965,7 +1946,8 @@ def stem_phases(smi, gen, kernels, launches):
             row[yard_key] = yard_ms
         else:
             row["max_abs_err_f32"] = max(row["max_abs_err_f32"], err)
-            row.update(ms_f32=kms, plain_ms_f32=pms, bound_ms_f32=b_ms)
+            row.update(ms_f32=kms, plain_ms_f32=pms, bound_ms_f32=b_ms,
+                       bound_by_f32="bytes" if t_b >= t_o else "operations")
             row[f"{yard_key}_f32"] = yard_ms
 
     # -- 38. the stem kernels vs plain at V1 1.0-224, batch 256 and 2 ---------------------
@@ -1988,6 +1970,14 @@ def stem_phases(smi, gen, kernels, launches):
             err = compare(f"stem_block0 ({batch},{h},{h},3) {tag}", got, ref, atol, rtol)
             sat = float((ref.float() == 6).float().mean())
             del got, ref
+            exact = None
+            if tag == "f32":  # an identity pointwise: the output is the depthwise, exact
+                eye = (torch.eye(32, device="cuda"), torch.zeros(32, device="cuda"))
+                exact = bool(torch.equal(stem_block0(imgs, *w[:4], *eye, True),
+                                         stem_block0_plain(imgs, *w[:4], *eye, True)))
+                if not exact:
+                    raise AssertionError(f"stem_block0 ({batch},{h},{h},3) f32: the stem and "
+                                         "depthwise are not bit-equal to the plain version")
             kms = cuda_ms(lambda: stem_block0(imgs, *w, True))
             pms = cuda_ms(lambda: stem_block0_plain(imgs, *w, True), reps=3, warmup=1)
 
@@ -2002,8 +1992,8 @@ def stem_phases(smi, gen, kernels, launches):
             b_ms = max(t_b, t_o)
             emit("kernel", kernel="stem_block0", shape=f"({batch},{h},{h},3) u8 -> {cout}",
                  dtype=tag, nvidia_smi=smi, max_abs_err=err, atol=atol, rtol=rtol,
-                 relu6_saturated=sat, ms=kms, plain_ms=pms, unfused_ms=ums, bound_ms=b_ms,
-                 bound_by="bytes" if t_b >= t_o else "operations")
+                 relu6_saturated=sat, stem_and_depthwise_bit_equal=exact, ms=kms, plain_ms=pms,
+                 unfused_ms=ums, bound_ms=b_ms, bound_by="bytes" if t_b >= t_o else "operations")
             add(rows["stem_block0"], tag, batch, err, kms, pms, b_ms, t_b, t_o, "unfused_ms",
                 ums)
             del imgs, w
@@ -2017,6 +2007,10 @@ def stem_phases(smi, gen, kernels, launches):
             torch.cuda.synchronize()
             err = compare(f"stem_conv ({batch},{RES},{RES},3) {tag}", got, ref, atol, rtol)
             sat = float((ref.float() == 6).float().mean())
+            exact = bool(torch.equal(got, ref)) if tag == "f32" else None
+            if exact is False:
+                raise AssertionError(f"stem_conv ({batch},{RES},{RES},3) f32: not bit-equal to "
+                                     "the plain version")
             del got, ref
             kms = cuda_ms(lambda: stem_conv(x, ws, bs, True))
             pms = cuda_ms(lambda: stem_conv_plain(x, ws, bs, True), reps=3, warmup=1)
@@ -2026,8 +2020,8 @@ def stem_phases(smi, gen, kernels, launches):
             b_ms = max(t_b, t_o)
             emit("kernel", kernel="stem_conv", shape=f"({batch},{RES},{RES},3) -> 32",
                  dtype=tag, nvidia_smi=smi, max_abs_err=err, atol=atol, rtol=rtol,
-                 relu6_saturated=sat, ms=kms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
-                 bound_by="bytes" if t_b >= t_o else "operations")
+                 relu6_saturated=sat, bit_equal=exact, ms=kms, plain_ms=pms, library_ms=lms,
+                 bound_ms=b_ms, bound_by="bytes" if t_b >= t_o else "operations")
             add(rows["stem_conv"], tag, batch, err, kms, pms, b_ms, t_b, t_o, "library_ms", lms)
             del x
             torch.cuda.empty_cache()
@@ -2037,10 +2031,14 @@ def stem_phases(smi, gen, kernels, launches):
         x = (torch.rand(2, RES + 1, RES - 1, 3, generator=gen, device="cuda") * 2 - 1).to(dt)
         ws, bs = r(3, 3, 3, 32, scale=0.8, dt=dt), r(32, scale=0.2, dt=dt)
         got = stem_conv(x, ws, bs, True)
-        err = compare(f"stem_conv (2,{RES + 1},{RES - 1},3) {tag}", got,
-                      stem_conv_plain(x, ws, bs, True), atol, rtol)
+        ref = stem_conv_plain(x, ws, bs, True)
+        err = compare(f"stem_conv (2,{RES + 1},{RES - 1},3) {tag}", got, ref, atol, rtol)
+        exact = bool(torch.equal(got, ref)) if tag == "f32" else None
+        if exact is False:
+            raise AssertionError(f"stem_conv (2,{RES + 1},{RES - 1},3) f32: not bit-equal")
         emit("kernel", kernel="stem_conv", shape=f"(2,{RES + 1},{RES - 1},3) -> 32",
-             dtype=tag, max_abs_err=err, atol=atol, rtol=rtol, out=list(got.shape))
+             dtype=tag, max_abs_err=err, atol=atol, rtol=rtol, bit_equal=exact,
+             out=list(got.shape))
 
     # -- 39. the fused-stem pipeline vs the default pipeline ------------------------------
     cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")

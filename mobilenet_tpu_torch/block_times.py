@@ -34,13 +34,16 @@ with --float32 the float32 block instead of bf16. --v2 and --v3 at batch
 "parent_device_ms" and "library_device_ms" where those run). With --v2-int8, instead the int8
 `inverted_residual_i8` at the same V2 shapes, with "passes" (as --v3-int8:
 the device ms of each kernel a call launches, x's pad copy included) and
-with --yardsticks its plain version. With --stem, instead V1 1.0-224's two
-stem kernels in bf16 and float32 ("stem_conv bf16 256", "stem_block0 f32
-1"): `stem_conv` (a normalized input -> 32 channels) and `stem_block0`
-(uint8 images -> block 0's 64 channels), and with --yardsticks also their
-plain versions, cuDNN's stem (`ops/conv.conv2d_same`) beside `stem_conv`
-and beside `stem_block0` the unfused sequence it replaces (preprocess,
-`conv2d_same`, `separable_block` b00). With --head, instead the bf16
+with --yardsticks its plain version. With --stem, instead V1's two stem
+kernels in bf16 and float32 at 1.0-224, and float32 `stem_block0` at 1.0-160
+too ("stem_conv bf16 224 256", "stem_block0 f32 160 1"), at batch 256, 2
+and 1 unless --batch says otherwise: `stem_conv` (a normalized input -> 32
+channels) and `stem_block0` (uint8 images -> block 0's 64 channels), each
+call on an input out of the L2 (`floors.cold_copies`), with
+torch.profiler's device ms at batch 256 ("device_ms"), the bound, and with
+--yardsticks also their plain versions, cuDNN's stem (`ops/conv.conv2d_same`)
+beside `stem_conv` and beside `stem_block0` the unfused sequence it replaces
+(preprocess, `conv2d_same`, `separable_block` b00). With --head, instead the bf16
 `fused_head` in each of its forms at 1.0-224 ("head v1 256", "head v3s 1":
 V1's pool -> fc, V2's conv_last + ReLU6 -> pool -> fc, V3-Large's and
 V3-Small's conv_last + hswish -> pool -> head + hswish -> fc) and V2 alpha
@@ -80,10 +83,11 @@ weighs at those block shapes (not the chain), each by CUDA events over a
 CUDA graph of its launches: per shape the plan's pick and the fastest
 candidate, and the geometric mean and worst of their ratio ("fit"); this
 mode launches the C entry with each plan.
-With --float32, --v2, --v3 and --head, --parent DIR likewise times the
-wrappers of the checkout at DIR beside ("parent_ms"; --head also
-"parent_device_ms" and "parent_passes"). Every float32 library sequence runs with cuDNN's and
-cuBLAS's TF32 off (`ops/conv.no_tf32`), IEEE float32 as the kernels.
+With --float32, --v2, --v3, --stem and --head, --parent DIR likewise times
+the wrappers of the checkout at DIR beside ("parent_ms"; --head and --stem
+also "parent_device_ms", --head "parent_passes"). Every float32 library
+sequence runs with cuDNN's and cuBLAS's TF32 off (`ops/conv.no_tf32`), IEEE
+float32 as the kernels.
 Else it calls only the kernels' public wrappers, so this file copied into an
 archive of an earlier commit times that commit's kernels (PERF.md's A/B:
 parent, change, change, parent in one card call). Refuses to run without a
@@ -679,11 +683,54 @@ def f32_times(cfg, args, gen, times) -> dict:
     return out
 
 
+def stem_work(n, h, cout, kind, block0=True):
+    """(bytes, ops_ms) of the fused stem kernel (block0=True: uint8 images
+    (n, h, h, 3) in, block 0's output out) or the stem alone (a float input
+    in, the stem output out): the input and output once, the weights once.
+    The fused kernel's stem and depthwise multiply-adds count at the CUDA
+    cores' float32 rate (67 TFLOP/s; it runs both there, the stem as exact
+    multiply-add chains), its pointwise at its dtype's rate. The stem alone
+    runs on the tensor cores in bf16 (an im2col product, K = 27 taps padded
+    to 32): its multiply-adds count at the bf16 rate there (989 TFLOP/s), at
+    the float32 rate in float32."""
+    act = 2 if kind == "bf16" else 4
+    peak = 989e12 if kind == "bf16" else 67e12
+    hs = h // 2
+    pix = n * hs * hs
+    c1 = 32 if block0 else cout
+    stem_ops = 2 * 27 * pix * c1
+    if not block0:
+        nbytes = n * h * h * 3 * act + (27 * cout + cout) * act + pix * cout * act
+        return nbytes, stem_ops / peak * 1e3
+    weights = (27 * c1 + c1 + 9 * c1 + c1 + c1 * cout + cout) * act
+    nbytes = n * h * h * 3 + weights + pix * cout * act
+    return nbytes, ((stem_ops + 2 * 9 * pix * c1) / 67e12 + 2 * pix * c1 * cout / peak) * 1e3
+
+
+def stem_bound(n, h, cout, kind, block0):
+    """(bound_ms, bound_by) of a stem kernel call: `stem_work`'s bytes over
+    3.35 TB/s or its operations' time, the larger."""
+    nbytes, t_o = stem_work(n, h, cout, kind, block0)
+    t_b = nbytes / 3.35e12 * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def stem_times(cfg, args, gen, times) -> dict:
-    """`stem_conv` and `stem_block0` at V1 1.0-224 in bf16 and float32,
-    through their public wrappers only: random seeded weights scaled so that
-    part of each ReLU6 saturates, the last input row and column at their
-    largest value (beside the TF-SAME pad)."""
+    """`stem_conv` and `stem_block0` at V1 1.0-224 in bf16 and float32, and
+    float32 `stem_block0` at 1.0-160 (the largest size the float32 route
+    fuses), through their public wrappers only: random seeded weights scaled
+    so that part of each ReLU6 saturates, the last input row and column at
+    their largest value (beside the TF-SAME pad). Each call reads its input
+    from `floors.cold_copies`, in turn, so a small batch's input is not read
+    from the L2. "ms" as `times`; "device_ms": torch.profiler's device ms a
+    call (`kernel_ms`, all kernels) at batch 256 ("ms" itself at the other
+    batches, as `times` reads it); with --parent the parent checkout's
+    wrapper beside ("parent_ms", "parent_device_ms"); with --yardsticks the
+    plain version, cuDNN's stem (`ops/conv.conv2d_same`, TF32 off) beside
+    `stem_conv` and beside `stem_block0` the unfused sequence it replaces
+    (preprocess, `conv2d_same`, `separable_block` b00), the yardstick's
+    device ms too; the bound (`stem_bound`)."""
+    from .floors import cold_copies  # noqa: PLC0415
     from .ops.conv import conv2d_same  # noqa: PLC0415
     from .ops.preprocess import preprocess  # noqa: PLC0415
     from .ops.separable_block import separable_block  # noqa: PLC0415
@@ -691,44 +738,72 @@ def stem_times(cfg, args, gen, times) -> dict:
         stem_block0, stem_block0_plain, stem_conv, stem_conv_plain,
     )
 
-    res, c1, cout = cfg.resolution, cfg.stem_channels, cfg.block_channels[0]
+    parent = load_parent(args.parent, ("ops.stem",))[0] if args.parent else None
+    c1, cout = cfg.stem_channels, cfg.block_channels[0]
 
-    def one(batch, dt):
-        def r(*shape, scale):
-            return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt)
+    def r(dt, *shape, scale):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt)
 
+    def in_turn(fn, xs):
+        i = [0]
+
+        def call():
+            i[0] = (i[0] + 1) % len(xs)
+            return fn(xs[i[0]])
+        return call
+
+    def measure(batch, calls, bound):
+        got = times(batch, calls)
+        for k in ("ms", "parent_ms", "library_ms", "unfused_ms"):
+            if k in calls and batch == 256:  # else "ms" is the device time already
+                got[f"{k[:-2]}device_ms"] = device_ms(calls[k], reps=30)
+        got["bound_ms"], got["bound_by"] = bound
+        return got
+
+    def conv(batch, res, tag, dt):
         x = (torch.rand(batch, res, res, 3, generator=gen, device="cuda") * 2 - 1).to(dt)
         x[:, -1] = 1
         x[:, :, -1] = 1
-        ws, bs = r(3, 3, 3, c1, scale=0.8), r(c1, scale=0.2)
-        calls = {"ms": lambda: stem_conv(x, ws, bs, True)}
+        xs = cold_copies(x)
+        ws, bs = r(dt, 3, 3, 3, c1, scale=0.8), r(dt, c1, scale=0.2)
+        calls = {"ms": in_turn(lambda v: stem_conv(v, ws, bs, True), xs)}
+        if parent:
+            calls["parent_ms"] = in_turn(lambda v: parent.stem_conv(v, ws, bs, True), xs)
         if args.yardsticks:
             calls["plain_ms"] = lambda: stem_conv_plain(x, ws, bs, True)
-            calls["library_ms"] = lambda: conv2d_same(x, ws, 2, bias=bs, relu6=True)
-        conv = times(batch, calls)
+            calls["library_ms"] = in_turn(
+                lambda v: conv2d_same(v, ws, 2, bias=bs, relu6=True), xs)
+        return measure(batch, calls, stem_bound(batch, res, c1, tag, False))
 
+    def block0(batch, res, tag, dt):
         imgs = torch.randint(0, 256, (batch, res, res, 3), generator=gen, device="cuda",
                              dtype=torch.uint8)
         imgs[:, -1] = 255
         imgs[:, :, -1] = 255
-        w = (r(3, 3, 3, c1, scale=0.4), r(c1, scale=0.2), r(3, 3, 1, c1, scale=0.5),
-             r(c1, scale=0.2), r(c1, cout, scale=3 * c1 ** -0.5), r(cout, scale=0.2))
+        xs = cold_copies(imgs)
+        w = (r(dt, 3, 3, 3, c1, scale=0.4), r(dt, c1, scale=0.2), r(dt, 3, 3, 1, c1, scale=0.5),
+             r(dt, c1, scale=0.2), r(dt, c1, cout, scale=3 * c1 ** -0.5), r(dt, cout, scale=0.2))
 
-        def unfused():
-            y = conv2d_same(preprocess(imgs, res, dt), w[0], 2, bias=w[1], relu6=True)
+        def unfused(v):
+            y = conv2d_same(preprocess(v, res, dt), w[0], 2, bias=w[1], relu6=True)
             return separable_block(y, w[2], w[3], w[4], w[5], 1, True)
 
-        calls = {"ms": lambda: stem_block0(imgs, *w, True)}
+        calls = {"ms": in_turn(lambda v: stem_block0(v, *w, True), xs)}
+        if parent:
+            calls["parent_ms"] = in_turn(lambda v: parent.stem_block0(v, *w, True), xs)
         if args.yardsticks:
             calls["plain_ms"] = lambda: stem_block0_plain(imgs, *w, True)
-            calls["unfused_ms"] = unfused
-        return conv, times(batch, calls)
+            calls["unfused_ms"] = in_turn(unfused, xs)
+        return measure(batch, calls, stem_bound(batch, res, cout, tag, True))
 
     out = {}
     for batch in args.batch:
         for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            out[f"stem_conv {tag} {batch}"], out[f"stem_block0 {tag} {batch}"] = one(batch, dt)
+            out[f"stem_conv {tag} 224 {batch}"] = conv(batch, 224, tag, dt)
             torch.cuda.empty_cache()
+            for res in (224, 160) if tag == "f32" else (224,):
+                out[f"stem_block0 {tag} {res} {batch}"] = block0(batch, res, tag, dt)
+                torch.cuda.empty_cache()
     return out
 
 
@@ -1015,12 +1090,12 @@ def main(argv=None) -> None:
                    help="with --float32 alone: every candidate plan of the float32 separable "
                         "block at V1's shapes and V2 b00, the plan's pick against the fastest")
     p.add_argument("--parent", default=None,
-                   help="with --float32, --v2, --v3, --head or --dw: the root of an earlier "
-                        "checkout to time beside")
+                   help="with --float32, --v2, --v3, --head, --stem or --dw: the root of an "
+                        "earlier checkout to time beside")
     args = p.parse_args(argv)
     if args.batch is None:
         args.batch = ([256, 64, 8, 1] if args.head else [256, 2] if args.dw
-                      else [256, 2, 1] if args.float32 else [256, 1])
+                      else [256, 2, 1] if args.float32 or args.stem else [256, 1])
     if args.int8 and (args.float32 or any(
             (args.v3, args.v3_int8, args.v2, args.v2_int8, args.stem, args.head))):
         p.error("--int8 goes alone or with --dw, and not with --float32")

@@ -136,6 +136,14 @@ __device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src, uint
                : "memory");
 }
 
+// 4 bytes global -> shared (both 4-byte aligned), of which the first
+// `src_bytes` (4 or 0) are read and the rest written as zeros.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(saddr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
 // An arrival on `bar` once every cp.async this thread has issued completes;
 // it counts as one of the arrivals the barrier was initialised with (noinc).
 __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {

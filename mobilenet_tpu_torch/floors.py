@@ -314,8 +314,13 @@ def cold_inputs(shape) -> list:
     next, the copies read and write at least twice the L2's bytes. At 7^2 x
     1024 (25.7 MB) one batch read again and again stays partly in the L2,
     and its copy times the cache, not HBM (3554 GB/s on the H100)."""
-    x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
-    k = -(-L2_BYTES // (x.numel() * x.element_size()))
+    return cold_copies(torch.ones(shape, dtype=torch.bfloat16, device="cuda"))
+
+
+def cold_copies(x: torch.Tensor) -> list:
+    """x and as many clones that together they hold at least the L2's bytes:
+    a kernel that reads them in turn finds each out of the L2."""
+    k = -(-L2_BYTES // max(1, x.numel() * x.element_size()))
     return [x] + [x.clone() for _ in range(k - 1)]
 
 

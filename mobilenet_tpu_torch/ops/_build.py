@@ -58,7 +58,8 @@ _CHAIN = [_P] * 8 + [_I] * 6  # x, dw_ws, dw_bs, pw_ws, pw_bs, scratch0, scratch
 _PLAN = [_I] * 8
 # the float32 separable plan: mg, th, tw, kp, split, cw, ns, ws, bs
 _F32_PLAN = [_I] * 9
-_STEM_B0 = [_P] * 8 + [_I] * 5 + [_F] * 2
+_STEM_CONV = [_P] * 4 + [_I] * 8
+_STEM_B0 = [_P] * 8 + [_I] * 5 + [_F] * 2 + [_I] * 2
 # C entry points -> argument types; each also takes the stream last.
 _SIGNATURES = {
     "separable_block_bf16": _BLOCK + _PLAN, "separable_block_f32": _BLOCK + _F32_PLAN,
@@ -91,10 +92,11 @@ _SIGNATURES = {
     "v3_chain_bf16": [_P] * 7 + [_I] * 4 + [_P] * 3,
     "fused_head_bf16": _HEAD_BF16, "fused_head_f32": _HEAD_F32,
     # images, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cout,
-    # relu6 | normalize scale, offset (| bf16: th, grid of ops/stem.stem_plan)
-    "stem_block0_f32": _STEM_B0, "stem_block0_bf16": _STEM_B0 + [_I] * 2,
-    # x, w, b, out | N, H, W, Cout, relu6 (| bf16: th, tw, grid)
-    "stem_conv_f32": [_P] * 4 + [_I] * 5, "stem_conv_bf16": [_P] * 4 + [_I] * 8,
+    # relu6 | normalize scale, offset | th, grid (ops/stem.stem_plan); float32:
+    # th, cpu, grid (ops/stem.f32_stem_plan)
+    "stem_block0_f32": _STEM_B0 + [_I], "stem_block0_bf16": _STEM_B0,
+    # x, w, b, out | N, H, W, Cout, relu6 | th, tw, grid
+    "stem_conv_f32": _STEM_CONV, "stem_conv_bf16": _STEM_CONV,
     # the floor probes: x, out | bytes; x, w, out | elements, C, reps,
     # variant, then the plan's chains, passes, stride, grid
     # (floors.stencil_plan)
@@ -122,6 +124,9 @@ _HOST_SIGNATURES = {
     "depthwise_smem_bytes": ([_I] * 6, ctypes.c_int),
     # block0, th, tw, cout -> bytes of dynamic shared memory (ops/stem.stem_smem_bytes)
     "stem_smem_bytes": ([_I] * 4, ctypes.c_int),
+    # block0, th, tw, cout -> bytes of dynamic shared memory of the float32
+    # kernels (ops/stem.f32_stem_smem_bytes)
+    "stem_f32_smem_bytes": ([_I] * 4, ctypes.c_int),
     # kind (0 conv_walk, 1 post), C, nwg, stages -> bytes of dynamic shared
     # memory (ops/head.head_smem_bytes)
     "head_smem_bytes": ([_I] * 4, ctypes.c_int),

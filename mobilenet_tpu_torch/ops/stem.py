@@ -1,5 +1,6 @@
 """The stem kernels: the CUDA kernel `csrc/stem.cu` (two entry points; bf16
-on the Hopper tiles of `csrc/stem_wgmma.cuh`, planned by `stem_plan`) and
+on the Hopper tiles of `csrc/stem_wgmma.cuh`, planned by `stem_plan`;
+float32 on those of `csrc/stem_f32.cuh`, planned by `f32_stem_plan`) and
 their plain PyTorch versions.
 
 Replaces the TPU kernels `mobilenet_tpu/ops/pallas_stem_b0.py`
@@ -36,7 +37,7 @@ from .separable_block import (
 )
 
 C1 = 32  # block 0's width: the fused kernel's stem output channels (alpha 1.0)
-MAX_STEM_COUT = 256  # stem_conv stages 27 x Cout weights in shared memory
+MAX_STEM_COUT = 256  # stem_conv: bf16 stages 27 x Cout weights; float32, a thread a channel
 
 # -- the bf16 kernels' plan (csrc/stem_wgmma.cuh) ------------------------------
 K = 32           # the product's K: 27 taps + 5 zero columns, or block 0's 32 channels
@@ -110,6 +111,99 @@ def stem_plan(n: int, h: int, w: int, cout: int, block0: bool,
                          f"above {SMEM_LIMIT}")
     per_sm = min(cap, SMEM_SM // (smem + 1024))
     return StemPlan(th, tw, nwg, tiles, per_sm, max(1, min(tiles, sms * per_sm)), smem)
+
+
+# -- the float32 kernels' plan (csrc/stem_f32.cuh) ----------------------------
+F32_BARS = 64         # bytes kept for the mbarriers
+F32_CONV_TH = (4, 2, 1)
+F32_CONV_P = 8        # stem_conv: pixels a strip; its tile width is a multiple
+F32_B0_TH = (16, 8, 4, 2)
+F32_B0_TW = 16
+MAX_F32_CONV_TW = 128
+F32_CONV_BLOCKS_SM = 2  # 288 threads, __launch_bounds__(288, 2)
+F32_B0_BLOCKS_SM = 2    # 256 threads, __launch_bounds__(256, 2)
+
+
+class F32StemPlan(NamedTuple):
+    th: int      # tile rows (of the stem grid; stem_block0: of block 0's output)
+    tw: int      # tile columns (stem_conv: a multiple of 8; stem_block0: 16)
+    cpu: int     # tiles a unit walks down its column band (stem_conv: 1)
+    units: int   # the persistent blocks' work items
+    per_sm: int  # blocks an SM holds (shared memory, and the launch bounds)
+    grid: int    # persistent blocks: min(units, SMs x per_sm)
+    smem: int    # dynamic shared memory a block
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def f32_stem_smem_bytes(block0: bool, th: int, tw: int, cout: int) -> int:
+    """Dynamic shared memory of a float32 plan (`stf::conv_geo` / `b0_geo`):
+    the mbarriers; stem_conv: a ring of two float32 windows of 2th+1 rows of
+    3(2tw+1)+1 floats; stem_block0: the weights (stem 27 x 32 + bias,
+    depthwise 9 x 32 + bias, pointwise 32 x Cout in blocks of 4 columns, 4
+    floats apart, + bias), two uint8 windows of 2(th+2)+1 rows of 16-byte
+    granules and their row offsets, the float32 window (111 + 1 floats a
+    row), the (th+2) x 18 x 32 stem tile and the K-major depthwise tile (32
+    rows of 16 x 16 + 4 floats, whatever th)."""
+    if not block0:
+        wr, wc = 2 * th + 1, 2 * tw + 1
+        return F32_BARS + 2 * wr * (3 * wc + 1) * 4
+    hh, hw = th + 2, F32_B0_TW + 2
+    wr, wc = 2 * hh + 1, 2 * hw + 1
+    u8pitch = 16 * (-(-wc * 3 // 16) + 1)
+    roff = F32_BARS + (28 * C1 + 10 * C1 + cout // 4 * (4 * C1 + 4) + cout) * 4
+    win = _up(roff + 2 * wr * 4, 16) + 2 * wr * u8pitch
+    stem = win + wr * (3 * wc + 1) * 4
+    return stem + hh * hw * C1 * 4 + C1 * (16 * F32_B0_TW + 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def f32_stem_plan(n: int, h: int, w: int, cout: int, block0: bool,
+                  sms: int = H100_SMS) -> F32StemPlan:
+    """The float32 kernels' plan on a card of `sms` SMs: the largest tile
+    whose tiles still number at least one an SM, else the smallest.
+    stem_conv: th of 4, 2, 1 stem rows x tw columns, tw the stem grid's
+    width in the fewest parts of at most 128 (a multiple of 8), or that
+    halved (4 x 112 at 1.0-224, batch 256). stem_block0: th of 16, 8, 4, 2
+    rows x 16 among the th whose shared memory fits (raises where none
+    does: a resident 32 x Cout weight at a large Cout); a unit walks `cpu`
+    tiles down its column band, reusing the stem rows the tile above
+    computed, as many as still leave every block of the grid a unit (the
+    16 x 16 tile's stem work is then 18/16 of the stem's, not 1.27x)."""
+    if block0:
+        hs, ws = h // 2, w // 2
+        cands = [(th, F32_B0_TW) for th in F32_B0_TH
+                 if f32_stem_smem_bytes(True, th, F32_B0_TW, cout) <= SMEM_LIMIT]
+        if not cands:
+            raise ValueError(f"f32_stem_plan: Cout {cout} needs "
+                             f"{f32_stem_smem_bytes(True, 2, F32_B0_TW, cout)} bytes of shared "
+                             f"memory, above {SMEM_LIMIT}")
+        cap = F32_B0_BLOCKS_SM
+    else:
+        hs, ws = -(-h // 2), -(-w // 2)
+        parts = max(1, -(-ws // MAX_F32_CONV_TW))
+        tws = [_up(max(1, -(-ws // parts)), F32_CONV_P)]
+        while tws[-1] > F32_CONV_P:
+            tws.append(_up(tws[-1] // 2, F32_CONV_P))
+        cands = sorted(((th, tw) for tw in tws for th in F32_CONV_TH),
+                       key=lambda c: (-c[0] * c[1], -c[1]))
+        cap = F32_CONV_BLOCKS_SM
+
+    def tiles(c):
+        return n * -(-hs // c[0]) * -(-ws // c[1])
+
+    th, tw = next((c for c in cands if tiles(c) >= sms), cands[-1])
+    smem = f32_stem_smem_bytes(block0, th, tw, cout)
+    per_sm = min(cap, SMEM_SM // (smem + 1024))
+    cpu, units = 1, tiles((th, tw))
+    if block0:
+        tiles_h, bands = -(-hs // th), n * -(-ws // tw)
+        cpu = max((c for c in range(1, max(1, tiles_h) + 1)
+                   if bands * -(-tiles_h // c) >= sms * per_sm), default=1)
+        units = bands * -(-tiles_h // cpu)
+    return F32StemPlan(th, tw, cpu, units, per_sm, max(1, min(units, sms * per_sm)), smem)
 
 
 def _stem_taps_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -201,9 +295,9 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((n, -(-h // 2), -(-wd // 2), cout), dtype=x.dtype, device=x.device)
     args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, cout,
             int(relu6)]
-    if sfx == "bf16":
-        plan = stem_plan(n, h, wd, cout, False, _sms(x.device.index or 0))
-        args += [plan.th, plan.tw, plan.grid]
+    plan = (stem_plan if sfx == "bf16" else f32_stem_plan)(
+        n, h, wd, cout, False, _sms(x.device.index or 0))
+    args += [plan.th, plan.tw, plan.grid]
     code = getattr(lib, f"stem_conv_{sfx}")(
         *args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
@@ -252,9 +346,13 @@ def stem_block0(images_u8: torch.Tensor, stem_w, stem_b, dw_w, dw_b, pw_w, pw_b,
     out = torch.empty((n, h // 2, w // 2, cout), dtype=pw_w.dtype, device=pw_w.device)
     args = [images_u8.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(), n, h, w,
             cout, int(relu6), float(PREPROCESS_SCALE), float(PREPROCESS_OFFSET)]
+    sms = _sms(images_u8.device.index or 0)
     if sfx == "bf16":
-        plan = stem_plan(n, h, w, cout, True, _sms(images_u8.device.index or 0))
+        plan = stem_plan(n, h, w, cout, True, sms)
         args += [plan.th, plan.grid]
+    else:
+        plan = f32_stem_plan(n, h, w, cout, True, sms)
+        args += [plan.th, plan.cpu, plan.grid]
     code = getattr(lib, f"stem_block0_{sfx}")(
         *args, torch.cuda.current_stream(images_u8.device).cuda_stream)
     _build.check(lib, code, name)

@@ -43,7 +43,8 @@ from mobilenet_tpu_torch.ops.separable_block_i8 import (
     separable_i8_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.stem import (
-    stem_block0, stem_block0_plain, stem_conv, stem_conv_plain, stem_plan, stem_smem_bytes,
+    f32_stem_plan, f32_stem_smem_bytes, stem_block0, stem_block0_plain, stem_conv,
+    stem_conv_plain, stem_plan, stem_smem_bytes,
 )
 from mobilenet_tpu_torch.ops.v3_block import (
     v3_block, v3_block_plain, v3_plan, v3_smem_bytes, v3_wgmma_plan, v3_wgmma_smem_bytes,
@@ -1327,6 +1328,12 @@ def _stem_b0_weights(rng, dev, dtype, cout, gain):
     (4, 224, 224, 64, True),
     (6, 224, 224, 64, True),    # 420 12x16 tiles on 264 blocks: a partial second wave
     (256, 224, 224, 64, True),  # the fused-stem server's batch
+    # float32's route (1.0-160) and plan: units of 5 tiles down a band at
+    # batch 256, 320 of them on 264 blocks at batch 64 (a partial wave),
+    # 8/4/2-row tiles at batch 2 and 1; Cout 8 and 256, ragged bands
+    (256, 160, 160, 64, True), (64, 160, 160, 64, True), (2, 160, 160, 64, True),
+    (1, 160, 160, 64, True), (2, 224, 224, 64, True), (1, 64, 64, 8, False),
+    (1, 34, 62, 256, True),
 ])
 def test_stem_block0(dev, dtype, n, h, w, cout, relu6):
     """The fused stem kernel against its plain version. The last input row
@@ -1357,11 +1364,13 @@ def test_stem_block0(dev, dtype, n, h, w, cout, relu6):
     (1, 225, 224, 16, False),
     (16, 224, 224, 32, True),   # 448 4x112 tiles on 396 blocks: a partial second wave
     (256, 224, 224, 32, True),  # the float main path's batch
+    # the float32 plan's batch 2 tiles, Cout 8 and 256 on odd sides
+    (2, 224, 224, 32, True), (1, 33, 17, 8, False), (2, 225, 223, 256, True),
 ])
 def test_stem_conv(dev, dtype, n, h, w, cout, relu6):
-    """The stem kernel against its plain version; the last row and column
-    of the input are 1 (the largest normalized value) beside the pad; odd
-    sides pad (1, 1), as TF-SAME does."""
+    """The stem kernel against its plain version, bit for bit in float32;
+    the last row and column of the input are 1 (the largest normalized
+    value) beside the pad; odd sides pad (1, 1), as TF-SAME does."""
     rng = np.random.default_rng(h + w + cout)
     x = _t(rng, (n, h, w, 3), dtype, dev, lo=-1)
     x[:, -1] = 1
@@ -1373,13 +1382,38 @@ def test_stem_conv(dev, dtype, n, h, w, cout, relu6):
     assert got.shape == (n, -(-h // 2), -(-w // 2), cout)
     ref = stem_conv_plain(x, wt, b, relu6)
     _close(got, ref, dtype)
+    if dtype == torch.float32:
+        assert torch.equal(got, ref)
     if relu6:
         assert 0 < float((ref.float() == 6).float().mean()) < 1
 
 
+@pytest.mark.parametrize("n,h,w,cout,relu6", [
+    (256, 160, 160, 32, True), (64, 160, 160, 32, True), (2, 160, 160, 32, False),
+    (1, 160, 160, 32, True), (2, 224, 224, 32, True), (3, 40, 52, 32, False),
+])
+def test_stem_block0_f32_stem_and_depthwise_exact(dev, n, h, w, cout, relu6):
+    """float32 stem_block0 with an identity pointwise (and a zero bias) is
+    its depthwise output, and so bit-equal to the plain version's: the stem
+    and the depthwise are exact, whatever the float32 plan."""
+    rng = np.random.default_rng(h + w + n)
+    img = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    img[:, -1] = 255
+    img[:, :, -1] = 255
+    x = torch.from_numpy(img).to(dev)
+    wts = _stem_b0_weights(rng, dev, torch.float32, cout, 3.0)[:4] + (
+        torch.eye(32, device=dev), torch.zeros(32, device=dev))
+    got = stem_block0(x, *wts, relu6)
+    ref = stem_block0_plain(x, *wts, relu6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert 0.01 < float((ref > 0).float().mean()) < 0.99
+
+
 def test_stem_smem_bytes(dev):
-    """The kernel's shared-memory arithmetic equals stem_smem_bytes at the
-    plans of the card tests' shapes."""
+    """The kernels' shared-memory arithmetic equals stem_smem_bytes (bf16)
+    and f32_stem_smem_bytes (float32) at the plans of the card tests'
+    shapes."""
     lib = _build.library()
     for n, h, w, cout, block0 in ((256, 224, 224, 64, True), (1, 224, 224, 64, True),
                                   (1, 224, 224, 512, True), (256, 224, 224, 32, False),
@@ -1388,6 +1422,15 @@ def test_stem_smem_bytes(dev):
         p = stem_plan(n, h, w, cout, block0)
         assert lib.stem_smem_bytes(int(block0), p.th, p.tw, cout) == \
             stem_smem_bytes(block0, p.th, p.tw, cout) == p.smem
+    # the float32 kernels' (csrc/stem_f32.cuh) at their plans
+    for n, h, w, cout, block0 in ((256, 160, 160, 64, True), (1, 160, 160, 64, True),
+                                  (2, 224, 224, 64, True), (1, 224, 224, 1024, True),
+                                  (1, 34, 62, 256, True), (256, 224, 224, 32, False),
+                                  (1, 225, 224, 16, False), (1, 16, 16, 256, False),
+                                  (2, 37, 45, 32, False), (1, 640, 480, 256, False)):
+        p = f32_stem_plan(n, h, w, cout, block0)
+        assert lib.stem_f32_smem_bytes(int(block0), p.th, p.tw, cout) == \
+            f32_stem_smem_bytes(block0, p.th, p.tw, cout) == p.smem
 
 
 def _reset(*kernels):

@@ -1,5 +1,6 @@
-"""The bf16 stem kernels' plan (`ops/stem.stem_plan`, `csrc/stem_wgmma.cuh`)
-and a NumPy mirror of their operand layouts, on the CPU.
+"""The stem kernels' plans and NumPy mirrors of their order of work, on the
+CPU: bf16 (`ops/stem.stem_plan`, `csrc/stem_wgmma.cuh`) below, float32
+(`f32_stem_plan`, `csrc/stem_f32.cuh`) in the section that closes the file.
 
 The plan is pinned at V1 1.0-224 (batch 256 and 1) and at the card tests'
 odd and ragged sizes, and its shared memory stays within a block's limit.
@@ -386,3 +387,353 @@ def test_b0_mirror(n, h, w, cout, relu6, base):
         jx = unpack(stem_block0_fused(jnp.asarray(img), *[jnp.asarray(a, jnp.bfloat16) for a in wf],
                                       cout, relu6, interpret=True), cout)
         np.testing.assert_allclose(got, np.asarray(jx, np.float32), **BF16_TOL)
+
+
+# -- the float32 kernels (csrc/stem_f32.cuh) ------------------------------------------
+#
+# Their plan (`f32_stem_plan`, `f32_stem_smem_bytes`) pinned, and a NumPy
+# mirror of their order of work: stem_conv's window staged row by row (16-byte
+# granules where the row and its slot are 16-byte aligned, else single
+# floats; the pad zero-filled), its 8-pixel strips read as float4 loads and
+# taken column by column, the consumer groups' walk over the strips;
+# stem_block0's units of chunks down a 16-column band, each chunk's uint8
+# granules normalized into a float32 window, its new stem rows (6-pixel
+# strips) into the stem tile's rows in turn, each warp's depthwise block
+# sliding down its rows into the K-major depthwise tile and its pointwise
+# micro-tiles (one or two rows of 4 pixels x channels 4q.. and Cout/2 +
+# 4q..) over the weight's 4-column blocks. The stem and the depthwise are held bit for bit
+# against the plain versions' stages; the outputs against the plain versions
+# and the JAX package's kernels in interpret mode within
+# tests/test_torch_stem.py's float32 tolerance (the pointwise's fmaf sums
+# round otherwise).
+
+from mobilenet_tpu_torch.ops.conv import apply_activation, dw_taps_f32  # noqa: E402
+from mobilenet_tpu_torch.ops.preprocess import normalize  # noqa: E402
+from mobilenet_tpu_torch.ops.stem import (  # noqa: E402
+    F32_B0_TW, F32_CONV_P, F32StemPlan, _stem_taps_f32, f32_stem_plan, f32_stem_smem_bytes,
+)
+
+F32_TOL = dict(atol=3e-5, rtol=1e-5)  # tests/test_torch_stem.py's
+B0_P, B0_HW = 6, F32_B0_TW + 2  # stem_block0's stem strip, stem columns a tile computes
+B0_PITCH, B0_DP, B0_WB = 3 * (2 * B0_HW + 1) + 1, 16 * F32_B0_TW + 4, 4 * K + 4
+
+
+@pytest.mark.parametrize("args,want", [
+    # V1 1.0-224 stem_conv: 4 whole stem rows a tile at batch 256; at batch
+    # 2 and 1 smaller tiles, so that they number one an SM at least
+    ((256, 224, 224, 32, False), F32StemPlan(4, 112, 1, 7168, 2, 264, 48736)),
+    ((2, 224, 224, 32, False), F32StemPlan(4, 32, 1, 224, 2, 224, 14176)),
+    ((1, 224, 224, 32, False), F32StemPlan(2, 32, 1, 224, 2, 224, 7904)),
+    # stem_block0 at 1.0-160 (the float32 route's size) and 1.0-224: 16 x 16
+    # tiles, a unit 5 (7) tiles down its band at batch 256
+    ((256, 160, 160, 64, True), F32StemPlan(16, 16, 5, 1280, 2, 264, 114736)),
+    ((2, 160, 160, 64, True), F32StemPlan(4, 16, 1, 200, 2, 200, 70000)),
+    ((1, 160, 160, 64, True), F32StemPlan(2, 16, 1, 200, 2, 200, 62544)),
+    ((256, 224, 224, 64, True), F32StemPlan(16, 16, 7, 1792, 2, 264, 114736)),
+    ((2, 224, 224, 64, True), F32StemPlan(8, 16, 1, 196, 2, 196, 84912)),
+    ((1, 224, 224, 64, True), F32StemPlan(4, 16, 1, 196, 2, 196, 70000)),
+    # the card tests' odd sides, ragged tiles, Cout 8-1024 and partial waves
+    ((2, 37, 45, 32, False), F32StemPlan(1, 8, 1, 114, 2, 114, 1312)),
+    ((1, 225, 224, 16, False), F32StemPlan(2, 32, 1, 228, 2, 228, 7904)),
+    ((2, 225, 223, 32, False), F32StemPlan(4, 32, 1, 232, 2, 232, 14176)),
+    ((1, 16, 16, 256, False), F32StemPlan(1, 8, 1, 8, 2, 8, 1312)),
+    ((1, 640, 480, 256, False), F32StemPlan(4, 120, 1, 160, 2, 160, 52192)),
+    ((16, 224, 224, 32, False), F32StemPlan(4, 112, 1, 448, 2, 264, 48736)),
+    ((3, 40, 52, 16, True), F32StemPlan(2, 16, 1, 60, 2, 60, 56016)),
+    ((6, 224, 224, 64, True), F32StemPlan(16, 16, 1, 294, 2, 264, 114736)),
+    ((64, 160, 160, 64, True), F32StemPlan(16, 16, 5, 320, 2, 264, 114736)),
+    ((1, 224, 224, 1024, True), F32StemPlan(4, 16, 1, 196, 1, 132, 200560)),
+])
+def test_f32_stem_plan_pinned(args, want):
+    assert f32_stem_plan(*args) == want
+
+
+@pytest.mark.parametrize("block0", [False, True])
+def test_f32_stem_plan_smem_within_limit(block0):
+    """Every float32 plan's shared memory stays within a block's 227 KB and
+    its blocks an SM within the SM's 228 KB; its work covers the stem grid
+    (stem_conv: tiles of tw a multiple of 8; stem_block0: units of cpu
+    tiles down each 16-column band); stem_block0 refuses a Cout whose
+    resident weight fits no tile (it raises, never falls back)."""
+    couts = (8, 16, 24, 32, 64, 128, 256) if not block0 else (8, 16, 64, 128, 512, 1024)
+    for n, h, w in ((1, 224, 224), (256, 224, 224), (256, 160, 160), (2, 37, 45), (1, 640, 480),
+                    (3, 40, 52), (2, 2, 2)):
+        if block0 and (h % 2 or w % 2):
+            continue
+        for cout in couts:
+            p = f32_stem_plan(n, h, w, cout, block0)
+            assert p.smem == f32_stem_smem_bytes(block0, p.th, p.tw, cout) <= SMEM_LIMIT
+            assert p.per_sm >= 1 and p.per_sm * (p.smem + 1024) <= 233472
+            assert 1 <= p.grid <= p.units
+            hs, ws = (h // 2, w // 2) if block0 else (-(-h // 2), -(-w // 2))
+            tiles_h, tiles_w = -(-hs // p.th), -(-ws // p.tw)
+            assert p.units == n * tiles_w * -(-tiles_h // p.cpu) and p.cpu <= max(1, tiles_h)
+            if block0:
+                assert p.tw == F32_B0_TW and p.th in (16, 8, 4, 2)
+            else:
+                assert p.tw % F32_CONV_P == 0 and p.cpu == 1
+    if block0:
+        with pytest.raises(ValueError, match="shared memory"):
+            f32_stem_plan(1, 224, 224, 1600, True)
+
+
+def _act32(a, relu6):
+    a = np.maximum(a, np.float32(0))
+    return np.minimum(a, np.float32(6)) if relu6 else a
+
+
+def _stem_strip(win, row, col, wt, P):
+    """stem_strip<P>: the strip's three window rows as float4 loads from
+    float `col` of window row `row`, the columns taken in order; each
+    output's taps in (dy, dx, c) order, a float32 multiply then an add.
+    wt (27, C) -> (P, C)."""
+    nv = ((2 * P + 1) * 3 + 3) // 4
+    acc = np.zeros((P, wt.shape[1]), np.float32)
+    for dy in range(3):
+        assert col % 4 == 0 and col + 4 * nv <= win.shape[1]
+        v = win[row + dy, col:col + 4 * nv]
+        for j in range(2 * P + 1):
+            for dx in range(3):
+                if (j - dx) % 2 or j < dx or (j - dx) // 2 >= P:
+                    continue
+                p = (j - dx) // 2
+                for c in range(3):
+                    acc[p] = acc[p] + v[3 * j + c] * wt[(dy * 3 + dx) * 3 + c]
+    return acc
+
+
+def f32_conv_mirror(x: np.ndarray, wt, b, relu6, base, plan, paths=None) -> np.ndarray:
+    """stem_conv's float32 kernel: x (N, H, W, 3) float32 at byte `base` (a
+    multiple of 4) of device memory; `paths` counts the rows staged by
+    16-byte granules ("vec") and by single floats ("scalar")."""
+    n_, h, w, _ = x.shape
+    cout = wt.shape[-1]
+    hs, ws, pt, pl = -(-h // 2), -(-w // 2), h % 2, w % 2
+    th, tw, P = plan.th, plan.tw, F32_CONV_P
+    wr, wc = 2 * th + 1, 2 * tw + 1
+    pitch = 3 * wc + 1
+    mem = np.full(base // 4 + x.size + 8, np.nan, np.float32)
+    mem[base // 4:base // 4 + x.size] = x.ravel()
+    wt = wt.reshape(27, cout)
+    groups, sw = 256 // cout, tw // P
+    out = np.full((n_, hs, ws, cout), np.nan, np.float32)
+    tiles_h, tiles_w = -(-hs // th), -(-ws // tw)
+    for t in range(n_ * tiles_h * tiles_w):
+        n, rest = divmod(t, tiles_h * tiles_w)
+        t0, u0 = (rest // tiles_w) * th, (rest % tiles_w) * tw
+        r0, c0 = 2 * t0 - pt, 2 * u0 - pl
+        cs, ce = max(c0, 0), min(c0 + wc, w)
+        a, b_ = 3 * (cs - c0), 3 * (ce - c0)
+        win = np.full((wr, pitch), np.nan, np.float32)
+        for r in range(wr):
+            hi = r0 + r
+            row = 0 <= hi < h and a < b_
+            s0 = base // 4 + (((n * h + (hi if row else 0)) * w + cs) * 3) - a  # float index
+            if not row or ((s0 + a) % 4 == 0 and a % 4 == 0 and b_ % 4 == 0):
+                for e in range(0, pitch, 4):  # 16-byte granules, zero-filled outside
+                    win[r, e:e + 4] = mem[s0 + e:s0 + e + 4] if row and a <= e < b_ else 0
+                if paths is not None and row:
+                    paths["vec"] += 1
+            else:
+                for e in range(pitch):
+                    win[r, e] = mem[s0 + e] if a <= e < b_ else 0
+                if paths is not None:
+                    paths["scalar"] += 1
+        assert not np.isnan(win).any()
+        # consumer group grp: strips grp, grp + groups, ... (row ih, column P su)
+        seen = set()
+        for grp in range(groups):
+            ih, su = divmod(grp, sw)
+            dih, du = divmod(groups, sw)
+            while ih < th:
+                seen.add((ih, su))
+                u = P * su
+                ho, wo = t0 + ih, u0 + u
+                if ho < hs and wo < ws:
+                    acc = _stem_strip(win, 2 * ih, 6 * u, wt, P)
+                    for p in range(P):
+                        if wo + p < ws:
+                            out[n, ho, wo + p] = _act32(acc[p] + b, relu6)
+                ih, su = ih + dih, su + du
+                if su >= sw:
+                    ih, su = ih + 1, su - sw
+        assert seen == {(i, j) for i in range(th) for j in range(sw)}
+    return out
+
+
+def _fmaf(a, b, c):
+    """fmaf emulated in float64: the product is exact there, the sum is
+    rounded to float64 and then to float32."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def f32_b0_mirror(img: np.ndarray, wf, relu6, base, plan):
+    """stem_block0's float32 kernel: uint8 images at byte `base`; wf the six
+    float32 weights. Returns the output and, per chunk, (n, t0, u0, its
+    stem rows by stem-grid row, its depthwise tile)."""
+    n_, h, w, _ = img.shape
+    sw, sb, dw, db, pw, pb = wf
+    cout = pw.shape[-1]
+    hs, ws, th, cpu = h // 2, w // 2, plan.th, plan.cpu
+    hh, wr = th + 2, 2 * (th + 2) + 1
+    u8pitch = 16 * (-(-(2 * B0_HW + 1) * 3 // 16) + 1)
+    buf = _flat(img, base)
+    wt, dwt = sw.reshape(27, K), dw.reshape(9, K)
+    # the pointwise weight in 4-column blocks of 32 rows, B0_WB floats apart
+    pwb = np.full(cout // 4 * B0_WB, np.nan, np.float32)
+    for k in range(K):
+        for co in range(cout):
+            pwb[(co >> 2) * B0_WB + 4 * k + (co & 3)] = pw[k, co]
+    tiles_h, tiles_w = -(-hs // th), -(-ws // F32_B0_TW)
+    segs = -(-tiles_h // cpu)
+    assert plan.units == n_ * tiles_w * segs
+    out = np.full((n_, hs, ws, cout), np.nan, np.float32)
+    chunks = []
+    for unit in range(plan.units):
+        tj, rest = unit % tiles_w, unit // tiles_w
+        sg, n = rest % segs, rest // segs
+        stem = np.full((hh, B0_HW, K), np.nan, np.float32)  # its rows taken in turn
+        for k in range(min(cpu, tiles_h - sg * cpu)):
+            t0, u0 = (sg * cpu + k) * th, tj * F32_B0_TW
+            srows = hh if k == 0 else th
+            i0 = t0 - 1 if k == 0 else t0 + 1  # the stem row of window row 0
+            r0, rows = 2 * i0, 2 * srows + 1
+            c0 = 2 * (u0 - 1)
+            assert rows <= wr
+            u8, roff, cs = _stage(buf, base, n, h, w, 3, r0, rows, c0, 2 * B0_HW + 1)
+            assert u8.shape[1] == u8pitch
+            ce = min(c0 + 2 * B0_HW + 1, w)
+            a, b_ = 3 * (cs - c0), 3 * (ce - c0)
+            win = np.zeros((rows, B0_PITCH), np.float32)
+            for r in range(rows):
+                for e in range(B0_PITCH):
+                    if roff[r] >= 0 and a <= e < b_:
+                        v = np.float32(u8[r, roff[r] - a + e]) * np.float32(PREPROCESS_SCALE)
+                        win[r, e] = v + np.float32(PREPROCESS_OFFSET)
+            # 1. the new stem rows, 6-pixel strips by warp, into the rows in turn
+            sbase = 0 if k == 0 else (k * th + 2) % hh
+            for j in range(srows * (B0_HW // B0_P)):
+                sr, hc = divmod(j, B0_HW // B0_P)
+                hc *= B0_P
+                acc = _stem_strip(win, 2 * sr, 6 * hc, wt, B0_P)
+                row = i0 + sr
+                for p in range(B0_P):
+                    col = u0 - 1 + hc + p
+                    inside = 0 <= row < hs and 0 <= col < ws
+                    stem[(sbase + sr) % hh, hc + p] = _act32(acc[p] + sb, relu6) if inside else 0
+            # 2-3. warp w: the depthwise of its block (columns u..u+3, rows
+            # y0..y0+th/2-1), then its pointwise
+            dws = np.full((K, B0_DP), np.nan, np.float32)
+            dbase, rows_w = (k * th) % hh, th // 2
+            for warp in range(8):
+                y0, u = (warp >> 2) * rows_w, 4 * (warp & 3)
+                acc = np.zeros((rows_w, 4, K), np.float32)
+                for yr in range(rows_w + 2):
+                    v = stem[(dbase + y0 + yr) % hh, u:u + 6]
+                    for dy in range(3):
+                        y = yr - dy
+                        if not 0 <= y < rows_w:
+                            continue
+                        for dx in range(3):
+                            for p in range(4):
+                                acc[y, p] = acc[y, p] + v[p + dx] * dwt[dy * 3 + dx]
+                    if yr >= 2:
+                        m = (y0 + yr - 2) * F32_B0_TW + u
+                        dws[:, m:m + 4] = _act32(acc[yr - 2] + db, relu6).T
+                # jobs of rj rows x 4 pixels x channels 4q.. and Cout/2 + 4q..
+                cg, half = cout // 8, cout // 2
+                rj = 2 if th // 4 * cg >= 32 else 1
+                for job in range(rows_w // rj * cg):
+                    px, q = (y0 + rj * (job // cg)) * F32_B0_TW + u, job % cg
+                    wsel = np.concatenate([pwb[q * B0_WB:][:4 * K].reshape(K, 4),
+                                           pwb[(q + cg) * B0_WB:][:4 * K].reshape(K, 4)], 1)
+                    cols = np.r_[4 * q:4 * q + 4, half + 4 * q:half + 4 * q + 4]
+                    for r in range(rj):
+                        pr = px + r * F32_B0_TW
+                        assert not np.isnan(dws[:, pr:pr + 4]).any()  # the warp's own block
+                        acc_p = np.zeros((4, 8), np.float32)
+                        for kk in range(K):
+                            acc_p = _fmaf(dws[kk, pr:pr + 4][:, None], wsel[kk][None, :], acc_p)
+                        ho, wo = t0 + pr // F32_B0_TW, u0 + pr % F32_B0_TW
+                        for i in range(4):
+                            if ho < hs and wo + i < ws:
+                                out[n, ho, wo + i, cols] = _act32(acc_p[i] + pb[cols], relu6)
+            rows_abs = {t0 - 1 + (r - dbase) % hh: stem[r].copy() for r in range(hh)}
+            chunks.append((n, t0, u0, rows_abs, dws))
+    return out, chunks
+
+
+@pytest.mark.parametrize("n,h,w,cout,relu6,base", [
+    (2, 32, 32, 32, True, 0),     # even sides: rows by 16-byte granules
+    (1, 33, 17, 16, False, 4),    # odd sides: TF-SAME pads (1, 1); single floats
+    (2, 19, 26, 24, True, 8),     # odd rows, a base 8 bytes in: 10 groups of 24 channels
+    (1, 16, 16, 256, True, 16),   # Cout 256: one group of the 256 consumers
+])
+def test_f32_conv_mirror(n, h, w, cout, relu6, base):
+    """The float32 stem_conv mirror, bit for bit against stem_conv_plain
+    and, on even square sides, within the float32 tolerance of
+    stem_conv_packed in interpret mode."""
+    rng = np.random.default_rng(h * w + cout)
+    x = rng.uniform(-1, 1, (n, h, w, 3)).astype(np.float32)
+    x[:, -1] = 1
+    x[:, :, -1] = 1
+    wt = rng.normal(0, 0.8, (3, 3, 3, cout)).astype(np.float32)
+    b = rng.normal(0, 0.2, (cout,)).astype(np.float32)
+    plan = f32_stem_plan(n, h, w, cout, False)
+    paths = {"vec": 0, "scalar": 0}
+    got = f32_conv_mirror(x, wt, b, relu6, base, plan, paths)
+    assert np.isfinite(got).all()
+    assert paths["vec"] > 0 if (w % 4 == 0 and base % 16 == 0) else paths["scalar"] > 0
+    ref = stem_conv_plain(*[torch.from_numpy(a) for a in (x, wt, b)], relu6).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if relu6:
+        assert 0 < (ref == 6).mean() < 1
+    if h % 2 == 0 and w == h:
+        jx = stem_conv_packed(*[jnp.asarray(a) for a in (x, wt, b)], cout, relu6, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(jx, np.float32), **F32_TOL)
+
+
+@pytest.mark.parametrize("n,h,w,cout,relu6,base,th,cpu", [
+    (1, 64, 64, 64, True, 0, 16, 2),    # two 16 x 16 tiles down each band: the stem rows reused
+    (1, 36, 72, 16, False, 5, 8, 3),    # 8-row tiles, a ragged last tile and band; base 5 bytes in
+    (2, 20, 36, 8, True, 3, 4, 2),      # a unit of 2 tiles, then one of 1 (3 tile rows); Cout 8
+])
+def test_f32_b0_mirror(n, h, w, cout, relu6, base, th, cpu):
+    """The float32 stem_block0 mirror: its stem rows and depthwise tiles bit
+    for bit against the plain version's stages, its output within the
+    float32 tolerance of stem_block0_plain and, on square sides,
+    unpack(stem_block0_fused) in interpret mode. The last input row and
+    column are 255, beside the stem's pad."""
+    rng = np.random.default_rng(h * w + cout)
+    img = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    img[:, -1] = 255
+    img[:, :, -1] = 255
+    wf = [rng.normal(0, s, shape).astype(np.float32) for s, shape in (
+        (0.4 * 3, (3, 3, 3, 32)), (0.2, (32,)), (0.5 * 3, (3, 3, 1, 32)), (0.2, (32,)),
+        (3 * 32 ** -0.5, (32, cout)), (0.2, (cout,)))]
+    hs, ws = h // 2, w // 2
+    tiles_h, bands = -(-hs // th), n * -(-ws // F32_B0_TW)
+    plan = F32StemPlan(th, F32_B0_TW, cpu, bands * -(-tiles_h // cpu), 2, 1,
+                       f32_stem_smem_bytes(True, th, F32_B0_TW, cout))
+    got, chunks = f32_b0_mirror(img, wf, relu6, base, plan)
+    assert np.isfinite(got).all()
+    tw = [torch.from_numpy(a) for a in wf]
+    y = apply_activation(_stem_taps_f32(normalize(torch.from_numpy(img)), tw[0]) + tw[1], relu6)
+    d = apply_activation(dw_taps_f32(y, tw[2], 1) + tw[3], relu6).numpy()
+    y = y.numpy()
+    for n_i, t0, u0, rows, dws in chunks:
+        for i, stem_row in rows.items():  # stem rows t0 - 1 .. t0 + th
+            for hc in range(B0_HW):
+                j = u0 - 1 + hc
+                want = y[n_i, i, j] if 0 <= i < hs and 0 <= j < ws else np.zeros(K, np.float32)
+                np.testing.assert_array_equal(stem_row[hc], want)
+        for m in range(th * F32_B0_TW):
+            i, j = t0 + m // F32_B0_TW, u0 + m % F32_B0_TW
+            if i < hs and j < ws:
+                np.testing.assert_array_equal(dws[:, m], d[n_i, i, j])
+    ref = stem_block0_plain(torch.from_numpy(img), *tw, relu6).numpy()
+    np.testing.assert_allclose(got, ref, **F32_TOL)
+    if h == w:
+        jx = unpack(stem_block0_fused(jnp.asarray(img), *[jnp.asarray(a) for a in wf], cout,
+                                      relu6, interpret=True), cout)
+        np.testing.assert_allclose(got, np.asarray(jx, np.float32), **F32_TOL)
