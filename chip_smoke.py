@@ -12,7 +12,7 @@ file; imports nothing of JAX. Phases, one JSON line each:
      off), then bfloat16 at the working tolerance; max-abs error,
      CUDA-event times and the bound (below), and for float32 also
      torch.profiler's device ms of the kernel and of the library sequence
-     (taken after phase 45, so that the profiler runs after every other
+     (taken after phase 46, so that the profiler runs after every other
      phase's events; summed over a forward into the row's f32_* fields;
      phases 10, 18 and 22 likewise); a row whose float32 form runs its own
      design names it (`float32_design`: `csrc/separable_f32.cuh`,
@@ -208,6 +208,21 @@ file; imports nothing of JAX. Phases, one JSON line each:
      library copy's time; the roofline floors of V1, V2,
      V3-Large and V3-Small 1.0-224 at batch 256 at the published and the
      measured rates.
+ 46. the accuracy path, each step through the CLI in this process with the
+     counters set to 0 before and read after: `cli export` of the seeded
+     V1 1.0-224 weights, `cli eval` on its folded file at the JAX package's
+     defaults (float32, 32 structured images, the NumPy oracle, batch 16,
+     --min-agreement 1.0; stem_conv, separable_block and fused_head
+     launched), with --int8 (separable_block_i8) and with --dtype bfloat16
+     (its family's tie margin; the float kernels), V2, V3-Large and
+     V3-Small float32 on 8 images, and V1 float32 with --dir on 8 PNG files
+     of 4 shapes other than 224 squared (the device resizes them, and the
+     host's resize, the oracle's input, holds it); each exits 0, its report
+     printed (the
+     agreements, near ties, the largest oracle margin among mismatches,
+     seconds); then `cli classify` (bf16, batch 1: stem_conv, the chain,
+     fused_head) of a PNG written with zlib and struct, and whether the
+     native decoder builds there (else PIL decodes).
 Phases 18-25 also hold the default V3 routes to no v3_chain launch.
 Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
 route at batch 256, bit for bit.
@@ -218,7 +233,8 @@ bound_ms is the least time the card could take for a kernel's work: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s, and its operations (multiply-adds count 2) over the
 peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32 outside the
-tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet. Depthwise
+tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet, read from
+`mobilenet_tpu_torch/utils/flops.py` (HBM_BYTES_PER_S, PEAK_OPS_PER_S). Depthwise
 and stem multiply-adds (one or three input channels: no matrix unit shape)
 count at the 67 TFLOP/s of the CUDA cores. No TF32
 flag is set anywhere: float32 products run in IEEE float32 by default, and
@@ -235,12 +251,14 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 from mobilenet_tpu_torch.block_times import separable_library
 from mobilenet_tpu_torch.floors import cuda_ms
+from mobilenet_tpu_torch.utils.flops import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
 # bf16 kernel vs plain: the depthwise result is rounded to bf16 before the
 # product and the output to bf16 after it; a last-bit difference in the f32
@@ -272,8 +290,6 @@ ROUTE_EV_FACTOR, ROUTE_ANCHOR = 1.5, 1.5
 
 ALPHA, RES = 1.0, 224
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # bytes per element of (activations, weights, biases, multipliers)
 ELEM_BYTES = {"bf16": (2, 2, 2, 0), "f32": (4, 4, 4, 0), "int8": (1, 1, 4, 4)}
 # No single PyTorch call computes the fused kernels' functions (fused dw+pw
@@ -2365,6 +2381,121 @@ def v3_chain_phases(smi, gen, kernels, launches):
 STENCIL_EDGES = ((1, 7, 9, 17), (3, 5, 7, 1), (2, 9, 11, 3), (1, 7, 7, 1024), (8, 56, 56, 128))
 
 
+def png_rgb(path, img):
+    """An 8-bit RGB PNG of an (H, W, 3) uint8 array, written with zlib and
+    struct alone."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+# Phase 46's `cli eval` runs: (name, extra arguments, kernels that must launch).
+# V1 1.0-224 at the JAX package's defaults (float32, 32 structured images,
+# the NumPy oracle, batch 16, --min-agreement 1.0) on the exported folded
+# weights, then --int8 and --dtype bfloat16; V2, V3-Large and V3-Small
+# float32 on their seeded weights at 8 images.
+EVAL_RUNS = (
+    ("v1 float32", ["--ckpt", "{folded}"], ("stem_conv", "separable_block", "fused_head")),
+    ("v1 int8", ["--ckpt", "{folded}", "--int8"], ("separable_block_i8",)),
+    ("v1 bfloat16", ["--ckpt", "{folded}", "--dtype", "bfloat16"],
+     ("stem_conv", "separable_block", "fused_head")),
+    ("v2 float32", ["--model", "v2", "--n", "8"], ("inverted_residual", "fused_head")),
+    ("v3 float32", ["--model", "v3", "--n", "8"], ("v3_block", "fused_head")),
+    ("v3small float32", ["--model", "v3small", "--n", "8"], ("v3_block", "fused_head")),
+)
+
+# Phase 46's `cli eval --dir`: PNG files of these (h, w) shapes, two of each,
+# so that the device resizes them to 224 squared (the oracle's input is the
+# host's resize); V1 float32 at the JAX package's defaults otherwise.
+DIR_SHAPES = ((256, 320), (320, 256), (180, 200), (375, 500)) * 2
+
+
+def accuracy_phases(smi, kernels):
+    """Phase 46, the accuracy path: `cli export` of the seeded V1 1.0-224
+    weights, then `cli eval` (EVAL_RUNS, then V1 float32 on a directory of
+    PNG files of DIR_SHAPES) and `cli classify` of a PNG at
+    batch 1, each in this process with the launch counters set to 0 before
+    and read after. Each run must exit 0 and launch its path's kernels.
+    Prints each eval's report (agreement, near ties, the largest oracle
+    margin among mismatches, seconds) and whether the native decoder
+    builds here (else classify decodes with PIL)."""
+    import tempfile
+    from pathlib import Path
+
+    from mobilenet_tpu_torch import cli, native_io
+    from mobilenet_tpu_torch.runtime.eval import synth_images
+
+    def run(argv, required):
+        for k in kernels.values():
+            k.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        code = 0
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in kernels.items() if v.launches}
+        lines = out.getvalue().strip().splitlines()
+        if code not in (0, None):
+            raise AssertionError(f"cli {' '.join(argv)}: exit {code}: {lines[-3:]}")
+        missing = [k for k in required if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"cli {' '.join(argv)}: {missing} not launched ({counts})")
+        torch.cuda.empty_cache()
+        return lines, counts, seconds
+
+    size = ["--alpha", str(ALPHA), "--res", str(RES)]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        lines, _, seconds = run(["export", *size, "--out", str(tmp)], ())
+        folded = tmp / f"mobilenet_v1_{ALPHA:g}_{RES}_folded.npz"
+        emit("accuracy_export", seconds=seconds, last_line=lines[-1],
+             files=sorted(p.name for p in tmp.iterdir()))
+        evaldir = tmp / "images"
+        evaldir.mkdir()
+        images = synth_images(types.SimpleNamespace(resolution=500), len(DIR_SHAPES), seed=46)
+        for i, ((h, w), img) in enumerate(zip(DIR_SHAPES, images)):
+            png_rgb(evaldir / f"img{i:02d}.png", np.ascontiguousarray(img[:h, :w]))
+        runs = EVAL_RUNS + (("v1 float32 --dir", ["--ckpt", "{folded}", "--dir", str(evaldir)],
+                             EVAL_RUNS[0][2]),)
+        for name, extra, required in runs:
+            argv = ["eval", *size, *(a.format(folded=folded) for a in extra)]
+            lines, counts, seconds = run(argv, required)
+            rep = json.loads(lines[-1])
+            emit("accuracy_eval", run=name, nvidia_smi=smi, seconds=seconds,
+                 n_images=rep["n_images"], dtype=rep["dtype"], oracle=rep["oracle"],
+                 top1_agreement=rep["top1_agreement"],
+                 top1_agreement_tie_aware=rep["top1_agreement_tie_aware"],
+                 near_ties=rep["near_ties"], top5_overlap=rep["top5_overlap"],
+                 tie_margin=rep["tie_margin"],
+                 max_mismatch_rel_margin=max((m["oracle_rel_margin"] for m in rep["mismatches"]),
+                                             default=None),
+                 mismatches=rep["mismatches"][:8], launches=counts)
+        png = tmp / "classify.png"
+        png_rgb(png, np.random.default_rng(46).integers(0, 256, (RES, RES, 3), dtype=np.uint8))
+        lines, counts, seconds = run(["classify", str(png), *size],
+                                     ("stem_conv", "chain", "fused_head"))
+        emit("accuracy_classify", nvidia_smi=smi, seconds=seconds, dtype="bfloat16", batch=1,
+             top=lines, launches=counts, native_decoder=native_io.available(),
+             native_decoder_error=native_io.build_error(),
+             decoder="native" if native_io.available() else "PIL")
+
+
 def floor_phases(smi, launches):
     """Phase 45: the floor probes (`python -m mobilenet_tpu_torch.floors`'s
     run, counters set to 0 before and read after), then each probe against
@@ -2604,6 +2735,9 @@ def main() -> int:
 
     # -- 45. the floor probes and the roofline floors ---------------------------------------
     summary.update(floor_phases(smi, launches))
+
+    # -- 46. the accuracy path: cli export, eval and classify -------------------------------
+    accuracy_phases(smi, kernels)
     float32_device_times()
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"

@@ -102,6 +102,9 @@ import subprocess
 
 import torch
 
+from .utils.flops import HBM_BYTES_PER_S as HBM
+from .utils.flops import PEAK_OPS_PER_S as PEAK
+
 
 def separable_library(x, dw_w, dw_b, pw_w, pw_b, stride, relu6=True, pw_act=True):
     """The unfused library sequence of a separable block, a yardstick the
@@ -228,8 +231,8 @@ def head_bound(n, c, conv, posts, hw=HEAD_HW, kind="bf16"):
         nbytes += k * m + m
         ops += 2 * n * k * m
         k = m
-    item, rate = (4, 67e12) if kind == "f32" else (2, 989e12)
-    t_b, t_o = (nbytes + n * k) * item / 3.35e12 * 1e3, ops / rate * 1e3
+    item, rate = (4, PEAK["f32"]) if kind == "f32" else (2, PEAK["bf16"])
+    t_b, t_o = (nbytes + n * k) * item / HBM * 1e3, ops / rate * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -344,8 +347,8 @@ def dw_bound(n, h, c, stride, kind):
     ho = -(-h // stride)
     act, wbytes = {"int8": (1, 9 + 8), "bf16": (2, 20), "f32": (4, 40)}[kind]
     nbytes = (n * h * h + n * ho * ho) * c * act + c * wbytes
-    t_b = nbytes / 3.35e12 * 1e3
-    t_o = 18 * n * ho * ho * c / (1979e12 if kind == "int8" else 67e12) * 1e3
+    t_b = nbytes / HBM * 1e3
+    t_o = 18 * n * ho * ho * c / PEAK["int8" if kind == "int8" else "f32"] * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -540,7 +543,7 @@ def block_bound(n, h, cin, cout, stride, k=1):
     pix_out = n * ho * ho
     nbytes = 4 * (n * h * h * cin + k * (10 * cin + cin * cout + cout) + pix_out * cout)
     ops = k * (2 * 9 * pix_out * cin + 2 * pix_out * cin * cout)
-    t_b, t_o = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    t_b, t_o = nbytes / HBM * 1e3, ops / PEAK["f32"] * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -694,7 +697,7 @@ def stem_work(n, h, cout, kind, block0=True):
     to 32): its multiply-adds count at the bf16 rate there (989 TFLOP/s), at
     the float32 rate in float32."""
     act = 2 if kind == "bf16" else 4
-    peak = 989e12 if kind == "bf16" else 67e12
+    peak = PEAK["bf16" if kind == "bf16" else "f32"]
     hs = h // 2
     pix = n * hs * hs
     c1 = 32 if block0 else cout
@@ -704,14 +707,14 @@ def stem_work(n, h, cout, kind, block0=True):
         return nbytes, stem_ops / peak * 1e3
     weights = (27 * c1 + c1 + 9 * c1 + c1 + c1 * cout + cout) * act
     nbytes = n * h * h * 3 + weights + pix * cout * act
-    return nbytes, ((stem_ops + 2 * 9 * pix * c1) / 67e12 + 2 * pix * c1 * cout / peak) * 1e3
+    return nbytes, ((stem_ops + 2 * 9 * pix * c1) / PEAK["f32"] + 2 * pix * c1 * cout / peak) * 1e3
 
 
 def stem_bound(n, h, cout, kind, block0):
     """(bound_ms, bound_by) of a stem kernel call: `stem_work`'s bytes over
     3.35 TB/s or its operations' time, the larger."""
     nbytes, t_o = stem_work(n, h, cout, kind, block0)
-    t_b = nbytes / 3.35e12 * 1e3
+    t_b = nbytes / HBM * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 

@@ -6,6 +6,14 @@
     python -m mobilenet_tpu_torch.cli verify [--model v1|v2|v3|v3small] [--minimalistic] \\
         --alpha 1.0 --res 224 [--batch 2] [--int8] [--oracle cpp|numpy] \\
         [--routing plain|fused|mixed|auto|dw] [--dtype float32|bfloat16] [--device cuda]
+    python -m mobilenet_tpu_torch.cli classify IMAGE [--model ...] --alpha 1.0 --res 224 \\
+        [--dtype bfloat16 | --int8] [--top-k 5] [--ckpt F] [--device cuda]
+    python -m mobilenet_tpu_torch.cli eval [--model ...] --alpha 1.0 --res 224 \\
+        [--dir DIR | --n 32 --synth structured|noise] [--dtype float32 | --int8] \\
+        [--oracle numpy|cpp] [--batch 16] [--min-agreement 1.0] [--tie-margin M] \\
+        [--ckpt F] [--device cuda]
+    python -m mobilenet_tpu_torch.cli export [--model ...] --alpha 1.0 --res 224 \\
+        [--from-keras H5 | --from-tf-slim PREFIX | --ckpt RAW] [--out DIR]
 
 `serve` builds the micro-batching server (MobileNet-V1, -V2, -V3-Large or
 -V3-Small, the float path in --dtype, or the model's exact int8 path with
@@ -21,11 +29,29 @@ tolerances of `utils/golden.py` (`runtime/eval.verify_layers`); with
 --routing other than plain the logits gate of that route against the plain
 route at --dtype (`runtime/eval.verify_routing`). Exits 0 when every layer
 matches and 1 at the first divergence.
+
+`classify` decodes one image on the host (`ops/preprocess.decode_image_host`:
+the native decoder, else PIL) and prints its top-k classes from the float
+pipeline in --dtype or, with --int8, the model's int8 pipeline.
+
+`eval` is the end-to-end accuracy gate (`runtime/eval.evaluate_agreement`):
+a directory of images or --n seeded ones (seed + 1) through the pipeline on
+the device and the golden oracle on the host; prints the report as one JSON
+line and exits 1 when the tie-aware top-1 agreement is below
+--min-agreement. The tie margin: 0 with --int8 (exact), else --tie-margin,
+else golden.BF16_TIE_MARGIN of the family in bfloat16 and 1e-3 in float32.
+
+`export` writes `<variant>_raw.npz`, `_folded.npz` and `_int8.npz` under
+--out from one weight source: a keras .h5 (--from-keras), a TF-slim
+checkpoint (--from-tf-slim, MobileNet-V1), a raw .npz (--ckpt) or the
+seeded set. The int8 tree holds the family's quantized constants.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 
 def cmd_serve(args):
@@ -44,29 +70,139 @@ def cmd_serve(args):
 
 def _folded(cfg, args):
     """The --ckpt folded tree, else the seeded weight set folded."""
-    from .checkpoints import (  # noqa: PLC0415
-        fold_bn, fold_bn_v2, fold_bn_v3, init_params, init_params_v2, init_params_v3, load_npz,
-    )
+    from .checkpoints import default_folded, load_npz  # noqa: PLC0415
+
+    return load_npz(args.ckpt) if args.ckpt else default_folded(cfg, seed=args.seed)
+
+
+def _config(args, dtype=None):
+    from .runtime.serving import make_config  # noqa: PLC0415
+
+    return make_config(args.model, args.alpha, args.res, dtype or args.dtype,
+                       args.minimalistic)
+
+
+def cmd_classify(args):
+    """Host decode, then the top-k classes of the float or int8 pipeline;
+    resize and normalization run on the device."""
+    from .ops.preprocess import decode_image_host  # noqa: PLC0415
+    from .runtime.serving import build_pipeline  # noqa: PLC0415
+
+    cfg = _config(args)
+    img = decode_image_host(args.image)
+    pipe = build_pipeline(cfg, device=args.device, params=_folded(cfg, args), int8=args.int8)
+    for rank, (cls, prob) in enumerate(pipe.classify(img, top_k=args.top_k), 1):
+        print(f"top-{rank}: class {cls}  p={prob:.4f}")
+
+
+def cmd_eval(args):
+    """The end-to-end top-1 agreement against the golden oracle; exits 1
+    below --min-agreement."""
+    import json  # noqa: PLC0415
+
+    from .runtime.eval import evaluate_agreement, load_dir_images, synth_images  # noqa: PLC0415
+    from .utils import golden  # noqa: PLC0415
+
+    cfg = _config(args)
+    images = (load_dir_images(args.dir) if args.dir else
+              synth_images(cfg, args.n, args.seed + 1, structured=args.synth == "structured"))
+    # int8 is exact: a top-1 flip is a defect, never a rounding near tie.
+    # bf16's margin is the family's flip class (golden.BF16_TIE_MARGIN).
+    if args.int8:
+        tie_margin = 0.0
+    elif args.tie_margin is not None:
+        tie_margin = args.tie_margin
+    elif args.dtype == "bfloat16":
+        tie_margin = golden.BF16_TIE_MARGIN["v3" if args.model == "v3small" else args.model]
+    else:
+        tie_margin = 1e-3
+    report = evaluate_agreement(
+        cfg, images, params=_folded(cfg, args), int8=args.int8, oracle=args.oracle,
+        batch_size=args.batch, top_k=args.top_k, tie_margin=tie_margin, device=args.device)
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in report.items()}), flush=True)
+    # the gate reads the unrounded tie-aware agreement
+    if report["top1_agreement_tie_aware"] < args.min_agreement:
+        raise SystemExit(1)
+
+
+def _qlayer(layer):
+    """A quantized layer's exported constants: V1 and V2 (QuantLayer) the
+    int8 weight, int32 bias and requant multiplier; V3 (QLayerN) the
+    accumulator-to-real map `a` and the output's 1/scale in place of `m`."""
+    out = {"w_i8": layer.w_i8, "bias_i32": layer.bias_i32}
+    if hasattr(layer, "m"):
+        out["m"] = layer.m
+    else:
+        out.update(a=layer.a, inv_s=np.float32(layer.inv_s))
+    return out
+
+
+def cmd_export(args):
+    """Raw, folded and int8 .npz files of one weight source, every family."""
+    import os  # noqa: PLC0415
+
+    from .checkpoints import family_fns, load_npz, save_npz  # noqa: PLC0415
     from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
     from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
 
-    if args.ckpt:
-        return load_npz(args.ckpt)
-    init, fold = ((init_params_v3, fold_bn_v3) if isinstance(cfg, V3Config)
-                  else (init_params_v2, fold_bn_v2) if isinstance(cfg, V2Config)
-                  else (init_params, fold_bn))
-    return fold(init(cfg, seed=args.seed), eps=cfg.bn_eps)
+    sources = [s for s in ("from_keras", "from_tf_slim", "ckpt") if getattr(args, s)]
+    if len(sources) > 1:
+        raise SystemExit(f"--{' / --'.join(s.replace('_', '-') for s in sources)} are "
+                         "mutually exclusive (each names a weight source); pass exactly one")
+    if args.from_tf_slim and args.model != "v1":
+        raise SystemExit("--from-tf-slim imports the V1 TF-slim layout only; "
+                         "V2/V3 import keras .h5 (--from-keras) or --ckpt")
+    cfg = _config(args, "float32")
+    init, fold = family_fns(cfg)
+    if args.from_keras:
+        from . import checkpoints  # noqa: PLC0415
+
+        importer = (checkpoints.import_keras_h5_v3 if isinstance(cfg, V3Config)
+                    else checkpoints.import_keras_h5_v2 if isinstance(cfg, V2Config)
+                    else checkpoints.import_keras_h5)
+        raw = importer(args.from_keras, cfg)
+    elif args.from_tf_slim:
+        from .checkpoints import import_tf_slim  # noqa: PLC0415
+
+        raw = import_tf_slim(args.from_tf_slim, cfg)
+    elif args.ckpt:
+        raw = load_npz(args.ckpt)
+    else:
+        raw = init(cfg, seed=args.seed)
+    folded = fold(raw, eps=cfg.bn_eps)
+    if isinstance(cfg, V3Config):
+        from .quant.v3 import quantize_v3  # noqa: PLC0415
+
+        q = quantize_v3(folded, cfg)
+        extra = {"conv_last": _qlayer(q.conv_last), "head": _qlayer(q.head),
+                 "s_head": np.float32(q.s_head)}
+    elif isinstance(cfg, V2Config):
+        from .quant.v2 import quantize_v2  # noqa: PLC0415
+
+        q = quantize_v2(folded, cfg)
+        extra = {"conv_last": _qlayer(q.conv_last), "s_blk": np.asarray(q.s_blk, np.float32)}
+    else:
+        from .quant import quantize  # noqa: PLC0415
+
+        q, extra = quantize(folded, cfg), {}
+    qtree = {"conv1": _qlayer(q.conv1),
+             "blocks": [{k: _qlayer(v) for k, v in b.items()} for b in q.blocks],
+             **extra,
+             "fc": {"w_i8": q.fc_w_i8, "s_w": q.fc_s_w, "b": q.fc_b_f32}}
+    name = cfg.variant_name()
+    os.makedirs(args.out, exist_ok=True)
+    for kind, tree in (("raw", raw), ("folded", folded), ("int8", qtree)):
+        save_npz(os.path.join(args.out, f"{name}_{kind}.npz"), tree)
+    print(f"exported raw/folded/int8 checkpoints to {args.out}")
 
 
 def cmd_verify(args):
     """The per-layer gate (or the int8 or routing gate); SystemExit(1) at a
     divergence."""
-    import numpy as np  # noqa: PLC0415
-
     from .runtime import eval as teval  # noqa: PLC0415
-    from .runtime.serving import make_config  # noqa: PLC0415
 
-    cfg = make_config(args.model, args.alpha, args.res, "float32", args.minimalistic)
+    cfg = _config(args, "float32")
     folded = _folded(cfg, args)
     x = np.random.default_rng(args.seed + 1).uniform(
         -1, 1, (args.batch, cfg.resolution, cfg.resolution, 3)).astype(np.float32)
@@ -97,43 +233,43 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="mobilenet_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp, dtype="bfloat16", batch=None, ckpt="folded .npz checkpoint path",
+               device=True):
+        """The flags every command shares: the model, its variant, the seed
+        and the weights; --dtype and --batch where given, and --device where
+        the command runs the model (export runs on the host only)."""
+        sp.add_argument("--model", default="v1", choices=["v1", "v2", "v3", "v3small"],
+                        help="model family: v1 (default), v2 (inverted residuals; "
+                             "alphas 0.35-1.4), v3 (MobileNet-V3-Large) or v3small "
+                             "(MobileNet-V3-Small)")
+        sp.add_argument("--minimalistic", action="store_true",
+                        help="with --model v3 or v3small: the -minimalistic variant "
+                             "(kernel 3, relu, no squeeze-excite)")
+        sp.add_argument("--alpha", type=float, default=1.0)
+        sp.add_argument("--res", type=int, default=224)
+        sp.add_argument("--dtype", default=dtype, choices=["float32", "bfloat16"])
+        if batch is not None:
+            sp.add_argument("--batch", type=int, default=batch)
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--ckpt", default=None, help=ckpt)
+        if device:
+            sp.add_argument("--device", default="cuda",
+                            help="torch device: cuda (default), cuda:N or cpu")
+
     sp = sub.add_parser("serve")
     sp.add_argument("--streams", type=int, default=64)
     sp.add_argument("--port", type=int, default=8000)
     sp.add_argument("--tcp", action="store_true",
                     help="after the selftest, bind the NDJSON TCP front end "
                          "on --port and serve until killed")
-    sp.add_argument("--model", default="v1", choices=["v1", "v2", "v3", "v3small"],
-                    help="model family: v1 (default), v2 (inverted residuals; "
-                         "alphas 0.35-1.4), v3 (MobileNet-V3-Large) or v3small "
-                         "(MobileNet-V3-Small)")
-    sp.add_argument("--minimalistic", action="store_true",
-                    help="with --model v3 or v3small: the -minimalistic variant "
-                         "(kernel 3, relu, no squeeze-excite)")
-    sp.add_argument("--alpha", type=float, default=1.0)
-    sp.add_argument("--res", type=int, default=224)
-    sp.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     sp.add_argument("--int8", action="store_true",
                     help="serve the exact int8 path of --model (per-layer "
                          "requantization, exact against the int8 oracle; V2 and "
                          "V3 calibrate their scales at start); --dtype is then unused")
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--ckpt", default=None, help="folded .npz checkpoint path")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default), cuda:N or cpu")
+    common(sp)
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser("verify")
-    sp.add_argument("--model", default="v1", choices=["v1", "v2", "v3", "v3small"],
-                    help="model family: v1 (default), v2, v3 (MobileNet-V3-Large) or "
-                         "v3small (MobileNet-V3-Small)")
-    sp.add_argument("--minimalistic", action="store_true",
-                    help="with --model v3 or v3small: the -minimalistic variant")
-    sp.add_argument("--alpha", type=float, default=1.0)
-    sp.add_argument("--res", type=int, default=224)
-    sp.add_argument("--batch", type=int, default=2)
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--ckpt", default=None, help="folded .npz checkpoint path")
     sp.add_argument("--int8", action="store_true",
                     help="the model's exact int8 gate (V1 against --oracle; V2 and V3 "
                          "calibrate, then gate against the NumPy int8 oracle)")
@@ -144,12 +280,52 @@ def main(argv=None):
                     choices=teval.ROUTINGS,
                     help="plain (default): the per-layer oracle gate; any other: the "
                          "logits gate of that route against plain at --dtype (dw: "
-                         "MobileNet-V1's depthwise-kernel route)")
-    sp.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="the routing gate's dtype; the per-layer gate is float32")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default), cuda:N or cpu")
+                         "MobileNet-V1's depthwise-kernel route); --dtype is the "
+                         "routing gate's, the per-layer gate is float32")
+    common(sp, dtype="float32", batch=2)
     sp.set_defaults(fn=cmd_verify)
+
+    sp = sub.add_parser("classify")
+    sp.add_argument("image")
+    sp.add_argument("--top-k", type=int, default=5)
+    sp.add_argument("--int8", action="store_true",
+                    help="classify with the model's int8 pipeline (V2 and V3 "
+                         "calibrate their scales first)")
+    common(sp, batch=1)
+    sp.set_defaults(fn=cmd_classify)
+
+    sp = sub.add_parser("eval")
+    sp.add_argument("--dir", default=None,
+                    help="directory of images to evaluate (default: synthetic)")
+    sp.add_argument("--n", type=int, default=32,
+                    help="synthetic image count when --dir is not given")
+    sp.add_argument("--synth", default="structured", choices=["structured", "noise"],
+                    help="synthetic family: structured (noise, gradients, patches, "
+                         "blobs) or pure noise")
+    sp.add_argument("--top-k", type=int, default=5)
+    sp.add_argument("--int8", action="store_true",
+                    help="evaluate the model's int8 pipeline (exact: tie margin 0)")
+    sp.add_argument("--oracle", default="numpy", choices=teval.ORACLES)
+    sp.add_argument("--min-agreement", type=float, default=1.0,
+                    help="exit 1 below this tie-aware top-1 agreement")
+    sp.add_argument("--tie-margin", type=float, default=None,
+                    help="relative oracle-logit margin under which a top-1 flip "
+                         "counts as a near tie, not a mismatch (0 = strict). "
+                         "Default: 1e-3 in float32, the family's bf16 flip class "
+                         "in bfloat16 (golden.BF16_TIE_MARGIN)")
+    # the gate compares with a float32 oracle at a threshold of 1.0, so the
+    # device side runs in float32 too unless asked otherwise
+    common(sp, dtype="float32", batch=16)
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("export")
+    sp.add_argument("--out", default="checkpoints_out")
+    sp.add_argument("--from-keras", metavar="H5",
+                    help="convert a keras MobileNet .h5 checkpoint")
+    sp.add_argument("--from-tf-slim", metavar="CKPT_PREFIX",
+                    help="convert a TF-slim MobilenetV1 checkpoint prefix")
+    common(sp, batch=1, ckpt="raw (unfolded) .npz checkpoint path", device=False)
+    sp.set_defaults(fn=cmd_export)
 
     args = p.parse_args(argv)
     try:

@@ -37,3 +37,31 @@ def preprocess(images_u8: torch.Tensor, resolution: int,
     x = resize_bilinear(images_u8.float(), resolution)
     x = x * PREPROCESS_SCALE + PREPROCESS_OFFSET
     return x.to(dtype).contiguous()
+
+
+def decode_image_host(path: str, backend: str = "auto"):
+    """Host-side decode -> uint8 HWC RGB numpy array (the one host stage;
+    resize and normalization run on the device).
+
+    backend: "native" = the C++ libjpeg/libpng decoder (`native_io`), "pil"
+    = PIL, "auto" = native where it builds on this machine, else PIL, and PIL
+    also for a file the native decoder refuses (BMP, GIF, WebP, or corrupt
+    data, which PIL then reports)."""
+    import numpy as np  # noqa: PLC0415
+
+    if backend not in ("auto", "native", "pil"):
+        raise ValueError(f"unknown decode backend {backend!r}")
+    if backend != "pil":
+        from .. import native_io  # noqa: PLC0415
+
+        if backend == "native":
+            return native_io.decode_image(path)
+        if native_io.available():
+            try:
+                return native_io.decode_image(path)
+            except ValueError:
+                pass  # a format or file the native decoder refuses: PIL below
+    from PIL import Image  # noqa: PLC0415
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)

@@ -1,7 +1,9 @@
 """Pure-NumPy float32 golden reference of MobileNet-V1's, -V2's and -V3's
 layers: the port's copy of the JAX package's `oracle/numpy_ref.py`,
 verbatim: the oracle of the float verify gates (`runtime/eval.py`) and of
-the V2 and V3 int8 calibrations.
+the V2 and V3 int8 calibrations. It adds the host's reference of the
+device's preprocessing (`resize_bilinear_ref`, `preprocess_batch_ref`),
+the oracle's input in `cli eval`.
 
 The calibration takes absmax over these taps; a reordered float32 sum could
 move an absmax in its last bit and with it every requant multiplier of a
@@ -17,6 +19,8 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+
+from ..config import PREPROCESS_OFFSET, PREPROCESS_SCALE
 
 
 def same_pad(in_size: int, stride: int, k: int = 3):
@@ -112,6 +116,37 @@ def forward_all(params: Dict[str, Any], x: np.ndarray, config):
 def preprocess_ref(img_u8: np.ndarray) -> np.ndarray:
     """uint8 HWC -> float32 in [-1, 1] (TF mode; keras mobilenet.py:418-422)."""
     return (img_u8.astype(np.float32) / np.float32(127.5)) + np.float32(-1.0)
+
+
+def resize_bilinear_ref(x: np.ndarray, resolution: int) -> np.ndarray:
+    """float NHWC -> float64 (N, resolution, resolution, C): bilinear, half-pixel
+    centres, no antialiasing, each source coordinate clamped to the image
+    (as `jax.image.resize(..., "bilinear", antialias=False)` and
+    `F.interpolate(align_corners=False)`), weights and sums in float64.
+    The identity at model size."""
+    n, h, w, c = x.shape
+    x = x.astype(np.float64)
+    if h == resolution and w == resolution:
+        return x
+
+    def taps(size):
+        src = np.clip((np.arange(resolution) + 0.5) * (size / resolution) - 0.5, 0, size - 1)
+        lo = np.floor(src).astype(np.int64)
+        return lo, np.minimum(lo + 1, size - 1), src - lo
+
+    y0, y1, fy = taps(h)
+    x0, x1, fx = taps(w)
+    fy, fx = fy[None, :, None, None], fx[None, None, :, None]
+    rows = x[:, y0] * (1 - fy) + x[:, y1] * fy
+    return rows[:, :, x0] * (1 - fx) + rows[:, :, x1] * fx
+
+
+def preprocess_batch_ref(images_u8: np.ndarray, resolution: int) -> np.ndarray:
+    """uint8 NHWC of any size -> float32 NHWC at model resolution in [-1, 1]:
+    `resize_bilinear_ref`, then the device path's normalization (x * scale +
+    offset in float32). The host's reference for the device's preprocessing."""
+    x = resize_bilinear_ref(images_u8, resolution).astype(np.float32)
+    return x * np.float32(PREPROCESS_SCALE) + np.float32(PREPROCESS_OFFSET)
 
 
 def forward_all_v2(params: Dict[str, Any], x: np.ndarray, config):

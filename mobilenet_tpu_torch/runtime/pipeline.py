@@ -18,9 +18,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..checkpoints import (
-    fold_bn, fold_bn_v2, fold_bn_v3, init_params, init_params_v2, init_params_v3, to_device,
-)
+from ..checkpoints import default_folded, to_device
 from ..checkpoints.convert import prepare_kernel_layouts
 from ..config import ModelConfig
 from ..models import mobilenet_v1, mobilenet_v2, mobilenet_v3
@@ -29,12 +27,11 @@ from ..models.mobilenet_v3 import V3Config
 from ..ops.preprocess import preprocess
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# config type -> (init, fold, forward, predict) of the inverted-residual families
+# config type -> (forward, predict) of the inverted-residual families (their
+# init and fold: checkpoints.family_fns)
 _FAMILIES = {
-    V2Config: (init_params_v2, fold_bn_v2, mobilenet_v2.forward_v2,
-               mobilenet_v2.predict_probs_v2),
-    V3Config: (init_params_v3, fold_bn_v3, mobilenet_v3.forward_v3,
-               mobilenet_v3.predict_probs_v3),
+    V2Config: (mobilenet_v2.forward_v2, mobilenet_v2.predict_probs_v2),
+    V3Config: (mobilenet_v3.forward_v3, mobilenet_v3.predict_probs_v3),
 }
 
 
@@ -159,17 +156,14 @@ class InferencePipeline(PipelineBase):
         self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
         self.dw_backend = dw_backend
         self.fuse_stem = fuse_stem
-        if type(config) in _FAMILIES:
-            init, fold, self._forward, self._predict = _FAMILIES[type(config)]
-            host = params if params is not None else fold(
-                init(config, seed=seed), eps=config.bn_eps)
-            self.params = to_device(host, self.device, self.dtype)
-            return
-        if not isinstance(config, ModelConfig):
+        if type(config) not in _FAMILIES and not isinstance(config, ModelConfig):
             raise TypeError(f"config must be a ModelConfig, a V2Config or a V3Config, "
                             f"got {config!r}")
-        host = params if params is not None else fold_bn(
-            init_params(config, seed=seed), eps=config.bn_eps)
+        host = params if params is not None else default_folded(config, seed=seed)
+        if type(config) in _FAMILIES:
+            self._forward, self._predict = _FAMILIES[type(config)]
+            self.params = to_device(host, self.device, self.dtype)
+            return
         self.params = prepare_kernel_layouts(
             to_device(host, self.device, self.dtype), config.block_strides)
         self._forward, self._predict = mobilenet_v1.forward, mobilenet_v1.predict_probs

@@ -311,31 +311,36 @@ def config_from_variant(spec: str, dtype: str = "bfloat16"):
     return make_config(parts[0], float(parts[1]), int(parts[2]), dtype)
 
 
-def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
-                 params=None, int8: bool = False) -> MicroBatchServer:
-    """One variant on one device, `streams`-wide micro-batches: the float
-    InferencePipeline of a ModelConfig, a V2Config or a V3Config (or of a
-    variant string, `config_from_variant`, in bfloat16), or with int8=True
-    the quantized Int8Pipeline (V1), Int8PipelineV2 (V2) or Int8PipelineV3
-    (V3-Large and V3-Small; both calibrated here)."""
-    if isinstance(cfg, str):
-        cfg = config_from_variant(cfg)
+def build_pipeline(cfg, *, device="cuda", seed: int = 0, params=None, int8: bool = False):
+    """The float InferencePipeline of a ModelConfig, a V2Config or a
+    V3Config, or with int8=True the quantized Int8Pipeline (V1),
+    Int8PipelineV2 (V2) or Int8PipelineV3 (V3-Large and V3-Small; both
+    calibrated here). `params`: a folded host tree, else the seeded set."""
     if int8 and isinstance(cfg, V3Config):
         from ..quant.v3 import Int8PipelineV3  # noqa: PLC0415
 
-        pipeline = Int8PipelineV3(cfg, params, device=device, seed=seed)
-    elif int8 and isinstance(cfg, V2Config):
+        return Int8PipelineV3(cfg, params, device=device, seed=seed)
+    if int8 and isinstance(cfg, V2Config):
         from ..quant.v2 import Int8PipelineV2  # noqa: PLC0415
 
-        pipeline = Int8PipelineV2(cfg, params, device=device, seed=seed)
-    elif int8:
+        return Int8PipelineV2(cfg, params, device=device, seed=seed)
+    if int8:
         from ..quant.model import Int8Pipeline  # noqa: PLC0415
 
-        pipeline = Int8Pipeline(cfg, params, device=device, seed=seed)
-    else:
-        from .pipeline import InferencePipeline  # noqa: PLC0415
+        return Int8Pipeline(cfg, params, device=device, seed=seed)
+    from .pipeline import InferencePipeline  # noqa: PLC0415
 
-        pipeline = InferencePipeline(cfg, params, device=device, seed=seed)
+    return InferencePipeline(cfg, params, device=device, seed=seed)
+
+
+def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
+                 params=None, int8: bool = False) -> MicroBatchServer:
+    """One variant on one device, `streams`-wide micro-batches over
+    `build_pipeline`'s pipeline (a config, or a variant string,
+    `config_from_variant`, in bfloat16)."""
+    if isinstance(cfg, str):
+        cfg = config_from_variant(cfg)
+    pipeline = build_pipeline(cfg, device=device, seed=seed, params=params, int8=int8)
     return MicroBatchServer(pipeline, max_batch=streams)
 
 

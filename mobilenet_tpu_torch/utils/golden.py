@@ -54,6 +54,16 @@ ROUTING_EV_FACTOR = 1.5
 # max: the max is an extreme-value statistic that flips between two draws.
 ROUTING_ANCHOR_FACTOR = 1.5
 
+# `cli eval`'s bf16 tie margin per family: the relative oracle-logit margin
+# under which a bf16 top-1 flip against the float32 oracle counts as a near
+# tie, not a mismatch. A tolerance, not a time: the JAX package set these
+# values from the flips it saw on its own accelerator (V1 1.0-224: none in
+# 256 images, so far below 1e-3; V3-Large 1.0-224: a flip at 1.3%, inside
+# the bf16 logits' spread). The port's runs on the card record the card's
+# own flip margins beside them (PERF.md). int8 is exact: `cli eval` gates
+# it at 0.
+BF16_TIE_MARGIN = {"v1": 1e-3, "v2": 3e-2, "v3": 3e-2}
+
 
 def routing_bf16_atol(scale: float, rms_fr: float, n_samples: int) -> float:
     """Max-abs tolerance of the bf16 routing gate: the absolute and

@@ -38,9 +38,45 @@ def test_import_builds_nothing():
     import mobilenet_tpu_torch.roofline  # noqa: F401
     import mobilenet_tpu_torch.quant.v2  # noqa: F401
     import mobilenet_tpu_torch.quant.v3  # noqa: F401
+    import mobilenet_tpu_torch.native_io  # noqa: F401
     from mobilenet_tpu_torch.ops import _build
 
+    # the native decoder's library may have been loaded by another test in
+    # this process; test_import_writes_nothing_under_build checks it in a
+    # fresh interpreter
     assert _build._lib is None
+
+
+def test_accuracy_path_modules_are_checked():
+    """The accuracy path's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/native_io/__init__.py",
+            "mobilenet_tpu_torch/runtime/metrics.py",
+            "mobilenet_tpu_torch/utils/flops.py",
+            "mobilenet_tpu_torch/ops/preprocess.py",
+            "mobilenet_tpu_torch/checkpoints/io.py"} <= names
+
+
+def test_import_writes_nothing_under_build():
+    """A fresh interpreter importing the port and its entry points (the CLI,
+    eval, metrics, the native decoder) loads no library and writes nothing
+    under build/native_io/ or build/kernels/."""
+    import subprocess
+    import sys
+
+    def snapshot():
+        return {str(p): p.stat().st_mtime_ns for sub in ("native_io", "kernels")
+                for p in (ROOT / "build" / sub).glob("**/*")}
+
+    before = snapshot()
+    code = ("import mobilenet_tpu_torch, mobilenet_tpu_torch.cli, "
+            "mobilenet_tpu_torch.runtime.eval, mobilenet_tpu_torch.runtime.metrics, "
+            "mobilenet_tpu_torch.ops.preprocess\n"
+            "from mobilenet_tpu_torch import native_io\n"
+            "from mobilenet_tpu_torch.ops import _build\n"
+            "assert native_io._lib is None and _build._lib is None\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    assert snapshot() == before
 
 
 def test_v2_modules_are_checked():
