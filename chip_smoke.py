@@ -223,6 +223,27 @@ file; imports nothing of JAX. Phases, one JSON line each:
      seconds); then `cli classify` (bf16, batch 1: stem_conv, the chain,
      fused_head) of a PNG written with zlib and struct, and whether the
      native decoder builds there (else PIL decodes).
+ 47. training, QAT, several variants served and warmup (`training_phases`):
+     one V1 1.0-224 float32 train step at batch 4 on the card (the
+     trainer's) against the same step on the CPU with the card's ReLU6 clip
+     decisions replayed (every gradient leaf within GRAD_REL of its
+     absmax), again with cuDNN's TF32 allowed and a float32 matmul
+     precision of "high" set beforehand (the step's own guard must hold),
+     and an unguarded TF32 control, which must miss it;
+     `cli train --steps 5 --batch 32` (the loss descends; ms a step and
+     img/s) and the float32 and QAT trainers at batch 32 timed; the QAT
+     taps of V1 (batch 4), V2, V3-Large and V3-Small (batch 2) 1.0-224 equal
+     to the NumPy int8 oracles bit for bit; `cli train --qat --steps 3
+     --batch 16 --out` at V1 1.0-224, its tree through `quantize` into the
+     int8 path on the card: verify_int8 exact, the fused route's logits
+     (separable_block_i8 launched) equal to the QAT forward's, top-1 too;
+     `cli serve --variants 1.0:224,0.25:128,v2:1.0:224` (bf16) and `--int8
+     --variants 1.0:224,v3:1.0:224` (0 errors, the route kernels launched),
+     then each deployment's variants alone (counters set to 0 before each,
+     its own route's kernels launched), selftest_multi, and one TCP round
+     trip naming a variant; `cli warmup` of V1 1.0-224 (buckets 1, 8, 64)
+     in two fresh processes from a copy of the package not built yet: the
+     first builds the kernels, the second finds every bucket "cached".
 Phases 18-25 also hold the default V3 routes to no v3_chain launch.
 Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
 route at batch 256, bit for bit.
@@ -237,8 +258,9 @@ tensor cores, 1,979 TOP/s int8): NVIDIA's H100 SXM data sheet, read from
 `mobilenet_tpu_torch/utils/flops.py` (HBM_BYTES_PER_S, PEAK_OPS_PER_S). Depthwise
 and stem multiply-adds (one or three input channels: no matrix unit shape)
 count at the 67 TFLOP/s of the CUDA cores. No TF32
-flag is set anywhere: float32 products run in IEEE float32 by default, and
-the float32 stem turns cuDNN's TF32 off around its own call.
+flag is set, except around phase 47's one guarded train step (restored
+after it): float32 products run in IEEE float32 by default, and the float32
+stem turns cuDNN's TF32 off around its own call.
 """
 
 from __future__ import annotations
@@ -2431,26 +2453,12 @@ def accuracy_phases(smi, kernels):
     import tempfile
     from pathlib import Path
 
-    from mobilenet_tpu_torch import cli, native_io
+    from mobilenet_tpu_torch import native_io
     from mobilenet_tpu_torch.runtime.eval import synth_images
 
     def run(argv, required):
-        for k in kernels.values():
-            k.launches = 0
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        code = 0
-        try:
-            with contextlib.redirect_stdout(out):
-                cli.main(argv)
-        except SystemExit as e:
-            code = e.code
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = {k: v.launches for k, v in kernels.items() if v.launches}
-        lines = out.getvalue().strip().splitlines()
-        if code not in (0, None):
-            raise AssertionError(f"cli {' '.join(argv)}: exit {code}: {lines[-3:]}")
+        timed, counts, seconds = run_cli(kernels, argv)
+        lines = [ln for _, ln in timed if ln.strip()]
         missing = [k for k in required if not counts.get(k)]
         if missing:
             raise AssertionError(f"cli {' '.join(argv)}: {missing} not launched ({counts})")
@@ -2590,6 +2598,469 @@ def floor_phases(smi, launches):
         emit("roofline", model=cfg.variant_name(), batch=256, dtype="bf16", nvidia_smi=smi,
              **out)
     return rows
+
+
+
+# -- phase 47: training, QAT, multi-variant serving and warmup ------------------
+
+# Train step on the card against the same step on the CPU: each gradient
+# leaf within GRAD_REL x the leaf's absmax (float32 reassociation in cuDNN's
+# and MKL's sums; TF32 would miss it by ~10x). Two correct float32 forwards
+# can put a ReLU6 input that lies within their rounding of a bound on
+# opposite sides of it, and every earlier layer's gradient then moves by up
+# to ~2% (V1 1.0-224 at batch 4 has such an element: the port against the
+# JAX package on the CPU, 1.9%); so the CPU's step replays the card's clip
+# decisions (`clip_masks`) and the comparison holds the backward alone.
+GRAD_REL = 1e-4
+# serve --variants runs of phase 47: (name, extra flags, variants, the
+# kernels each variant's route launches)
+MULTI_RUNS = (
+    ("bf16", [], (("1.0:224", ("stem_conv", "separable_block", "fused_head", "chain")),
+                  ("0.25:128", ("stem_conv", "separable_block", "fused_head", "chain")),
+                  ("v2:1.0:224", ("inverted_residual", "separable_block", "fused_head")))),
+    ("int8", ["--int8"], (("1.0:224", ("separable_block_i8",)),
+                          ("v3:1.0:224", ("v3_block_i8",)))),
+)
+
+
+class _Lines(io.TextIOBase):
+    """A stdout that keeps each line with the host time it was written."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, s):
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+
+def run_cli(kernels, argv):
+    """`cli.main(argv)` in this process, the launch counters set to 0 before;
+    returns ([(host time, line)], {kernel: launches}, seconds). A non-zero
+    exit raises."""
+    from mobilenet_tpu_torch import cli
+
+    for k in kernels.values():
+        k.launches = 0
+    out = _Lines()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"cli {' '.join(argv)}: exit {e.code}: {out.lines[-3:]}")
+    torch.cuda.synchronize()
+    return out.lines, {k: v.launches for k, v in kernels.items() if v.launches}, \
+        time.perf_counter() - t0
+
+
+def step_times(lines):
+    """ms a step of `cli train` from its JSON lines' host times: the median
+    interval after the first step (which sets up cuDNN and cuBLAS)."""
+    ts = [t for t, ln in lines if ln.startswith("{")]
+    return float(np.median(np.diff(ts[1:]))) * 1e3
+
+
+@contextlib.contextmanager
+def clip_masks(record=None, replay=None):
+    """Within: every ReLU / ReLU6 of the plain ops (`ops.conv.
+    apply_activation`) appends its gradient mask ((y >= 0) & (y <= 6), the
+    clamp's) to `record`, or, with `replay`, takes the next recorded mask
+    as its gradient mask while keeping its own value."""
+    from mobilenet_tpu_torch.ops import conv
+
+    orig = conv.apply_activation
+    masks = iter(replay) if replay is not None else None
+
+    def act(y, relu6):
+        out = orig(y, relu6)
+        if record is not None:
+            record.append(((y >= 0) & (y <= 6) if relu6 else y >= 0).cpu())
+        if masks is not None:
+            m = next(masks).to(device=y.device, dtype=y.dtype)
+            out = out.detach() + (y - y.detach()) * m
+        return out
+
+    conv.apply_activation = act
+    try:
+        yield
+    finally:
+        conv.apply_activation = orig
+
+
+def card_step_grads(cfg, folded, x, y, tf32, trainer=True):
+    """The loss and gradients of one float32 step on the card, and the clip
+    masks of its forward. trainer=True: the program's step (`make_trainer`
+    at lr 0; its gradients are left in each leaf's .grad); False: a bare
+    autograd step outside any guard (the control). tf32: cuDNN's TF32 and a
+    float32 matmul precision of "high" set beforehand, restored after."""
+    from mobilenet_tpu_torch.checkpoints import to_device
+    from mobilenet_tpu_torch.models import train
+
+    params = to_device(folded, "cuda", torch.float32)
+    xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    masks = []
+    prev = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    if tf32:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+    try:
+        with clip_masks(record=masks):
+            if trainer:
+                loss, _ = train.make_trainer(cfg, params, lr=0.0, weight_decay=0.0)(xt, yt)
+                grads = [p.grad for p in train.tree_leaves(params)]
+            else:
+                leaves = train.tree_leaves(params)
+                for p in leaves:
+                    p.requires_grad_(True)
+                loss = train.cross_entropy_loss(params, xt, yt, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    return float(loss.detach()), [g.cpu() for g in grads], masks
+
+
+def cpu_step_grads(cfg, folded, x, y, masks):
+    """The same step's loss and gradients on the CPU, the card's clip
+    decisions replayed."""
+    from mobilenet_tpu_torch.checkpoints import to_device
+    from mobilenet_tpu_torch.models import train
+
+    params = to_device(folded, "cpu", torch.float32)
+    leaves = train.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with clip_masks(replay=masks):
+        loss = train.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y), cfg)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def worst_leaf(got, ref) -> float:
+    """The largest leaf error over that leaf's absmax."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
+
+
+def qat_tap_checks(smi):
+    """QAT taps on the card against the NumPy int8 oracles, bit for bit: V1
+    1.0-224 at batch 4; V2, V3-Large and V3-Small 1.0-224 at batch 2 (8
+    calibration images)."""
+    from mobilenet_tpu_torch import V2Config, V3Config
+    from mobilenet_tpu_torch.checkpoints import default_folded, to_device
+    from mobilenet_tpu_torch.config import ModelConfig
+    from mobilenet_tpu_torch.quant import oracle, qat
+    from mobilenet_tpu_torch.quant.quantize import quantize, quantize_input
+    from mobilenet_tpu_torch.quant.v2 import forward_all_v2_i8, quantize_v2
+    from mobilenet_tpu_torch.quant.v3 import calibrate_v3, forward_all_v3_i8, quantize_v3
+
+    n_cal = 8
+    for name, cfg, n in (("v1", ModelConfig(ALPHA, RES), 4), ("v2", V2Config(ALPHA, RES), 2),
+                         ("v3", V3Config("large", ALPHA, RES), 2),
+                         ("v3small", V3Config("small", ALPHA, RES), 2)):
+        folded = default_folded(cfg, seed=0)
+        x = np.random.default_rng(47).uniform(-1, 1, (n, RES, RES, 3)).astype(np.float32)
+        t0 = time.perf_counter()
+        if name == "v1":
+            fwd = lambda p, xt: qat.qat_forward(p, xt, cfg, collect=True)  # noqa: E731
+            ref = oracle.forward_all(quantize(folded, cfg), quantize_input(x), cfg)
+        elif name == "v2":
+            q = quantize_v2(folded, cfg, n_calib=n_cal)
+            s_blk = tuple(float(s) for s in q.s_blk)
+            fwd = lambda p, xt: qat.qat_forward_v2(p, xt, cfg, s_blk, collect=True)  # noqa: E731
+            ref = forward_all_v2_i8(q, quantize_input(x), cfg)
+        else:
+            cal = calibrate_v3(folded, cfg, n_images=n_cal)
+            q = quantize_v3(folded, cfg, n_calib=n_cal)
+            fwd = lambda p, xt: qat.qat_forward_v3(p, xt, cfg, cal, collect=True)  # noqa: E731
+            ref = forward_all_v3_i8(q, quantize_input(x), cfg)
+        host_s = time.perf_counter() - t0
+        with torch.no_grad():
+            logits, acts = fwd(to_device(folded, "cuda", torch.float32),
+                               torch.from_numpy(x).cuda())
+        acts = {**acts, "logits": logits}
+        ref_logits, ref_acts = ref
+        bad = [k for k, r in {**ref_acts, "logits": ref_logits}.items()
+               if not np.array_equal(acts[k].float().cpu().numpy(), r.astype(np.float32))]
+        emit("qat_taps", model=name, batch=n, nvidia_smi=smi, taps=len(ref_acts) + 1,
+             exact=not bad, mismatched=bad[:8], oracle_and_calibration_s=host_s)
+        if bad:
+            raise AssertionError(f"QAT {name} 1.0-224 on the card: taps {bad[:4]} differ "
+                                 "from the int8 oracle")
+        torch.cuda.empty_cache()
+
+
+async def _tcp_variant_roundtrip(server, variant, res):
+    """One NDJSON request naming `variant` and one naming no served
+    variant, over an ephemeral localhost port."""
+    import base64
+
+    from mobilenet_tpu_torch.runtime.serving import make_tcp_server
+
+    srv = await make_tcp_server(server, "127.0.0.1", 0)
+    port = srv.sockets[0].getsockname()[1]
+    try:
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        img = np.random.default_rng(5).integers(0, 256, (res, res, 3), np.uint8)
+        for rid, name in ((1, variant), (2, "mobilenet_v9_1.0_224")):
+            req = {"id": rid, "shape": list(img.shape), "variant": name,
+                   "image_b64": base64.b64encode(img.tobytes()).decode()}
+            writer.write((json.dumps(req) + "\n").encode())
+        await writer.drain()
+        resps = {r["id"]: r for r in [json.loads(await reader.readline()) for _ in range(2)]}
+        writer.close()
+        return resps, img
+    finally:
+        srv.close()
+        await srv.wait_closed()
+
+
+def multi_variant_checks(smi, kernels):
+    """`cli serve --variants` in bf16 and int8 (0 errors, every route
+    kernel launched), then the same deployments built by build_server:
+    each variant's selftest and one lone request (bucket 1, where V1 runs
+    the chain), the counters set to 0 before and read after (its own
+    route's kernels launched), selftest_multi, and for bf16 one TCP round
+    trip naming a variant."""
+    from mobilenet_tpu_torch.runtime.serving import (
+        build_server, config_from_variant, selftest, selftest_multi,
+    )
+
+    for name, extra, variants in MULTI_RUNS:
+        argv = ["serve", "--variants", ",".join(v for v, _ in variants), "--streams", "64",
+                *extra]
+        lines, counts, seconds = run_cli(kernels, argv)
+        stats = [json.loads(ln) for _, ln in lines if ln.startswith("{")]
+        required = sorted({k for _, ks in variants for k in ks})
+        emit("serve_variants", run=name, nvidia_smi=smi, seconds=seconds, launches=counts,
+             selftests=stats)
+        if len(stats) != len(variants) + 1 or any(s["errors"] for s in stats):
+            raise AssertionError(f"serve --variants ({name}): {stats}")
+        missing = [k for k in required if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"serve --variants ({name}): {missing} not launched")
+
+        cfgs = {c.variant_name(): c for c in (config_from_variant(v) for v, _ in variants)}
+
+        async def serve():
+            server, servers = build_server(cfgs, 64, device="cuda", int8=bool(extra),
+                                           multi=True)
+            await server.start()
+            try:
+                per = {}
+                for (vname, sub), (_, ks) in zip(servers.items(), variants):
+                    for k in kernels.values():
+                        k.launches = 0
+                    st = await selftest(sub, streams=16, requests_per_stream=4)
+                    res = cfgs[vname].resolution
+                    await server.submit(np.zeros((res, res, 3), np.uint8), variant=vname)
+                    torch.cuda.synchronize()
+                    per[vname] = {"errors": sub.stats.errors, "images_per_sec": st["images_per_sec"],
+                                  "launches": {k: kernels[k].launches for k in ks}}
+                for sub in servers.values():
+                    sub.stats.reset_window()
+                mixed = await selftest_multi(server, streams=64, requests_per_stream=4)
+                tcp = None
+                if not extra:
+                    second = list(servers)[1]
+                    resps, img = await _tcp_variant_roundtrip(server, second,
+                                                              cfgs[second].resolution)
+                    want = servers[second].pipeline.run_batch(img[None])[0].argmax()
+                    tcp = {"variant": second, "top1": resps[1].get("top", [[None]])[0][0],
+                           "pipeline_top1": int(want), "unknown": resps[2].get("error")}
+                return per, mixed, tcp
+            finally:
+                await server.close()
+
+        per, mixed, tcp = asyncio.run(serve())
+        emit("serve_variants_build", run=name, nvidia_smi=smi, per_variant=per,
+             selftest_multi=mixed, tcp=tcp)
+        for vname, st in per.items():
+            if st["errors"] or not all(st["launches"].values()):
+                raise AssertionError(f"{name} variant {vname}: {st}")
+        if mixed["errors"]:
+            raise AssertionError(f"selftest_multi ({name}): {mixed['errors']} errors")
+        if tcp and (tcp["top1"] != tcp["pipeline_top1"] or "unknown variant"
+                    not in (tcp["unknown"] or "")):
+            raise AssertionError(f"TCP variant round trip: {tcp}")
+        torch.cuda.empty_cache()
+
+
+def warmup_checks(smi):
+    """`cli warmup` (V1 1.0-224 bf16, --streams 64: buckets 1, 8, 64) in two
+    fresh processes, from a copy of the package whose kernels are not built
+    yet: the first builds them (its first bucket "compiled"), the second
+    must find every bucket "cached". Seconds of each bucket."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    runs = []
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        shutil.copytree(root / "mobilenet_tpu_torch", Path(tmp) / "mobilenet_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for i in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mobilenet_tpu_torch.cli", "warmup", "--alpha",
+                 str(ALPHA), "--res", str(RES), "--streams", "64"],
+                cwd=tmp, capture_output=True, text=True, timeout=600)
+            lines = proc.stdout.strip().splitlines()
+            buckets = [(int(m.group(1)), float(m.group(2)), m.group(3)) for m in
+                       (re.match(r"warm batch +(\d+): +([\d.]+)s \((\w+)\)", ln) for ln in lines)
+                       if m]
+            runs.append({"process": i + 1, "seconds": time.perf_counter() - t0,
+                         "buckets": buckets, "last_line": lines[-1] if lines else None,
+                         "returncode": proc.returncode})
+            if proc.returncode != 0:
+                raise AssertionError(f"cli warmup: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    emit("warmup", nvidia_smi=smi, runs=runs)
+    if [b for b, _, _ in runs[0]["buckets"]] != [1, 8, 64]:
+        raise AssertionError(f"cli warmup: buckets {runs[0]['buckets']}, not the server's")
+    if any(kind != "cached" for _, _, kind in runs[1]["buckets"]):
+        raise AssertionError(f"cli warmup: the second process built again: {runs[1]}")
+    if runs[0]["buckets"][0][2] != "compiled":
+        raise AssertionError("cli warmup: the first process found the kernels built")
+
+
+def training_phases(smi, kernels):
+    """Phase 47: the training path, QAT, multi-variant serving and warmup on
+    the card, each part printing its JSON lines.
+    (a) one V1 1.0-224 float32 train step at batch 4 on the card (the
+        program's trainer) against the same step on the CPU with the card's
+        clip decisions (every gradient leaf within GRAD_REL x its absmax),
+        again with cuDNN's TF32 allowed and a float32 matmul precision of
+        "high" set beforehand, and as a control with those flags and no
+        guard around the backward, which must miss the gate (the gate's
+        sensitivity); `cli train --steps 5 --batch 32`
+        (the loss descends; ms a step and img/s from its lines' host times)
+        and the float and QAT trainers' steps at batch 32 timed on the card;
+    (b) the QAT taps of V1, V2, V3-Large and V3-Small 1.0-224 against the
+        NumPy int8 oracles, bit for bit; `cli train --qat --steps 3 --batch
+        16 --out` at V1 1.0-224, its tree through `quantize` into the int8
+        pipeline on the card: its taps equal to the oracle's (verify_int8),
+        its fused route's logits (separable_block_i8 launched) equal to the
+        QAT forward's on the card, top-1 too;
+    (c) `serve --variants 1.0:224,0.25:128,v2:1.0:224` (bf16) and `--int8
+        --variants 1.0:224,v3:1.0:224`, then the same deployments' variants
+        alone, selftest_multi and one TCP round trip naming a variant;
+    (d) `cli warmup` in two fresh processes."""
+    import tempfile
+    from pathlib import Path
+
+    from mobilenet_tpu_torch.checkpoints import default_folded, load_npz, to_device
+    from mobilenet_tpu_torch.config import ModelConfig
+    from mobilenet_tpu_torch.models import train
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant import qat
+    from mobilenet_tpu_torch.quant.model import forward_i8, quantize_for_device, to_device_i8
+    from mobilenet_tpu_torch.quant.quantize import ACT_IN_SCALE
+    from mobilenet_tpu_torch.quant.verify import verify_int8
+
+    cfg = ModelConfig(ALPHA, RES, compute_dtype="float32")
+    folded = default_folded(cfg, seed=0)
+    rng = np.random.default_rng(47)
+    x = rng.uniform(-1, 1, (4, RES, RES, 3)).astype(np.float32)
+    y = rng.integers(0, 16, (4,))
+
+    # (a) the float32 step against the CPU, then with TF32 allowed; the
+    # control: TF32 allowed and no guard around the backward
+    grads = {}
+    for run, tf32, trainer in (("trainer", False, True), ("trainer_tf32_flags", True, True),
+                               ("control_unguarded_tf32", True, False)):
+        loss_d, g_d, masks = card_step_grads(cfg, folded, x, y, tf32, trainer)
+        loss_h, g_h = cpu_step_grads(cfg, folded, x, y, masks)
+        rel = worst_leaf(g_d, g_h)
+        grads[run] = g_d
+        emit("train_grads", run=run, batch=4, nvidia_smi=smi, loss_card=loss_d, loss_cpu=loss_h,
+             max_leaf_err_over_absmax=rel, limit=GRAD_REL if trainer else None,
+             relu6_masks=len(masks))
+        if trainer and not (rel <= GRAD_REL and abs(loss_d - loss_h) <= 1e-5 * abs(loss_h)):
+            raise AssertionError(f"train step on the card ({run}): loss {loss_d} against "
+                                 f"{loss_h}, a gradient leaf off the CPU's by {rel:.3e} of its "
+                                 "absmax")
+        if not trainer and not rel > GRAD_REL:
+            raise AssertionError("the unguarded TF32 control passed the gradient gate: the "
+                                 "gate cannot tell a TF32 backward apart")
+    emit("train_grads_tf32_flags_vs_default", nvidia_smi=smi,
+         max_leaf_err_over_absmax=worst_leaf(grads["trainer_tf32_flags"], grads["trainer"]))
+
+    size = ["--alpha", str(ALPHA), "--res", str(RES)]
+    lines, counts, seconds = run_cli(kernels, ["train", *size, "--steps", "5", "--batch", "32"])
+    steps = [json.loads(ln) for _, ln in lines if ln.startswith("{")]
+    ms = step_times(lines)
+    emit("train_cli", batch=32, nvidia_smi=smi, steps=steps, seconds=seconds,
+         ms_per_step=ms, images_per_sec=32e3 / ms, launches=counts)
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"cli train: the loss did not descend: {steps}")
+
+    xb = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (32, RES, RES, 3)).astype(np.float32)).cuda()
+    yb = torch.from_numpy(np.random.default_rng(1).integers(0, 16, (32,))).cuda()
+    for kind in ("float32", "qat"):
+        torch.cuda.reset_peak_memory_stats()
+        params = to_device(folded, "cuda", torch.float32)
+        step = (train.make_trainer(cfg, params) if kind == "float32"
+                else qat.make_qat_trainer(cfg, params))
+        step(xb, yb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss, _ = step(xb, yb)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) / 4 * 1e3
+        emit("train_step_time", kind=kind, batch=32, nvidia_smi=smi, ms_per_step=ms_step,
+             images_per_sec=32e3 / ms_step, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             loss=float(loss))
+        del params, step
+        torch.cuda.empty_cache()
+
+    # (b) QAT taps, then cli train --qat, export and serve through int8
+    qat_tap_checks(smi)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        out = str(Path(tmp) / "qat.npz")
+        lines, counts, seconds = run_cli(
+            kernels, ["train", "--qat", *size, "--steps", "3", "--batch", "16", "--out", out])
+        steps = [json.loads(ln) for _, ln in lines if ln.startswith("{")]
+        emit("train_qat_cli", batch=16, nvidia_smi=smi, steps=steps, seconds=seconds,
+             ms_per_step=step_times(lines))
+        trained = load_npz(out)
+    xq = x[:2]
+    verify_out = io.StringIO()
+    with contextlib.redirect_stdout(verify_out):
+        taps_ok = verify_int8(cfg, trained, xq, device="cuda", oracle="numpy")
+    with torch.no_grad():
+        qlogits = qat.qat_forward(to_device(trained, "cuda", torch.float32),
+                                  torch.from_numpy(xq).cuda(), cfg)
+    for k in kernels.values():
+        k.launches = 0
+    with torch.inference_mode():
+        dev = to_device_i8(quantize_for_device(trained, cfg, "auto"), "cuda")
+        x_q = qops.quantize_input_dev(torch.from_numpy(xq).cuda(), ACT_IN_SCALE)
+        ilogits = forward_i8(dev, x_q, cfg, dw_backend="auto")
+    torch.cuda.synchronize()
+    served = {k: v.launches for k, v in kernels.items() if v.launches}
+    top_q, top_i = qlogits.argmax(-1).tolist(), ilogits.argmax(-1).tolist()
+    equal = torch.equal(qlogits.float().cpu(), ilogits.float().cpu())
+    emit("train_qat_export", nvidia_smi=smi, verify_int8=taps_ok,
+         verify_summary=verify_out.getvalue().strip().splitlines()[-1],
+         qat_top1=top_q, int8_top1=top_i, logits_equal=equal, launches=served)
+    if not (taps_ok and top_q == top_i and equal and served.get("separable_block_i8")):
+        raise AssertionError("the QAT-trained V1 1.0-224 served through int8 on the card "
+                             "differs from its QAT forward or the oracle")
+    torch.cuda.empty_cache()
+
+    # (c) serving several variants, (d) warmup
+    multi_variant_checks(smi, kernels)
+    warmup_checks(smi)
 
 
 def main() -> int:
@@ -2738,6 +3209,9 @@ def main() -> int:
 
     # -- 46. the accuracy path: cli export, eval and classify -------------------------------
     accuracy_phases(smi, kernels)
+
+    # -- 47. training, QAT, serve --variants and warmup ---------------------------------------
+    training_phases(smi, kernels)
     float32_device_times()
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"

@@ -2,7 +2,11 @@
 
     python -m mobilenet_tpu_torch.cli serve --streams 64 [--model v1|v2|v3|v3small] \\
         [--minimalistic] --alpha 1.0 --res 224 [--dtype bfloat16 | --int8] \\
-        [--device cuda] [--tcp --port 8000]
+        [--variants 1.0:224,0.25:128,v2:1.0:224] [--device cuda] [--tcp --port 8000]
+    python -m mobilenet_tpu_torch.cli warmup [--model ...] --alpha 1.0 --res 224 \\
+        [--dtype bfloat16 | --int8] [--streams 64] [--batches 1,8,64] [--batch B] [--device cuda]
+    python -m mobilenet_tpu_torch.cli train [--model ...] --alpha 1.0 --res 224 [--batch 32] \\
+        [--steps 10] [--lr 1e-2] [--qat] [--out F.npz] [--ckpt F] [--device cuda]
     python -m mobilenet_tpu_torch.cli verify [--model v1|v2|v3|v3small] [--minimalistic] \\
         --alpha 1.0 --res 224 [--batch 2] [--int8] [--oracle cpp|numpy] \\
         [--routing plain|fused|mixed|auto|dw] [--dtype float32|bfloat16] [--device cuda]
@@ -19,7 +23,22 @@
 -V3-Small, the float path in --dtype, or the model's exact int8 path with
 --int8), runs a selftest of `--streams` concurrent streams
 (one JSON line of stats), and with --tcp then serves NDJSON requests on
---port until killed.
+--port until killed. With --variants it serves several variants from one
+process ("alpha:res" or "model:alpha:res", the first the default; a request
+names its variant in a "variant" field): a selftest per variant, then one
+under mixed load across all of them.
+
+`warmup` builds the pipeline of one variant and runs each serving bucket
+once (`default_buckets(--streams)`, or --batches, plus --batch), so that a
+server started later finds the kernels built from source under `build/`
+(ops/_build.py) and the libraries set up: a line per bucket ("compiled"
+when the kernel library was built during it, else "cached"), then WARMUP OK.
+
+`train` runs SGD with momentum on a seeded synthetic batch (labels below
+min(classes, 16)) on the plain route in float32, one JSON line a step
+(step, loss, top1); with --qat the int8 quantizer is in the graph
+(quant/qat.py; V2 and V3 calibrate first, then freeze). --out saves the
+trained folded tree (.npz), which classify, eval and serve read with --ckpt.
 
 `verify` is the JAX package's per-layer correctness gate: the seeded (or
 --ckpt) folded weights and a seeded input in [-1, 1] (seed + 1) through the
@@ -65,7 +84,86 @@ def cmd_serve(args):
     serve_main(alpha=args.alpha, res=args.res, dtype=args.dtype,
                streams=args.streams, port=args.port, device=args.device,
                seed=args.seed, selftest_only=not args.tcp, params=params,
-               int8=args.int8, model=args.model, minimalistic=args.minimalistic)
+               int8=args.int8, model=args.model, minimalistic=args.minimalistic,
+               variants=args.variants.split(",") if args.variants else None)
+
+
+def cmd_warmup(args):
+    """Run every serving bucket of one variant once, each fenced by reading
+    its bytes back, so that cold start is bounded by this command."""
+    import time  # noqa: PLC0415
+
+    from .ops import _build  # noqa: PLC0415
+    from .runtime.serving import build_pipeline, default_buckets  # noqa: PLC0415
+
+    cfg = _config(args)
+    params = None
+    if args.ckpt:
+        from .checkpoints import load_npz  # noqa: PLC0415
+
+        params = load_npz(args.ckpt)
+    pipe = build_pipeline(cfg, device=args.device, seed=args.seed, params=params,
+                          int8=args.int8)
+    batches = ({int(b) for b in args.batches.split(",")} if args.batches
+               else set(default_buckets(args.streams)))
+    if args.batch is not None:  # an explicitly requested extra entry
+        batches.add(int(args.batch))
+    batches = sorted(batches)
+    res = cfg.resolution
+    for b in batches:
+        built = _build.build_seconds
+        t0 = time.perf_counter()
+        out = pipe.run_batch(np.zeros((b, res, res, 3), np.uint8))
+        _ = np.asarray(out)[0, :1]  # the bucket is done when its bytes are back
+        dt = time.perf_counter() - t0
+        compiled = built is None and bool(_build.build_seconds)
+        print(f"warm batch {b:4d}: {dt:6.1f}s ({'compiled' if compiled else 'cached'})",
+              flush=True)
+    print(f"WARMUP OK: {cfg.variant_name()} {'int8' if args.int8 else args.dtype} "
+          f"batches={batches}", flush=True)
+
+
+def cmd_train(args):
+    """SGD-momentum steps on a seeded synthetic batch (an overfit smoke of
+    the training path), one JSON line a step; --out saves the folded tree."""
+    import json  # noqa: PLC0415
+
+    import torch  # noqa: PLC0415
+
+    from .checkpoints import save_npz, to_device  # noqa: PLC0415
+    from .models.mobilenet_v2 import V2Config  # noqa: PLC0415
+    from .models.mobilenet_v3 import V3Config  # noqa: PLC0415
+    from .models.train import make_trainer, tree_map  # noqa: PLC0415
+    from .runtime.pipeline import resolve_device  # noqa: PLC0415
+
+    cfg = _config(args, "float32")  # training runs in float32 whatever --dtype says
+    device = resolve_device(args.device)
+    folded = _folded(cfg, args)
+    params = to_device(folded, device, torch.float32)
+    if args.qat:
+        from .quant import qat  # noqa: PLC0415
+
+        if isinstance(cfg, V2Config):
+            step, _ = qat.make_qat_trainer_v2(cfg, folded, params, lr=args.lr)
+        elif isinstance(cfg, V3Config):
+            step, _ = qat.make_qat_trainer_v3(cfg, folded, params, lr=args.lr)
+        else:
+            step = qat.make_qat_trainer(cfg, params, lr=args.lr)
+    else:
+        step = make_trainer(cfg, params, lr=args.lr)
+
+    rng = np.random.default_rng(0)
+    n_cls = min(cfg.num_classes, 16)
+    images = torch.from_numpy(rng.uniform(
+        -1, 1, (args.batch, cfg.resolution, cfg.resolution, 3)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, n_cls, (args.batch,))).to(device)
+    for i in range(args.steps):
+        loss, top1 = step(images, labels)
+        print(json.dumps({"step": i, "loss": round(float(loss), 4),
+                          "top1": round(float(top1), 4)}), flush=True)
+    if args.out:
+        save_npz(args.out, tree_map(lambda t: t.detach().cpu().numpy(), params))
+        print(f"saved trained folded checkpoint to {args.out}")
 
 
 def _folded(cfg, args):
@@ -266,8 +364,36 @@ def main(argv=None):
                     help="serve the exact int8 path of --model (per-layer "
                          "requantization, exact against the int8 oracle; V2 and "
                          "V3 calibrate their scales at start); --dtype is then unused")
+    sp.add_argument("--variants", default=None,
+                    help='serve several variants from one process, e.g. '
+                         '"1.0:224,0.25:128,v2:1.0:224" (the first is the default; '
+                         'requests route with a "variant" field); --alpha, --res '
+                         'and --model are then unused')
     common(sp)
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("warmup")
+    sp.add_argument("--int8", action="store_true",
+                    help="warm the model's int8 pipeline")
+    sp.add_argument("--batches", default=None,
+                    help="comma list of batch sizes to run (default: the serving "
+                         "buckets of --streams)")
+    sp.add_argument("--streams", type=int, default=64,
+                    help="the --streams the server will run with (its bucket sizes)")
+    common(sp, batch=None)
+    sp.add_argument("--batch", type=int, default=None,
+                    help="one more batch size to run")
+    sp.set_defaults(fn=cmd_warmup)
+
+    sp = sub.add_parser("train")
+    sp.add_argument("--steps", type=int, default=10)
+    sp.add_argument("--lr", type=float, default=1e-2)
+    sp.add_argument("--out", default=None, help="save the trained folded .npz here")
+    sp.add_argument("--qat", action="store_true",
+                    help="quantization-aware training: the int8 quantizer in the graph "
+                         "(quant/qat.py; V2 and V3 calibrate, then freeze)")
+    common(sp, batch=32)
+    sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("verify")
     sp.add_argument("--int8", action="store_true",

@@ -1,7 +1,7 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
-The port of the JAX package's `runtime/serving.py` for one variant on one
-device: MobileNet-V1, -V2, -V3-Large or -V3-Small (or either V3
+The port of the JAX package's `runtime/serving.py` on one device, one or
+several variants of MobileNet-V1, -V2, -V3-Large or -V3-Small (or either V3
 -minimalistic), float or exact int8:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
@@ -9,8 +9,10 @@ device: MobileNet-V1, -V2, -V3-Large or -V3-Small (or either V3
     runs the batch on one executor thread (one device stream);
   - a bad request fails its own future, never the server; device errors
     that may pass (out of memory) are retried with backoff.
-Also: a newline-delimited-JSON TCP front end (`serve_tcp`) and an in-process
-load test (`selftest`) that reports img/s and p50/p99.
+Also: a newline-delimited-JSON TCP front end (`serve_tcp`), an in-process
+load test (`selftest`) that reports img/s and p50/p99, and
+`MultiVariantServer`, several variants served from one process (a request
+names its variant), with its mixed-load test `selftest_multi`.
 """
 
 from __future__ import annotations
@@ -51,10 +53,20 @@ class ServerStats:
     # batch-bucket size -> number of dispatches routed to it
     bucket_counts: Dict[int, int] = dataclasses.field(default_factory=dict)
 
+    def reset_window(self):
+        """Zero the per-window counters (requests, batches, fill, buckets)
+        so a load probe reports per-phase stats; the error and retry counts
+        are kept."""
+        self.requests = 0
+        self.batches = 0
+        self.batch_fill = 0.0
+        self.bucket_counts.clear()
+
 
 def default_buckets(max_batch: int) -> List[int]:
     """The serving batch tiers of a `max_batch`-stream server:
-    {1, max_batch//8, max_batch}."""
+    {1, max_batch//8, max_batch}. Shared by MicroBatchServer and `cli
+    warmup`, so what warmup runs is what serving dispatches."""
     return sorted({1, max(1, max_batch // 8), max_batch})
 
 
@@ -204,9 +216,11 @@ class MicroBatchServer:
 # ---------------------------------------------------------------------------
 
 
-async def make_tcp_server(server: MicroBatchServer, host: str, port: int):
-    """Bind the NDJSON front end; port=0 binds an ephemeral port.
-    Returns the asyncio.Server (caller drives serve_forever / close)."""
+async def make_tcp_server(server, host: str, port: int):
+    """Bind the NDJSON front end of a MicroBatchServer or a
+    MultiVariantServer; port=0 binds an ephemeral port. A request may name
+    its variant in an optional "variant" field. Returns the asyncio.Server
+    (caller drives serve_forever / close)."""
 
     async def handle(reader, writer):
         while True:
@@ -225,7 +239,12 @@ async def make_tcp_server(server: MicroBatchServer, host: str, port: int):
                 img = np.frombuffer(
                     base64.b64decode(req["image_b64"]), np.uint8
                 ).reshape(req["shape"])
-                top = await server.submit(img)
+                kw = {}
+                if req.get("variant") is not None:
+                    # only MultiVariantServer takes it; a single-variant
+                    # server's TypeError is echoed as this request's error
+                    kw["variant"] = req["variant"]
+                top = await server.submit(img, **kw)
                 resp = {"id": req.get("id"), "top": top}
             except Exception as e:  # echo the failure to this client only
                 rid = req.get("id") if isinstance(req, dict) else None
@@ -239,7 +258,7 @@ async def make_tcp_server(server: MicroBatchServer, host: str, port: int):
     return await asyncio.start_server(handle, host, port, limit=32 * 1024 * 1024)
 
 
-async def serve_tcp(server: MicroBatchServer, host: str, port: int):
+async def serve_tcp(server, host: str, port: int):
     srv = await make_tcp_server(server, host, port)
     async with srv:
         await srv.serve_forever()
@@ -280,6 +299,85 @@ async def selftest(server: MicroBatchServer, streams: int = 64,
     }
 
 
+class MultiVariantServer:
+    """Several variants served from one process on one device: each keeps
+    its own MicroBatchServer (buckets, batcher, stats), and a request picks
+    one with `variant=`, else the default (the first)."""
+
+    def __init__(self, servers: Dict[str, MicroBatchServer], default: Optional[str] = None):
+        if not servers:
+            raise ValueError("MultiVariantServer needs at least one variant")
+        self.servers = dict(servers)
+        self.default = default or next(iter(self.servers))
+        if self.default not in self.servers:
+            raise ValueError(f"default variant {self.default!r} not among "
+                             f"{sorted(self.servers)}")
+
+    async def start(self):
+        for s in self.servers.values():
+            await s.start()
+
+    async def close(self):
+        for s in self.servers.values():
+            await s.close()
+
+    async def submit(self, image_u8: np.ndarray, top_k: int = 5,
+                     variant: Optional[str] = None):
+        """One request, routed by `variant`; an unknown name fails this
+        request only (ValueError)."""
+        name = variant or self.default
+        try:
+            server = self.servers[name]
+        except KeyError:
+            raise ValueError(f"unknown variant {name!r}; serving "
+                             f"{sorted(self.servers)}") from None
+        return await server.submit(image_u8, top_k=top_k)
+
+    def stats_dict(self) -> Dict[str, Any]:
+        return {"default": self.default,
+                "variants": {n: s.stats_dict() for n, s in self.servers.items()}}
+
+
+async def selftest_multi(server: MultiVariantServer, streams: int = 64,
+                         requests_per_stream: int = 8) -> Dict[str, Any]:
+    """Mixed load across every served variant: stream s pins to variant
+    s % n_variants and every stream is in flight at once, so the device
+    interleaves batches of different configs. Reports aggregate img/s and
+    per-variant p50/p99."""
+    names = sorted(server.servers)
+    rng = np.random.default_rng(0)
+    frames = {
+        n: rng.integers(0, 256, (8, s.pipeline.config.resolution,
+                                 s.pipeline.config.resolution, 3), dtype=np.uint8)
+        for n, s in server.servers.items()
+    }
+    lat: Dict[str, List[float]] = {n: [] for n in names}
+    errors_before = sum(s.stats.errors for s in server.servers.values())
+
+    async def one_stream(sid: int):
+        name = names[sid % len(names)]
+        for k in range(requests_per_stream):
+            t0 = time.perf_counter()
+            await server.submit(frames[name][(sid + k) % 8], variant=name)
+            lat[name].append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(one_stream(s) for s in range(streams)))
+    wall = time.perf_counter() - t0
+    n = streams * requests_per_stream
+    return {
+        "mode": "mixed-variants",
+        "streams": streams,
+        "requests": n,
+        "images_per_sec": n / wall,
+        "per_variant_p50_ms": {name: float(np.percentile(v, 50) * 1e3)
+                               for name, v in lat.items() if v},
+        "per_variant_p99_ms": {name: float(np.percentile(v, 99) * 1e3)
+                               for name, v in lat.items() if v},
+        "errors": sum(s.stats.errors for s in server.servers.values()) - errors_before,
+    }
+
+
 MODELS = ("v1", "v2", "v3", "v3small")
 
 
@@ -300,15 +398,17 @@ def make_config(model: str, alpha: float, res: int, dtype: str = "bfloat16",
     raise ValueError(f"model {model!r} not in {MODELS}")
 
 
-def config_from_variant(spec: str, dtype: str = "bfloat16"):
+def config_from_variant(spec: str, dtype: str = "bfloat16", minimalistic: bool = False):
     """The JAX package's variant string: "alpha:res" (V1) or
-    "model:alpha:res", e.g. "v2:1.0:224", "v3:1.0:224" or "v3small:1.0:224"."""
+    "model:alpha:res", e.g. "v2:1.0:224", "v3:1.0:224" or "v3small:1.0:224".
+    `minimalistic` applies to the V3 families only, as in the JAX package."""
     parts = spec.split(":")
     if len(parts) == 2:
         parts = ["v1", *parts]
     if len(parts) != 3:
         raise ValueError(f"variant {spec!r} is not 'alpha:res' or 'model:alpha:res'")
-    return make_config(parts[0], float(parts[1]), int(parts[2]), dtype)
+    return make_config(parts[0], float(parts[1]), int(parts[2]), dtype,
+                       minimalistic and parts[0] in ("v3", "v3small"))
 
 
 def build_pipeline(cfg, *, device="cuda", seed: int = 0, params=None, int8: bool = False):
@@ -333,37 +433,67 @@ def build_pipeline(cfg, *, device="cuda", seed: int = 0, params=None, int8: bool
     return InferencePipeline(cfg, params, device=device, seed=seed)
 
 
-def build_server(cfg, streams: int, *, device="cuda", seed: int = 0,
-                 params=None, int8: bool = False) -> MicroBatchServer:
-    """One variant on one device, `streams`-wide micro-batches over
-    `build_pipeline`'s pipeline (a config, or a variant string,
-    `config_from_variant`, in bfloat16)."""
-    if isinstance(cfg, str):
-        cfg = config_from_variant(cfg)
-    pipeline = build_pipeline(cfg, device=device, seed=seed, params=params, int8=int8)
-    return MicroBatchServer(pipeline, max_batch=streams)
+def build_server(cfgs: Dict[str, Any], streams: int, *, device="cuda", seed: int = 0,
+                 params=None, int8: bool = False, multi: bool = False):
+    """The serving object of `cfgs` ({variant_name: config}), each variant a
+    `streams`-wide MicroBatchServer over `build_pipeline`'s pipeline on one
+    device. multi=True (any --variants deployment, a single entry too)
+    wraps them in MultiVariantServer, whose clients name variants in
+    requests. Returns (server, {name: MicroBatchServer})."""
+    servers = {
+        name: MicroBatchServer(build_pipeline(c, device=device, seed=seed, params=params,
+                                              int8=int8), max_batch=streams)
+        for name, c in cfgs.items()
+    }
+    if multi:
+        return MultiVariantServer(servers), servers
+    if len(servers) != 1:
+        raise ValueError("multiple configs require multi=True")
+    return next(iter(servers.values())), servers
 
 
 def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
                device="cuda", seed: int = 0, selftest_only: bool = True, params=None,
-               int8: bool = False, model: str = "v1", minimalistic: bool = False):
-    """Build the server, run the selftest (one JSON line of stats), then, if
-    not selftest_only, serve NDJSON over TCP on `port` until killed. `model`
-    is "v1", "v2", "v3" (V3-Large) or "v3small" (V3-Small), -minimalistic
-    with `minimalistic`; `dtype` is the float path's compute dtype;
-    int8=True serves the model's exact int8 path."""
-    cfg = make_config(model, alpha, res, dtype, minimalistic)
+               int8: bool = False, model: str = "v1", minimalistic: bool = False,
+               variants=None):
+    """Build the server, run a selftest per variant (one JSON line of stats
+    each) and, with several variants, `selftest_multi` under mixed load;
+    then, if not selftest_only, serve NDJSON over TCP on `port` until
+    killed. `model` is "v1", "v2", "v3" (V3-Large) or "v3small" (V3-Small),
+    -minimalistic with `minimalistic`; `dtype` is the float path's compute
+    dtype; int8=True serves the model's exact int8 path. `variants`: a list
+    of "alpha:res" or "model:alpha:res" strings served from one process
+    (MultiVariantServer; the first is the default; `alpha`, `res` and
+    `model` are then unused); `params` (--ckpt) is refused with it."""
+    if variants:
+        if params is not None:
+            raise ValueError("--ckpt applies to a single variant; multi-variant serving "
+                             "uses each variant's default weight set")
+        cfgs = {c.variant_name(): c for c in
+                (config_from_variant(v, dtype, minimalistic) for v in variants)}
+    else:
+        cfg = make_config(model, alpha, res, dtype, minimalistic)
+        cfgs = {cfg.variant_name(): cfg}
 
     async def run():
-        server = build_server(cfg, streams, device=device, seed=seed, params=params,
-                              int8=int8)
+        server, servers = build_server(cfgs, streams, device=device, seed=seed,
+                                       params=params, int8=int8, multi=bool(variants))
         await server.start()
         try:
-            stats = await selftest(server, streams=streams)
-            print(json.dumps(stats), flush=True)
+            for name, sub in servers.items():
+                stats = await selftest(sub, streams=max(1, streams // len(servers)))
+                if variants:
+                    stats["variant"] = name
+                print(json.dumps(stats), flush=True)
+            if variants and len(servers) > 1:
+                # every variant under concurrent load from one process (the
+                # per-variant selftests above ran one after another)
+                for sub in servers.values():
+                    sub.stats.reset_window()
+                print(json.dumps(await selftest_multi(server, streams=streams)), flush=True)
             if not selftest_only:
-                print(f"serving on tcp://0.0.0.0:{port} ({cfg.variant_name()}"
-                      f"{' int8' if int8 else ''})", flush=True)
+                print(f"serving on tcp://0.0.0.0:{port} (variants: {sorted(cfgs)}"
+                      f"{', int8' if int8 else ''})", flush=True)
                 await serve_tcp(server, "0.0.0.0", port)
         finally:
             await server.close()

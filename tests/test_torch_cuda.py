@@ -780,7 +780,7 @@ def test_v2_int8_routes_verify_and_server(dev):
     assert verify_int8_v2(cfg, folded, x, n_calib=8, device="cuda")
 
     async def serve():
-        server = build_server(cfg, 8, device="cuda", int8=True)
+        server, _ = build_server({cfg.variant_name(): cfg}, 8, device="cuda", int8=True)
         await server.start()
         try:
             return await selftest(server, streams=8, requests_per_stream=2)
@@ -1235,7 +1235,7 @@ def test_v3_int8_routes_verify_and_server(dev):
     assert verify_int8_v3(cfg, folded, x, n_calib=8, device="cuda")
 
     async def serve():
-        server = build_server(cfg, 8, device="cuda", int8=True)
+        server, _ = build_server({cfg.variant_name(): cfg}, 8, device="cuda", int8=True)
         await server.start()
         try:
             return await selftest(server, streams=8, requests_per_stream=2)

@@ -123,7 +123,7 @@ def test_verify_int8_on_cpu(setup, capsys):
 
 def test_int8_server_selftest():
     async def run():
-        server = build_server(CFG, 8, device="cpu", int8=True)
+        server, _ = build_server({CFG.variant_name(): CFG}, 8, device="cpu", int8=True)
         await server.start()
         try:
             stats = await selftest(server, streams=8, requests_per_stream=2)

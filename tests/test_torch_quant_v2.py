@@ -162,7 +162,7 @@ def test_int8_v2_server_selftest():
     cfg = V2Config(0.35, 96)
 
     async def run():
-        server = build_server(cfg, 8, device="cpu", int8=True)
+        server, _ = build_server({cfg.variant_name(): cfg}, 8, device="cpu", int8=True)
         await server.start()
         try:
             stats = await selftest(server, streams=8, requests_per_stream=2)

@@ -271,7 +271,7 @@ def test_int8_v3_server_selftest():
         frame = np.random.default_rng(1).integers(0, 256, (res, res, 3), np.uint8)
 
         async def run(cfg=cfg, frame=frame):
-            server = build_server(cfg, 4, device="cpu", int8=True)
+            server, _ = build_server({cfg.variant_name(): cfg}, 4, device="cpu", int8=True)
             await server.start()
             try:
                 stats = await selftest(server, streams=4, requests_per_stream=2)

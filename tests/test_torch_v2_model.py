@@ -226,7 +226,8 @@ def test_pipeline_and_server_on_cpu():
     assert config_from_variant("0.25:128").variant_name() == "mobilenet_v1_0.25_128"
 
     async def run():
-        server = build_server("v2:0.35:96", 4, device="cpu")
+        v2 = config_from_variant("v2:0.35:96")
+        server, _ = build_server({v2.variant_name(): v2}, 4, device="cpu")
         await server.start()
         try:
             return await selftest(server, streams=4, requests_per_stream=2)
@@ -235,5 +236,5 @@ def test_pipeline_and_server_on_cpu():
 
     stats = asyncio.run(run())
     assert stats["errors"] == 0 and stats["requests"] == 8
-    server = build_server(cfg, 4, device="cpu", int8=True)
+    server, _ = build_server({cfg.variant_name(): cfg}, 4, device="cpu", int8=True)
     assert isinstance(server.pipeline, Int8PipelineV2) and server.pipeline.config == cfg

@@ -295,7 +295,8 @@ def test_pipeline_gate_and_server_on_cpu(capsys):
     assert config_from_variant("v3:1.0:224", "float32") == V3Config("large", 1.0, 224)
 
     async def run():
-        server = build_server(f"v3:1.0:{RES}", 4, device="cpu")
+        v3 = config_from_variant(f"v3:1.0:{RES}")
+        server, _ = build_server({v3.variant_name(): v3}, 4, device="cpu")
         await server.start()
         try:
             return await selftest(server, streams=4, requests_per_stream=2)
@@ -304,7 +305,8 @@ def test_pipeline_gate_and_server_on_cpu(capsys):
 
     stats = asyncio.run(run())
     assert stats["errors"] == 0 and stats["requests"] == 8
-    small = build_server(_cfgs("small")[0], 1, device="cpu", int8=True)  # warm-runs bucket 1
+    scfg = _cfgs("small")[0]
+    small, _ = build_server({scfg.variant_name(): scfg}, 1, device="cpu", int8=True)  # warm-runs bucket 1
     assert small.pipeline.dw_backend == "auto" and small.pipeline.config.variant == "small"
 
 
