@@ -244,6 +244,38 @@ file; imports nothing of JAX. Phases, one JSON line each:
      trip naming a variant; `cli warmup` of V1 1.0-224 (buckets 1, 8, 64)
      in two fresh processes from a copy of the package not built yet: the
      first builds the kernels, the second finds every bucket "cached".
+ 48. data, tensor and pipeline parallelism (`parallel_phases`), every mesh
+     on ranks that share the one card (`devices=["cuda:0"] * n`; its
+     img/s are no scaling figure): (a) the separable block's raw-partial
+     mode (`pw_epilogue=False`, the tensor-parallel partial) against its
+     plain version at the V1 1.0-224 shard shapes of tp 2 (blocks 4-12) and
+     tp 4 (blocks 6-12), batch 256 and 1, bf16 (`partial_bf16_atol`, no
+     relative term; the plain output rounded to bf16, a planted control,
+     must miss it) and float32 (MM_TOL), with its ms, the bound (a 4-byte output) and the library
+     sequence's ms (the `separable_block[partial]` row of the kernels line);
+     (b) `forward_tp_fused` at V1 1.0-224 bf16 batch 256, tp 2, tp 4 and
+     dp 2 x tp 2, against the single-device forward within V1's route gate
+     (a top-1 flip only between near-tied classes), the partial launches
+     equal to kernel blocks x tp x dp; again in float32 at batch 8 within
+     atol 2e-4 / rtol 1e-3; (c) `forward_i8_tp` at batch 64, tp 2 and 4,
+     equal to `forward_i8` (torch.equal); (d) the data-parallel pipelines
+     on two ranks (V1 bf16 and int8, V2 bf16, V3-Large int8 at batch 64)
+     against one device (int8 equal; bf16 within ROUTE_ATOL, top-1), a
+     2-rank `benchmark()`, a 64-stream selftest through `build_server(...,
+     mesh=)` (buckets [2, 8, 64], 0 errors, the route's kernels launched),
+     `cli serve --dp 2` refused with make_mesh's error on a one-card
+     machine, `cli warmup --dp 1`; (e) `forward_pp` of V1, V2, V3-Large and
+     V3-Small 1.0-224 (bf16, batch 64, S 4, M 8, "auto"): stage bounds,
+     against the single-device forward on each microbatch (within the route
+     gate; bit-equality reported), the families' kernels launched; (f)
+     `pp_train_step` of V1 1.0-224 (float32, batch 8, S 4, M 4, lr 1)
+     against one single-device SGD step on the whole batch with the
+     pipelined forward's ReLU6 clip decisions replayed (phase 47's caveat):
+     the loss, and every updated leaf within GRAD_REL of its update's
+     absmax plus the float32 rounding of w - lr * g; the clip decisions
+     that differ between the two forwards counted, and the step without
+     the replay reported beside;
+     (g) the img/s of (b), (d) and (e).
 Phases 18-25 also hold the default V3 routes to no v3_chain launch.
 Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
 route at batch 256, bit for bit.
@@ -3063,6 +3095,467 @@ def training_phases(smi, kernels):
     warmup_checks(smi)
 
 
+# -- phase 48: data, tensor and pipeline parallelism ------------------------------
+
+# The raw partial (separable_block(pw_epilogue=False)) against its plain
+# version. float32: golden.MM_TOL (F32_ATOL, F32_RTOL). bf16: both sides
+# take the same bf16-rounded depthwise result into the same float32 product,
+# and no output rounding follows, so the gap is absolute: the order of the
+# float32 sums (~1e-6), or a depthwise value that rounds to its other bf16
+# neighbour (one step, ~2^-8 of a value up to 6) times a weight of the data's
+# scale, Cin^-0.5. No relative term: an output rounded to bf16 (half a step
+# of outputs up to ~3, so up to ~8e-3) must miss it, and the plain output
+# rounded so is checked to.
+def partial_bf16_atol(cin: int) -> float:
+    return 6 * 2 ** -8 / cin ** 0.5
+
+
+# forward_tp_fused in float32 against the single-device forward: the JAX
+# package's tests/test_tp_fused.py (the psum reassociates the pointwise sum).
+TP_F32_ATOL, TP_F32_RTOL = 2e-4, 1e-3
+PARTIAL_DESIGN = ["mobilenet_tpu_torch/csrc/separable_wgmma.cuh",
+                  "mobilenet_tpu_torch/csrc/hopper.cuh"]
+SHARED_CARD = "ranks sharing one card: not a scaling figure"
+PARTIAL_LIBRARY = ("F.conv2d(groups=C, channels-last, TF-SAME) + bias, clamp_, "
+                   "torch.mm(out_dtype=float32)")
+
+
+def tp_shard_shapes(cfg, tp):
+    """(block, H, Cin / tp, Cout, stride) of each block that
+    forward_tp_fused's "auto" routes to the kernel at `tp`."""
+    from mobilenet_tpu_torch.parallel.tp_fused import _block_cins, tp_routing
+
+    out, hw = [], cfg.resolution // 2
+    for i, (r, stride, cin, cout) in enumerate(zip(tp_routing(cfg, tp, "auto"),
+                                                   cfg.block_strides, _block_cins(cfg),
+                                                   cfg.block_channels)):
+        if r == "fused":
+            out.append((i, hw, cin // tp, cout, stride))
+        hw = -(-hw // stride)
+    return out
+
+
+def partial_work(n, h, cin, cout, stride, kind):
+    """(bytes, ops) of one raw partial: block_work's, with a 4-byte output
+    and no pointwise bias read."""
+    nbytes, ops = block_work(n, h, cin, cout, stride, kind)
+    act, _, b, m = ELEM_BYTES[kind]
+    ho = -(-h // stride)
+    return nbytes + n * ho * ho * cout * (4 - act) - cout * (b + m), ops
+
+
+def partial_checks(smi, gen, cfg, row):
+    """48a: the raw partial at the shard shapes of tp 2 (blocks 4-12) and
+    tp 4 (blocks 6-12), batch 256 and 1, bf16 and float32, against its plain
+    version; CUDA-event ms of it, of the plain version and of the library
+    sequence; the bound. The row sums tp 2's blocks at batch 256 (one
+    rank's partials of a forward)."""
+    from collections import Counter
+
+    from mobilenet_tpu_torch.ops.conv import no_tf32
+    from mobilenet_tpu_torch.ops.separable_block import separable_block, separable_block_plain
+
+    def kfn(*a):
+        return separable_block(*a, pw_epilogue=False)
+
+    def pfn(*a):
+        return separable_block_plain(*a, pw_epilogue=False)
+
+    for tp in (2, 4):
+        shapes = Counter((h, c, co, s) for _, h, c, co, s in tp_shard_shapes(cfg, tp))
+        for (h, cin, cout, stride), cnt in shapes.items():
+            for n in (256, 1):
+                rec = {}
+                for tag, dt, atol, rtol in (
+                        ("bf16", torch.bfloat16, partial_bf16_atol(cin), 0.0),
+                        ("f32", torch.float32, F32_ATOL, F32_RTOL)):
+                    args = rand_block(gen, n, h, cin, cout, dt) + (stride, True)
+                    got, ref = kfn(*args), pfn(*args)
+                    torch.cuda.synchronize()
+                    if got.dtype != torch.float32:
+                        raise AssertionError(f"raw partial: output {got.dtype}, not float32")
+                    name = f"separable_block[partial] tp{tp} ({n},{h},{h},{cin})->{cout} {tag}"
+                    err = compare(name, got, ref, atol, rtol)
+                    if tag == "bf16":  # the planted control: a bf16-rounded output
+                        ctrl = float((ref.to(dt).float() - ref).abs().max())
+                        if ctrl <= atol:
+                            raise AssertionError(f"{name}: the bf16-rounded control "
+                                                 f"({ctrl:.3e}) passes atol {atol:.3e}")
+                    kms, pms = cuda_ms(lambda: kfn(*args)), cuda_ms(lambda: pfn(*args))
+                    with no_tf32(args[0]):
+                        lms = cuda_ms(separable_library(*args, pw_epilogue=False))
+                    b_ms, b_by, t_b, t_o = bound(*partial_work(n, h, cin, cout, stride, tag), tag)
+                    rec[tag] = dict(max_abs_err=err, atol=atol, rtol=rtol, ms=kms, plain_ms=pms,
+                                    library_ms=lms, bound_ms=b_ms, bound_by=b_by)
+                    if tag == "bf16":
+                        rec[tag]["control_max_abs_err"] = ctrl
+                    key = "max_abs_err" if tag == "bf16" else "max_abs_err_f32"
+                    row[key] = max(row[key], err)
+                    sums = {}
+                    if (tp, n, tag) == (2, 256, "bf16"):
+                        sums = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                                    bytes_ms=t_b, ops_ms=t_o)
+                    elif (tp, n, tag) == (2, 256, "f32"):
+                        sums = dict(f32_ms=kms, f32_plain_ms=pms, f32_library_ms=lms,
+                                    f32_bound_ms=b_ms)
+                    elif (tp, n, tag) == (4, 256, "bf16"):
+                        sums = dict(tp4_ms=kms, tp4_bound_ms=b_ms, tp4_library_ms=lms)
+                    elif (tp, n, tag) == (2, 1, "bf16"):
+                        sums = dict(b1_ms=kms, b1_bound_ms=b_ms, b1_library_ms=lms)
+                    for k, v in sums.items():
+                        row[k] = row.get(k, 0.0) + cnt * v
+                    del args, got, ref
+                emit("parallel_kernel", kernel="separable_block[partial]", tp=tp,
+                     shape=f"({n},{h},{h},{cin})->{cout} s{stride}", count_per_forward=cnt,
+                     nvidia_smi=smi, **rec)
+            torch.cuda.empty_cache()
+    row["library"] = PARTIAL_LIBRARY
+
+
+def near_tie_flips(got, ref, atol):
+    """Rows whose top-1 differs; raises unless the two classes are within
+    `atol` of each other in `ref` (check_routes' rule)."""
+    top_g, top_r = got.argmax(-1), ref.argmax(-1)
+    flips = (top_g != top_r).nonzero().flatten().tolist()
+    for i in flips:
+        gap = float(ref[i, top_r[i]] - ref[i, top_g[i]])
+        if gap > atol:
+            raise AssertionError(f"row {i}: top-1 {int(top_g[i])} vs {int(top_r[i])}, "
+                                 f"gap {gap:.3e}")
+    return len(flips)
+
+
+def reset(kernels):
+    from mobilenet_tpu_torch.ops.separable_block import separable_block
+
+    for k in kernels.values():
+        k.launches = 0
+    separable_block.partial_launches = 0
+
+
+def tp_checks(smi, cfg, kernels, launches, imgs):
+    """48b-c: forward_tp_fused (bf16 batch 256 and float32 batch 8) and
+    forward_i8_tp (batch 64) at V1 1.0-224 on ranks that share the card."""
+    from mobilenet_tpu_torch import ModelConfig
+    from mobilenet_tpu_torch.checkpoints import default_folded, to_device
+    from mobilenet_tpu_torch.models import mobilenet_v1
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.ops.separable_block import separable_block
+    from mobilenet_tpu_torch.parallel.mesh import make_mesh
+    from mobilenet_tpu_torch.parallel.tp_fused import (forward_tp_fused, shard_params_tp_fused,
+                                                       tp_routing)
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.model import Int8Pipeline, forward_i8
+    from mobilenet_tpu_torch.quant.quantize import ACT_IN_SCALE
+    from mobilenet_tpu_torch.quant.tp import forward_i8_tp, shard_dev_i8_tp
+
+    host = default_folded(cfg, seed=0)
+    cfg32 = ModelConfig(ALPHA, RES, compute_dtype="float32")
+    for tag, dt, c, n in (("bf16", torch.bfloat16, cfg, 256), ("f32", torch.float32, cfg32, 8)):
+        params = to_device(host, "cuda", dt)
+        x = preprocess(imgs[:n], RES, dt)
+        single = mobilenet_v1.forward(params, x, c, dw_backend="auto").float()
+        scale = float(single.abs().max())
+        for dp, tp in ((1, 2), (1, 4), (2, 2)):
+            mesh = make_mesh(dp * tp, tp, devices=["cuda:0"] * (dp * tp))
+            sharded = shard_params_tp_fused(params, mesh)
+            reset(kernels)
+            out = forward_tp_fused(sharded, x, c, mesh)
+            torch.cuda.synchronize()
+            n_part = separable_block.partial_launches
+            fused = tp_routing(c, tp, "auto").count("fused")
+            if n_part != fused * tp * dp:
+                raise AssertionError(f"forward_tp_fused dp {dp} tp {tp}: {n_part} partial "
+                                     f"launches, not {fused} x {tp} x {dp}")
+            if (tag, dp, tp) == ("bf16", 1, 2):
+                launches["separable_block[partial]"] = n_part
+            other = {k: v.launches - (n_part if k == "separable_block" else 0)
+                     for k, v in kernels.items() if v.launches}
+            name = f"forward_tp_fused {tag} dp {dp} tp {tp}"
+            if tag == "bf16":
+                atol, rtol = max(ROUTE_ATOL, ROUTE_REL * scale), 0.0
+            else:
+                atol, rtol = TP_F32_ATOL, TP_F32_RTOL
+            err = compare(name, out, single, atol, rtol)
+            flips = near_tie_flips(out, single, atol)
+            if tag == "f32" and flips:
+                raise AssertionError(f"{name}: top-1 differs in {flips} rows")
+            ms = cuda_ms(lambda: forward_tp_fused(sharded, x, c, mesh), reps=3, warmup=1)
+            emit("parallel_tp", dtype=tag, dp=dp, tp=tp, batch=n, max_abs_err=err, atol=atol,
+                 rtol=rtol, logits_absmax=scale, top1_agree=n - flips, rows=n,
+                 partial_launches=n_part, fused_blocks=fused, other_launches=other,
+                 ms=ms, img_per_s=n / ms * 1e3, timing=SHARED_CARD, nvidia_smi=smi)
+            del sharded, out
+            torch.cuda.empty_cache()
+        del params, x, single
+    # 48c: int8 channel-TP, bit-equal to the single-device int8 forward
+    pipe8 = Int8Pipeline(cfg, device="cuda")
+    x_q = qops.quantize_input_dev(preprocess(imgs[:64], RES, torch.float32), ACT_IN_SCALE)
+    single = forward_i8(pipe8.dev, x_q, cfg, dw_backend="plain")
+    fused = forward_i8(pipe8.dev, x_q, cfg, dw_backend="auto")
+    for tp in (2, 4):
+        mesh = make_mesh(tp, tp, devices=["cuda:0"] * tp)
+        arrays, six = shard_dev_i8_tp(pipe8.dev, mesh)
+        out = forward_i8_tp(arrays, six, x_q, cfg, mesh)
+        torch.cuda.synchronize()
+        equal = torch.equal(out, single)
+        ms = cuda_ms(lambda: forward_i8_tp(arrays, six, x_q, cfg, mesh), reps=3, warmup=1)
+        emit("parallel_tp_int8", tp=tp, batch=64, equal_to_forward_i8=equal,
+             equal_to_fused_route=torch.equal(out, fused), ms=ms, img_per_s=64 / ms * 1e3,
+             timing=SHARED_CARD, nvidia_smi=smi)
+        if not equal:
+            raise AssertionError(f"forward_i8_tp tp {tp}: logits differ from forward_i8, "
+                                 f"max {float((out - single).abs().max()):.3e}")
+        del arrays
+    del pipe8
+    torch.cuda.empty_cache()
+
+
+def host_img_per_s(pipe, imgs, reps=3):
+    pipe.run_batch(imgs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pipe.run_batch(imgs)
+    return reps * len(imgs) / (time.perf_counter() - t0)
+
+
+def dp_checks(smi, cfg, kernels, imgs):
+    """48d: the data-parallel pipelines on two ranks of the card against the
+    single-device ones, a 64-stream selftest through build_server(mesh=),
+    `cli serve --dp 2` refused on a one-card machine, `cli warmup --dp 1`."""
+    from mobilenet_tpu_torch import InferencePipeline, V2Config, V3Config, cli
+    from mobilenet_tpu_torch.parallel.mesh import make_mesh
+    from mobilenet_tpu_torch.quant.model import Int8Pipeline
+    from mobilenet_tpu_torch.quant.v3 import Int8PipelineV3
+    from mobilenet_tpu_torch.runtime.serving import build_server, selftest
+
+    mesh = make_mesh(2, devices=["cuda:0"] * 2)
+    batch = imgs[:64].cpu().numpy()
+    cases = (
+        ("v1 bf16", False, lambda m, q: InferencePipeline(cfg, device="cuda", mesh=m)),
+        ("v1 int8", True, lambda m, q: Int8Pipeline(cfg, device="cuda", mesh=m)),
+        ("v2 bf16", False, lambda m, q: InferencePipeline(
+            V2Config(ALPHA, RES, compute_dtype="bfloat16"), device="cuda", mesh=m)),
+        ("v3 int8", True, lambda m, q: Int8PipelineV3(V3Config("large", ALPHA, RES),
+                                                      device="cuda", quantized=q, mesh=m)),
+    )
+    for name, exact, build in cases:
+        one = build(None, None)
+        dp = build(mesh, getattr(one, "q", None))
+        a, b = one.run_batch(batch), dp.run_batch(batch)
+        diff = float(np.abs(a - b).max())
+        rec = dict(model=name, batch=64, ranks=2, bit_equal=bool(np.array_equal(a, b)),
+                   max_abs_prob_diff=diff)
+        if exact and not rec["bit_equal"]:
+            raise AssertionError(f"DP {name}: probabilities differ from one device, {diff:.3e}")
+        if not exact:
+            if diff > ROUTE_ATOL:
+                raise AssertionError(f"DP {name}: probabilities {diff:.3e} from one device")
+            rec["top1_agree"] = 64 - near_tie_flips(torch.from_numpy(b), torch.from_numpy(a),
+                                                    ROUTE_ATOL)
+        rec.update(img_per_s_dp=host_img_per_s(dp, batch), img_per_s_one=host_img_per_s(one, batch),
+                   timing=SHARED_CARD + " (host uint8 to host probabilities)", nvidia_smi=smi)
+        if name == "v1 bf16":  # benchmark() splits its batches too
+            bench = dp.benchmark(batch_size=64, steps=5, warmup=1, latency_iters=3)
+            rec["benchmark_dp"] = {k: bench[k] for k in (
+                "images_per_sec", "e2e_images_per_sec", "latency_batch", "p50_latency_ms")}
+        emit("parallel_dp", **rec)
+        del one, dp
+        torch.cuda.empty_cache()
+
+    reset(kernels)
+
+    async def serve():
+        server, _ = build_server({cfg.variant_name(): cfg}, 64, mesh=mesh)
+        await server.start()
+        try:
+            stats = await selftest(server, streams=64, requests_per_stream=4)
+            stats["buckets"] = server.batch_buckets
+            return stats
+        finally:
+            await server.close()
+
+    stats = asyncio.run(serve())
+    torch.cuda.synchronize()
+    got = {k: v.launches for k, v in kernels.items() if v.launches}
+    emit("parallel_dp_serving", launches=got, timing=SHARED_CARD, nvidia_smi=smi, **stats)
+    if stats["errors"] or stats["buckets"] != [2, 8, 64]:
+        raise AssertionError(f"DP serving: {stats['errors']} errors, buckets {stats['buckets']}")
+    for k in ("stem_conv", "separable_block", "fused_head", "chain"):
+        if not got.get(k):
+            raise AssertionError(f"DP serving: {k} never launched")
+
+    try:
+        with contextlib.redirect_stdout(_Lines()):
+            cli.main(["serve", "--dp", "2", "--streams", "8"])
+        refused = None
+    except SystemExit as e:
+        refused = str(e.code)
+    if torch.cuda.device_count() < 2 and (refused is None or "make_mesh: need 2" not in refused):
+        raise AssertionError(f"cli serve --dp 2 on one card: {refused!r}")
+    lines, got, secs = run_cli(kernels, ["warmup", "--dp", "1", "--alpha", str(ALPHA), "--res",
+                                         str(RES), "--streams", "64"])
+    emit("parallel_cli", serve_dp2=refused, warmup_dp1=[ln for _, ln in lines],
+         warmup_launches=got, seconds=secs, nvidia_smi=smi)
+    if not lines or not lines[-1][1].startswith("WARMUP OK"):
+        raise AssertionError(f"cli warmup --dp 1: {lines[-3:]}")
+
+
+def pp_checks(smi, kernels, imgs):
+    """48e: forward_pp of V1, V2, V3-Large and V3-Small at 1.0-224 (bf16,
+    batch 64, S 4 on four ranks of the card, M 8, "auto") against the
+    single-device forward on each microbatch."""
+    from mobilenet_tpu_torch import ModelConfig, V2Config, V3Config
+    from mobilenet_tpu_torch.checkpoints import default_folded, to_device
+    from mobilenet_tpu_torch.models import mobilenet_v1, mobilenet_v2, mobilenet_v3
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.parallel.pp import forward_pp, make_pipe_mesh, plan_stages
+
+    mesh = make_pipe_mesh(4, ["cuda:0"] * 4)
+    cases = (
+        (ModelConfig(ALPHA, RES, compute_dtype="bfloat16"), mobilenet_v1.forward,
+         ("stem_conv", "separable_block", "fused_head")),
+        (V2Config(ALPHA, RES, compute_dtype="bfloat16"), mobilenet_v2.forward_v2,
+         ("separable_block", "inverted_residual", "fused_head")),
+        (V3Config("large", ALPHA, RES, compute_dtype="bfloat16"), mobilenet_v3.forward_v3,
+         ("v3_block", "fused_head")),
+        (V3Config("small", ALPHA, RES, compute_dtype="bfloat16"), mobilenet_v3.forward_v3,
+         ("v3_block", "fused_head")),
+    )
+    for c, fwd, required in cases:
+        params = to_device(default_folded(c, seed=0), "cuda", torch.bfloat16)
+        x = preprocess(imgs[:64], RES, torch.bfloat16)
+        bounds = plan_stages(c, params, 4)
+        with torch.inference_mode():
+            reset(kernels)
+            out = forward_pp(params, x, c, mesh, n_microbatches=8)
+            torch.cuda.synchronize()
+            got = {k: v.launches for k, v in kernels.items() if v.launches}
+            ref = torch.cat([fwd(params, mb, c, dw_backend="auto").float() for mb in x.split(8)])
+            atol = max(ROUTE_ATOL, ROUTE_REL * float(ref.abs().max()))
+            err = compare(f"forward_pp {c.variant_name()}", out, ref, atol, 0.0)
+            ms = cuda_ms(lambda: forward_pp(params, x, c, mesh, n_microbatches=8), reps=3,
+                         warmup=1)
+        emit("parallel_pp", model=c.variant_name(), stages=4, microbatches=8, batch=64,
+             bounds=bounds, bit_equal=bool(torch.equal(out, ref)), max_abs_err=err, atol=atol,
+             launches=got, ms=ms, img_per_s=64 / ms * 1e3, timing=SHARED_CARD, nvidia_smi=smi)
+        for k in required:
+            if not got.get(k):
+                raise AssertionError(f"forward_pp {c.variant_name()}: {k} never launched")
+        del params, x, out, ref
+        torch.cuda.empty_cache()
+
+
+def pp_clip_masks(records, counts, n_micro):
+    """The clip masks recorded in a GPipe forward (stage s runs microbatch
+    t - s at step t and makes counts[s] records a microbatch), regrouped
+    into a single-device forward's order: layer by layer, the
+    microbatches' masks concatenated."""
+    per_mb = [[] for _ in range(n_micro)]
+    it = iter(records)
+    for t in range(n_micro + len(counts) - 1):
+        for s, cnt in enumerate(counts):
+            if 0 <= t - s < n_micro:
+                per_mb[t - s].extend(next(it) for _ in range(cnt))
+    if next(it, None) is not None:
+        raise AssertionError("pp_clip_masks: more records than the schedule makes")
+    return [torch.cat(layer) for layer in zip(*per_mb)]
+
+
+def pp_train_checks(smi, imgs):
+    """48f: pp_train_step of V1 1.0-224 (float32, batch 8, S 4, M 4) against
+    one single-device SGD step on the whole batch that replays the
+    pipelined forward's ReLU6 clip decisions (phase 47's caveat: two
+    correct float32 forwards, here at batch 2 and batch 8, can put an input
+    within their rounding of a bound on opposite sides of it)."""
+    from mobilenet_tpu_torch import ModelConfig
+    from mobilenet_tpu_torch.checkpoints import default_folded, to_device
+    from mobilenet_tpu_torch.models.train import sgd_train_step, tree_leaves
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.parallel.pp import (_units_for, make_pipe_mesh, plan_stages,
+                                                 pp_train_step)
+
+    S, M, B = 4, 4, 8
+    mesh = make_pipe_mesh(S, ["cuda:0"] * S)
+    cfg32 = ModelConfig(ALPHA, RES, compute_dtype="float32")
+    params = to_device(default_folded(cfg32, seed=0), "cuda", torch.float32)
+    x = preprocess(imgs[:B], RES, torch.float32)
+    labels = torch.from_numpy(np.random.default_rng(48).integers(0, 1000, B)).cuda()
+    # lr 1: the update, not the float32 rounding of w - lr * g, holds the comparison
+    lr = 1.0
+    t0 = time.perf_counter()
+    new, loss = pp_train_step(params, x, labels, cfg32, mesh, lr=lr, n_microbatches=M)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    # the records each stage makes for one microbatch, then the step again
+    # with its clip masks recorded
+    _, _, _, run = _units_for(cfg32, params, "plain", B // M)
+    counts, y = [], x[:B // M]
+    with torch.no_grad():
+        for start, stop in plan_stages(cfg32, params, S):
+            rec = []
+            with clip_masks(record=rec):
+                y = run(params, y, start, stop)
+            counts.append(len(rec))
+    pp_rec, whole_rec = [], []
+    with clip_masks(record=pp_rec):
+        pp_train_step(params, x, labels, cfg32, mesh, lr=lr, n_microbatches=M)
+    pp_masks = pp_clip_masks(pp_rec, counts, M)
+    with clip_masks(record=whole_rec):
+        whole_new, whole_loss = sgd_train_step(params, x, labels, cfg32, lr=lr)
+    if [m.shape for m in whole_rec] != [m.shape for m in pp_masks]:
+        raise AssertionError("pp_train_step: the two forwards' clip records do not align")
+    flips = sum(int((a != b).sum()) for a, b in zip(pp_masks, whole_rec))
+    with clip_masks(replay=pp_masks):
+        ref_new, ref_loss = sgd_train_step(params, x, labels, cfg32, lr=lr)
+    # each updated leaf within GRAD_REL x the reference's update absmax,
+    # plus the float32 rounding of w - lr * g (2 eps x |w'|)
+    eps = torch.finfo(torch.float32).eps
+    worst = worst_whole = 0.0
+    for p, n_ref, n_pp, n_whole in zip(tree_leaves(params), tree_leaves(ref_new),
+                                       tree_leaves(new), tree_leaves(whole_new)):
+        tol = GRAD_REL * float((p - n_ref).abs().max()) + 2 * eps * float(n_ref.abs().max())
+        worst = max(worst, float((n_pp - n_ref).abs().max()) / tol)
+        worst_whole = max(worst_whole, float((n_pp - n_whole).abs().max()) / tol)
+    rel_loss = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    emit("parallel_pp_train", stages=S, microbatches=M, batch=B, lr=lr, loss=float(loss),
+         ref_loss=float(ref_loss), whole_batch_loss=float(whole_loss), loss_rel=rel_loss,
+         clip_records_per_stage=counts, clip_decisions=sum(m.numel() for m in pp_masks),
+         clip_decisions_differing=flips, worst_leaf_of_tol=worst,
+         worst_leaf_of_tol_without_replay=worst_whole, grad_rel=GRAD_REL, step_s=pp_s,
+         nvidia_smi=smi)
+    if not np.isfinite(float(loss)) or rel_loss > GRAD_REL or worst > 1.0:
+        raise AssertionError(f"pp_train_step: loss {float(loss)} vs {float(ref_loss)}, worst "
+                             f"leaf at {worst:.3f} of its tolerance (GRAD_REL {GRAD_REL})")
+    del params, new, whole_new, ref_new, pp_masks, pp_rec, whole_rec
+    torch.cuda.empty_cache()
+
+
+def parallel_phases(smi, gen, kernels, launches):
+    """Phase 48: data, tensor and pipeline parallelism on ranks that share
+    the one card (`devices=["cuda:0"] * n`). Returns the raw partial's row
+    of the kernels line."""
+    from mobilenet_tpu_torch import ModelConfig
+
+    cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")
+    row = {"route": "cuda", "source": "mobilenet_tpu_torch/csrc/separable_block.cu",
+           "design": PARTIAL_DESIGN, "float32_design": SEP_F32_DESIGN,
+           "replaces": "mobilenet_tpu/ops/pallas_block.py:217",
+           "mode": "pw_epilogue=False (mobilenet_tpu/ops/pallas_block.py:300-304)",
+           **FLOAT_ROW, "library_ms": 0.0,
+           "row_sums": "tp 2's kernel blocks 4-12, batch 256, one rank"}
+    partial_checks(smi, gen, cfg, row)
+    imgs = torch.from_numpy(np.random.default_rng(480).integers(
+        0, 256, (256, RES, RES, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        tp_checks(smi, cfg, kernels, launches, imgs)
+        dp_checks(smi, cfg, kernels, imgs)
+    pp_checks(smi, kernels, imgs)
+    pp_train_checks(smi, imgs)
+    return {"separable_block[partial]": row}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3212,6 +3705,9 @@ def main() -> int:
 
     # -- 47. training, QAT, serve --variants and warmup ---------------------------------------
     training_phases(smi, kernels)
+
+    # -- 48. data, tensor and pipeline parallelism ------------------------------------------
+    summary.update(parallel_phases(smi, gen, kernels, launches))
     float32_device_times()
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"

@@ -106,12 +106,15 @@ from .utils.flops import HBM_BYTES_PER_S as HBM
 from .utils.flops import PEAK_OPS_PER_S as PEAK
 
 
-def separable_library(x, dw_w, dw_b, pw_w, pw_b, stride, relu6=True, pw_act=True):
+def separable_library(x, dw_w, dw_b, pw_w, pw_b, stride, relu6=True, pw_act=True,
+                      pw_epilogue=True):
     """The unfused library sequence of a separable block, a yardstick the
     port never calls: returns a function that runs cuDNN's grouped 3x3 conv
     on the channels-last view with TF-SAME padding (stride 2 on an even
     input: F.pad at the high end) + dw bias, clamp, then torch.matmul,
-    + pw bias, clamp (none in the linear mode)."""
+    + pw bias, clamp (none in the linear mode). pw_epilogue=False (the raw
+    partial): the product alone with a float32 result, `torch.mm(...,
+    out_dtype=torch.float32)`."""
     import torch.nn.functional as F  # noqa: PLC0415
 
     c = x.shape[-1]
@@ -125,6 +128,8 @@ def separable_library(x, dw_w, dw_b, pw_w, pw_b, stride, relu6=True, pw_act=True
         else:
             y = F.conv2d(xn, wl, dw_b, 1, 1, 1, c)
         y = y.clamp_(0, hi).permute(0, 2, 3, 1).reshape(-1, c)
+        if not pw_epilogue:
+            return torch.mm(y, pw_w, out_dtype=torch.float32)
         z = torch.matmul(y, pw_w).add_(pw_b)
         return z.clamp_(0, hi) if pw_act else z
 

@@ -2,9 +2,10 @@
 
     python -m mobilenet_tpu_torch.cli serve --streams 64 [--model v1|v2|v3|v3small] \\
         [--minimalistic] --alpha 1.0 --res 224 [--dtype bfloat16 | --int8] \\
-        [--variants 1.0:224,0.25:128,v2:1.0:224] [--device cuda] [--tcp --port 8000]
+        [--variants 1.0:224,0.25:128,v2:1.0:224] [--dp N] [--device cuda] [--tcp --port 8000]
     python -m mobilenet_tpu_torch.cli warmup [--model ...] --alpha 1.0 --res 224 \\
-        [--dtype bfloat16 | --int8] [--streams 64] [--batches 1,8,64] [--batch B] [--device cuda]
+        [--dtype bfloat16 | --int8] [--streams 64] [--batches 1,8,64] [--batch B] [--dp N] \\
+        [--device cuda]
     python -m mobilenet_tpu_torch.cli train [--model ...] --alpha 1.0 --res 224 [--batch 32] \\
         [--steps 10] [--lr 1e-2] [--qat] [--out F.npz] [--ckpt F] [--device cuda]
     python -m mobilenet_tpu_torch.cli verify [--model v1|v2|v3|v3small] [--minimalistic] \\
@@ -26,10 +27,15 @@
 --port until killed. With --variants it serves several variants from one
 process ("alpha:res" or "model:alpha:res", the first the default; a request
 names its variant in a "variant" field): a selftest per variant, then one
-under mixed load across all of them.
+under mixed load across all of them. With --dp N each batch splits over N
+data-parallel ranks (`runtime/serving.make_dp_mesh`: the first N cards, or
+N host ranks with --device cpu; fewer cards than N fail with make_mesh's
+error), each running the whole route on its shard; --streams must be a
+multiple of N.
 
 `warmup` builds the pipeline of one variant and runs each serving bucket
-once (`default_buckets(--streams)`, or --batches, plus --batch), so that a
+once (`default_buckets(--streams)`, each a multiple of --dp, or --batches,
+plus --batch) on the pipeline `serve` would build (--dp as there), so that a
 server started later finds the kernels built from source under `build/`
 (ops/_build.py) and the libraries set up: a line per bucket ("compiled"
 when the kernel library was built during it, else "cached"), then WARMUP OK.
@@ -85,7 +91,7 @@ def cmd_serve(args):
                streams=args.streams, port=args.port, device=args.device,
                seed=args.seed, selftest_only=not args.tcp, params=params,
                int8=args.int8, model=args.model, minimalistic=args.minimalistic,
-               variants=args.variants.split(",") if args.variants else None)
+               variants=args.variants.split(",") if args.variants else None, dp=args.dp)
 
 
 def cmd_warmup(args):
@@ -94,7 +100,7 @@ def cmd_warmup(args):
     import time  # noqa: PLC0415
 
     from .ops import _build  # noqa: PLC0415
-    from .runtime.serving import build_pipeline, default_buckets  # noqa: PLC0415
+    from .runtime.serving import build_pipeline, default_buckets, make_dp_mesh  # noqa: PLC0415
 
     cfg = _config(args)
     params = None
@@ -102,10 +108,11 @@ def cmd_warmup(args):
         from .checkpoints import load_npz  # noqa: PLC0415
 
         params = load_npz(args.ckpt)
+    mesh = make_dp_mesh(args.dp, args.device)
     pipe = build_pipeline(cfg, device=args.device, seed=args.seed, params=params,
-                          int8=args.int8)
+                          int8=args.int8, mesh=mesh)
     batches = ({int(b) for b in args.batches.split(",")} if args.batches
-               else set(default_buckets(args.streams)))
+               else set(default_buckets(args.streams, mesh)))
     if args.batch is not None:  # an explicitly requested extra entry
         batches.add(int(args.batch))
     batches = sorted(batches)
@@ -369,6 +376,9 @@ def main(argv=None):
                          '"1.0:224,0.25:128,v2:1.0:224" (the first is the default; '
                          'requests route with a "variant" field); --alpha, --res '
                          'and --model are then unused')
+    sp.add_argument("--dp", type=int, default=1,
+                    help="data-parallel width: split each micro-batch over N ranks (the "
+                         "first N cards; N host ranks with --device cpu); 1 = one device")
     common(sp)
     sp.set_defaults(fn=cmd_serve)
 
@@ -380,6 +390,8 @@ def main(argv=None):
                          "buckets of --streams)")
     sp.add_argument("--streams", type=int, default=64,
                     help="the --streams the server will run with (its bucket sizes)")
+    sp.add_argument("--dp", type=int, default=1,
+                    help="match `serve --dp N`: the data-parallel pipeline and buckets")
     common(sp, batch=None)
     sp.add_argument("--batch", type=int, default=None,
                     help="one more batch size to run")

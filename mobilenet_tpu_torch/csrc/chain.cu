@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(mnk::sw::threads_of(NWG), 1)
                       const mnk::sw::Geo g) {
   extern __shared__ unsigned char smem_raw[];
   cg::grid_group grid = cg::this_grid();
-  mnk::sw::run<NWG, true>(g, smem_raw, maps, l, [&] { grid.sync(); });
+  mnk::sw::run<NWG, mnk::kBiasAct>(g, smem_raw, maps, l, [&] { grid.sync(); });
 }
 
 // The cooperative launch: grid = units capped by co-residency.

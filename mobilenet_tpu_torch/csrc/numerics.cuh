@@ -20,6 +20,12 @@ __device__ __forceinline__ float act(float y, bool relu6) {
   return relu6 ? fminf(y, 6.0f) : y;
 }
 
+// The separable block's pointwise epilogue by code (ops/separable_block.py
+// EPILOGUES): + bias (MobileNet-V2's linear block 0), + bias and the
+// activation, or the raw float32 accumulation with neither (the
+// tensor-parallel partial, summed over the channel shards before its bias).
+enum Epilogue { kBias = 0, kBiasAct = 1, kRaw = 2 };
+
 // Named activations by code (ops/head.py ACTS): hswish = y * (clip(y + 3, 0,
 // 6) * (1/6)), the constant multiplied, as the TPU kernels write it.
 enum Act { kNone = -1, kLinear = 0, kRelu = 1, kRelu6 = 2, kHswish = 3 };

@@ -6,9 +6,13 @@
 // separable_block_packed_s2 (:371) and ops/pallas_block_packed_mxu.py
 // separable_block_packed_mxu (:264): the packing existed only for the TPU's
 // (8,128) vector tiles, so narrow blocks (C = 32/64) run this same dense
-// NHWC kernel. pw_act = 0 is the packed kernels' pw_epilogue=False mode:
-// the depthwise keeps its activation, the projection is bias only (the
-// linear bottleneck of MobileNet-V2's t == 1 block 0).
+// NHWC kernel. The pointwise epilogue `epi` (numerics.cuh Epilogue): kBiasAct
+// the block as above; kBias the packed kernels' pw_epilogue=False mode (the
+// depthwise keeps its activation, the projection is bias only: the linear
+// bottleneck of MobileNet-V2's t == 1 block 0); kRaw separable_block_pallas's
+// pw_epilogue=False mode (:300-304): the raw float32 pointwise accumulation,
+// no bias and no activation, a float32 output whatever x's dtype (the
+// tensor-parallel partial of a channel shard, parallel/tp_fused.py).
 //
 // What bounds it on an H100: at batch 256 a block is a bf16 GEMM of
 // M = N*Ho*Wo pixels by K = Cin by Cout (13 to 26 GFLOP a block, 276 for the
@@ -51,12 +55,12 @@ __global__ void __launch_bounds__(sf::THREADS, 1)
   sf::run<MG>(g, p, smem_sf, wr, br);
 }
 
-template <int NWG, bool kPwAct>
+template <int NWG, int kEpi>
 __global__ void __launch_bounds__(mnk::sw::threads_of(NWG), 1)
     separable_block_bf16_kernel(const __grid_constant__ mnk::sw::Maps maps,
                                 const mnk::sw::Launch l, const mnk::sw::Geo g) {
   extern __shared__ unsigned char smem_raw[];
-  mnk::sw::run<NWG, kPwAct>(g, smem_raw, maps, l, [] {});
+  mnk::sw::run<NWG, kEpi>(g, smem_raw, maps, l, [] {});
 }
 
 sf::Launcher f32_launcher{
@@ -80,9 +84,10 @@ int launch_f32(const sf::Geo& g, const sf::Ptrs& p, void* stream) {
 
 template <int NWG>
 int launch_bf16(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-                const void* pw_b, void* out, const mnk::sw::Geo& g, int pw_act, void* stream) {
-  auto kernel = pw_act ? separable_block_bf16_kernel<NWG, true>
-                       : separable_block_bf16_kernel<NWG, false>;
+                const void* pw_b, void* out, const mnk::sw::Geo& g, int epi, void* stream) {
+  auto kernel = epi == mnk::kRaw    ? separable_block_bf16_kernel<NWG, mnk::kRaw>
+                : epi == mnk::kBias ? separable_block_bf16_kernel<NWG, mnk::kBias>
+                                    : separable_block_bf16_kernel<NWG, mnk::kBiasAct>;
   const int threads = mnk::sw::threads_of(NWG);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        g.smem_bytes);
@@ -99,7 +104,7 @@ int launch_bf16(const void* x, const void* dw_w, const void* dw_b, const void* p
   if ((e = mnk::sw::make_w_maps(maps, pw_w, g, 1)) != cudaSuccess) return (int)e;
   const long long cap = (long long)per_sm * sms;
   const unsigned grid = (unsigned)(g.units < cap ? g.units : cap);
-  const mnk::sw::Launch l{(const bf16*)dw_w, (const bf16*)dw_b, (const bf16*)pw_b, (bf16*)out,
+  const mnk::sw::Launch l{(const bf16*)dw_w, (const bf16*)dw_b, (const bf16*)pw_b, out,
                           nullptr, nullptr, 1};
   kernel<<<grid, threads, g.smem_bytes, (cudaStream_t)stream>>>(maps, l, g);
   return (int)cudaGetLastError();
@@ -109,10 +114,11 @@ int launch_bf16(const void* x, const void* dw_w, const void* dw_b, const void* p
 
 extern "C" {
 
-// plan: nwg, th, tw, kp, split, cw, ws, bs (ops/separable_block.separable_plan)
+// epi: 0 kBias, 1 kBiasAct, 2 kRaw (out float32); plan: nwg, th, tw, kp,
+// split, cw, ws, bs (ops/separable_block.separable_plan)
 int separable_block_bf16(const void* x, const void* dw_w, const void* dw_b,
                          const void* pw_w, const void* pw_b, void* out, int N, int H,
-                         int W, int Cin, int Cout, int stride, int relu6, int pw_act,
+                         int W, int Cin, int Cout, int stride, int relu6, int epi,
                          int nwg, int th, int tw, int kp, int split, int cw, int ws, int bs,
                          void* stream) {
   const mnk::sw::Plan p{nwg, th, tw, kp, split, cw, ws, bs};
@@ -120,19 +126,21 @@ int separable_block_bf16(const void* x, const void* dw_w, const void* dw_b,
   cudaError_t e = mnk::sw::check_geo(g);
   if (e != cudaSuccess) return (int)e;
   if (g.units <= 0) return (int)cudaSuccess;
-  return nwg == 2 ? launch_bf16<2>(x, dw_w, dw_b, pw_w, pw_b, out, g, pw_act, stream)
-                  : launch_bf16<1>(x, dw_w, dw_b, pw_w, pw_b, out, g, pw_act, stream);
+  if (epi < mnk::kBias || epi > mnk::kRaw) return (int)cudaErrorInvalidValue;
+  return nwg == 2 ? launch_bf16<2>(x, dw_w, dw_b, pw_w, pw_b, out, g, epi, stream)
+                  : launch_bf16<1>(x, dw_w, dw_b, pw_w, pw_b, out, g, epi, stream);
 }
 
-// plan: mg, th, tw, kp, split, cw, ns, ws, bs (ops/separable_block.f32_sep_plan)
+// epi as above; plan: mg, th, tw, kp, split, cw, ns, ws, bs
+// (ops/separable_block.f32_sep_plan)
 int separable_block_f32(const void* x, const void* dw_w, const void* dw_b,
                         const void* pw_w, const void* pw_b, void* out, int N, int H,
-                        int W, int Cin, int Cout, int stride, int relu6, int pw_act,
+                        int W, int Cin, int Cout, int stride, int relu6, int epi,
                         int mg, int th, int tw, int kp, int split, int cw, int ns, int ws,
                         int bs, void* stream) {
-  const sf::Geo g = sf::make_geo(N, H, W, Cin, Cout, stride, relu6, pw_act,
+  const sf::Geo g = sf::make_geo(N, H, W, Cin, Cout, stride, relu6, epi,
                                  sf::Plan{mg, th, tw, kp, split, cw, ns, ws, bs});
-  if (!sf::geo_ok(g)) return (int)cudaErrorInvalidValue;
+  if (!sf::geo_ok(g) || epi < mnk::kBias || epi > mnk::kRaw) return (int)cudaErrorInvalidValue;
   using F = const float*;
   const sf::Ptrs p{(F)x, (F)dw_w, (F)dw_b, (F)pw_w, (F)pw_b, static_cast<float*>(out)};
   return launch_f32(g, p, stream);

@@ -5,7 +5,8 @@
 // CUDA cores (no tensor core, no TF32); the depthwise sums its 9 taps in
 // dy-then-dx order, + bias, activation; each output's pointwise sum runs over
 // Cin in ascending order in one thread (no split over K), + bias in f32, the
-// activation (none at pw_act = 0, MobileNet-V2's linear block 0).
+// activation (none at epi kBias, MobileNet-V2's linear block 0; at kRaw the
+// float32 sums are stored without bias or activation, numerics.cuh).
 //
 // What held the old tile (separable_tile.cuh): one 64-pixel x 128-column tile
 // a block, not persistent (50,176 blocks at V1 b00, batch 256; 16 blocks at
@@ -88,7 +89,7 @@ struct Plan {
 };
 
 struct Geo {
-  int N, H, W, Cin, Cout, stride, pad, Ho, Wo, relu6, pw_act;
+  int N, H, W, Cin, Cout, stride, pad, Ho, Wo, relu6, epi;
   int mg, th, tw, kp, split, cw, ns, ws, bs;
   int rows, tiles_c;       // stacked output rows (N * Ho); tiles along Wo
   int tiles, units;        // tiles; units (tiles x split)
@@ -102,10 +103,10 @@ struct Geo {
 // each), bs weight stages (KB rows x ns floats), the panel (kp rows x TMP
 // floats), each rounded up to 128 bytes.
 __host__ __device__ inline Geo make_geo(int N, int H, int W, int Cin, int Cout, int stride,
-                                        int relu6, int pw_act, const Plan& p) {
+                                        int relu6, int epi, const Plan& p) {
   Geo g;
   g.N = N; g.H = H; g.W = W; g.Cin = Cin; g.Cout = Cout; g.stride = stride;
-  g.relu6 = relu6; g.pw_act = pw_act;
+  g.relu6 = relu6; g.epi = epi;
   g.pad = stride == 1 ? 1 : 0;  // TF-SAME: stride 2 (even input) pads only at the high end
   g.Ho = cdiv(H, stride);
   g.Wo = cdiv(W, stride);
@@ -378,15 +379,17 @@ __device__ __forceinline__ void depthwise(const Geo& g, const float* win, int q,
   }
 }
 
-// + bias in f32, the activation where pw_act, 16-byte stores of the thread's
-// pixels that lie in the output.
+// + bias in f32, the activation at kBiasAct (at kRaw the sums alone),
+// 16-byte stores of the thread's pixels that lie in the output.
 template <int MG>
 __device__ __forceinline__ void store(const Geo& g, const Unit& t, const Ptrs& p, int c0, int w,
                                       int mt, int nt, const float (&acc)[4 * MG][4 * MG]) {
+  const bool raw = g.epi == kRaw;
   float4 b[MG];
 #pragma unroll
   for (int gn = 0; gn < MG; ++gn)
-    b[gn] = __ldg(reinterpret_cast<const float4*>(p.pb + c0 + nt * 4 + gn * (w / 2)));
+    b[gn] = raw ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                : __ldg(reinterpret_cast<const float4*>(p.pb + c0 + nt * 4 + gn * (w / 2)));
 #pragma unroll
   for (int i = 0; i < 4 * MG; ++i) {
     const int m = mt * 4 + (i & 3) + (i >> 2) * (g.TMP / 2);
@@ -395,9 +398,11 @@ __device__ __forceinline__ void store(const Geo& g, const Unit& t, const Ptrs& p
     float* o = p.out + ((long long)R * g.Wo + xo) * g.Cout + c0 + nt * 4;
 #pragma unroll
     for (int gn = 0; gn < MG; ++gn) {
-      float4 v = make_float4(acc[i][4 * gn] + b[gn].x, acc[i][4 * gn + 1] + b[gn].y,
-                             acc[i][4 * gn + 2] + b[gn].z, acc[i][4 * gn + 3] + b[gn].w);
-      if (g.pw_act)
+      float4 v = make_float4(acc[i][4 * gn], acc[i][4 * gn + 1], acc[i][4 * gn + 2],
+                             acc[i][4 * gn + 3]);
+      if (!raw)
+        v = make_float4(v.x + b[gn].x, v.y + b[gn].y, v.z + b[gn].z, v.w + b[gn].w);
+      if (g.epi == kBiasAct)
         v = make_float4(act(v.x, g.relu6), act(v.y, g.relu6), act(v.z, g.relu6),
                         act(v.w, g.relu6));
       st4(o + gn * (w / 2), v);

@@ -32,9 +32,11 @@
 //      K in ascending 16-wide steps from zero, four a chunk (rows of K beyond
 //      Cin load as zeros), one chunk's group in flight while the next
 //      chunk's weights are awaited;
-//   4. epilogue: + pw bias in f32, activation (none if !kPwAct), rounded to
-//      bf16 in registers, a 4 x 4 word transpose inside each quad of lanes,
-//      16-byte stores of 8 channels.
+//   4. epilogue (kEpi, numerics.cuh): + pw bias in f32, activation (none at
+//      kBias), rounded to bf16 in registers, a 4 x 4 word transpose inside
+//      each quad of lanes, 16-byte stores of 8 channels; at kRaw the float32
+//      accumulators as they are (no bias, no activation), a pair exchange
+//      between lanes q and q ^ 1, 16-byte stores of 4 channels.
 // Roles: NWG consumer warpgroups (depthwise, wgmma, epilogue), then one
 // producer warp for the window ring and one for the weight ring, each run by
 // its lane 0; full and empty mbarriers order the rings, a named barrier
@@ -367,58 +369,80 @@ __device__ __forceinline__ long long out_pixel(const Geo& g, const Unit& x, int 
 }
 
 // Two adjacent output channels: + their bias (a bf16 pair) in f32,
-// activation, a bf16 pair.
-template <bool kPwAct>
+// activation (kBiasAct), a bf16 pair.
+template <int kEpi>
 __device__ __forceinline__ uint32_t out_word(const Geo& g, float a0, float a1, uint32_t bias) {
   float v0 = a0 + __uint_as_float(bias << 16), v1 = a1 + __uint_as_float(bias & 0xffff0000u);
-  if constexpr (kPwAct) {
+  if constexpr (kEpi == kBiasAct) {
     v0 = act(v0, g.relu6);
     v1 = act(v1, g.relu6);
   }
   return pack2(v0, v1);
 }
 
-// + bias, activation, bf16, stores to output pixels pA (row A) and pB (row
-// B; -1: outside the output). The accumulator of a warpgroup thread (warp w,
-// lane l) holds, for each 8-column group i, columns 8i + 2(l%4) and +1 of
-// rows 16w + l/4 (registers 4i, 4i+1) and 16w + l/4 + 8 (4i+2, 4i+3).
-template <int N, bool kPwAct>
+// The epilogue's stores to output pixels pA (row A) and pB (row B; -1:
+// outside the output). The accumulator of a warpgroup thread (warp w, lane l)
+// holds, for each 8-column group i, columns 8i + 2(l%4) and +1 of rows 16w +
+// l/4 (registers 4i, 4i+1) and 16w + l/4 + 8 (4i+2, 4i+3). kBias, kBiasAct:
+// + bias, activation, bf16 to `out` (bf16). kRaw: the accumulators to `out`
+// (float32): lanes q and q ^ 1 swap a pair, so that an even lane holds 4
+// columns of row A and an odd lane the same 4 of row B.
+template <int N, int kEpi>
 __device__ __forceinline__ void epilogue(const Geo& g, float (&acc)[N / 2],
                                          const uint32_t (&bias)[N / 8], long long pA,
-                                         long long pB, bf16* __restrict__ out, int col0) {
+                                         long long pB, void* __restrict__ out_v, int col0) {
   const int q = threadIdx.x & 3;
-  if constexpr (N == 8) {
-    if (pA >= 0)
-      *reinterpret_cast<uint32_t*>(out + pA * g.Cout + col0 + 2 * q) =
-          out_word<kPwAct>(g, acc[0], acc[1], bias[0]);
-    if (pB >= 0)
-      *reinterpret_cast<uint32_t*>(out + pB * g.Cout + col0 + 2 * q) =
-          out_word<kPwAct>(g, acc[2], acc[3], bias[0]);
-  } else {
+  if constexpr (kEpi == kRaw) {
+    float* out = static_cast<float*>(out_v);
+    const bool odd = q & 1;
+    const long long p = odd ? pB : pA;
 #pragma unroll
-    for (int i = 0; i < N / 8; i += 2) {
-      // Words of combination k = (group i + k / 2, row A or B by k % 2): after
-      // the transpose lane q of the quad holds combination q's 8 columns.
-      const uint32_t w0 = out_word<kPwAct>(g, acc[4 * i], acc[4 * i + 1], bias[i]);
-      const uint32_t w1 = out_word<kPwAct>(g, acc[4 * i + 2], acc[4 * i + 3], bias[i]);
-      const uint32_t w2 = out_word<kPwAct>(g, acc[4 * i + 4], acc[4 * i + 5], bias[i + 1]);
-      const uint32_t w3 = out_word<kPwAct>(g, acc[4 * i + 6], acc[4 * i + 7], bias[i + 1]);
-      // Round 1, with lane q ^ 2: keep the two combinations whose bit 1 is
-      // q's, send the other two. Round 2, with lane q ^ 1: the same on bit 0.
-      const bool b1 = q & 2, b0 = q & 1;
-      const uint32_t k0 = b1 ? w2 : w0, k1 = b1 ? w3 : w1;
-      const uint32_t r0 = __shfl_xor_sync(0xffffffffu, b1 ? w0 : w2, 2);
-      const uint32_t r1 = __shfl_xor_sync(0xffffffffu, b1 ? w1 : w3, 2);
-      const uint32_t m0 = b0 ? k1 : k0, m1 = b0 ? r1 : r0;  // combination q of lanes q, q ^ 2
-      const uint32_t u0 = __shfl_xor_sync(0xffffffffu, b0 ? k0 : k1, 1);  // of lane q ^ 1
-      const uint32_t u1 = __shfl_xor_sync(0xffffffffu, b0 ? r0 : r1, 1);  // of lane q ^ 3
-      const uint32_t e0 = b0 ? u0 : m0, e1 = b0 ? m0 : u0;  // lanes (q & 2), (q & 2) + 1
-      const uint32_t e2 = b0 ? u1 : m1, e3 = b0 ? m1 : u1;  // lanes (q & 2) ^ 2, + 1
-      const uint32_t o0 = b1 ? e2 : e0, o1 = b1 ? e3 : e1, o2 = b1 ? e0 : e2, o3 = b1 ? e1 : e3;
-      const long long p = (q & 1) ? pB : pA;
+    for (int i = 0; i < N / 8; ++i) {
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * i] : acc[4 * i + 2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? acc[4 * i + 1] : acc[4 * i + 3], 1);
+      const float4 v = odd ? make_float4(r0, r1, acc[4 * i + 2], acc[4 * i + 3])
+                           : make_float4(acc[4 * i], acc[4 * i + 1], r0, r1);
       if (p >= 0)
-        *reinterpret_cast<uint4*>(out + p * g.Cout + col0 + 8 * (i + (q >> 1))) =
-            make_uint4(o0, o1, o2, o3);
+        *reinterpret_cast<float4*>(out + p * g.Cout + col0 + 8 * i + 2 * (q & 2)) = v;
+    }
+    return;
+  } else {
+    bf16* out = static_cast<bf16*>(out_v);
+    if constexpr (N == 8) {
+      if (pA >= 0)
+        *reinterpret_cast<uint32_t*>(out + pA * g.Cout + col0 + 2 * q) =
+            out_word<kEpi>(g, acc[0], acc[1], bias[0]);
+      if (pB >= 0)
+        *reinterpret_cast<uint32_t*>(out + pB * g.Cout + col0 + 2 * q) =
+            out_word<kEpi>(g, acc[2], acc[3], bias[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N / 8; i += 2) {
+        // Words of combination k = (group i + k / 2, row A or B by k % 2):
+        // after the transpose lane q of the quad holds combination q's 8
+        // columns.
+        const uint32_t w0 = out_word<kEpi>(g, acc[4 * i], acc[4 * i + 1], bias[i]);
+        const uint32_t w1 = out_word<kEpi>(g, acc[4 * i + 2], acc[4 * i + 3], bias[i]);
+        const uint32_t w2 = out_word<kEpi>(g, acc[4 * i + 4], acc[4 * i + 5], bias[i + 1]);
+        const uint32_t w3 = out_word<kEpi>(g, acc[4 * i + 6], acc[4 * i + 7], bias[i + 1]);
+        // Round 1, with lane q ^ 2: keep the two combinations whose bit 1 is
+        // q's, send the other two. Round 2, with lane q ^ 1: the same on bit 0.
+        const bool b1 = q & 2, b0 = q & 1;
+        const uint32_t k0 = b1 ? w2 : w0, k1 = b1 ? w3 : w1;
+        const uint32_t r0 = __shfl_xor_sync(0xffffffffu, b1 ? w0 : w2, 2);
+        const uint32_t r1 = __shfl_xor_sync(0xffffffffu, b1 ? w1 : w3, 2);
+        const uint32_t m0 = b0 ? k1 : k0, m1 = b0 ? r1 : r0;  // combination q of lanes q, q ^ 2
+        const uint32_t u0 = __shfl_xor_sync(0xffffffffu, b0 ? k0 : k1, 1);  // of lane q ^ 1
+        const uint32_t u1 = __shfl_xor_sync(0xffffffffu, b0 ? r0 : r1, 1);  // of lane q ^ 3
+        const uint32_t e0 = b0 ? u0 : m0, e1 = b0 ? m0 : u0;  // lanes (q & 2), (q & 2) + 1
+        const uint32_t e2 = b0 ? u1 : m1, e3 = b0 ? m1 : u1;  // lanes (q & 2) ^ 2, + 1
+        const uint32_t o0 = b1 ? e2 : e0, o1 = b1 ? e3 : e1, o2 = b1 ? e0 : e2;
+        const uint32_t o3 = b1 ? e1 : e3;
+        const long long p = (q & 1) ? pB : pA;
+        if (p >= 0)
+          *reinterpret_cast<uint4*>(out + p * g.Cout + col0 + 8 * (i + (q >> 1))) =
+              make_uint4(o0, o1, o2, o3);
+      }
     }
   }
 }
@@ -453,18 +477,20 @@ __device__ __forceinline__ void fill_panel(const Geo& g, const Rings& r, const U
 // epilogue. Every chunk takes its four 16-wide K steps: the panel's columns
 // and the weight's rows beyond Cin are zeros, and no branch stands between
 // the wgmma of a warpgroup.
-template <int NWG, int N, bool kPwAct>
+template <int NWG, int N, int kEpi>
 __device__ __forceinline__ void slice(const Geo& g, const Rings& r, const Unit& x, int col0,
                                       long long pA, long long pB,
                                       const bf16* __restrict__ dw_w,
                                       const bf16* __restrict__ dw_b,
-                                      const bf16* __restrict__ pw_b, bf16* __restrict__ out,
+                                      const bf16* __restrict__ pw_b, void* __restrict__ out,
                                       uint32_t& wi, uint32_t& bi) {
   const int wg = threadIdx.x >> 7;
   uint32_t bias[N / 8];  // this thread's column pairs, loaded while the product runs
 #pragma unroll
   for (int i = 0; i < N / 8; ++i)
-    bias[i] = *reinterpret_cast<const uint32_t*>(pw_b + col0 + 8 * i + 2 * (threadIdx.x & 3));
+    bias[i] = kEpi == kRaw ? 0u
+                           : *reinterpret_cast<const uint32_t*>(pw_b + col0 + 8 * i +
+                                                                2 * (threadIdx.x & 3));
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
@@ -496,15 +522,15 @@ __device__ __forceinline__ void slice(const Geo& g, const Rings& r, const Unit& 
     hop::wgmma_wait<0>();
     hop::mbar_arrive(r.bempty + held);
   }
-  epilogue<N, kPwAct>(g, acc, bias, pA, pB, out, col0);
+  epilogue<N, kEpi>(g, acc, bias, pA, pB, out, col0);
 }
 
 // Every unit of this block: the panel once (all of Cin where it fits), then
 // the slices of the unit's columns.
-template <int NWG, bool kPwAct>
+template <int NWG, int kEpi>
 __device__ void consume(const Geo& g, const Rings& r, const bf16* __restrict__ dw_w,
                         const bf16* __restrict__ dw_b, const bf16* __restrict__ pw_b,
-                        bf16* __restrict__ out, uint32_t& wi, uint32_t& bi) {
+                        void* __restrict__ out, uint32_t& wi, uint32_t& bi) {
   const int t = threadIdx.x, lane = t & 31;
   const int r0 = (t >> 7) * 64 + ((t & 127) >> 5) * 16;  // the warp's first tile row
   for (int u = blockIdx.x; u < g.units; u += gridDim.x) {
@@ -517,19 +543,19 @@ __device__ void consume(const Geo& g, const Rings& r, const bf16* __restrict__ d
       const int n = slice_width(x.c_end - col);
       switch (n) {
         case 128:
-          slice<NWG, 128, kPwAct>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
+          slice<NWG, 128, kEpi>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
           break;
         case 64:
-          slice<NWG, 64, kPwAct>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
+          slice<NWG, 64, kEpi>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
           break;
         case 32:
-          slice<NWG, 32, kPwAct>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
+          slice<NWG, 32, kEpi>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
           break;
         case 16:
-          slice<NWG, 16, kPwAct>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
+          slice<NWG, 16, kEpi>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
           break;
         default:
-          slice<NWG, 8, kPwAct>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
+          slice<NWG, 8, kEpi>(g, r, x, col, pA, pB, dw_w, dw_b, pw_b, out, wi, bi);
           break;
       }
       col += n;
@@ -551,20 +577,22 @@ constexpr int threads_of(int nwg) { return nwg == 2 ? 384 : 192; }
 
 // The tensors of a launch: K stacked blocks (1 for a per-block launch; the
 // chain's K stages are C -> C) and where each stage writes.
+// `out` is bf16, or float32 at kRaw.
 struct Launch {
   const bf16 *dw_w, *dw_b, *pw_b;
-  bf16 *out, *scratch0, *scratch1;
+  void* out;
+  bf16 *scratch0, *scratch1;
   int K;
 };
 
-__device__ __forceinline__ bf16* stage_out(const Launch& l, int k) {
+__device__ __forceinline__ void* stage_out(const Launch& l, int k) {
   return k == l.K - 1 ? l.out : (k % 2 == 0 ? l.scratch0 : l.scratch1);
 }
 
 // Every stage of a launch, by role; `grid_sync` separates stages (the
 // chain's grid barrier). Stage k >= 1 reads what stage k - 1 wrote, through
 // maps.x[1 + (k - 1) % 2]. The ring counters carry over between stages.
-template <int NWG, bool kPwAct, class GridSync>
+template <int NWG, int kEpi, class GridSync>
 __device__ __forceinline__ void run(const Geo& g, unsigned char* smem_raw, const Maps& maps,
                                     const Launch& l, GridSync grid_sync) {
   const Rings r = rings_of(g, setup_smem(g, smem_raw));
@@ -573,7 +601,7 @@ __device__ __forceinline__ void run(const Geo& g, unsigned char* smem_raw, const
   if (wg < NWG) {
     if constexpr (NWG == 2) hop::setmaxnreg_inc<232>();
     for (int k = 0; k < l.K; ++k) {
-      consume<NWG, kPwAct>(g, r, l.dw_w + (long long)k * 9 * g.Cin, l.dw_b + (long long)k * g.Cin,
+      consume<NWG, kEpi>(g, r, l.dw_w + (long long)k * 9 * g.Cin, l.dw_b + (long long)k * g.Cin,
                            l.pw_b + (long long)k * g.Cout, stage_out(l, k), wi, bi);
       if (k + 1 < l.K) grid_sync();
     }

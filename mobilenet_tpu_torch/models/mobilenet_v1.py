@@ -24,7 +24,7 @@ that kernel, normalize are plain ops on every route.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -133,17 +133,23 @@ def _chain_weights(params, i: int, run: int):
     return stack_run(params["blocks"][i:i + run])
 
 
-def _run_blocks(params, y, config, routing, relu6, acts=None, start: int = 0):
-    """The 13 dw/pw blocks from block `start` (y enters it), per-block
-    backend routing; `acts` collects the taps (module docstring)."""
+def _run_blocks(params, y, config, routing, relu6, acts=None, start: int = 0,
+                stop: Optional[int] = None):
+    """The dw/pw blocks [start, stop) (y enters block `start`; all 13 by
+    default), per-block backend routing; `acts` collects the taps (module
+    docstring). A call with `stop` forms no chain run (as the JAX
+    package's), so no chain crosses a pipeline stage's bound."""
     collect = acts is not None
-    chain_on = CHAIN_AT_BATCH1 and int(y.shape[0]) == 1 and not collect
+    chain_on = (CHAIN_AT_BATCH1 and int(y.shape[0]) == 1 and not collect
+                and stop is None)
     chain_runs = (_chain_runs(params, config, routing, y.shape, y.element_size(), start)
                   if chain_on else {})
     skip_until = start
     for i, (blk, stride) in enumerate(zip(params["blocks"], config.block_strides)):
         if i < skip_until:
             continue
+        if stop is not None and i >= stop:
+            break
         if i in chain_runs:
             run = chain_runs[i]
             y = chain(y, *_chain_weights(params, i, run), relu6)

@@ -170,31 +170,40 @@ def forward_v2(params: Dict[str, Any], x: torch.Tensor, config: V2Config, *,
         acts["conv1"] = y
     y = run_blocks_v2(params, y, config, routing, acts if collect else None)
 
-    if not collect and routing[-1] == "fused":
+    if not collect:
+        return head_v2(params, y, routing)
+    y = ops.pointwise_conv(y, params["conv_last"]["w"], bias=params["conv_last"]["b"],
+                           relu6=True)
+    acts["conv_last"] = y
+    pooled = ops.global_avg_pool(y)
+    acts["pool"] = pooled
+    logits = ops.fc(pooled, params["fc"]["w"], params["fc"]["b"])
+    acts["logits"] = logits
+    return logits, acts
+
+
+def head_v2(params, y, routing) -> torch.Tensor:
+    """conv_last, pool and fc on the last block's output: the fused head
+    kernel when the last block is "fused", else the plain ops."""
+    if routing[-1] == "fused":
         return fused_head(y, (params["conv_last"]["w"], params["conv_last"]["b"], "relu6"),
                           [(params["fc"]["w"], params["fc"]["b"], "linear")])
     y = ops.pointwise_conv(y, params["conv_last"]["w"], bias=params["conv_last"]["b"],
                            relu6=True)
-    if collect:
-        acts["conv_last"] = y
-    pooled = ops.global_avg_pool(y)
-    if collect:
-        acts["pool"] = pooled
-    logits = ops.fc(pooled, params["fc"]["w"], params["fc"]["b"])
-    if collect:
-        acts["logits"] = logits
-        return logits, acts
-    return logits
+    return ops.fc(ops.global_avg_pool(y), params["fc"]["w"], params["fc"]["b"])
 
 
 def run_blocks_v2(params, y, config: V2Config, routing,
-                  acts: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """The 17 inverted-residual blocks, per-block backend routing. A fused
-    block whose shape no kernel takes raises (the kernels' fits checks);
-    nothing falls back to plain ops."""
+                  acts: Optional[Dict[str, Any]] = None, *, start: int = 0,
+                  stop: Optional[int] = None) -> torch.Tensor:
+    """The inverted-residual blocks [start, stop) (y enters block `start`;
+    all 17 by default), per-block backend routing. A fused block whose
+    shape no kernel takes raises (the kernels' fits checks); nothing falls
+    back to plain ops."""
     collect = acts is not None
-    for i, ((_t, cin, cout, stride), blk) in enumerate(
-            zip(config.block_defs, params["blocks"])):
+    stop = len(config.block_defs) if stop is None else stop
+    for i in range(start, stop):
+        (_t, cin, cout, stride), blk = config.block_defs[i], params["blocks"][i]
         has_res = stride == 1 and cin == cout
         if routing[i] == "fused" and not collect:
             if "exp" in blk:

@@ -271,26 +271,33 @@ def forward_v3(params: Dict[str, Any], x: torch.Tensor, config: V3Config, *,
         acts["conv1"] = y
     y = run_blocks_v3(params, y, config, routing, acts if collect else None)
 
-    if not collect and routing[-1] == "fused":
+    if not collect:
+        return head_v3(params, y, config, routing)
+    y = ops.pointwise_conv(y, params["conv_last"]["w"], bias=params["conv_last"]["b"],
+                           act=config.head_act)
+    acts["conv_last"] = y
+    pooled = ops.global_avg_pool(y)
+    acts["pool"] = pooled
+    h = head_matmul(pooled, params["head"], config.head_act)
+    acts["head"] = h
+    logits = ops.fc(h, params["fc"]["w"], params["fc"]["b"])
+    acts["logits"] = logits
+    return logits, acts
+
+
+def head_v3(params, y, config: V3Config, routing) -> torch.Tensor:
+    """conv_last, pool, the head matmul and fc on the last block's output:
+    the fused head kernel when the last block is "fused", else the plain
+    ops."""
+    if routing[-1] == "fused":
         conv = (params["conv_last"]["w"], params["conv_last"]["b"], config.head_act)
         post = [(params["head"]["w"], params["head"]["b"], config.head_act),
                 (params["fc"]["w"], params["fc"]["b"], "linear")]
         return fused_head(y, conv, post)
     y = ops.pointwise_conv(y, params["conv_last"]["w"], bias=params["conv_last"]["b"],
                            act=config.head_act)
-    if collect:
-        acts["conv_last"] = y
-    pooled = ops.global_avg_pool(y)
-    if collect:
-        acts["pool"] = pooled
-    h = head_matmul(pooled, params["head"], config.head_act)
-    if collect:
-        acts["head"] = h
-    logits = ops.fc(h, params["fc"]["w"], params["fc"]["b"])
-    if collect:
-        acts["logits"] = logits
-        return logits, acts
-    return logits
+    h = head_matmul(ops.global_avg_pool(y), params["head"], config.head_act)
+    return ops.fc(h, params["fc"]["w"], params["fc"]["b"])
 
 
 def _chain_stop(i: int, knob):
@@ -308,9 +315,11 @@ def _chain_stop(i: int, knob):
 
 
 def chain_runs(config: V3Config, routing, n: int, h: int, w: int,
-               itemsize: int) -> Dict[int, int]:
+               itemsize: int, start: int = 0, stop: Optional[int] = None) -> Dict[int, int]:
     """{start: stop} of the block runs that the variant's chain knob forms
-    on an (n, h, w) input to block 0, from the shapes alone. At each block
+    on an (n, h, w) input to block `start` over blocks [start, stop), from
+    the shapes alone (a run never crosses `stop`: a pipeline stage's
+    bound, as the JAX package's min(rng_stop, stop)). At each block
     outside a run: the longest eligible run from it (up to the knob's stop
     for an explicit range), shortened from its end until v3_chain_fits takes
     it; fewer than two blocks is no run. Eligible, as in the JAX package's
@@ -323,22 +332,23 @@ def chain_runs(config: V3Config, routing, n: int, h: int, w: int,
         return {}
     if knob is not True:
         knob = tuple((int(start), int(stop)) for start, stop in knob)
-    return dict(_chain_runs(config, tuple(routing), n, h, w, itemsize, knob))
+    stop = len(config.block_defs) if stop is None else stop
+    return dict(_chain_runs(config, tuple(routing), n, h, w, itemsize, knob, start, stop))
 
 
 @functools.lru_cache(maxsize=256)
 def _chain_runs(config: V3Config, routing: Tuple[str, ...], n: int, h: int, w: int,
-                itemsize: int, knob) -> Dict[int, int]:
+                itemsize: int, knob, start: int, stop: int) -> Dict[int, int]:
     defs = config.block_defs
-    sizes = []
-    for bd in defs:
-        sizes.append((h, w))
-        h, w = -(-h // bd.stride), -(-w // bd.stride)
-    runs, i = {}, 0
-    while i < len(defs):
+    sizes = {}
+    for k in range(start, stop):
+        sizes[k] = (h, w)
+        h, w = -(-h // defs[k].stride), -(-w // defs[k].stride)
+    runs, i = {}, start
+    while i < stop:
         rng = _chain_stop(i, knob)
         run = []
-        for j in range(i, len(defs) if rng is None else min(rng, len(defs))):
+        for j in range(i, stop if rng is None else min(rng, stop)):
             bd, (hh, ww) = defs[j], sizes[j]
             if (routing[j] != "fused" or not bd.has_expand or bd.kernel not in (3, 5)
                     or bd.stride not in (1, 2) or (bd.stride == 2 and (hh % 2 or ww % 2))):
@@ -366,16 +376,20 @@ def _kernel_block(bd: V3BlockDef, blk: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def run_blocks_v3(params, y, config: V3Config, routing,
-                  acts: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """The bottlenecks, per-block backend routing; runs that the chain knob
-    forms (`chain_runs`; never under collect) go to one chain launch each. A
+                  acts: Optional[Dict[str, Any]] = None, *, start: int = 0,
+                  stop: Optional[int] = None) -> torch.Tensor:
+    """The bottlenecks [start, stop) (y enters block `start`), per-block
+    backend routing; runs that the chain knob forms (`chain_runs`, within
+    [start, stop); never under collect) go to one chain launch each. A
     fused block whose shape the kernel cannot plan raises; nothing falls
     back to plain ops."""
     collect = acts is not None
+    stop = len(config.block_defs) if stop is None else stop
     runs = {} if collect else chain_runs(config, routing, int(y.shape[0]), int(y.shape[1]),
-                                         int(y.shape[2]), y.element_size())
-    skip_until = 0
-    for i, (bd, blk) in enumerate(zip(config.block_defs, params["blocks"])):
+                                         int(y.shape[2]), y.element_size(), start, stop)
+    skip_until = start
+    for i in range(start, stop):
+        bd, blk = config.block_defs[i], params["blocks"][i]
         if i < skip_until:
             continue
         if i in runs:

@@ -37,7 +37,8 @@ build_seconds: Optional[float] = None
 build_log: str = ""
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6, pw_act
+# x, dw_w, dw_b, pw_w, pw_b, out | N, H, W, Cin, Cout, stride, relu6, epi (0 bias,
+# 1 bias + act, 2 raw: ops/separable_block.EPI_*)
 _BLOCK = [_P] * 6 + [_I] * 8
 # x, conv_w, conv_b, w0, b0, w1, b1, pooled, mid, out | N, HW, C, E, conv_act,
 # n_post, m0, act0, m1, act1, m_out (acts: -1 none, 0 linear, 1 relu, 2 relu6,

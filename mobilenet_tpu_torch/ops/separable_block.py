@@ -6,7 +6,12 @@ Replaces the TPU kernels `mobilenet_tpu/ops/pallas_block.py`
 `separable_block_packed` / `separable_block_packed_s2`; every block, narrow
 or wide, runs this one dense NHWC kernel. `pw_act=False` is the packed
 kernels' `pw_epilogue=False` mode (a linear projection: MobileNet-V2's
-block 0). What bounds it on the card and what
+block 0). `pw_epilogue=False` is `separable_block_pallas`'s mode of that
+name: the raw float32 pointwise accumulation, with no pw bias and no
+activation, the partial that the tensor-parallel forward sums over its
+channel shards (parallel/tp_fused.py). Neither plan stages the output in
+shared memory (the tiles store from registers), so a float32 output changes
+no plan. What bounds it on the card and what
 the design does about it is in the CUDA source's header. The bf16 kernel
 runs the tile plan of `separable_plan`, the float32 kernel that of
 `f32_sep_plan`; the CPU tests check both.
@@ -347,28 +352,40 @@ def plan_for(x: torch.Tensor, cin: int, cout: int, stride: int):
     return plan(n, h, w, cin, cout, stride, _sms(x.device.index or 0))
 
 
+# The kernel's pointwise epilogue codes (csrc/numerics.cuh Epilogue).
+EPI_BIAS, EPI_BIAS_ACT, EPI_RAW = 0, 1, 2
+
+
 @ieee_f32
 def separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride: int,
-                          relu6: bool = True, pw_act: bool = True) -> torch.Tensor:
+                          relu6: bool = True, pw_act: bool = True,
+                          pw_epilogue: bool = True) -> torch.Tensor:
     """The kernel's arithmetic in plain ops: f32 taps, + dw bias in f32,
     activation, cast to the weight dtype, f32 product, + pw bias in f32,
-    activation (none if not pw_act), cast to x's dtype."""
+    activation (none if not pw_act), cast to x's dtype. pw_epilogue=False
+    returns the f32 product alone (no pw bias, no activation, float32)."""
     y = apply_activation(dw_taps_f32(x, dw_w, stride) + dw_b.float(), relu6)
     n, ho, wo, cin = y.shape
-    y = y.to(pw_w.dtype).float().reshape(n * ho * wo, cin) @ pw_w.float() + pw_b.float()
+    y = y.to(pw_w.dtype).float().reshape(n * ho * wo, cin) @ pw_w.float()
+    if not pw_epilogue:
+        return y.reshape(n, ho, wo, -1)
+    y = y + pw_b.float()
     if pw_act:
         y = apply_activation(y, relu6)
     return y.reshape(n, ho, wo, -1).to(x.dtype)
 
 
 def separable_block(x, dw_w, dw_b, pw_w, pw_b, stride: int,
-                    relu6: bool = True, pw_act: bool = True) -> torch.Tensor:
+                    relu6: bool = True, pw_act: bool = True,
+                    pw_epilogue: bool = True) -> torch.Tensor:
     """dw 3x3 (TF-SAME, stride 1 or 2) + bias + act -> pw 1x1 + bias + act
-    (pw_act=False: pw 1x1 + bias, linear).
+    (pw_act=False: pw 1x1 + bias, linear; pw_epilogue=False: the raw pw
+    1x1 accumulation in float32, no bias, no activation).
 
     x (N,H,W,Cin), dw_w (3,3,1,Cin), dw_b (Cin,), pw_w (Cin,Cout),
-    pw_b (Cout,) -> (N,Ho,Wo,Cout). On CPU tensors this is the plain
-    version; on CUDA tensors it launches the kernel or raises."""
+    pw_b (Cout,) -> (N,Ho,Wo,Cout), in x's dtype (float32 when not
+    pw_epilogue). On CPU tensors this is the plain version; on CUDA tensors
+    it launches the kernel or raises."""
     name = "separable_block"
     sfx = check_kernel_args(name, x, dw_w, dw_b, pw_w, pw_b)
     if x.dim() != 4:
@@ -386,22 +403,26 @@ def separable_block(x, dw_w, dw_b, pw_w, pw_b, stride: int,
         raise ValueError(f"{name}: stride 2 needs an even input, got {h}x{w}")
     check_channels(name, cin, cout)
     if x.device.type == "cpu":
-        return separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride, relu6, pw_act)
+        return separable_block_plain(x, dw_w, dw_b, pw_w, pw_b, stride, relu6, pw_act,
+                                     pw_epilogue)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.library()
     out = torch.empty((n, -(-h // stride), -(-w // stride), cout),
-                      dtype=x.dtype, device=x.device)
+                      dtype=x.dtype if pw_epilogue else torch.float32, device=x.device)
+    epi = (EPI_BIAS_ACT if pw_act else EPI_BIAS) if pw_epilogue else EPI_RAW
     args = [x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
-            pw_b.data_ptr(), out.data_ptr(), n, h, w, cin, cout, stride, int(relu6),
-            int(pw_act)]
+            pw_b.data_ptr(), out.data_ptr(), n, h, w, cin, cout, stride, int(relu6), epi]
     check_aligned(name, x, dw_w, dw_b, pw_w, pw_b)  # TMA, cp.async and 16-byte vectors
     args += plan_for(x, cin, cout, stride)
     code = getattr(lib, f"separable_block_{sfx}")(
         *args, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, name)
     separable_block.launches += 1
+    if not pw_epilogue:
+        separable_block.partial_launches += 1  # the raw-partial mode's own count
     return out
 
 
 separable_block.launches = 0
+separable_block.partial_launches = 0

@@ -23,7 +23,7 @@ from ..ops.conv import softmax
 from ..ops.depthwise_i8 import depthwise_i8
 from ..ops.preprocess import preprocess
 from ..ops.separable_block_i8 import kmajor, separable_block_i8
-from ..runtime.pipeline import PipelineBase, resolve_device
+from ..runtime.pipeline import PipelineBase
 from . import ops as qops
 from .quantize import ACT_HIDDEN_SCALE, ACT_IN_SCALE, QuantizedParams, quantize
 
@@ -150,29 +150,33 @@ class Int8Pipeline(PipelineBase):
     classify and benchmark()."""
 
     _forward = staticmethod(forward_i8)
+    _weights_attr = "dev"
 
     def __init__(self, config: ModelConfig, params=None, *, device="cuda", seed: int = 0,
-                 dw_backend: Any = "auto"):
+                 dw_backend: Any = "auto", mesh=None):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (the fused kernel), "plain",
-        "fused", or a per-block tuple (_routing_i8)."""
+        "fused", or a per-block tuple (_routing_i8). `mesh`: data-parallel
+        over a parallel.mesh.Mesh (runtime/pipeline.py); `device` is then
+        unused."""
         self.config = config
-        self.device = resolve_device(device)
+        self.device = self._init_mesh(mesh, device)
         self.dw_backend = dw_backend
         folded = params if params is not None else fold_bn(
             init_params(config, seed=seed), eps=config.bn_eps)
         self.q = quantize_for_device(folded, config, dw_backend)
         self.dev = to_device_i8(self.q, self.device)
+        self._replicate()
 
-    def _entry(self, kind: str):
+    def _entry(self, kind: str, rank: int = 0):
         if kind != "probs_u8":
             raise KeyError(kind)
-        cfg, forward = self.config, self._forward
+        cfg, forward, dev = self.config, self._forward, self._weights(rank)
 
         def fn(images_u8):
             x = preprocess(images_u8, cfg.resolution, torch.float32)
             x_q = qops.quantize_input_dev(x, ACT_IN_SCALE)
-            return softmax(forward(self.dev, x_q, cfg, dw_backend=self.dw_backend))
+            return softmax(forward(dev, x_q, cfg, dw_backend=self.dw_backend))
 
         return fn

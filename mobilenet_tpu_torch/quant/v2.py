@@ -39,8 +39,7 @@ Not ported, because each is a TPU layout or a TPU workaround:
   (block 1 and the block-13 bridge run the one int8 inverted-residual
   block here; `_six_ok` with them: the tile's ReLU6 bound takes any six_q);
 - block 0's Cout padding 16 -> 32 and the widened-input padding of the next
-  block (lane packing);
-- the `mesh` argument of the pipeline (data parallelism is later work).
+  block (lane packing).
 """
 
 from __future__ import annotations
@@ -57,7 +56,6 @@ from ..ops.inverted_residual_i8 import inverted_residual_i8
 from ..ops.separable_block_i8 import separable_block_i8
 from ..ops.v3_block_i8 import v3_i8_kernel_weights
 from ..oracle import numpy_ref
-from ..runtime.pipeline import resolve_device
 from . import ops as qops
 from . import oracle as qoracle
 from .model import Int8Pipeline, device_fc, device_layer, device_pw_layer, resolve_i8_routing
@@ -305,15 +303,16 @@ class Int8PipelineV2(Int8Pipeline):
     _forward = staticmethod(forward_v2_i8)
 
     def __init__(self, config: V2Config, params=None, *, device="cuda", seed: int = 0,
-                 dw_backend: Any = "auto", quantized=None):
+                 dw_backend: Any = "auto", quantized=None, mesh=None):
         """`params`: a folded host tree (numpy leaves); None draws the seeded
         weight set; it is calibrated and quantized here (`quantize_v2`).
         `quantized`: a V2QuantizedParams of either package instead, used as
         it is. `device`: "cuda" (default), "cuda:N" or "cpu". `dw_backend`:
         "auto" (the kernels), "plain", "fused", or a per-block tuple
-        (_routing_v2_i8)."""
+        (_routing_v2_i8). `mesh`: data-parallel over a parallel.mesh.Mesh
+        (runtime/pipeline.py); `device` is then unused."""
         self.config = config
-        self.device = resolve_device(device)
+        self.device = self._init_mesh(mesh, device)
         self.dw_backend = dw_backend
         if quantized is None:
             folded = params if params is not None else fold_bn_v2(
@@ -321,3 +320,4 @@ class Int8PipelineV2(Int8Pipeline):
             quantized = quantize_v2(folded, config)
         self.q = quantized
         self.dev = to_device_i8_v2(quantized, self.device)
+        self._replicate()

@@ -43,8 +43,7 @@ Not ported:
   padding and the widened-input padding of the next block, the
   `_dot_bias_ok`/`_packed_bias_ok` bounds (the port's integer products are
   int32 in the kernel and float64 in the plain ops, exact at any bias), and
-  the knobs `FUSED_EXPAND_S2_I8`, `PACKED_EXPAND_S2_I8`, `PRJ_BF16_DOT`;
-- the `mesh` argument of the pipeline (data parallelism is later work, A11).
+  the knobs `FUSED_EXPAND_S2_I8`, `PACKED_EXPAND_S2_I8`, `PRJ_BF16_DOT`.
 Activations stay int8 between blocks.
 """
 
@@ -60,7 +59,6 @@ from ..checkpoints import fold_bn_v3, init_params_v3
 from ..models.mobilenet_v3 import V3Config
 from ..ops.v3_block_i8 import v3_block_i8, v3_i8_kernel_weights
 from ..oracle import numpy_ref
-from ..runtime.pipeline import resolve_device
 from . import ops as qops
 from . import oracle as qoracle
 from .model import Int8Pipeline, _put, device_fc, resolve_i8_routing
@@ -437,16 +435,18 @@ class Int8PipelineV3(Int8Pipeline):
     _forward = staticmethod(forward_v3_i8)
 
     def __init__(self, config: V3Config, params=None, *, device="cuda", seed: int = 0,
-                 dw_backend: Any = "auto", quantized=None):
+                 dw_backend: Any = "auto", quantized=None, mesh=None):
         """`params`: a folded host tree (numpy leaves); None draws the seeded
         weight set; it is calibrated and quantized here (`quantize_v3`).
         `quantized`: a V3QuantizedParams of either package instead, used as
         it is. `device`: "cuda" (default), "cuda:N" or "cpu". `dw_backend`:
         "auto" (the kernel), "plain", "fused", or a per-block tuple
-        (_routing_v3_i8), for V3-Large and V3-Small."""
+        (_routing_v3_i8), for V3-Large and V3-Small. `mesh`: data-parallel
+        over a parallel.mesh.Mesh (runtime/pipeline.py); `device` is then
+        unused."""
         _routing_v3_i8(config, dw_backend, 1)
         self.config = config
-        self.device = resolve_device(device)
+        self.device = self._init_mesh(mesh, device)
         self.dw_backend = dw_backend
         if quantized is None:
             folded = params if params is not None else fold_bn_v3(
@@ -454,3 +454,4 @@ class Int8PipelineV3(Int8Pipeline):
             quantized = quantize_v3(folded, config)
         self.q = quantized
         self.dev = to_device_i8_v3(quantized, self.device)
+        self._replicate()

@@ -1,17 +1,23 @@
 """Inference runtime: device-resident weights and the entry points.
 
 The port of the JAX package's `runtime/pipeline.py` for MobileNet-V1,
-MobileNet-V2 and MobileNet-V3 on one device. `PipelineBase` holds the
-uint8-in paths (classify, run_batch, benchmark) that the float
-`InferencePipeline` and the int8 `quant.model.Int8Pipeline` share. The
-weights move to the device once, at construction. PyTorch runs eagerly,
-so an "entry" is a plain function; each call runs the kernels on
-the current CUDA stream. `benchmark()` times with CUDA events on a
-device-resident batch and refuses to run without a card.
+MobileNet-V2 and MobileNet-V3 on one device, or data-parallel over a mesh
+(parallel/mesh.py). `PipelineBase` holds the uint8-in paths (classify,
+run_batch, benchmark) that the float `InferencePipeline` and the int8
+`quant.model.Int8Pipeline` share. The weights move to the device once, at
+construction; with `mesh=` to every rank of its data axis, once, and each
+call splits its batch evenly over the ranks (an uneven batch raises, as
+the JAX package's shard_map does), runs the whole route on each shard on
+its rank's device and gathers the outputs in order on the first. A mesh
+with a model axis above 1 is refused (`_require_dp_only_mesh`). PyTorch
+runs eagerly, so an "entry" is a plain function; each call runs the
+kernels on the current CUDA stream. `benchmark()` times with CUDA events on
+a device-resident batch and refuses to run without a card.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, Optional
 
@@ -25,6 +31,8 @@ from ..models import mobilenet_v1, mobilenet_v2, mobilenet_v3
 from ..models.mobilenet_v2 import V2Config
 from ..models.mobilenet_v3 import V3Config
 from ..ops.preprocess import preprocess
+from ..parallel.mesh import (_require_dp_only_mesh, data_devices, gather_batch, on_device,
+                             replicate, shard_batch)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # config type -> (forward, predict) of the inverted-residual families (their
@@ -45,26 +53,79 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _gather(outs, device):
+    """The data ranks' outputs (tensors, or tuples and dicts of them) in
+    rank order, on `device`."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return gather_batch(outs, device)
+    if isinstance(first, dict):
+        return {k: _gather([o[k] for o in outs], device) for k in first}
+    return type(first)(_gather(list(parts), device) for parts in zip(*outs))
+
+
 class PipelineBase:
     """The uint8-in paths shared by the float and int8 pipelines: a subclass
-    sets `config` and `device` and builds the `_entry("probs_u8")` function
-    (uint8 NHWC on the device -> float32 probabilities on the device)."""
+    sets `config` and `device` (through `_init_mesh`), builds its weights in
+    the attribute `_weights_attr`, calls `_replicate()`, and builds the
+    `_entry(kind, rank)` functions (`kind` "probs_u8": uint8 NHWC on the
+    rank's device -> float32 probabilities there) on `_weights(rank)`."""
 
     config: ModelConfig
     device: torch.device
+    mesh = None
+    _weights_attr = "params"
 
-    def _entry(self, kind: str):
+    def _init_mesh(self, mesh, device) -> torch.device:
+        """The pipeline's device: `device`, or with a mesh its first data
+        rank's (a model axis above 1 refused)."""
+        self.mesh = mesh
+        if mesh is None:
+            return resolve_device(device)
+        _require_dp_only_mesh(mesh)
+        devices = [resolve_device(d) for d in data_devices(mesh)]  # each must exist
+        return devices[0]
+
+    def _replicate(self) -> None:
+        """The weights on every data rank's device, once (a rank owns its
+        copy, also where ranks share a card)."""
+        if self.mesh is not None:
+            self._replicas = replicate(getattr(self, self._weights_attr),
+                                       data_devices(self.mesh))
+
+    def _weights(self, rank: int = 0):
+        if self.mesh is None:
+            return getattr(self, self._weights_attr)
+        return self._replicas[rank]
+
+    def _entry(self, kind: str, rank: int = 0):
         raise NotImplementedError
 
+    def _call(self, kind: str, x: torch.Tensor):
+        """The entry `kind` on x (host or device): on the pipeline's device,
+        or each data rank's shard on its device, gathered on the first."""
+        if self.mesh is None:
+            return self._entry(kind)(x.to(self.device))
+        outs = []
+        for rank, shard in enumerate(shard_batch(self.mesh, x)):
+            with on_device(shard.device):
+                outs.append(self._entry(kind, rank)(shard))
+        return _gather(outs, self.device)
+
+    @staticmethod
+    def _host(arr) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(arr))
+
     def _to_device(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr)).to(self.device)
+        return self._host(arr).to(self.device)
 
     # -- user-facing paths --------------------------------------------------
 
     @torch.inference_mode()
     def classify(self, image_u8: np.ndarray, top_k: int = 5):
-        """One (H, W, 3) uint8 image -> top-k [(class, prob)]."""
-        probs = self._entry("probs_u8")(self._to_device(image_u8[None]))[0]
+        """One (H, W, 3) uint8 image -> top-k [(class, prob)] (a mesh of
+        more than one data rank cannot split it and raises)."""
+        probs = self._call("probs_u8", self._host(image_u8[None]))[0]
         probs = probs.cpu().numpy()
         idx = np.argsort(-probs)[:top_k]
         return [(int(i), float(probs[i])) for i in idx]
@@ -72,7 +133,7 @@ class PipelineBase:
     @torch.inference_mode()
     def run_batch(self, images_u8) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (N, classes) float32 probabilities (host)."""
-        return self._entry("probs_u8")(self._to_device(images_u8)).cpu().numpy()
+        return self._call("probs_u8", self._host(images_u8)).cpu().numpy()
 
     # -- throughput mode ----------------------------------------------------
 
@@ -85,12 +146,13 @@ class PipelineBase:
         device-resident uint8 batch. e2e_images_per_sec: the same with each
         batch copied host->device from pinned memory inside the window.
         p50/p99_latency_ms: host clock around a batch-1 call from host
-        uint8 to host probabilities, synchronized."""
+        uint8 to host probabilities, synchronized (with a mesh, a batch of
+        one image a data rank: `latency_batch`)."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark() measures the card; the pipeline's "
                                f"device is {self.device}")
         res = self.config.resolution
-        entry = self._entry("probs_u8")
+        entry = functools.partial(self._call, "probs_u8")
         rng = np.random.default_rng(0)
         host = torch.from_numpy(
             rng.integers(0, 256, (batch_size, res, res, 3), dtype=np.uint8)).pin_memory()
@@ -115,7 +177,7 @@ class PipelineBase:
         end.synchronize()
         e2e_dt = start.elapsed_time(end) / 1e3
 
-        one = host[:1].numpy()
+        one = host[:1 if self.mesh is None else len(data_devices(self.mesh))].numpy()
         self.run_batch(one)
         lats = []
         for _ in range(latency_iters):
@@ -127,6 +189,7 @@ class PipelineBase:
             "images_per_sec": steps * batch_size / dt,
             "e2e_images_per_sec": e2e_steps * batch_size / e2e_dt,
             "batch_size": batch_size,
+            "latency_batch": len(one),
             "steps": steps,
             "wall_s": dt,
             "p50_latency_ms": float(np.percentile(lats, 50) * 1e3),
@@ -141,7 +204,7 @@ class InferencePipeline(PipelineBase):
 
     def __init__(self, config, params: Optional[Dict[str, Any]] = None,
                  *, device="cuda", seed: int = 0, dw_backend: Any = "auto",
-                 dtype: Optional[torch.dtype] = None, fuse_stem: bool = False):
+                 dtype: Optional[torch.dtype] = None, fuse_stem: bool = False, mesh=None):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
@@ -150,9 +213,11 @@ class InferencePipeline(PipelineBase):
         models.mobilenet_v3._routing_v3). `fuse_stem` (MobileNet-V1 only;
         V2 and V3 ignore it, as in the JAX package): uint8 batches at model
         resolution take `mobilenet_v1.forward_u8(fuse_stem=True)`, the
-        normalize + stem + block-0 kernel; off by default."""
+        normalize + stem + block-0 kernel; off by default. `mesh`: a
+        data-parallel parallel.mesh.Mesh (module docstring); `device` is
+        then unused."""
         self.config = config
-        self.device = resolve_device(device)
+        self.device = self._init_mesh(mesh, device)
         self.dtype = dtype if dtype is not None else _DTYPES[config.compute_dtype]
         self.dw_backend = dw_backend
         self.fuse_stem = fuse_stem
@@ -163,32 +228,33 @@ class InferencePipeline(PipelineBase):
         if type(config) in _FAMILIES:
             self._forward, self._predict = _FAMILIES[type(config)]
             self.params = to_device(host, self.device, self.dtype)
-            return
-        self.params = prepare_kernel_layouts(
-            to_device(host, self.device, self.dtype), config.block_strides)
-        self._forward, self._predict = mobilenet_v1.forward, mobilenet_v1.predict_probs
+        else:
+            self.params = prepare_kernel_layouts(
+                to_device(host, self.device, self.dtype), config.block_strides)
+            self._forward, self._predict = mobilenet_v1.forward, mobilenet_v1.predict_probs
+        self._replicate()
 
     # -- entries ------------------------------------------------------------
 
-    def _entry(self, kind: str):
-        cfg = self.config
+    def _entry(self, kind: str, rank: int = 0):
+        cfg, params = self.config, self._weights(rank)
         if kind == "probs_u8":
             fuse = self.fuse_stem and isinstance(cfg, ModelConfig)
 
             def fn(images_u8):
                 if fuse and images_u8.shape[1] == images_u8.shape[2] == cfg.resolution:
                     return mobilenet_v1.predict_probs_u8(
-                        self.params, images_u8, cfg, dtype=self.dtype,
+                        params, images_u8, cfg, dtype=self.dtype,
                         dw_backend=self.dw_backend, fuse_stem=True)
                 x = preprocess(images_u8, cfg.resolution, self.dtype)
-                return self._predict(self.params, x, cfg, dw_backend=self.dw_backend)
+                return self._predict(params, x, cfg, dw_backend=self.dw_backend)
         elif kind == "probs_f":
             def fn(x):
-                return self._predict(self.params, x.to(self.dtype), cfg,
+                return self._predict(params, x.to(self.dtype), cfg,
                                      dw_backend=self.dw_backend)
         elif kind == "collect":
             def fn(x):
-                return self._forward(self.params, x.to(self.dtype), cfg,
+                return self._forward(params, x.to(self.dtype), cfg,
                                      dw_backend=self.dw_backend, collect=True)
         else:
             raise KeyError(kind)
@@ -199,13 +265,13 @@ class InferencePipeline(PipelineBase):
     @torch.inference_mode()
     def run_preprocessed(self, x) -> torch.Tensor:
         """Preprocessed NHWC -> device probabilities."""
-        return self._entry("probs_f")(torch.as_tensor(x).to(self.device))
+        return self._call("probs_f", torch.as_tensor(x))
 
     @torch.inference_mode()
     def activations(self, x):
         """Per-layer taps for the verify gates: (logits, {name: array}), on
         the pipeline's routing (MobileNet-V1: the depthwise kernel gives the
         depthwise taps of "fused" and "dw" blocks, the plain ops the rest)."""
-        logits, acts = self._entry("collect")(torch.as_tensor(x).to(self.device))
+        logits, acts = self._call("collect", torch.as_tensor(x))
         return (logits.float().cpu().numpy(),
                 {k: v.float().cpu().numpy() for k, v in acts.items()})

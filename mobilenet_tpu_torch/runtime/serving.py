@@ -1,7 +1,7 @@
 """Multi-stream serving: concurrent image streams -> micro-batcher -> device.
 
-The port of the JAX package's `runtime/serving.py` on one device, one or
-several variants of MobileNet-V1, -V2, -V3-Large or -V3-Small (or either V3
+The port of the JAX package's `runtime/serving.py` on one device (or
+data-parallel over a mesh: `--dp`), one or several variants of MobileNet-V1, -V2, -V3-Large or -V3-Small (or either V3
 -minimalistic), float or exact int8:
   - each stream is an asyncio producer; requests land in one queue;
   - the micro-batcher drains up to `max_batch` requests (or waits at most
@@ -63,16 +63,36 @@ class ServerStats:
         self.bucket_counts.clear()
 
 
-def default_buckets(max_batch: int) -> List[int]:
+def default_buckets(max_batch: int, mesh=None) -> List[int]:
     """The serving batch tiers of a `max_batch`-stream server:
-    {1, max_batch//8, max_batch}. Shared by MicroBatchServer and `cli
-    warmup`, so what warmup runs is what serving dispatches."""
-    return sorted({1, max(1, max_batch // 8), max_batch})
+    {1, max_batch//8, max_batch}, each rounded up to a multiple of the
+    mesh's size when a data-parallel mesh is given (every bucket must split
+    evenly). Shared by MicroBatchServer and `cli warmup`, so what warmup
+    runs is what serving dispatches."""
+    cand = {1, max(1, max_batch // 8), max_batch}
+    if mesh is not None:
+        dp = mesh.size
+        cand = {max(dp, -(-b // dp) * dp) for b in cand}
+    return sorted(cand)
+
+
+def make_dp_mesh(dp: int, device="cuda"):
+    """The data-parallel mesh of `--dp`: None at dp 1 (the pipeline on
+    `device`); else dp host ranks when `device` is the CPU, or the first dp
+    CUDA devices (make_mesh raises when the machine has fewer)."""
+    if dp <= 1:
+        return None
+    from ..parallel.mesh import make_mesh  # noqa: PLC0415
+
+    if torch.device(device).type == "cpu":
+        return make_mesh(dp, devices=["cpu"] * dp)
+    return make_mesh(dp)
 
 
 class MicroBatchServer:
     """Micro-batching inference server over an InferencePipeline, an
-    Int8Pipeline or an Int8PipelineV2."""
+    Int8Pipeline, an Int8PipelineV2 or an Int8PipelineV3 (on one device or
+    data-parallel over the pipeline's mesh)."""
 
     def __init__(self, pipeline, max_batch: int = 64, max_delay_ms: float = 3.0,
                  request_timeout_s: float = 30.0, device_retries: int = 1,
@@ -82,7 +102,8 @@ class MicroBatchServer:
         retried (only `_is_retryable_device_error` types), with backoff
         retry_backoff_s * 2**attempt. `batch_buckets`: fixed batch sizes;
         each dispatch pads to the smallest that fits. Default
-        default_buckets(max_batch); the largest must equal max_batch. Every
+        default_buckets(max_batch, the pipeline's mesh); the largest must
+        equal max_batch. Every
         bucket runs once at construction, so first requests find the kernels
         built and the allocator warm."""
         self.pipeline = pipeline
@@ -98,7 +119,7 @@ class MicroBatchServer:
         self._closed = False
         res = pipeline.config.resolution
         if batch_buckets is None:
-            batch_buckets = default_buckets(max_batch)
+            batch_buckets = default_buckets(max_batch, getattr(pipeline, "mesh", None))
         buckets = sorted(set(int(b) for b in batch_buckets))
         if not buckets or buckets[-1] != max_batch or buckets[0] < 1:
             raise ValueError(
@@ -411,38 +432,41 @@ def config_from_variant(spec: str, dtype: str = "bfloat16", minimalistic: bool =
                        minimalistic and parts[0] in ("v3", "v3small"))
 
 
-def build_pipeline(cfg, *, device="cuda", seed: int = 0, params=None, int8: bool = False):
+def build_pipeline(cfg, *, device="cuda", seed: int = 0, params=None, int8: bool = False,
+                   mesh=None):
     """The float InferencePipeline of a ModelConfig, a V2Config or a
     V3Config, or with int8=True the quantized Int8Pipeline (V1),
     Int8PipelineV2 (V2) or Int8PipelineV3 (V3-Large and V3-Small; both
-    calibrated here). `params`: a folded host tree, else the seeded set."""
+    calibrated here). `params`: a folded host tree, else the seeded set.
+    `mesh`: a data-parallel mesh (`make_dp_mesh`) instead of `device`."""
     if int8 and isinstance(cfg, V3Config):
         from ..quant.v3 import Int8PipelineV3  # noqa: PLC0415
 
-        return Int8PipelineV3(cfg, params, device=device, seed=seed)
+        return Int8PipelineV3(cfg, params, device=device, seed=seed, mesh=mesh)
     if int8 and isinstance(cfg, V2Config):
         from ..quant.v2 import Int8PipelineV2  # noqa: PLC0415
 
-        return Int8PipelineV2(cfg, params, device=device, seed=seed)
+        return Int8PipelineV2(cfg, params, device=device, seed=seed, mesh=mesh)
     if int8:
         from ..quant.model import Int8Pipeline  # noqa: PLC0415
 
-        return Int8Pipeline(cfg, params, device=device, seed=seed)
+        return Int8Pipeline(cfg, params, device=device, seed=seed, mesh=mesh)
     from .pipeline import InferencePipeline  # noqa: PLC0415
 
-    return InferencePipeline(cfg, params, device=device, seed=seed)
+    return InferencePipeline(cfg, params, device=device, seed=seed, mesh=mesh)
 
 
 def build_server(cfgs: Dict[str, Any], streams: int, *, device="cuda", seed: int = 0,
-                 params=None, int8: bool = False, multi: bool = False):
+                 params=None, int8: bool = False, multi: bool = False, mesh=None):
     """The serving object of `cfgs` ({variant_name: config}), each variant a
     `streams`-wide MicroBatchServer over `build_pipeline`'s pipeline on one
-    device. multi=True (any --variants deployment, a single entry too)
-    wraps them in MultiVariantServer, whose clients name variants in
-    requests. Returns (server, {name: MicroBatchServer})."""
+    device or, with `mesh`, data-parallel over it. multi=True (any
+    --variants deployment, a single entry too) wraps them in
+    MultiVariantServer, whose clients name variants in requests. Returns
+    (server, {name: MicroBatchServer})."""
     servers = {
         name: MicroBatchServer(build_pipeline(c, device=device, seed=seed, params=params,
-                                              int8=int8), max_batch=streams)
+                                              int8=int8, mesh=mesh), max_batch=streams)
         for name, c in cfgs.items()
     }
     if multi:
@@ -455,7 +479,7 @@ def build_server(cfgs: Dict[str, Any], streams: int, *, device="cuda", seed: int
 def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
                device="cuda", seed: int = 0, selftest_only: bool = True, params=None,
                int8: bool = False, model: str = "v1", minimalistic: bool = False,
-               variants=None):
+               variants=None, dp: int = 1):
     """Build the server, run a selftest per variant (one JSON line of stats
     each) and, with several variants, `selftest_multi` under mixed load;
     then, if not selftest_only, serve NDJSON over TCP on `port` until
@@ -464,7 +488,13 @@ def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
     dtype; int8=True serves the model's exact int8 path. `variants`: a list
     of "alpha:res" or "model:alpha:res" strings served from one process
     (MultiVariantServer; the first is the default; `alpha`, `res` and
-    `model` are then unused); `params` (--ckpt) is refused with it."""
+    `model` are then unused); `params` (--ckpt) is refused with it. `dp`:
+    the data-parallel width (`make_dp_mesh`; 1 = one device); `streams`
+    must be a multiple of it, so that a full micro-batch splits evenly."""
+    if dp > 1 and streams % dp:
+        raise ValueError(f"--streams ({streams}) must be a multiple of --dp ({dp}): "
+                         "the padded micro-batch splits evenly over the mesh")
+    mesh = make_dp_mesh(dp, device)
     if variants:
         if params is not None:
             raise ValueError("--ckpt applies to a single variant; multi-variant serving "
@@ -477,7 +507,8 @@ def serve_main(alpha: float, res: int, dtype: str, streams: int, port: int, *,
 
     async def run():
         server, servers = build_server(cfgs, streams, device=device, seed=seed,
-                                       params=params, int8=int8, multi=bool(variants))
+                                       params=params, int8=int8, multi=bool(variants),
+                                       mesh=mesh)
         await server.start()
         try:
             for name, sub in servers.items():

@@ -298,6 +298,49 @@ def test_separable_block_linear(dev, dtype, n, h, cin, cout, stride):
     assert (got < 0).any()
 
 
+# The raw partial: no output rounding, so the bf16 gap is absolute: one
+# depthwise value a bf16 step off (~2^-8 of up to 6) times a weight of the
+# data's scale, Cin^-0.5 (chip_smoke.py partial_bf16_atol); no relative term.
+def _partial_tol(dtype, cin):
+    return (1e-4, 3e-4) if dtype == torch.float32 else (6 * 2 ** -8 / cin ** 0.5, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,cout,stride", [(2, 28, 128, 256, 1),  # V1 b04 at tp 2
+                                                 (3, 14, 128, 1024, 2)])  # b11 at tp 4
+def test_separable_block_raw_partial(dev, dtype, n, h, cin, cout, stride):
+    """pw_epilogue=False at two V1 1.0-224 shard shapes: the float32 raw
+    product (no pw bias, no activation) against its plain version."""
+    rng = np.random.default_rng(cin + cout + 2)
+    args = (_t(rng, (n, h, h, cin), dtype, dev, lo=-1), _t(rng, (3, 3, 1, cin), dtype, dev, 0.5),
+            _t(rng, (cin,), dtype, dev, 0.2), _t(rng, (cin, cout), dtype, dev, cin ** -0.5),
+            _t(rng, (cout,), dtype, dev, 5.0), stride, True)
+    before = separable_block.partial_launches
+    got = separable_block(*args, pw_epilogue=False)
+    assert got.dtype == torch.float32 and separable_block.partial_launches == before + 1
+    ref = separable_block_plain(*args, pw_epilogue=False)
+    torch.cuda.synchronize()
+    atol, rtol = _partial_tol(dtype, cin)
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    # no activation (negative outputs); the pw bias (scale 5) lies far outside atol
+    assert (got < 0).any()
+    # the planted control: an output rounded to bf16 misses the gate
+    assert not torch.allclose(ref.bfloat16().float(), ref, atol=atol, rtol=rtol)
+
+
+def test_separable_block_raw_partial_misaligned_shard(dev):
+    """A channel shard sliced as a view that is not 16-byte aligned raises
+    (check_aligned); forward_tp_fused makes each shard contiguous."""
+    flat = torch.zeros(14 * 14 * 128 + 2, dtype=torch.bfloat16, device=dev)
+    shard = flat[2:].view(1, 14, 14, 128)  # contiguous, 4 bytes past an aligned base
+    w = (torch.zeros(3, 3, 1, 128, dtype=torch.bfloat16, device=dev),
+         torch.zeros(128, dtype=torch.bfloat16, device=dev),
+         torch.zeros(128, 64, dtype=torch.bfloat16, device=dev),
+         torch.zeros(64, dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        separable_block(shard, *w, 1, True, pw_epilogue=False)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,hw,c,e,posts,conv_act", [
     (3, 7, 320, 1280, [(1000, "linear")], "relu6"),                    # V2

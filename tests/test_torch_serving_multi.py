@@ -138,8 +138,8 @@ def test_serve_main_variants(capsys):
     with pytest.raises(ValueError, match="--ckpt applies to a single variant"):
         serve_main(0.25, 64, "bfloat16", 2, 0, device="cpu", params={},
                    variants=["0.25:64", "0.25:96"])
-    with pytest.raises(SystemExit):  # no --dp until data-parallel serving exists
-        cli_main(["serve", "--dp", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="multiple of --dp"):  # --dp splits --streams evenly
+        cli_main(["serve", "--dp", "3", "--device", "cpu"])
     capsys.readouterr()
     cli_main(["serve", "--variants", "0.25:64,v2:0.35:64", "--streams", "2",
               "--dtype", "float32", "--device", "cpu"])
