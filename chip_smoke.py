@@ -276,6 +276,23 @@ file; imports nothing of JAX. Phases, one JSON line each:
      that differ between the two forwards counted, and the step without
      the replay reported beside;
      (g) the img/s of (b), (d) and (e).
+ 49. measured routing and the throughput commands (`routing_phases`, after
+     the float32 device times, so that its profiler session follows every
+     other phase): (a) V1 1.0-224 "mixed" (plain blocks 0-1, fused from
+     block 2) against the plain route at batch 256 and 1, bf16 within the
+     V1 route gate (a top-1 flip only between near-tied classes) and int8
+     logits equal, its launches counted (no stem_conv; separable_block 11,
+     or 6 and the chain once at batch 1; fused_head once;
+     separable_block_i8 11); then in this process through `cli` with the
+     counters set to 0 before each run: (b) `bench` of V1 bf16, V1 --int8
+     and V3-Small --int8 at batch 256 (img/s > 0, the route's kernels
+     launched); (c) `bench --profile DIR` writes a trace file; (d) `sweep
+     --alphas 0.25,1.0 --resolutions 128,224 --steps 5`, four rows in the
+     grid's order; (e) `autotune` of V1 bf16 and int8 at batch 256 and 1,
+     V2 bf16 at batch 1 and V3-Large int8 at batch 1, each candidate's
+     launches read around its own measurement ("plain" launches no kernel,
+     the others their route's), every value finite and `best` the arg-max
+     (img/s) or arg-min (batch-1 ms); the phase's seconds.
 Phases 18-25 also hold the default V3 routes to no v3_chain launch.
 Phase 28 also holds V3-Large-minimalistic int8's kernel route to its plain
 route at batch 256, bit for bit.
@@ -3556,6 +3573,169 @@ def parallel_phases(smi, gen, kernels, launches):
     return {"separable_block[partial]": row}
 
 
+# -- phase 49: V1's "mixed" routes, cli bench, sweep and autotune ----------------------
+
+# Phase 49's `cli bench` runs: (name, arguments, kernels that must launch).
+BENCH_RUNS = (
+    ("v1 bf16", ["--steps", "20"], ("stem_conv", "separable_block", "fused_head", "chain")),
+    ("v1 int8", ["--int8", "--steps", "20"], ("separable_block_i8",)),
+    ("v3small int8", ["--int8", "--model", "v3small", "--steps", "20"], ("v3_block_i8",)),
+)
+# Phase 49's `cli autotune` races: (name, arguments, the route kernels each
+# candidate other than "plain" must launch: at least one of them).
+AUTOTUNE_RUNS = (
+    ("v1 bf16 b256", ["--batch", "256"], ("separable_block", "depthwise")),
+    ("v1 bf16 b1", ["--batch", "1"], ("separable_block", "depthwise")),
+    ("v1 int8 b256", ["--int8", "--batch", "256"], ("separable_block_i8",)),
+    ("v1 int8 b1", ["--int8", "--batch", "1"], ("separable_block_i8",)),
+    ("v2 bf16 b1", ["--model", "v2", "--batch", "1"], ("inverted_residual",)),
+    ("v3 int8 b1", ["--model", "v3", "--int8", "--batch", "1"], ("v3_block_i8",)),
+)
+
+
+def mixed_route_checks(smi, kernels):
+    """Phase 49a: V1 1.0-224 "mixed" against the plain route at batch 256 and
+    1, bf16 within the V1 route gate (a top-1 flip only between near-tied
+    classes) and int8 logits equal; the launches of a "mixed" forward: no
+    stem_conv (block 0 is plain), separable_block on blocks 2-12 (at batch
+    1 blocks 2-5 and 11-12, the chain on 6-10), fused_head once, and
+    separable_block_i8 on blocks 2-12."""
+    from mobilenet_tpu_torch import InferencePipeline, Int8Pipeline, ModelConfig
+    from mobilenet_tpu_torch.models import mobilenet_v1
+    from mobilenet_tpu_torch.ops.preprocess import preprocess
+    from mobilenet_tpu_torch.quant import ops as qops
+    from mobilenet_tpu_torch.quant.model import forward_i8
+    from mobilenet_tpu_torch.quant.quantize import ACT_IN_SCALE
+
+    cfg = ModelConfig(ALPHA, RES, compute_dtype="bfloat16")
+    pipe = InferencePipeline(cfg, device="cuda", dw_backend="mixed")
+    q8 = Int8Pipeline(ModelConfig(ALPHA, RES), device="cuda", dw_backend="mixed")
+    rng = np.random.default_rng(49)
+
+    def counted(fn):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v.launches for k, v in kernels.items() if v.launches}
+
+    with torch.inference_mode():
+        for batch in (256, 1):
+            imgs = torch.from_numpy(
+                rng.integers(0, 256, (batch, RES, RES, 3), dtype=np.uint8)).cuda()
+            x = preprocess(imgs, RES, torch.bfloat16)
+            got, counts = counted(lambda: mobilenet_v1.forward(
+                pipe.params, x, cfg, dw_backend="mixed").float())
+            ref = mobilenet_v1.forward(pipe.params, x, cfg, dw_backend="plain").float()
+            want = ({"separable_block": 11, "fused_head": 1} if batch == 256 else
+                    {"separable_block": 6, "chain": 1, "fused_head": 1})
+            if counts != want:
+                raise AssertionError(f"mixed bf16 batch {batch}: launches {counts}, "
+                                     f"expected {want}")
+            scale = float(ref.abs().max())
+            atol = max(ROUTE_ATOL, ROUTE_REL * scale)
+            err = compare(f"mixed bf16 batch {batch}", got, ref, atol, 0.0)
+            flips = near_tie_flips(got, ref, atol)
+            x_q = qops.quantize_input_dev(preprocess(imgs, RES, torch.float32), ACT_IN_SCALE)
+            got8, counts8 = counted(lambda: forward_i8(q8.dev, x_q, q8.config,
+                                                       dw_backend="mixed"))
+            ref8 = forward_i8(q8.dev, x_q, q8.config, dw_backend="plain")
+            if counts8 != {"separable_block_i8": 11}:
+                raise AssertionError(f"mixed int8 batch {batch}: launches {counts8}")
+            if not torch.equal(got8, ref8):
+                raise AssertionError(f"mixed int8 batch {batch}: logits differ from plain, "
+                                     f"max {float((got8 - ref8).abs().max()):.3e}")
+            emit("mixed_route", nvidia_smi=smi, model=cfg.variant_name(), batch=batch,
+                 bf16_max_abs_err=err, atol=atol, logits_absmax=scale,
+                 top1_agree=batch - flips, rows=batch, bf16_launches=counts,
+                 int8_equal=True, int8_launches=counts8)
+    del pipe, q8
+    torch.cuda.empty_cache()
+
+
+def routing_phases(smi, kernels):
+    """Phase 49: V1's "mixed" routes (49a), then through `cli` in this process
+    with the launch counters set to 0 before each run: `bench` (49b, V1
+    bf16, V1 --int8, V3-Small --int8 at batch 256), `bench --profile` (49c),
+    `sweep` (49d) and `autotune` (49e, each candidate's launches read around
+    its own measurement: "plain" must launch no kernel, every other
+    candidate its route's kernels; every value finite and `best` its
+    arg-max, or at batch 1 its arg-min)."""
+    import tempfile
+    from pathlib import Path
+
+    from mobilenet_tpu_torch.runtime import autotune
+
+    t0 = time.perf_counter()
+    mixed_route_checks(smi, kernels)
+    size = ["--alpha", str(ALPHA), "--res", str(RES)]
+
+    def run(argv):
+        timed, counts, seconds = run_cli(kernels, argv)
+        rows = [json.loads(ln) for _, ln in timed if ln.startswith("{")]
+        torch.cuda.empty_cache()
+        return rows, counts, seconds
+
+    for name, extra, required in BENCH_RUNS:
+        rows, counts, seconds = run(["bench", *size, *extra])
+        missing = [k for k in required if not counts.get(k)]
+        if missing or not rows[-1]["images_per_sec"] > 0:
+            raise AssertionError(f"bench {name}: {rows[-1:]}, {missing} not launched")
+        emit("bench", run=name, nvidia_smi=smi, seconds=seconds, launches=counts, **rows[-1])
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        rows, counts, seconds = run(["bench", *size, "--batch", "8", "--steps", "5",
+                                     "--profile", tmp])
+        traces = sorted(Path(tmp).glob("trace_*.json"))
+        if not traces or rows[-1].get("profile_dir") != tmp:
+            raise AssertionError(f"bench --profile wrote {traces}, line {rows[-1:]}")
+        emit("bench_profile", nvidia_smi=smi, seconds=seconds,
+             trace_bytes=traces[0].stat().st_size, images_per_sec=rows[-1]["images_per_sec"],
+             launches=counts)
+
+    rows, counts, seconds = run(["sweep", "--alphas", "0.25,1.0", "--resolutions", "128,224",
+                                 "--steps", "5"])
+    want = ["mobilenet_v1_0.25_128", "mobilenet_v1_0.25_224", "mobilenet_v1_1_128",
+            "mobilenet_v1_1_224"]
+    if [r["variant"] for r in rows] != want or not all(r["images_per_sec"] > 0 for r in rows):
+        raise AssertionError(f"sweep rows {rows}")
+    emit("sweep", nvidia_smi=smi, seconds=seconds, rows=rows, launches=counts)
+
+    real = autotune._measure
+    for name, extra, route_kernels in AUTOTUNE_RUNS:
+        per = {}
+
+        def spy(cand, *a, **k):
+            for kern in kernels.values():
+                kern.launches = 0
+            value = real(cand, *a, **k)
+            torch.cuda.synchronize()
+            per[cand] = {kn: kern.launches for kn, kern in kernels.items() if kern.launches}
+            return value
+
+        autotune._measure = spy
+        try:
+            rows, _, seconds = run(["autotune", *size, *extra])
+        finally:
+            autotune._measure = real
+        line = rows[-1]
+        key = "latency_ms" if line["batch"] == 1 else "images_per_sec"
+        values = line[key]
+        pick = min if key == "latency_ms" else max
+        bad = [c for c, v in values.items() if not np.isfinite(v) or v <= 0]
+        if bad or line["best"] != pick(values, key=values.get):
+            raise AssertionError(f"autotune {name}: {line}")
+        for cand, counts in per.items():
+            ok = not counts if cand == "plain" else any(counts.get(k) for k in route_kernels)
+            if not ok:
+                raise AssertionError(f"autotune {name}: {cand} launched {counts}")
+        emit("autotune", run=name, nvidia_smi=smi, seconds=seconds, **line,
+             candidate_launches=per)
+    emit("routing_phase", seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3709,6 +3889,9 @@ def main() -> int:
     # -- 48. data, tensor and pipeline parallelism ------------------------------------------
     summary.update(parallel_phases(smi, gen, kernels, launches))
     float32_device_times()
+
+    # -- 49. V1's "mixed" routes, cli bench, sweep and autotune -----------------------------------
+    routing_phases(smi, kernels)
     for k, s in summary.items():
         s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
 

@@ -19,6 +19,12 @@
         [--ckpt F] [--device cuda]
     python -m mobilenet_tpu_torch.cli export [--model ...] --alpha 1.0 --res 224 \\
         [--from-keras H5 | --from-tf-slim PREFIX | --ckpt RAW] [--out DIR]
+    python -m mobilenet_tpu_torch.cli bench [--model ...] --alpha 1.0 --res 224 \\
+        [--dtype bfloat16 | --int8] [--batch 256] [--steps 40] [--profile DIR] [--ckpt F]
+    python -m mobilenet_tpu_torch.cli sweep [--model ...] [--alphas 0.25,1.0] \\
+        [--resolutions 128,224] [--dtype bfloat16 | --int8] [--batch 256] [--steps 20]
+    python -m mobilenet_tpu_torch.cli autotune [--model ...] --alpha 1.0 --res 224 \\
+        [--dtype bfloat16 | --int8] [--batch 256] [--steps 10] [--ckpt F] [--device cuda]
 
 `serve` builds the micro-batching server (MobileNet-V1, -V2, -V3-Large or
 -V3-Small, the float path in --dtype, or the model's exact int8 path with
@@ -70,6 +76,20 @@ else golden.BF16_TIE_MARGIN of the family in bfloat16 and 1e-3 in float32.
 --out from one weight source: a keras .h5 (--from-keras), a TF-slim
 checkpoint (--from-tf-slim, MobileNet-V1), a raw .npz (--ckpt) or the
 seeded set. The int8 tree holds the family's quantized constants.
+
+`bench` prints the pipeline's `benchmark()` as one JSON line (img/s of a
+device-resident batch, the same with host copies, batch-1 p50/p99) with
+the variant, dtype, dw_backend and backend; with --int8 the model's int8
+pipeline's; with --profile DIR the timed call runs inside a torch.profiler
+trace written to DIR (`utils/profiling.trace`). `sweep` prints one such
+line (variant, images_per_sec, p50_latency_ms; int8: variant, dtype,
+images_per_sec, batch_size, steps) per point of the alpha x resolution grid
+(V1 config.ALPHAS x RESOLUTIONS, V2 V2_ALPHAS, V3 0.75 and 1.0 unless
+--alphas / --resolutions name them). Both time the card and refuse any
+other device. `autotune` races the routes of one variant end to end
+(`runtime/autotune.autotune_backend`: img/s at --batch >= 2, differenced
+batch-1 chains at --batch 1) and prints the winner and every candidate's
+value; with --device cpu it races "plain" alone on the host clock.
 """
 
 from __future__ import annotations
@@ -332,6 +352,120 @@ def cmd_verify(args):
         raise SystemExit(1)
 
 
+def _require_card(args):
+    """bench and sweep time the card (`PipelineBase.benchmark()`); refuse
+    any other device rather than time the host in its place."""
+    import torch  # noqa: PLC0415
+
+    if torch.device(args.device).type != "cuda":
+        raise SystemExit(f"mobilenet_tpu_torch {args.cmd}: benchmark() measures the card; "
+                         f"--device {args.device} is refused (use autotune --device cpu "
+                         "for a host-clock race)")
+    if not torch.cuda.is_available():
+        raise SystemExit(f"mobilenet_tpu_torch {args.cmd}: benchmark() measures the card, "
+                         "and torch.cuda.is_available() is False")
+
+
+def _bench_stats(args, cfg, int8: bool, batch: int, steps: int, ckpt=None):
+    """The variant's pipeline (int8: the model's int8 pipeline) on the `ckpt`
+    weights (else the seeded set), benchmarked at `batch` for `steps`;
+    --profile DIR traces the timed call."""
+    import contextlib  # noqa: PLC0415
+
+    from .checkpoints import load_npz  # noqa: PLC0415
+    from .runtime.serving import build_pipeline  # noqa: PLC0415
+
+    params = load_npz(ckpt) if ckpt else None
+    pipe = build_pipeline(cfg, device=args.device, seed=args.seed, params=params, int8=int8)
+    profile_dir = getattr(args, "profile", None)
+    ctx = contextlib.nullcontext()
+    if profile_dir:
+        from .utils.profiling import trace  # noqa: PLC0415
+
+        ctx = trace(profile_dir)
+    with ctx:
+        stats = pipe.benchmark(batch_size=batch, steps=steps)
+    return pipe, stats
+
+
+def cmd_bench(args):
+    """benchmark() of one variant's pipeline as one JSON line."""
+    import json  # noqa: PLC0415
+
+    _require_card(args)
+    cfg = _config(args)
+    pipe, stats = _bench_stats(args, cfg, args.int8, args.batch, args.steps, args.ckpt)
+    stats.update(variant=cfg.variant_name(), dtype="int8" if args.int8 else args.dtype,
+                 dw_backend=pipe.dw_backend, backend="cuda")
+    if args.profile:
+        stats["profile_dir"] = args.profile
+    print(json.dumps(stats), flush=True)
+
+
+def _sweep_grid(args):
+    """[(alpha, res)] in the JAX package's order: every alpha, then every
+    resolution within it."""
+    from .config import ALPHAS, RESOLUTIONS  # noqa: PLC0415
+    from .models.mobilenet_v2 import V2_ALPHAS  # noqa: PLC0415
+
+    default_alphas = {"v1": ALPHAS, "v2": V2_ALPHAS}.get(args.model, (0.75, 1.0))
+    alphas = ([float(a) for a in args.alphas.split(",")] if args.alphas
+              else list(default_alphas))
+    resolutions = ([int(r) for r in args.resolutions.split(",")] if args.resolutions
+                   else list(RESOLUTIONS))
+    return [(a, r) for a in alphas for r in resolutions]
+
+
+def cmd_sweep(args):
+    """One benchmark() row per point of the grid; returns the rows."""
+    import json  # noqa: PLC0415
+
+    from .runtime.serving import make_config  # noqa: PLC0415
+
+    _require_card(args)
+    rows = []
+    for alpha, res in _sweep_grid(args):
+        cfg = make_config(args.model, alpha, res, args.dtype, args.minimalistic)
+        # --ckpt reaches the int8 rows only, as in the JAX package
+        _, stats = _bench_stats(args, cfg, args.int8, args.batch, args.steps,
+                                args.ckpt if args.int8 else None)
+        if args.int8:  # the JAX package's int8 rows (_int8_throughput, _bench_int8_family)
+            row = {"variant": cfg.variant_name(), "dtype": "int8",
+                   "images_per_sec": round(stats["images_per_sec"], 1),
+                   "batch_size": args.batch, "steps": stats["steps"]}
+            if args.model != "v1":
+                row["backend"] = "cuda"
+        else:
+            row = {"variant": cfg.variant_name(),
+                   "images_per_sec": round(stats["images_per_sec"], 1),
+                   "p50_latency_ms": round(stats["p50_latency_ms"], 3)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def cmd_autotune(args):
+    """Race the routing candidates end to end (runtime.autotune): img/s at
+    --batch >= 2, differenced batch-1 chains at --batch 1."""
+    import json  # noqa: PLC0415
+
+    from .runtime.autotune import autotune_backend  # noqa: PLC0415
+
+    cfg = _config(args)
+    params = _folded(cfg, args) if args.ckpt else None
+    best, results = autotune_backend(cfg, batch_size=args.batch, steps=args.steps,
+                                     seed=args.seed, params=params, int8=args.int8,
+                                     device=args.device)
+    value_key = "latency_ms" if args.batch == 1 else "images_per_sec"
+    print(json.dumps({
+        "variant": cfg.variant_name(),
+        "dtype": "int8" if args.int8 else args.dtype,
+        "batch": args.batch,
+        "best": best,
+        value_key: {k: round(v, 4 if args.batch == 1 else 1) for k, v in results.items()},
+    }), flush=True)
+
+
 def main(argv=None):
     from .runtime import eval as teval  # noqa: PLC0415
 
@@ -464,6 +598,32 @@ def main(argv=None):
                     help="convert a TF-slim MobilenetV1 checkpoint prefix")
     common(sp, batch=1, ckpt="raw (unfolded) .npz checkpoint path", device=False)
     sp.set_defaults(fn=cmd_export)
+
+    sp = sub.add_parser("bench")
+    sp.add_argument("--steps", type=int, default=40)
+    sp.add_argument("--int8", action="store_true",
+                    help="benchmark the model's int8 pipeline (V2 and V3 calibrate first)")
+    sp.add_argument("--profile", metavar="DIR", default=None,
+                    help="trace the timed call with torch.profiler into DIR "
+                         "(a Chrome trace file)")
+    common(sp, batch=256)
+    sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("sweep")
+    sp.add_argument("--steps", type=int, default=20)
+    sp.add_argument("--alphas", default=None, help="comma list, e.g. 0.25,0.5")
+    sp.add_argument("--resolutions", default=None, help="comma list, e.g. 128,224")
+    sp.add_argument("--int8", action="store_true",
+                    help="sweep the model's int8 pipeline")
+    common(sp, batch=256)
+    sp.set_defaults(fn=cmd_sweep)
+
+    sp = sub.add_parser("autotune")
+    sp.add_argument("--steps", type=int, default=10)
+    sp.add_argument("--int8", action="store_true",
+                    help="race the model's int8 routing candidates")
+    common(sp, batch=256)
+    sp.set_defaults(fn=cmd_autotune)
 
     args = p.parse_args(argv)
     try:

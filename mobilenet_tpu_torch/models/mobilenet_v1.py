@@ -9,7 +9,9 @@ brackets):
   "dw"    - the standalone depthwise kernel (ops/depthwise.py), then the
             plain pointwise ["pallas"];
   "fused" - the fused separable-block kernel (ops/separable_block.py), and
-            at batch 1 the chain kernel over the 14x14 stretch ["fused"].
+            at batch 1 the chain kernel over the 14x14 stretch ["fused"];
+  "mixed" - "plain" on the two 112-squared blocks, "fused" from block 2 on
+            (`_routing`).
 With collect=True a "fused" block runs its depthwise tap through the
 depthwise kernel, as the JAX package does, and a "dw" block the same; a
 "plain" block keeps the plain ops.
@@ -49,17 +51,22 @@ def _routing(config: ModelConfig, dw_backend, batch: int):
     """Resolve the per-block backend tuple (len == 13).
 
     None -> "plain". "auto" -> "fused" at every batch: the TPU's measured
-    batch thresholds do not carry over, and the H100 crossover has not been
-    measured yet, so "mixed" is not accepted."""
+    batch thresholds do not carry over (runtime/autotune.py races the routes
+    on the card). "mixed" -> the JAX package's tuple: plain ops on the two
+    112-squared blocks, "fused" from block 2 on; block 0 is then plain, so
+    the stem is the plain convolution, and at batch 1 the chain still takes
+    blocks 6-10."""
     n = len(config.block_strides)
     if dw_backend is None:
         dw_backend = "plain"
     if dw_backend == "auto":
         dw_backend = "fused"
+    if dw_backend == "mixed":
+        return ("plain",) * 2 + ("fused",) * (n - 2)
     if isinstance(dw_backend, str):
         if dw_backend not in DW_BACKENDS:
-            raise ValueError(f"dw_backend {dw_backend!r} not in {DW_BACKENDS} "
-                             "or 'auto'")
+            raise ValueError(f"dw_backend {dw_backend!r} not in {DW_BACKENDS}, "
+                             "'auto' or 'mixed'")
         return (dw_backend,) * n
     if len(dw_backend) != n or any(b not in DW_BACKENDS for b in dw_backend):
         raise ValueError(f"per-block dw_backend must be {n} names from "

@@ -5,7 +5,8 @@ int8 activations end to end with per-layer requantization; the tap names of
 collect mode match the float pipeline and the oracles. Backends per block:
   "plain" - the plain int8 depthwise (or the depthwise kernel, with
             use_dw_kernel=True) and the plain pointwise (the reference route);
-  "fused" - the fused int8 block kernel (ops/separable_block_i8.py).
+  "fused" - the fused int8 block kernel (ops/separable_block_i8.py);
+  "mixed" - "plain" on blocks 0-1, "fused" from block 2 on.
 The stem, input quantization, pool, fc and softmax are plain ops on every
 route.
 """
@@ -33,15 +34,20 @@ DW_BACKENDS = ("plain", "fused")
 def resolve_i8_routing(n: int, dw_backend) -> tuple:
     """The per-block int8 backend tuple of an n-block network: None ->
     "plain"; "auto" -> "fused" at every batch (the TPU's measured all-plain
-    batch-1 rule does not carry over, and the card's crossover is not
-    measured yet, so "mixed" is not accepted); a name; or n names."""
+    batch-1 rule does not carry over; runtime/autotune.py races the routes
+    on the card); "mixed" -> the JAX package's tuple, plain on blocks 0-1
+    and "fused" from block 2 on (MobileNet-V1's; the V2 and V3 int8 routings
+    refuse it); a name; or n names."""
     if dw_backend is None:
         dw_backend = "plain"
     if dw_backend == "auto":
         dw_backend = "fused"
+    if dw_backend == "mixed":
+        return ("plain",) * 2 + ("fused",) * (n - 2)
     if isinstance(dw_backend, str):
         if dw_backend not in DW_BACKENDS:
-            raise ValueError(f"dw_backend {dw_backend!r} not in {DW_BACKENDS} or 'auto'")
+            raise ValueError(f"dw_backend {dw_backend!r} not in {DW_BACKENDS}, "
+                             "'auto' or 'mixed'")
         return (dw_backend,) * n
     if len(dw_backend) != n or any(b not in DW_BACKENDS for b in dw_backend):
         raise ValueError(f"per-block dw_backend must be {n} names from "
@@ -157,7 +163,7 @@ class Int8Pipeline(PipelineBase):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (the fused kernel), "plain",
-        "fused", or a per-block tuple (_routing_i8). `mesh`: data-parallel
+        "fused", "mixed", or a per-block tuple (_routing_i8). `mesh`: data-parallel
         over a parallel.mesh.Mesh (runtime/pipeline.py); `device` is then
         unused."""
         self.config = config

@@ -228,6 +228,9 @@ def _routing_v2_i8(config: V2Config, dw_backend, batch: int) -> Tuple[str, ...]:
     quant.model._routing_i8 (`resolve_i8_routing`): "auto" is "fused" at
     every batch (the JAX package's V2 "auto" is fused at batch 1 too; its
     use_fused=True is "fused")."""
+    if dw_backend == "mixed":  # the JAX package's V2/V3 int8 route is all or nothing
+        raise ValueError("dw_backend 'mixed' is a MobileNet-V1 int8 routing; the V2 "
+                         "and V3 int8 routes are 'plain', 'fused', 'auto' or a tuple")
     return resolve_i8_routing(len(config.block_defs), dw_backend)
 
 

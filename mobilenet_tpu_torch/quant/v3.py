@@ -362,6 +362,9 @@ def _routing_v3_i8(config: V3Config, dw_backend, batch: int) -> Tuple[str, ...]:
     """Resolve the per-block backend tuple (`resolve_i8_routing`: None ->
     "plain", "auto" -> "fused" at every batch, a name, or one name per
     block), for V3-Large and V3-Small alike."""
+    if dw_backend == "mixed":  # the JAX package's V2/V3 int8 route is all or nothing
+        raise ValueError("dw_backend 'mixed' is a MobileNet-V1 int8 routing; the V2 "
+                         "and V3 int8 routes are 'plain', 'fused', 'auto' or a tuple")
     return resolve_i8_routing(len(config.block_defs), dw_backend)
 
 

@@ -102,19 +102,13 @@ def verify_layers(config, folded: Dict[str, Any], x_f32: np.ndarray, *,
 
 
 def _route_backend(config, routing: str):
-    """A verify routing name -> the model's dw_backend. MobileNet-V1's
-    "mixed" is the JAX package's: plain ops on the two 112-squared blocks,
-    fused from block 2 on (the port's V1 routing takes it as a per-block
-    tuple); "dw" is a MobileNet-V1 routing."""
+    """A verify routing name -> the model's dw_backend: the name itself
+    (every family's routing takes "mixed"); "dw" is a MobileNet-V1 routing."""
     if routing not in ROUTINGS:
         raise ValueError(f"routing {routing!r} not in {ROUTINGS}")
-    if isinstance(config, (V2Config, V3Config)):
-        if routing == "dw":
-            raise ValueError("routing 'dw' is a MobileNet-V1 routing; the V2 and V3 "
-                             "families race plain against fused, mixed or auto")
-        return routing
-    if routing == "mixed":
-        return ("plain",) * 2 + ("fused",) * (len(config.block_strides) - 2)
+    if routing == "dw" and isinstance(config, (V2Config, V3Config)):
+        raise ValueError("routing 'dw' is a MobileNet-V1 routing; the V2 and V3 "
+                         "families race plain against fused, mixed or auto")
     return routing
 
 

@@ -208,9 +208,9 @@ class InferencePipeline(PipelineBase):
         """`params`: a folded host tree (numpy leaves, e.g. from load_npz);
         None draws the seeded weight set. `device`: "cuda" (default),
         "cuda:N" or "cpu". `dw_backend`: "auto" (kernels), "plain", "fused",
-        a per-block tuple (models.mobilenet_v1._routing), or for V2 and V3
-        also "mixed" (models.mobilenet_v2._routing_v2,
-        models.mobilenet_v3._routing_v3). `fuse_stem` (MobileNet-V1 only;
+        "mixed" (models.mobilenet_v1._routing, models.mobilenet_v2.
+        _routing_v2, models.mobilenet_v3._routing_v3), a per-block tuple, or
+        for V1 also "dw". `fuse_stem` (MobileNet-V1 only;
         V2 and V3 ignore it, as in the JAX package): uint8 batches at model
         resolution take `mobilenet_v1.forward_u8(fuse_stem=True)`, the
         normalize + stem + block-0 kernel; off by default. `mesh`: a

@@ -57,6 +57,24 @@ def test_accuracy_path_modules_are_checked():
             "mobilenet_tpu_torch/checkpoints/io.py"} <= names
 
 
+def test_routing_and_timing_modules_are_checked():
+    """Measured routing, the timing, tracing and debugging utilities and the
+    CLI that runs bench, sweep and autotune are among the files checked
+    above, and import without building."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"mobilenet_tpu_torch/runtime/autotune.py",
+            "mobilenet_tpu_torch/utils/timing.py",
+            "mobilenet_tpu_torch/utils/profiling.py",
+            "mobilenet_tpu_torch/utils/debug.py",
+            "mobilenet_tpu_torch/cli.py"} <= names
+    import mobilenet_tpu_torch.runtime.autotune  # noqa: F401
+    import mobilenet_tpu_torch.utils.debug  # noqa: F401
+    import mobilenet_tpu_torch.utils.profiling  # noqa: F401
+    from mobilenet_tpu_torch.ops import _build
+
+    assert _build._lib is None
+
+
 def test_import_writes_nothing_under_build():
     """A fresh interpreter importing the port and its entry points (the CLI,
     eval, metrics, the native decoder) loads no library and writes nothing
